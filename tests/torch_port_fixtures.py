@@ -1,0 +1,117 @@
+"""Shared fixtures of the partner_tpu_torch parity tests (tests/test_torch_*.py).
+
+Inputs are made with numpy from a seed and handed to both packages. Every
+norm parameter and statistic (and every bias and tau) is randomized before
+the weights are converted: with a fresh LayerNorm the keypoint saliency of
+the SetBlock is rounding noise, and a comparison would mean nothing.
+"""
+
+import copy
+
+import numpy as np
+
+FLAGSHIP = "configs/waymo/waymo_partner_36epoch.py"
+TINY_GRID = (128, 256, 40)  # BEV 32 (az) x 16 (r): exact 8x8 windows
+
+
+def tiny_frame_cfg(compute_dtype="float32"):
+    """(model cfg, test cfg): the flagship config at a tiny, exactly tiling
+    grid and narrow widths, built in float32 on both sides."""
+    import os
+
+    from partner_tpu_torch.utils.config import load_config
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(root, FLAGSHIP))
+    m = copy.deepcopy(cfg["model"])
+    bh = dict(m["bbox_head"])
+    vg = dict(bh["voxel_generator"])
+    pr = vg["range"]
+    vg["voxel_size"] = [(pr[3 + i] - pr[i]) / TINY_GRID[i] for i in range(3)]
+    bh["voxel_generator"] = vg
+    bh["in_channels"] = 64
+    bh["HEAD_CONFIG"] = dict(bh["HEAD_CONFIG"], compute_dtype=compute_dtype)
+    m["bbox_head"] = bh
+    m["backbone"] = dict(m["backbone"], a2d_features=32, out_features=32,
+                         compute_dtype=compute_dtype)
+    m["neck"] = dict(m["neck"], layer_nums=[1, 1], ds_num_filters=[16, 32],
+                     us_num_filters=[32, 32], num_input_features=32,
+                     compute_dtype=compute_dtype)
+    tc = copy.deepcopy(cfg["test_cfg"])
+    # random weights put almost every score under the flagship's 0.1
+    # threshold; 0 makes the NMS do real work
+    tc["score_threshold"] = 0.0
+    tc["nms"] = dict(tc["nms"], nms_pre_max_size=256, nms_post_max_size=64)
+    return m, tc
+
+
+def synthetic_points(rng, pc_range, n_points, n_pad, c=7):
+    """(1, n_pad, c) cylinder-layout points [rho, phi, z, x, y, ...] and a
+    (1, n_pad) mask; a few points fall outside the grid."""
+    rho = rng.uniform(pc_range[0] - 1.0, pc_range[3] + 1.0, n_points)
+    phi = rng.uniform(pc_range[1], pc_range[4], n_points)
+    z = rng.uniform(pc_range[2] - 0.5, pc_range[5] + 0.5, n_points)
+    cols = [rho, phi, z, rho * np.cos(phi), rho * np.sin(phi)]
+    while len(cols) < c:
+        cols.append(rng.rand(n_points))
+    pts = np.zeros((1, n_pad, c), np.float32)
+    pts[0, :n_points] = np.stack(cols[:c], 1)
+    mask = np.zeros((1, n_pad), bool)
+    mask[0, :n_points] = True
+    return pts, mask
+
+
+def jax_init(module, *args, **kwargs):
+    """Jitted flax init (eager init compiles op by op and is ~4x slower)."""
+    import functools
+
+    import jax
+
+    return jax.jit(functools.partial(module.init, **kwargs))(
+        jax.random.PRNGKey(0), *args)
+
+
+def jax_apply(module, variables, *args, **kwargs):
+    """Jitted flax apply, as numpy."""
+    import functools
+
+    import jax
+
+    out = jax.jit(functools.partial(module.apply, **kwargs))(variables, *args)
+    return jax.tree_util.tree_map(np.asarray, out)
+
+
+def numpy_tree(tree):
+    return {k: numpy_tree(v) if hasattr(v, "items") else np.asarray(v)
+            for k, v in tree.items()}
+
+
+def randomize(variables, rng):
+    """Numpy copy of flax variables with every scale/bias/tau parameter and
+    every mean/var statistic drawn from ``rng``."""
+
+    def walk(tree):
+        out = {}
+        for k, v in tree.items():
+            if hasattr(v, "items"):
+                out[k] = walk(v)
+                continue
+            v = np.asarray(v, np.float32)
+            if k.endswith("scale") or k == "tau":
+                v = rng.uniform(0.5, 1.5, v.shape)
+            elif k.endswith("bias") or k.endswith("mean"):
+                v = rng.normal(0.0, 0.2, v.shape)
+            elif k.endswith("var"):
+                v = rng.uniform(0.5, 1.5, v.shape)
+            out[k] = v.astype(np.float32)
+        return out
+
+    return walk(numpy_tree(variables))
+
+
+def load_converted(module, variables):
+    """Load converted flax variables strictly; returns the module."""
+    from partner_tpu_torch.convert import flax_to_torch
+
+    module.load_state_dict(flax_to_torch(variables), strict=True)
+    return module.eval()
