@@ -9,19 +9,23 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
 1. environment: the card's ``nvidia-smi`` name and power limit, the torch
    and CUDA versions, and the ``nvcc`` build of the kernels in
    ``partner_tpu_torch/csrc`` (time, registers, shared memory);
-2. kernels: each hand-written kernel against its plain PyTorch twin on the
-   same bf16 inputs at the flagship frame's shapes, with the error bound
-   stated below, and the median time of each beside its twin's;
+2. kernels: each hand-written kernel (stem, window attention, whole Swin
+   block, scatter-max) against its plain PyTorch twin on the same inputs
+   at the flagship frame's shapes, with the error bound stated below, and
+   the median time of each beside its twin's;
 3. frame: the flagship PARTNER detector
    (``configs/waymo/waymo_partner_36epoch.py``) at full width in bf16,
    random weights from a seeded ``torch.Generator`` with every norm
    parameter and statistic randomized, driven through
    ``E2EDetector.predict`` on a synthetic 180,000-point sweep in a
-   216,000-row buffer; the kernels' launch counts over those frames, the
-   median frame time, finite outputs, and NMS that kept boxes;
+   216,000-row buffer, once on each route of the head's Swin blocks (per
+   block with the attention kernel; whole block with the block kernel,
+   ``build_detector(..., use_block_kernel=True)``): the kernels' launch
+   counts over each route's frames, the median frame time, finite
+   outputs, and NMS that kept boxes;
 4. reference: the flagship widths on a small grid, the card's frame (bf16,
    CUDA kernels) against the CPU's (float32, plain twins) with the same
-   weights and points.
+   weights and points, the head on both routes.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises before it, so the
@@ -42,13 +46,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "waymo", "waymo_partner_36epoch.py")
 SEED = 0
 N_POINTS = 180_000           # a realistic Waymo sweep, as bench.py drives it
-FRAMES = 5                   # timed frames after one warm-up frame
+FRAMES = 10                  # timed frames per route after one warm-up
 SMALL_GRID = (256, 512, 40)  # reference phase: BEV 64 (az) x 32 (r)
 
 # Kernel vs plain twin, both bf16 on the card: |kernel - plain| <=
 # KERNEL_TOL * (1 + |plain|), two bf16 ulps. Both accumulate in f32 but in
-# another order, which can flip the bf16 rounding of a stem hidden value or
-# an attention probability.
+# another order, which can flip the bf16 rounding of a stem hidden value,
+# an attention probability or a block intermediate. The scatter-max picks
+# one of its inputs, so it must be exact (bound 0).
 KERNEL_TOL = 2.0 ** -7
 # Reference phase, card vs CPU (float32, plain twins), stage by stage,
 # each stage fed the CPU's input: relative RMS error ||card - cpu|| /
@@ -128,16 +133,11 @@ def attn_case(gen, dev, with_mask):
     256 x 144 BEV, 4 heads, T = 64, hd = 64, the real cell positions and
     the real shifted-window mask."""
     from partner_tpu_torch.models import e2e_head, swin_vote
-    from partner_tpu_torch.utils.config import load_config
 
-    bh = load_config(CONFIG)["model"]["bbox_head"]
-    vg = bh["voxel_generator"]
-    grid = tuple(int(round((vg["range"][3 + i] - vg["range"][i])
-                           / vg["voxel_size"][i])) for i in range(3))
-    ws = bh["HEAD_CONFIG"]["window_size"]
-    og = e2e_head.head_offset_grid(grid, vg["range"], 8)    # (256, 144, 2)
+    grid, pc_range, ws = flagship_grid()
+    og = e2e_head.head_offset_grid(grid, pc_range, 8)        # (256, 144, 2)
     pos = swin_vote.window_partition(torch.from_numpy(og)[None], ws)
-    nw, nh, hd = pos.shape[0], 4, bh["in_channels"] // 2 // 4
+    nw, nh, hd = pos.shape[0], 4, 64
     rnd = lambda *s: torch.randn(*s, generator=gen)
     q, k, v = (rnd(nw, nh, ws * ws, hd).to(torch.bfloat16) for _ in range(3))
     mask = None
@@ -151,8 +151,68 @@ def attn_case(gen, dev, with_mask):
             for t in (q, k, v, pos, mask, w1, b1, w2, b2, tau)]
 
 
+def flagship_grid():
+    """(grid (n_r, n_az, n_z), pc_range, head window size) of the config."""
+    from partner_tpu_torch.utils.config import load_config
+
+    bh = load_config(CONFIG)["model"]["bbox_head"]
+    vg = bh["voxel_generator"]
+    grid = tuple(int(round((vg["range"][3 + i] - vg["range"][i])
+                           / vg["voxel_size"][i])) for i in range(3))
+    return grid, vg["range"], bh["HEAD_CONFIG"]["window_size"]
+
+
+def block_case(gen, dev, shift):
+    """Whole-block op inputs at the flagship shape: x (1, 256, 144, 256)
+    bf16, a SwinVoteBlock with random weights and norms, the real cell
+    positions and, for the shifted block, the real region mask, rolled as
+    the whole-block route rolls them."""
+    from partner_tpu_torch.models import e2e_head, swin_vote
+    from partner_tpu_torch.models.layers import init_weights
+    from partner_tpu_torch.ops import swin_block
+
+    grid, pc_range, ws = flagship_grid()
+    og = torch.from_numpy(e2e_head.head_offset_grid(grid, pc_range, 8))[None]
+    h, w = og.shape[1:3]
+    block = swin_vote.SwinVoteBlock(swin_block.C, swin_block.NH, ws,
+                                    shift_size=shift, dtype=torch.bfloat16)
+    init_weights(block, gen)
+    randomize_norms(block, gen)
+    block = block.to(dev)
+    x = torch.randn(1, h, w, swin_block.C, generator=gen).to(torch.bfloat16)
+    vote = torch.randn(1, h, w, 3, generator=gen)
+    x, pos, vote = (torch.roll(t, (-shift, -shift), dims=(1, 2)).to(dev)
+                    for t in (x, og, vote))
+    mask = None
+    if shift:
+        mask = torch.from_numpy(swin_vote.swin_attn_mask(h, w, ws, shift))
+        mask = mask.to(dev)
+    params = swin_block.swin_vote_block_params(block, torch.bfloat16)
+    bias = swin_block.block_bias_table(pos, mask, params["rpe"],
+                                       torch.bfloat16, ws)
+    return (x, vote, bias, params, swin_block.NH, ws), (pos, mask, params)
+
+
+def scatter_case(stem_out, dev):
+    """Scatter-max inputs at the flagship shape: the stem's (1, 64,
+    216,000) output and the canvas coords of a synthetic sweep on the
+    flagship grid (rows past the sweep and out of range masked)."""
+    grid, pr, _ = flagship_grid()
+    n_r, n_az, n_z = grid
+    canvas = (n_z // 8, n_az // 4, n_r // 4)                # (cz, cy, cx)
+    pts, mask = synthetic_sweep(np.random.RandomState(SEED), pr, N_POINTS)
+    cell = np.asarray([(pr[3] - pr[0]) / n_r * 4, (pr[4] - pr[1]) / n_az * 4,
+                       (pr[5] - pr[2]) / n_z * 8], np.float32)
+    idx = np.floor((pts[0, :, :3] - np.asarray(pr[:3], np.float32)) / cell)
+    idx = idx.astype(np.int32)                              # (P, 3) r, az, z
+    inb = mask[0] & np.all((idx >= 0) & (idx < np.asarray(canvas[::-1])), 1)
+    coords = np.ascontiguousarray(idx[:, ::-1].T)[None]     # (1, 3, P) z, az, r
+    return (stem_out, torch.from_numpy(coords).to(dev),
+            torch.from_numpy(inb[None]).to(dev), canvas)
+
+
 def kernel_phase(gen, dev):
-    from partner_tpu_torch.ops import stem, swin_attn
+    from partner_tpu_torch.ops import scatter_max, stem, swin_attn, swin_block
 
     results = {}
     args = stem_case(gen, dev)
@@ -164,6 +224,20 @@ def kernel_phase(gen, dev):
         max_abs_err=err,
         ms=cuda_ms(lambda: stem.stem2_channel_major(*args)),
         plain_ms=cuda_ms(lambda: stem.stem2_channel_major_plain(*args)))
+
+    sargs = scatter_case(ref, dev)
+    out = scatter_max.scatter_max_fold2d(*sargs)
+    ref = scatter_max.scatter_max_fold2d_plain(*sargs)
+    torch.cuda.synchronize()
+    log(f"scatter_max: {int(sargs[2].sum())} of {sargs[2].shape[1]} rows in "
+        f"the canvas {sargs[3]}, {float((ref > 0).float().mean())!r} of the "
+        "canvas values > 0")
+    err = compare("scatter_max_fold2d (1, 64, 216000) -> (1, 512, 288, 320)",
+                  out, ref, 0.0)
+    results["scatter_max"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: scatter_max.scatter_max_fold2d(*sargs)),
+        plain_ms=cuda_ms(lambda: scatter_max.scatter_max_fold2d_plain(*sargs)))
 
     errs, times = [], {}
     for with_mask in (True, False):
@@ -181,11 +255,36 @@ def kernel_phase(gen, dev):
         max_abs_err=max(errs), ms=times["mask"][0],
         plain_ms=times["mask"][1], ms_no_mask=times["no_mask"][0],
         plain_ms_no_mask=times["no_mask"][1])
+
+    errs, times = [], {}
+    for shift in (4, 0):
+        args, (pos, mask, params) = block_case(gen, dev, shift)
+        out = swin_block.swin_vote_block(*args)
+        ref = swin_block.swin_vote_block_plain(*args)
+        torch.cuda.synchronize()
+        tag = "shifted" if shift else "unshifted"
+        errs.append(compare(f"swin_vote_block (1, 256, 144, 256) {tag}",
+                            out, ref, KERNEL_TOL))
+        times[tag] = (
+            cuda_ms(lambda: swin_block.swin_vote_block(*args)),
+            cuda_ms(lambda: swin_block.swin_vote_block_plain(*args)),
+            cuda_ms(lambda: swin_block.block_bias_table(
+                pos, mask, params["rpe"], torch.bfloat16, args[-1])))
+    results["swin_block"] = dict(
+        max_abs_err=max(errs), ms=times["shifted"][0],
+        plain_ms=times["shifted"][1], ms_unshifted=times["unshifted"][0],
+        plain_ms_unshifted=times["unshifted"][1],
+        bias_table_ms=times["shifted"][2])
+
     for name, r in results.items():
         log(f"{name}: kernel {r['ms']!r} ms, plain {r['plain_ms']!r} ms "
             "(median of 20 calls, CUDA events, warm L2)")
     log(f"swin_attn unshifted: kernel {results['swin_attn']['ms_no_mask']!r}"
         f" ms, plain {results['swin_attn']['plain_ms_no_mask']!r} ms")
+    sb = results["swin_block"]
+    log(f"swin_block unshifted: kernel {sb['ms_unshifted']!r} ms, plain "
+        f"{sb['plain_ms_unshifted']!r} ms; its bias table (plain torch, "
+        f"outside the kernel) {sb['bias_table_ms']!r} ms")
     return results
 
 
@@ -262,43 +361,70 @@ def to_device(example, dev):
     return {k: torch.from_numpy(v).to(dev) for k, v in example.items()}
 
 
-def frame_phase(dev):
+def frame_phase(dev, card):
+    """Both head routes on one flagship detector's weights, taking turns
+    frame by frame: per route, the launch counts (set to 0 just before
+    each of its frames, read just after), the median frame time and sane
+    detections."""
     from partner_tpu_torch.models import build_detector
-    from partner_tpu_torch.ops import stem, swin_attn
+    from partner_tpu_torch.ops import scatter_max, stem, swin_attn, swin_block
 
     m, tc = frame_cfgs()
     gen = torch.Generator().manual_seed(SEED)
     t0 = time.perf_counter()
-    det = build_detector(m, None, tc, device=dev, generator=gen)
-    randomize_norms(det.module, gen)
-    n_params = sum(p.numel() for p in det.module.parameters())
-    log(f"flagship detector: grid {det.module.grid_size}, {n_params} params, "
-        f"built in {time.perf_counter() - t0:.1f} s")
+    dets = {"per_block": build_detector(m, None, tc, device=dev,
+                                        generator=gen)}
+    randomize_norms(dets["per_block"].module, gen)
+    dets["whole_block"] = build_detector(m, None, tc, device=dev,
+                                         use_block_kernel=True)
+    dets["whole_block"].module.load_state_dict(
+        dets["per_block"].module.state_dict())
+    n_params = sum(p.numel() for p in dets["per_block"].module.parameters())
+    log(f"flagship detector: grid {dets['per_block'].module.grid_size}, "
+        f"{n_params} params, both routes built in "
+        f"{time.perf_counter() - t0:.1f} s")
     pts, mask = synthetic_sweep(np.random.RandomState(SEED),
                                 m["bbox_head"]["voxel_generator"]["range"],
                                 N_POINTS)
     ex = to_device({"points": pts, "points_mask": mask}, dev)
+    wrappers = {"stem": stem.stem2_channel_major,
+                "scatter_max": scatter_max.scatter_max_fold2d,
+                "swin_attn": swin_attn.swin_vote_attention,
+                "swin_block": swin_block.swin_vote_block}
+    depth = dets["per_block"].module.bbox_head.layer.depth
+    tally = {route: dict.fromkeys(wrappers, 0) for route in dets}
+    times = {route: [] for route in dets}
+    outs = {}
+    for i in range(FRAMES + 1):  # round 0 warms up; the routes take turns
+        for route in (list(dets) if i % 2 == 0 else list(dets)[::-1]):
+            for fn in wrappers.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            outs[route] = dets[route].predict(ex)
+            torch.cuda.synchronize()
+            if i:
+                times[route].append((time.perf_counter() - t0) * 1e3)
+            for name, fn in wrappers.items():
+                tally[route][name] += fn.launches
+    frames = FRAMES + 1
+    results = {}
+    for route, launches in tally.items():
+        median = statistics.median(times[route])
+        log(f"flagship frame, {route} route: median {median!r} ms over "
+            f"{FRAMES} frames on {card} (host clock around a synchronized "
+            f"predict, routes interleaved), all {times[route]!r}")
+        log(f"{route} kernel launches over {frames} frames: {launches}")
+        attn_n = depth * frames if route == "per_block" else 0
+        want = {"stem": frames, "scatter_max": frames, "swin_attn": attn_n,
+                "swin_block": depth * frames - attn_n}
+        if launches != want:
+            raise AssertionError(f"{route}: launches {launches} != {want}")
+        check_detections(outs[route], tc)
+        results[route] = (launches, median)
+    return results
 
-    stem.stem2_channel_major.launches = 0
-    swin_attn.swin_vote_attention.launches = 0
-    out = det.predict(ex)                                  # warm-up frame
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(FRAMES):
-        t0 = time.perf_counter()
-        out = det.predict(ex)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    launches = {"stem": stem.stem2_channel_major.launches,
-                "swin_attn": swin_attn.swin_vote_attention.launches}
-    log(f"flagship frame: median {statistics.median(times)!r} ms over "
-        f"{FRAMES} frames (host clock around a synchronized predict), "
-        f"all {times!r}")
-    log(f"kernel launches over {FRAMES + 1} frames: {launches}")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} never launched in the frame")
 
+def check_detections(out, tc):
     post = tc["nms"]["nms_post_max_size"]
     shapes = {"box3d_lidar": (1, post, 7), "scores": (1, post),
               "label_preds": (1, post), "mask": (1, post)}
@@ -314,7 +440,6 @@ def frame_phase(dev):
         f"(post max {post})")
     if not 0 < n_kept < tc["nms"]["nms_pre_max_size"]:
         raise AssertionError(f"NMS kept {n_kept} boxes")
-    return launches, statistics.median(times)
 
 
 def rel_rms(name, got, want, bound):
@@ -363,6 +488,19 @@ def reference_phase(dev):
     got = card.bbox_head(card.neck(set_out.to(dev)))
     for k in sorted(want):
         rel_rms(f"RPN + head {k}", got[k], want[k], REF_BF16)
+    # the whole-block route, same weights: card (block kernel, bf16) vs CPU
+    # (the block op's twin, float32)
+    cpu_b, card_b = (
+        build_detector(cfg, None, tc, device=d,
+                       use_block_kernel=True).module
+        for cfg, d in ((m32, "cpu"), (m, dev)))
+    cpu_b.load_state_dict(cpu.state_dict())
+    card_b.load_state_dict(card.state_dict())
+    want = cpu_b.bbox_head(cpu_b.neck(set_out))
+    got = card_b.bbox_head(card_b.neck(set_out.to(dev)))
+    for k in sorted(want):
+        rel_rms(f"RPN + head {k}, whole-block route", got[k], want[k],
+                REF_BF16)
 
 
 def main():
@@ -388,19 +526,27 @@ def main():
 
     gen = torch.Generator().manual_seed(SEED)
     kres = kernel_phase(gen, dev)
-    launches, frame_ms = frame_phase(dev)
+    routes = frame_phase(dev, card)
     reference_phase(dev)
 
     meta = {
         "stem": ("partner_tpu_torch/csrc/stem.cu",
-                 "partner_tpu/ops/stem_pallas.py:79"),
+                 "partner_tpu/ops/stem_pallas.py:79", "per_block"),
+        "scatter_max": ("partner_tpu_torch/csrc/scatter_max.cu",
+                        "tools/probes/pallas_scatter_stripe.py:101",
+                        "per_block"),
         "swin_attn": ("partner_tpu_torch/csrc/swin_attn.cu",
-                      "partner_tpu/ops/swin_attn_pallas.py:137"),
+                      "partner_tpu/ops/swin_attn_pallas.py:137", "per_block"),
+        "swin_block": ("partner_tpu_torch/csrc/swin_block.cu",
+                       "partner_tpu/ops/swin_block_pallas.py:253",
+                       "whole_block"),
     }
     kernels = [dict(name=name, route="cuda", source=meta[name][0],
-                    replaces=meta[name][1], launches=launches[name], **r)
+                    replaces=meta[name][1],
+                    launches=routes[meta[name][2]][0][name], **r)
                for name, r in kres.items()]
-    log(f"summary: card {card}, flagship frame median {frame_ms!r} ms")
+    log("summary: card " + card + ", flagship frame median ms: " + ", ".join(
+        f"{route} {ms!r}" for route, (_, ms) in routes.items()))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,12 +5,15 @@ from . import backbone_dense, detectors, e2e_head, rpn  # noqa: F401
 
 
 def build_detector(cfg, train_cfg=None, test_cfg=None, *, device,
-                   generator=None):
+                   generator=None, use_block_kernel=False):
     """Counterpart of ``partner_tpu.models.build_detector`` (inference).
 
     Builds the detector's module on ``device``; its weights are drawn from
     ``generator`` (a CPU ``torch.Generator``; seed 0 when None) and are
-    usually replaced by converted flax weights or a checkpoint."""
+    usually replaced by converted flax weights or a checkpoint.
+    ``use_block_kernel=True`` runs the E2E head's Swin blocks on the
+    whole-block route (``ops/swin_block.py``)."""
     return build_from_cfg(dict(cfg), DETECTORS,
                           dict(train_cfg=train_cfg, test_cfg=test_cfg,
-                               device=device, generator=generator))
+                               device=device, generator=generator,
+                               use_block_kernel=use_block_kernel))

@@ -6,15 +6,17 @@ z-folded canvas) and the ``trunk2d`` conv trunk that turns the canvas into
 the stride-8 BEV map. The 3D-conv trunk, the voxel input path and training
 (BatchNorm batch statistics, the scatter-max backward) are not ported yet.
 
-At inference the stem always runs through :func:`ops.stem.stem2_channel_major`:
-the CUDA kernel for CUDA tensors, its plain twin for CPU tensors.
+The stem always runs through :func:`ops.stem.stem2_channel_major` and the
+scatter-max through :func:`ops.scatter_max.scatter_max_fold2d`, which
+reads the stem's channel-major output as it is: each the CUDA kernel for
+CUDA tensors, its plain twin for CPU tensors.
 """
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from ..ops import stem
+from ..ops import scatter_max, stem
 from ..utils.dtypes import resolve_compute_dtype
 from .layers import BN_EPS, BatchNorm, Conv2d, _lecun_normal_, constant
 from .registry import BACKBONES
@@ -51,30 +53,6 @@ class Dense2DResBlock(nn.Module):
         y = torch.relu(self.BatchNorm_0(self.conv1(x))).to(self.dtype)
         y = self.BatchNorm_1(self.conv2(y))
         return torch.relu(y.to(self.dtype) + x)
-
-
-def scatter_canvas_fold2d(feats, coords, mask, canvas_shape, dtype):
-    """Scatter-max point features into a z-folded dense canvas.
-
-    Args:
-      feats: (B, N, C) features, non-negative (post-ReLU stem outputs): the
-        canvas starts at zero, so empty cells read 0.
-      coords: (B, N, 3) integer (z, az, r) canvas coords.
-      mask: (B, N) bool.
-      canvas_shape: (cz, cy, cx).
-    Returns (B, cy, cx, cz * C), channel order [z0c0..z0c(C-1), z1c0, ...]:
-    the z-minor linear index makes the fold a free reshape. Masked rows go
-    to a dump row past the canvas.
-    """
-    cz, cy, cx = canvas_shape
-    cells = cz * cy * cx
-    b, _, c = feats.shape
-    lin = (coords[..., 1] * cx + coords[..., 2]) * cz + coords[..., 0]
-    lin = torch.where(mask, lin, torch.full_like(lin, cells)).long()
-    base = torch.zeros((b, cells + 1, c), dtype=dtype, device=feats.device)
-    base.scatter_reduce_(1, lin[..., None].expand(-1, -1, c), feats.to(dtype),
-                         "amax", include_self=True)
-    return base[:, :cells].reshape(b, cy, cx, cz * c)
 
 
 @BACKBONES.register_module(name="PolarDenseFHD")
@@ -188,8 +166,8 @@ class PolarDenseFHD(nn.Module):
         inb = mask & torch.all((idx_t >= 0) & (idx_t < lim[None, :, None]),
                                dim=1)
         x_t = torch.cat([pts_t, frac_t], dim=1).to(self.dtype)
-        x = self._stem_t(x_t, inb).transpose(1, 2)
-        coords = torch.stack([idx_t[:, 2], idx_t[:, 1], idx_t[:, 0]], -1)
-        canvas = scatter_canvas_fold2d(x, coords, inb, (cz, cy, cx),
-                                       self.dtype)
+        feats_t = self._stem_t(x_t, inb)                     # (B, F2, P)
+        canvas = scatter_max.scatter_max_fold2d(
+            feats_t, idx_t.flip(1).contiguous(), inb.contiguous(),
+            (cz, cy, cx))
         return self._trunk(canvas)

@@ -6,6 +6,7 @@
 the configured CenterCoder and rotated NMS.
 
     det = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg, device=dev)
+    # or the head's whole-block route: build_detector(..., use_block_kernel=True)
     det.module.load_state_dict(convert.flax_to_torch(variables))  # optional
     preds = det.predict({"points": pts, "points_mask": mask})
 """
@@ -110,11 +111,14 @@ class E2EDetector:
 @DETECTORS.register_module(name="VoxelNetV3")
 def build_voxelnet_v3(reader, backbone, neck, bbox_head, seg_head=None,
                       part_head=None, pretrained=None, train_cfg=None,
-                      test_cfg=None, *, device, generator=None):
+                      test_cfg=None, *, device, generator=None,
+                      use_block_kernel=False):
     """PARTNER detector factory (detector cfg -> E2EDetector on ``device``).
 
     The module is built on the meta device and materialized on ``device``
-    with flax's default initializers drawn from ``generator``."""
+    with flax's default initializers drawn from ``generator``.
+    ``use_block_kernel`` puts the head's SwinVoteTransformer on its
+    whole-block route."""
     if dict(backbone).get("type") != "PolarDenseFHD":
         raise ValueError("the port runs the PolarDenseFHD point path only")
     grid, pc_range, _ = _grid_spec(bbox_head)
@@ -136,6 +140,7 @@ def build_voxelnet_v3(reader, backbone, neck, bbox_head, seg_head=None,
         "out_size_factor": osf,
         "voxel_shape": bbox_head.get("voxel_shape", "cylinder"),
         "compute_dtype": hc.get("compute_dtype", "float32"),
+        "use_block_kernel": use_block_kernel,
     }
     neck = dict(neck)
     with torch.device("meta"):

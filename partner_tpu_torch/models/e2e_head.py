@@ -1,8 +1,10 @@
 """E2ESWVoteHead inference (counterpart of ``partner_tpu/models/e2e_head.py``).
 
 Forward: vote offsets and vote objectness from the BEV map, a
-SwinVoteTransformer conditioned on them, then cls / bbox / iou conv
-branches (the unfused branches; the fused-branch option is not ported).
+SwinVoteTransformer conditioned on them (on its per-block route, or its
+whole-block route with ``use_block_kernel=True``), then cls / bbox / iou
+conv branches (the unfused branches; the fused-branch option is not
+ported).
 Decode: sigmoid scores x ((iou + 1) / 2) ** iou_factor, the box coder's
 inverse, then a per-sample score / range mask and rotated NMS.
 Maps are NHWC (B, H=azimuth, W=range, C).
@@ -107,7 +109,7 @@ class E2ESWVoteHead(nn.Module):
                  grid_size=(1152, 2048, 40),
                  pc_range=(0.3, -3.14368, -2.0, 75.18, 3.14368, 4.0),
                  out_size_factor=8, voxel_shape="cylinder",
-                 compute_dtype="float32", **kwargs):
+                 compute_dtype="float32", use_block_kernel=False, **kwargs):
         super().__init__()
         dt = resolve_compute_dtype(compute_dtype)
         self.num_classes = num_classes
@@ -120,7 +122,7 @@ class E2ESWVoteHead(nn.Module):
         self.layer = SwinVoteTransformer(
             in_channels, embed_dim=half, depth=sl_depth, num_heads=num_heads,
             window_size=window_size, mlp_ratio=mlp_ratio,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, use_block_kernel=use_block_kernel)
         self.cls_head = ConvBNHead(half, half, num_classes, kernel_size,
                                    init_bias=init_bias, dtype=dt)
         code = 7 + (1 if encode_angle_by_sincos else 0)

@@ -10,18 +10,28 @@
   cartesian deltas inside the window;
 - final LayerNorm. Feature maps are NHWC (B, H=azimuth, W=range, C).
 
-The attention core always runs through :func:`ops.swin_attn.swin_vote_attention`
-(the CUDA kernel for CUDA tensors, its plain twin for CPU tensors): the
-JAX package's kernel route. Not ported yet: the static-RPE cache, the
-whole-block kernel route, and maps that do not tile into whole windows
-(the pad-mask path).
+Two routes, as in the JAX package:
+
+- per block (the default): LayerNorm, window partition and the MLP in
+  torch, the attention core through :func:`ops.swin_attn.swin_vote_attention`.
+  A map that does not tile into whole windows is padded to them, and its
+  pad keys are masked in the plain attention (the JAX package runs its
+  attention kernel only where no pad mask exists);
+- whole block (``SwinVoteTransformer(use_block_kernel=True)``): each block
+  is one call of :func:`ops.swin_block.swin_vote_block`, with the shift
+  realized by rolls around it. A map that does not tile takes the per-block
+  route, as in JAX.
+
+Each op is the CUDA kernel for CUDA tensors and its plain twin for CPU
+tensors. Not ported yet: the static-RPE cache.
 """
 
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from ..ops import swin_attn
+from ..ops import swin_attn, swin_block
 from ..utils.dtypes import resolve_compute_dtype
 from .layers import Conv2d, Dense, LayerNorm, constant, gelu
 
@@ -76,6 +86,20 @@ def swin_attn_mask(hp, wp, ws, shift):
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
+def pad_key_mask(h, w, ws, shift):
+    """(num_windows, T) numpy bool, True where a window token is a cell of
+    the h x w map and False where it is padding up to whole ws x ws
+    windows, rolled like the padded map; None when the map tiles."""
+    hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
+    if (hp, wp) == (h, w):
+        return None
+    valid = np.zeros((hp, wp), bool)
+    valid[:h, :w] = True
+    valid = np.roll(valid, (-shift, -shift), axis=(0, 1))
+    return (valid.reshape(hp // ws, ws, wp // ws, ws).transpose(0, 2, 1, 3)
+            .reshape(-1, ws * ws))
+
+
 class WindowAttention(nn.Module):
     def __init__(self, dim, num_heads, dtype=torch.float32):
         super().__init__()
@@ -90,9 +114,11 @@ class WindowAttention(nn.Module):
     def init_extra(self, generator):
         self.tau.data.fill_(1.0)
 
-    def forward(self, x, pos, vote, mask=None):
+    def forward(self, x, pos, vote, mask=None, pad_mask=None):
         """x (nB, T, C); pos (nB, T, 2) f32; vote (nB, T, 3); mask
-        (nW, T, T) f32 or None, window w taking mask[w % nW]."""
+        (nW, T, T) f32 or None, window w taking mask[w % nW]; pad_mask
+        (nW, T) bool (True = real cell) or None, tiled the same way. A pad
+        mask takes the plain attention, as in the JAX package."""
         nb, t, c = x.shape
         nh = self.num_heads
         hd = c // nh
@@ -102,14 +128,41 @@ class WindowAttention(nn.Module):
             2, 0, 3, 1, 4)
         q, k, v = ((qkv[i] + ve).contiguous() for i in range(3))
         rp = self.rpe
-        out = swin_attn.swin_vote_attention(
-            q, k, v, pos.float().contiguous(), mask,
-            rp.Dense_0.weight.t().float().contiguous(),
-            rp.Dense_0.bias.float().contiguous(),
-            rp.Dense_1.weight.t().float().contiguous(),
-            rp.Dense_1.bias.float().contiguous(),
-            torch.clamp(self.tau, min=0.01).reshape(nh).contiguous())
+        if pad_mask is None:
+            out = swin_attn.swin_vote_attention(
+                q, k, v, pos.float().contiguous(), mask,
+                rp.Dense_0.weight.t().float().contiguous(),
+                rp.Dense_0.bias.float().contiguous(),
+                rp.Dense_1.weight.t().float().contiguous(),
+                rp.Dense_1.bias.float().contiguous(),
+                torch.clamp(self.tau, min=0.01).reshape(nh).contiguous())
+        else:
+            out = self._plain_attention(q, k, v, pos, mask, pad_mask)
         return self.proj(out.transpose(1, 2).reshape(nb, t, c))
+
+    def _plain_attention(self, q, k, v, pos, mask, pad_mask):
+        """The JAX package's plain attention (``swin_vote.py:182-245``):
+        q / (|q| tau) and k / |k| rounded to the compute dtype, f32 logits,
+        + the decomposed RPE, + the region mask, pad keys set to -100,
+        softmax, ``P.V`` with f32 accumulation."""
+        nb, nh, t, _ = q.shape
+        dt = self.dtype
+        qf, kf = q.float(), k.float()
+        qn = torch.sqrt((qf * qf).sum(-1, keepdim=True) + 1e-12)
+        kn = torch.sqrt((kf * kf).sum(-1, keepdim=True) + 1e-12)
+        qh = (qf / (qn * torch.clamp(self.tau, min=0.01))).to(dt)
+        kh = (kf / kn).to(dt)
+        rp = self.rpe
+        attn = qh.float() @ kh.float().transpose(-1, -2) + swin_block.rpe_bias(
+            pos, (rp.Dense_0.weight.t(), rp.Dense_0.bias,
+                  rp.Dense_1.weight.t(), rp.Dense_1.bias), dt)
+        nw = pad_mask.shape[0]
+        attn = attn.reshape(nb // nw, nw, nh, t, t)
+        if mask is not None:
+            attn = attn + mask[None, :, None]
+        attn = torch.where(pad_mask[None, :, None, None, :], attn, -100.0)
+        attn = torch.softmax(attn.reshape(nb, nh, t, t), dim=-1).to(dt)
+        return (attn.float() @ v.float()).to(dt)
 
 
 class SwinVoteBlock(nn.Module):
@@ -126,37 +179,67 @@ class SwinVoteBlock(nn.Module):
         self.mlp_fc2 = Dense(int(dim * mlp_ratio), dim, dtype=dtype)
 
     def forward(self, x, pos, vote):
+        """The per-block route; a map that does not tile is padded to
+        whole windows (``swin_vote.py:267-307``)."""
         b, h, w, c = x.shape
         ws, shift = self.window_size, self.shift_size
-        if h % ws or w % ws:
-            raise ValueError(f"map {h}x{w} does not tile into {ws}x{ws} "
-                             "windows (the pad-mask path is not ported)")
+        hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
         shortcut = x
         x = self.norm1(x)
+        if (hp, wp) != (h, w):
+            x, pos, vote = (F.pad(t, (0, 0, 0, wp - w, 0, hp - h))
+                            for t in (x, pos, vote))
+        if shift:
+            x, pos, vote = (torch.roll(t, (-shift, -shift), dims=(1, 2))
+                            for t in (x, pos, vote))
+        dev = x.device
+        mask = constant(self, f"mask{hp}x{wp}", dev,
+                        lambda: swin_attn_mask(hp, wp, ws, shift))
+        pad_mask = constant(self, f"pad{h}x{w}", dev,
+                            lambda: pad_key_mask(h, w, ws, shift))
+        out = self.attn(window_partition(x, ws), window_partition(pos, ws),
+                        window_partition(vote, ws), mask, pad_mask)
+        out = window_reverse(out, ws, b, hp, wp)
+        if shift:
+            out = torch.roll(out, (shift, shift), dims=(1, 2))
+        x = shortcut + out[:, :h, :w].float()
+        y = self.mlp_fc1(self.norm2(x).to(self.dtype))
+        y = self.mlp_fc2(gelu(y))
+        return x + y.float()
+
+    def whole_block(self, x, pos, vote):
+        """The whole-block route (``swin_vote.py:368-394``) on a map that
+        tiles: pre-roll x, pos and vote for a shifted block, run the block
+        op on the compute-dtype x, return it as f32, rolled back."""
+        _, h, w, _ = x.shape
+        ws, shift, dt = self.window_size, self.shift_size, self.dtype
         if shift:
             x, pos, vote = (torch.roll(t, (-shift, -shift), dims=(1, 2))
                             for t in (x, pos, vote))
         mask = constant(self, f"mask{h}x{w}", x.device,
                         lambda: swin_attn_mask(h, w, ws, shift))
-        out = self.attn(window_partition(x, ws), window_partition(pos, ws),
-                        window_partition(vote, ws), mask)
-        out = window_reverse(out, ws, b, h, w)
-        if shift:
-            out = torch.roll(out, (shift, shift), dims=(1, 2))
-        x = shortcut + out.float()
-        y = self.mlp_fc1(self.norm2(x).to(self.dtype))
-        y = self.mlp_fc2(gelu(y))
-        return x + y.float()
+        params = swin_block.swin_vote_block_params(self, dt)
+        bias = swin_block.block_bias_table(pos, mask, params["rpe"], dt, ws)
+        y = swin_block.swin_vote_block(
+            x.to(dt).contiguous(), vote.float().contiguous(), bias, params,
+            self.attn.num_heads, ws).float()
+        return torch.roll(y, (shift, shift), dims=(1, 2)) if shift else y
 
 
 class SwinVoteTransformer(nn.Module):
-    """SwVoteHeadV4: patch-embed + depth blocks + final LayerNorm."""
+    """SwVoteHeadV4: patch-embed + depth blocks + final LayerNorm.
+
+    ``use_block_kernel`` selects the whole-block route (the JAX module's
+    ``use_block_kernel`` field, without its environment-variable gate)."""
 
     def __init__(self, in_channels, embed_dim=256, depth=2, num_heads=4,
-                 window_size=7, mlp_ratio=1.0, compute_dtype="float32"):
+                 window_size=7, mlp_ratio=1.0, compute_dtype="float32",
+                 use_block_kernel=False):
         super().__init__()
         dt = resolve_compute_dtype(compute_dtype)
         self.depth = depth
+        self.window_size = window_size
+        self.use_block_kernel = use_block_kernel
         self.patch_embed = Conv2d(in_channels, embed_dim, 1, dtype=dt)
         self.patch_norm = LayerNorm(embed_dim)
         for i in range(depth):
@@ -169,6 +252,13 @@ class SwinVoteTransformer(nn.Module):
     def forward(self, x, pos, vote):
         """x (B, H, W, in_ch); pos (B, H, W, 2); vote (B, H, W, 3)."""
         x = self.patch_norm(self.patch_embed(x).float())
+        ws = self.window_size
+        whole = (self.use_block_kernel and x.shape[1] % ws == 0
+                 and x.shape[2] % ws == 0)
         for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x, pos, vote)
+            block = getattr(self, f"block{i}")
+            if whole:
+                x = block.whole_block(x, pos, vote)
+            else:
+                x = block(x, pos, vote)
         return self.norm_out(x)

@@ -1,11 +1,12 @@
 """Builds and loads the hand-written CUDA kernels of ``partner_tpu_torch/csrc``.
 
 Build model (the shape of ``partner_tpu/native/__init__.py``): every
-``csrc/*.cu`` is compiled by one ``nvcc`` call into a shared library with a
-plain C interface, cached in ``partner_tpu_torch/.build/`` under a hash of
-the sources and flags, and loaded with ``ctypes``. Nothing is built at
-import: the first CUDA call of a kernel wrapper builds it, so CPU-only
-hosts (no ``nvcc``) import every module freely.
+``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain
+C interface, cached in ``partner_tpu_torch/.build/`` under a hash of the
+sources and flags, and loaded with ``ctypes``. Nothing is built at import:
+the first CUDA call of a kernel wrapper builds it, so CPU-only hosts (no
+``nvcc``) import every module freely.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a nonzero code into an error.
@@ -23,8 +24,9 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, ".build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+                     "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +37,10 @@ _SIGNATURES = {
     # q, k, v, pos, mask|NULL, w1, b1, w2, b2, tau, out, nW, nh, nW_mask,
     # stream
     "ptt_swin_attn_bf16": [_P] * 11 + [_I, _I, _I, _P],
+    # x, vote, bias, 17 packed parameters, out, B, nwy, nwx, stream
+    "ptt_swin_block_bf16": [_P] * 21 + [_I, _I, _I, _P],
+    # x, coords, mask, canvas, B, P, C, cz, cy, cx, stream
+    "ptt_scatter_max_bf16": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 
@@ -66,6 +72,40 @@ def _nvcc():
                        "are built with nvcc at first use")
 
 
+def _compile_and_link(nvcc, srcs, so_path):
+    """One ``nvcc -c`` per source, all running at once, then one link;
+    returns the compilers' output (the ptxas report)."""
+    objs = [f"{so_path}.{os.path.basename(s)}.o" for s in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(srcs, objs)]
+    try:
+        logs, failed = [], []
+        for s, p in zip(srcs, procs):
+            out, _ = p.communicate()
+            logs.append(out)
+            if p.returncode != 0:
+                failed.append(f"{os.path.basename(s)} ({p.returncode})")
+        log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{log}")
+        res = subprocess.run([nvcc, *ARCH, "-shared", "-o", so_path, *objs],
+                             capture_output=True, text=True)
+        log += res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{log}")
+        return log
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+
+
 def _build_and_load():
     srcs = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -78,12 +118,8 @@ def _build_and_load():
     if not os.path.exists(so_path):
         tmp = f"{so_path}.tmp{os.getpid()}"
         t0 = time.perf_counter()
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-                             capture_output=True, text=True)
+        log = _compile_and_link(_nvcc(), srcs, tmp)
         seconds = time.perf_counter() - t0
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
         os.replace(tmp, so_path)  # atomic for concurrent processes
     lib = ctypes.CDLL(so_path)
     for name, argtypes in _SIGNATURES.items():

@@ -10,7 +10,8 @@ import torch
 pytestmark = pytest.mark.cuda
 
 # Both sides bf16 with f32 accumulation in another order: two bf16 ulps
-# relative, |kernel - plain| <= TOL * (1 + |plain|).
+# relative, |kernel - plain| <= TOL * (1 + |plain|). The scatter-max is
+# exact.
 TOL = 2.0 ** -7
 
 
@@ -79,8 +80,73 @@ def test_attention_kernel_matches_plain(cuda, mask_windows):
     _close(out, swin_attn.swin_vote_attention_plain(*args))
 
 
+def _block_args(dev, shift, seed=0, h=16, w=24):
+    """Whole-block op inputs, batch 2 of a 16 x 24 map, at the kernel's
+    widths: a SwinVoteBlock with random weights and norms, cell positions
+    0-75 m, the real region mask for a shifted block."""
+    from partner_tpu_torch.models.layers import init_weights
+    from partner_tpu_torch.models.swin_vote import SwinVoteBlock, swin_attn_mask
+    from partner_tpu_torch.ops import swin_block
+
+    g = torch.Generator().manual_seed(seed)
+    block = SwinVoteBlock(256, 4, 8, shift_size=shift, dtype=torch.bfloat16)
+    init_weights(block, g)
+    with torch.no_grad():
+        for name, t in block.named_parameters():
+            if name.endswith("bias"):
+                t.copy_(0.2 * torch.randn(t.shape, generator=g))
+            elif "norm" in name or name.endswith("tau"):
+                t.copy_(0.5 + torch.rand(t.shape, generator=g))
+    block = block.to(dev)
+    x = torch.randn(2, h, w, 256, generator=g).to(torch.bfloat16)
+    pos = torch.rand(2, h, w, 2, generator=g) * 75
+    vote = torch.randn(2, h, w, 3, generator=g)
+    mask = (torch.from_numpy(swin_attn_mask(h, w, 8, shift)) if shift
+            else None)
+    x, pos, vote = (a.to(dev) for a in (x, pos, vote))
+    params = swin_block.swin_vote_block_params(block, torch.bfloat16)
+    bias = swin_block.block_bias_table(
+        pos, None if mask is None else mask.to(dev), params["rpe"],
+        torch.bfloat16, 8)
+    return x, vote, bias, params
+
+
+@pytest.mark.parametrize("shift", [0, 4], ids=["unshifted", "shifted"])
+def test_block_kernel_matches_plain(cuda, shift):
+    from partner_tpu_torch.ops import swin_block
+
+    x, vote, bias, params = _block_args(cuda, shift)
+    before = swin_block.swin_vote_block.launches
+    out = swin_block.swin_vote_block(x, vote, bias, params, 4, 8)
+    torch.cuda.synchronize()
+    assert swin_block.swin_vote_block.launches == before + 1
+    _close(out, swin_block.swin_vote_block_plain(x, vote, bias, params, 4, 8))
+
+
+def _scatter_args(dev, b=2, p=7013, seed=0, shape=(5, 12, 9)):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.relu(torch.randn(b, 64, p, generator=g))
+    x = torch.where(torch.rand(b, 64, p, generator=g) < 0.1, -0.0, x)
+    coords = torch.stack([torch.randint(0, s, (b, p), generator=g)
+                          for s in shape], 1).to(torch.int32)
+    mask = torch.rand(b, p, generator=g) < 0.8
+    return [a.to(dev) for a in (x.to(torch.bfloat16), coords, mask)], shape
+
+
+def test_scatter_kernel_matches_plain(cuda):
+    from partner_tpu_torch.ops import scatter_max
+
+    args, shape = _scatter_args(cuda)  # ~50 rows a cell: contended atomics
+    before = scatter_max.scatter_max_fold2d.launches
+    out = scatter_max.scatter_max_fold2d(*args, shape)
+    torch.cuda.synchronize()
+    assert scatter_max.scatter_max_fold2d.launches == before + 1
+    ref = scatter_max.scatter_max_fold2d_plain(*args, shape)
+    assert torch.equal(out.float(), ref.float())  # a max is exact
+
+
 def test_wrappers_raise_instead_of_falling_back(cuda):
-    from partner_tpu_torch.ops import stem, swin_attn
+    from partner_tpu_torch.ops import scatter_max, stem, swin_attn, swin_block
 
     args = _stem_args(cuda, b=1, p=64)
     with pytest.raises(ValueError):  # f32 features: the kernel takes bf16
@@ -92,3 +158,18 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         swin_attn.swin_vote_attention(
             *(a[:, :, :32].contiguous() for a in args[:3]), args[3][:, :32],
             *args[4:])
+    x, vote, bias, params = _block_args(cuda, 0)
+    with pytest.raises(ValueError):  # f32 x: the kernel takes bf16
+        swin_block.swin_vote_block(x.float(), vote, bias, params, 4, 8)
+    with pytest.raises(ValueError):  # 2 heads: the kernel takes 4
+        swin_block.swin_vote_block(x, vote, bias, params, 2, 8)
+    with pytest.raises(ValueError):  # a map that does not tile
+        swin_block.swin_vote_block(x[:, :12].contiguous(), vote[:, :12],
+                                   bias, params, 4, 8)
+    args, shape = _scatter_args(cuda, b=1, p=100)
+    with pytest.raises(ValueError):  # f32 features: the kernel takes bf16
+        scatter_max.scatter_max_fold2d(args[0].float(), *args[1:], shape)
+    with pytest.raises(ValueError):  # non-contiguous coords
+        scatter_max.scatter_max_fold2d(
+            args[0], args[1].transpose(1, 2).contiguous().transpose(1, 2),
+            args[2], shape)

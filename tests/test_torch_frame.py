@@ -2,8 +2,9 @@
 
 ``build_detector`` from a tiny, exactly tiling variant of the flagship
 config (float32) on both sides, the JAX weights randomized and converted,
-then ``predict`` on the same synthetic sweep. The frame is computed once
-per module; each test compares one stage of it.
+then ``predict`` on the same synthetic sweep. The JAX frame is computed
+once per module, the port's once per head route (per block, whole
+block); each test compares one stage of it.
 """
 
 import numpy as np
@@ -17,11 +18,10 @@ torch.set_num_threads(2)
 
 
 @pytest.fixture(scope="module")
-def frame():
+def jax_frame():
     import jax
 
     from partner_tpu.models import build_detector as jax_build
-    from partner_tpu_torch.models import build_detector
 
     rng = np.random.RandomState(0)
     model_cfg, test_cfg = tiny_frame_cfg()
@@ -34,17 +34,27 @@ def frame():
     ex = {"points": pts, "points_mask": mask}
     jmaps = jax.jit(lambda v, e: jdet.module.apply(v, e, train=False))(v, ex)
     jout = jax.jit(jdet.predict)(v, ex)
+    as_np = lambda d: {k: np.asarray(x) for k, x in d.items()}
+    return model_cfg, test_cfg, v, ex, as_np(jmaps), as_np(jout)
 
-    tdet = build_detector(model_cfg, None, test_cfg, device="cpu")
+
+@pytest.fixture(scope="module", params=[False, True],
+                ids=["per-block", "whole-block"])
+def frame(request, jax_frame):
+    """The port's frame on the head's per-block or whole-block route; the
+    JAX side runs its default (per-block) route, the same math in f32."""
+    from partner_tpu_torch.models import build_detector
+
+    model_cfg, test_cfg, v, ex, jmaps, jout = jax_frame
+    tdet = build_detector(model_cfg, None, test_cfg, device="cpu",
+                          use_block_kernel=request.param)
     load_converted(tdet.module, v)
-    tex = {"points": torch.from_numpy(pts),
-           "points_mask": torch.from_numpy(mask)}
+    tex = {k: torch.from_numpy(a) for k, a in ex.items()}
     with torch.no_grad():
         tmaps = tdet.module(tex)
     tout = tdet.predict(tex)
-    as_np = lambda d: {k: np.asarray(x) for k, x in d.items()}
-    return as_np(jmaps), {k: x.numpy() for k, x in tmaps.items()}, \
-        as_np(jout), {k: x.numpy() for k, x in tout.items()}
+    return jmaps, {k: x.numpy() for k, x in tmaps.items()}, \
+        jout, {k: x.numpy() for k, x in tout.items()}
 
 
 def test_head_maps_match(frame):

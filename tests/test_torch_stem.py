@@ -1,8 +1,9 @@
 """partner_tpu_torch stem and point path against the JAX package (CPU, f32).
 
 The port's plain stem twin is held against the Pallas stem kernel run in
-interpret mode, and ``PolarDenseFHD.encode_points`` against the JAX point
-path on a small grid, with converted, randomized weights.
+interpret mode, the plain scatter-max twin against ``scatter_canvas``
+(fold2d), and ``PolarDenseFHD.encode_points`` against the JAX point path
+on a small grid, with converted, randomized weights.
 """
 
 import jax
@@ -56,22 +57,46 @@ def test_stem_wrapper_routes_by_device(rng):
         stem.stem2_channel_major(*(a.to("meta") for a in args))
 
 
+def _scatter_inputs(rng, shape=(3, 8, 6), b=2, p=500, c=4):
+    """Channel-major post-ReLU rows with masked rows, many ties (values on
+    a 0.25 grid, a third of them zero) and -0.0 values."""
+    feats = np.maximum(np.round(rng.randn(b, c, p) * 4) / 4, 0.0)
+    feats[rng.rand(b, c, p) < 0.2] = -0.0
+    coords = np.stack([rng.randint(0, s, (b, p)) for s in shape],
+                      1).astype(np.int32)                   # (b, 3, p)
+    mask = rng.rand(b, p) > 0.3
+    return feats.astype(np.float32), coords, mask
+
+
 def test_scatter_canvas_fold2d_matches_jax(rng):
     from partner_tpu.models.backbone_dense import scatter_canvas
-    from partner_tpu_torch.models.backbone_dense import scatter_canvas_fold2d
+    from partner_tpu_torch.ops.scatter_max import scatter_max_fold2d_plain
 
     shape = (3, 8, 6)
-    feats = np.abs(rng.randn(2, 500, 4)).astype(np.float32)
-    coords = np.stack([rng.randint(0, s, (2, 500)) for s in shape],
-                      -1).astype(np.int32)
-    mask = rng.rand(2, 500) > 0.3
-    ref, _ = scatter_canvas(jnp.asarray(feats), jnp.asarray(coords),
+    feats, coords, mask = _scatter_inputs(rng, shape)
+    assert np.any(np.signbit(feats) & (feats == 0))
+    ref, _ = scatter_canvas(jnp.asarray(feats.transpose(0, 2, 1)),
+                            jnp.asarray(coords.transpose(0, 2, 1)),
                             jnp.asarray(mask), shape, 1, 1, fold2d=True)
-    out = scatter_canvas_fold2d(torch.from_numpy(feats),
-                                torch.from_numpy(coords),
-                                torch.from_numpy(mask), shape, torch.float32)
-    # a max picks one of its inputs: exact
+    out = scatter_max_fold2d_plain(torch.from_numpy(feats),
+                                   torch.from_numpy(coords),
+                                   torch.from_numpy(mask), shape)
+    # a max picks one of its inputs: exact (-0.0 == 0.0)
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def test_scatter_wrapper_routes_by_device(rng):
+    from partner_tpu_torch.ops import scatter_max
+
+    args = [torch.from_numpy(a) for a in _scatter_inputs(rng)]
+    before = scatter_max.scatter_max_fold2d.launches
+    np.testing.assert_array_equal(
+        scatter_max.scatter_max_fold2d(*args, (3, 8, 6)).numpy(),
+        scatter_max.scatter_max_fold2d_plain(*args, (3, 8, 6)).numpy())
+    assert scatter_max.scatter_max_fold2d.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        scatter_max.scatter_max_fold2d(*(a.to("meta") for a in args),
+                                       (3, 8, 6))
 
 
 @pytest.mark.parametrize("size", [(8, 6), (7, 9)])

@@ -127,3 +127,30 @@ def test_swin_vote_transformer_matches_jax(rng):
         out = tm(*(torch.from_numpy(a) for a in (x, pos, vote))).numpy()
     # two blocks of f32 matmuls/LayerNorms in another summation order
     np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("hw", [(10, 6), (7, 8)], ids=["10x6", "7x8"])
+def test_swin_vote_transformer_pads_maps_that_do_not_tile(rng, hw):
+    """A map that is not a whole number of windows: padded to them, pad
+    keys masked in the plain attention, output cropped (JAX
+    ``swin_vote.py:267-307``); depth 2 covers the unshifted and the
+    shifted block."""
+    from partner_tpu.models import swin_vote as jsv
+    from partner_tpu_torch.models import swin_vote as tsv
+
+    (h, w), cin = hw, 24
+    x = rng.randn(2, h, w, cin).astype(np.float32)
+    pos = (rng.randn(2, h, w, 2) * 5).astype(np.float32)
+    vote = rng.randn(2, h, w, 3).astype(np.float32)
+    jm = jsv.SwinVoteTransformer(embed_dim=32, depth=2, num_heads=2,
+                                 window_size=4)
+    v = randomize(jax_init(jm, x, pos, vote), rng)
+    ref = jax_apply(jm, v, x, pos, vote, deterministic=True)
+    tm = load_converted(tsv.SwinVoteTransformer(cin, embed_dim=32, depth=2,
+                                                num_heads=2, window_size=4), v)
+    with torch.no_grad():
+        out = tm(*(torch.from_numpy(a) for a in (x, pos, vote))).numpy()
+    assert out.shape == (2, h, w, 32)
+    # the same plain attention formulation on both sides, f32, another
+    # summation order
+    np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-5)

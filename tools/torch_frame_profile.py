@@ -2,10 +2,12 @@
 """Where the port's flagship frame spends its time on one CUDA card.
 
     python3 tools/torch_frame_profile.py [--frames 10] [--out DIR]
+                                         [--use-block-kernel]
 
 Builds the flagship detector of ``partner_tpu_torch`` exactly as
 ``chip_smoke.py`` does (full width and grid, bf16, seeded random weights,
-the 180,000-point synthetic sweep), then:
+the 180,000-point synthetic sweep; ``--use-block-kernel`` puts the head on
+its whole-block route), then:
 
 1. times each stage of ``E2EDetector.predict`` (backbone, SetBlock, RPN,
    head, decode + NMS) with CUDA events recorded on the stream at every
@@ -109,6 +111,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--out", default=os.path.join(ROOT, "frame_profile"))
+    ap.add_argument("--use-block-kernel", action="store_true",
+                    help="the head's whole-block route")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_frame_profile: no CUDA device")
@@ -120,7 +124,8 @@ def main():
     dev = torch.device("cuda", 0)
     m, tc = chip_smoke.frame_cfgs()
     gen = torch.Generator().manual_seed(chip_smoke.SEED)
-    det = build_detector(m, None, tc, device=dev, generator=gen)
+    det = build_detector(m, None, tc, device=dev, generator=gen,
+                         use_block_kernel=args.use_block_kernel)
     chip_smoke.randomize_norms(det.module, gen)
     pts, mask = chip_smoke.synthetic_sweep(
         np.random.RandomState(chip_smoke.SEED),
@@ -131,6 +136,7 @@ def main():
     torch.cuda.synchronize()
     result = {"card": chip_smoke.gpu_name_and_power_limit(),
               "torch": torch.__version__,
+              "use_block_kernel": args.use_block_kernel,
               "stage_ms": stage_times(det, ex, args.frames)}
     result["trace"] = trace(det, ex, args.out)
     with open(os.path.join(args.out, "frame_profile.json"), "w") as f:
