@@ -10,9 +10,10 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
    and CUDA versions, and the ``nvcc`` build of the kernels in
    ``partner_tpu_torch/csrc`` (time, registers, shared memory);
 2. kernels: each hand-written kernel (stem, window attention, whole Swin
-   block, scatter-max) against its plain PyTorch twin on the same inputs
-   at the flagship frame's shapes, with the error bound stated below, and
-   the median time of each beside its twin's;
+   block, scatter-max in bf16 and float32, and the scatter-max's
+   gradient) against its plain PyTorch twin on the same inputs at the
+   flagship frame's shapes, with the error bound stated below, and the
+   median time of each beside its twin's;
 3. frame: the flagship PARTNER detector
    (``configs/waymo/waymo_partner_36epoch.py``) at full width in bf16,
    random weights from a seeded ``torch.Generator`` with every norm
@@ -23,9 +24,20 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
    ``build_detector(..., use_block_kernel=True)``): the kernels' launch
    counts over each route's frames, the median frame time, finite
    outputs, and NMS that kept boxes;
-4. reference: the flagship widths on a small grid, the card's frame (bf16,
+4. train: the flagship train step (``make_train_step`` over
+   ``E2EDetector.loss``: BatchNorm batch statistics, DropPath, the five
+   set losses over the auction matcher, backward, one-cycle Adam) at full
+   width and the config's batch of 4, on synthetic 150,000-point sweeps
+   with up to 64 vehicle boxes and their vote maps: one warm-up step and
+   TRAIN_STEPS timed ones, the peak memory, finite losses and gradients,
+   the scatter-max kernel launched once per step and the stem, attention
+   and block kernels never (train mode routes around them, as JAX does);
+5. reference: the flagship widths on a small grid, the card's frame (bf16,
    CUDA kernels) against the CPU's (float32, plain twins) with the same
-   weights and points, the head on both routes.
+   weights and points, the head on both routes; then one train step on
+   the same grid, the card in bf16 and in float32 each against the CPU in
+   float32: the matches, each loss term and the gradients of each
+   top-level module.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises before it, so the
@@ -48,6 +60,10 @@ SEED = 0
 N_POINTS = 180_000           # a realistic Waymo sweep, as bench.py drives it
 FRAMES = 10                  # timed frames per route after one warm-up
 SMALL_GRID = (256, 512, 40)  # reference phase: BEV 64 (az) x 32 (r)
+TRAIN_POINTS = 150_000       # bench.py's train sweep ...
+TRAIN_ROWS = 180_000         # ... in a 180,000-row buffer
+MAX_BOXES = 64               # gt slots per sample, up to 64 boxes filled
+TRAIN_STEPS = 5              # timed train steps after one warm-up
 
 # Kernel vs plain twin, both bf16 on the card: |kernel - plain| <=
 # KERNEL_TOL * (1 + |plain|), two bf16 ulps. Both accumulate in f32 but in
@@ -64,7 +80,37 @@ KERNEL_TOL = 2.0 ** -7
 # tie broken the other way, a discrete choice, could move it that far.
 REF_BF16 = 0.02
 REF_F32 = 0.01
-
+# Train reference: one step on SMALL_GRID, batch 2, the card against the CPU
+# in float32 (plain twins) with the same weights, example and dropout draws,
+# the card once in the config's bf16 and once in float32 (the scatter
+# kernel has a float32 entry for this). Per loss term |card - cpu| / |cpu|;
+# per top-level module ||grad card - grad cpu|| / ||grad cpu|| and the norm
+# ratio. Upstream of the head (backbone, SetBlock, RPN) the train-mode
+# network is chaotic at random weights: a perturbation of its activations
+# grows ~1.14x per conv + BatchNorm(batch statistics) + ReLU layer, and each
+# ReLU whose input changes sign moves the gradient. Measured on the CPU
+# (seeds 4, 11, 23) before the float32 card run, those gradients move 0.7-1.0%
+# when every weight is scaled by 1 + 1e-6 in float32 and 0.2-1.35% under
+# another summation order (3 threads against 8), but 100-124% under the
+# same 1e-6 scaling in bf16 (1-ulp rounding flips) and 111-128% in bf16
+# against float32: bf16 leaves them uncorrelated (sqrt(2) = 1.41 for two
+# unrelated gradients of equal norm), with their norms within 3-8%.
+# So the direction upstream is held in float32, the bf16 run by its loss
+# terms, head gradients and norm ratios.
+# bf16 against float32 on the CPU: loss terms 0.0003-0.039 except loss_iou
+# 0.016-0.34 (bf16 flips 5-8 of 16-26 matches while num_matched stays equal,
+# and loss_iou averages over the matched pairs), the total loss
+# 0.0019-0.0092, head gradient 0.084-0.115, norm ratios 0.946-1.078.
+TRAIN_LOSS_TOL = {"loss": 0.03, "loss_iou": 0.6}
+TRAIN_TERM_TOL = 0.1
+TRAIN_GRAD_TOL = {"bbox_head": 0.25}   # upstream: norm ratio only
+TRAIN_NORM_TOL = 1.25        # |log(norm card / norm cpu)| <= log(1.25)
+# float32 against float32 on the CPU (the two perturbations above): loss
+# terms <= 1.52e-5, head gradient <= 2.5e-4, upstream <= 0.0135, no match
+# flipped. Bounds ~10x those, far under the 1.41 of an unrelated gradient.
+TRAIN_F32_LOSS_TOL = 1.5e-4
+TRAIN_F32_GRAD_TOL = {"backbone": 0.15, "attns": 0.15, "neck": 0.15,
+                      "bbox_head": 0.0025}
 
 def log(*args):
     print(*args, flush=True)
@@ -211,6 +257,52 @@ def scatter_case(stem_out, dev):
             torch.from_numpy(inb[None]).to(dev), canvas)
 
 
+def scatter_backward_case(gen, sargs):
+    """The scatter-max's gradient at the flagship shape: through
+    ``ScatterMaxFold2d`` on the kernel's forward, and through the same
+    backward on the twin's forward, with one seeded bf16 cotangent. The
+    stem's bf16 post-ReLU rows tie within their cells (zeros most of all).
+    The two gradients must be bit-equal; returns the median fwd+bwd ms of
+    each (the kernel's through autograd) and of the backward alone."""
+    from partner_tpu_torch.ops import scatter_max
+
+    x, coords, mask, shape = sargs
+    x = x.detach().requires_grad_()
+    canvas = scatter_max.scatter_max_fold2d_plain(x.detach(), coords, mask,
+                                                  shape)
+    g = torch.randn(canvas.shape, generator=gen).to(canvas)
+
+    def kernel_route():
+        x.grad = None
+        scatter_max.ScatterMaxFold2d.apply(x, coords, mask, shape).backward(g)
+        return x.grad
+
+    def plain_route():
+        with torch.no_grad():
+            out = scatter_max.scatter_max_fold2d_plain(x, coords, mask,
+                                                       shape)
+            return scatter_max.scatter_max_fold2d_backward(
+                x, coords, mask, out, g, shape)
+
+    got, want = kernel_route().clone(), plain_route()
+    torch.cuda.synchronize()
+    # winners of positive cells beyond one per cell are ties
+    won_pos = int(((want != 0) & (x.detach() > 0)).sum())
+    log(f"scatter_max backward: {int((want != 0).sum())} row values take a "
+        f"cotangent; {won_pos} positive winners for "
+        f"{int((canvas > 0).sum())} positive canvas values (the excess "
+        "tied); the tied zeros take it too")
+    if not torch.equal(got, want):
+        raise AssertionError("scatter_max backward: kernel route and twin "
+                             f"route differ in {int((got != want).sum())} "
+                             "elements")
+    log("scatter_max backward (1, 64, 216000): bit-equal to the twin route")
+    bwd = lambda: scatter_max.scatter_max_fold2d_backward(
+        x.detach(), coords, mask, canvas, g, shape)
+    return dict(fwd_bwd_ms=cuda_ms(kernel_route),
+                plain_fwd_bwd_ms=cuda_ms(plain_route), bwd_ms=cuda_ms(bwd))
+
+
 def kernel_phase(gen, dev):
     from partner_tpu_torch.ops import scatter_max, stem, swin_attn, swin_block
 
@@ -235,9 +327,21 @@ def kernel_phase(gen, dev):
     err = compare("scatter_max_fold2d (1, 64, 216000) -> (1, 512, 288, 320)",
                   out, ref, 0.0)
     results["scatter_max"] = dict(
-        max_abs_err=err,
         ms=cuda_ms(lambda: scatter_max.scatter_max_fold2d(*sargs)),
         plain_ms=cuda_ms(lambda: scatter_max.scatter_max_fold2d_plain(*sargs)))
+    # the float32 entry (the float32 configuration), same rows
+    fargs = (sargs[0].float(),) + tuple(sargs[1:])
+    out = scatter_max.scatter_max_fold2d(*fargs)
+    ref = scatter_max.scatter_max_fold2d_plain(*fargs)
+    torch.cuda.synchronize()
+    err = max(err, compare("scatter_max_fold2d float32 (1, 64, 216000)", out,
+                           ref, 0.0))
+    results["scatter_max"].update(
+        max_abs_err=err,
+        ms_f32=cuda_ms(lambda: scatter_max.scatter_max_fold2d(*fargs)),
+        plain_ms_f32=cuda_ms(
+            lambda: scatter_max.scatter_max_fold2d_plain(*fargs)))
+    results["scatter_max"].update(scatter_backward_case(gen, sargs))
 
     errs, times = [], {}
     for with_mask in (True, False):
@@ -281,6 +385,12 @@ def kernel_phase(gen, dev):
             "(median of 20 calls, CUDA events, warm L2)")
     log(f"swin_attn unshifted: kernel {results['swin_attn']['ms_no_mask']!r}"
         f" ms, plain {results['swin_attn']['plain_ms_no_mask']!r} ms")
+    sm = results["scatter_max"]
+    log(f"scatter_max float32: kernel {sm['ms_f32']!r} ms, plain "
+        f"{sm['plain_ms_f32']!r} ms")
+    log(f"scatter_max fwd+bwd: kernel route {sm['fwd_bwd_ms']!r} ms "
+        f"(through autograd), twin route {sm['plain_fwd_bwd_ms']!r} ms; the "
+        f"backward alone {sm['bwd_ms']!r} ms")
     sb = results["swin_block"]
     log(f"swin_block unshifted: kernel {sb['ms_unshifted']!r} ms, plain "
         f"{sb['plain_ms_unshifted']!r} ms; its bias table (plain torch, "
@@ -367,7 +477,6 @@ def frame_phase(dev, card):
     each of its frames, read just after), the median frame time and sane
     detections."""
     from partner_tpu_torch.models import build_detector
-    from partner_tpu_torch.ops import scatter_max, stem, swin_attn, swin_block
 
     m, tc = frame_cfgs()
     gen = torch.Generator().manual_seed(SEED)
@@ -387,10 +496,7 @@ def frame_phase(dev, card):
                                 m["bbox_head"]["voxel_generator"]["range"],
                                 N_POINTS)
     ex = to_device({"points": pts, "points_mask": mask}, dev)
-    wrappers = {"stem": stem.stem2_channel_major,
-                "scatter_max": scatter_max.scatter_max_fold2d,
-                "swin_attn": swin_attn.swin_vote_attention,
-                "swin_block": swin_block.swin_vote_block}
+    wrappers = kernel_wrappers()
     depth = dets["per_block"].module.bbox_head.layer.depth
     tally = {route: dict.fromkeys(wrappers, 0) for route in dets}
     times = {route: [] for route in dets}
@@ -503,6 +609,243 @@ def reference_phase(dev):
                 REF_BF16)
 
 
+# -------------------------------------------------------------------- train
+
+def train_example(rng, pc_range, grid, batch, n_points, rows, max_boxes):
+    """bench.py's synthetic train batch, made with numpy and the port's
+    ``core.targets`` (``partner_tpu.testing.make_flagship_example`` without
+    the JAX package): per sample up to ``max_boxes`` vehicle boxes, half
+    the points on them and half in the background, in the cylinder layout
+    [rho, phi, z, x, y, intensity, extra], padded to ``rows``; ``global_box``
+    [x, y, z, dx, dy, dz, yaw, class 1], its mask, and the flattened vote
+    maps."""
+    from partner_tpu_torch.core.targets import draw_votemap
+
+    vs = [(pc_range[3 + i] - pc_range[i]) / grid[i] for i in range(3)]
+    gt = np.zeros((batch, max_boxes, 8), np.float32)
+    pts = np.zeros((batch, rows, 7), np.float32)
+    mask = np.zeros((batch, rows), bool)
+    votemaps = []
+    for i in range(batch):
+        nb = rng.randint(max_boxes // 2, max_boxes + 1)
+        rho = rng.uniform(pc_range[0] + 5, pc_range[3] * 0.8, nb)
+        phi = rng.uniform(pc_range[1] * 0.9, pc_range[4] * 0.9, nb)
+        boxes = np.stack([rho * np.cos(phi), rho * np.sin(phi),
+                          rng.uniform(-0.5, 0.5, nb), rng.uniform(3.5, 5.5, nb),
+                          rng.uniform(1.6, 2.2, nb), rng.uniform(1.4, 2.0, nb),
+                          rng.uniform(-np.pi, np.pi, nb)], 1)
+        per_box = n_points // (2 * nb)
+        on = [rng.uniform(-0.5, 0.5, (per_box, 3)) * bx[3:6] + bx[:3]
+              for bx in boxes]
+        n_bg = n_points - per_box * nb
+        bg_r = rng.uniform(pc_range[0] + 0.5, pc_range[3] - 0.5, n_bg)
+        bg_t = rng.uniform(pc_range[1], pc_range[4], n_bg)
+        bg = np.stack([bg_r * np.cos(bg_t), bg_r * np.sin(bg_t),
+                       rng.uniform(pc_range[2], pc_range[5], n_bg)], 1)
+        xyz = np.concatenate(on + [bg])
+        r, a = np.hypot(xyz[:, 0], xyz[:, 1]), np.arctan2(xyz[:, 1], xyz[:, 0])
+        pts[i, :n_points] = np.stack(
+            [r, a, xyz[:, 2], xyz[:, 0], xyz[:, 1], rng.rand(n_points),
+             rng.rand(n_points)], 1)
+        mask[i, :n_points] = True
+        gt[i, :nb, :7] = boxes
+        gt[i, :nb, 7] = 1
+        votemaps.append(draw_votemap(boxes.astype(np.float32), np.zeros(nb),
+                                     1, grid, vs, pc_range, 8))
+    vm = np.stack(votemaps)
+    return {"points": pts, "points_mask": mask, "global_box": gt,
+            "global_box_mask": gt[..., 7] > 0,
+            "votemap_flat": vm.reshape(batch, -1, vm.shape[-1])}
+
+
+def train_cfgs(grid=None, compute_dtype=None):
+    """(model cfg, test cfg, samples per card, lr_max) of the flagship."""
+    from partner_tpu_torch.utils.config import load_config
+
+    cfg = load_config(CONFIG)
+    m, tc = frame_cfgs(grid, compute_dtype)
+    return m, tc, cfg["data"]["samples_per_gpu"], cfg["lr_config"]["lr_max"]
+
+
+def kernel_wrappers():
+    from partner_tpu_torch.ops import scatter_max, stem, swin_attn, swin_block
+
+    return {"stem": stem.stem2_channel_major,
+            "scatter_max": scatter_max.scatter_max_fold2d,
+            "swin_attn": swin_attn.swin_vote_attention,
+            "swin_block": swin_block.swin_vote_block}
+
+
+def train_phase(dev, card):
+    """The flagship train step at full width and the config's batch:
+    launch counts per step, step times, peak memory, finite losses and
+    gradients, and parameters and BatchNorm statistics that moved."""
+    from partner_tpu_torch.models import build_detector
+    from partner_tpu_torch.train.optim import build_one_cycle_optimizer
+    from partner_tpu_torch.train.train_state import make_train_step
+
+    m, tc, batch, lr_max = train_cfgs()
+    gen = torch.Generator().manual_seed(SEED + 3)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    det = build_detector(m, None, tc, device=dev, generator=gen)
+    randomize_norms(det.module, gen)
+    grid = det.module.grid_size
+    ex = to_device(train_example(
+        np.random.RandomState(SEED + 3), m["bbox_head"]["voxel_generator"][
+            "range"], grid, batch, TRAIN_POINTS, TRAIN_ROWS, MAX_BOXES), dev)
+    log(f"train batch: {batch} samples of {TRAIN_POINTS} points in "
+        f"{TRAIN_ROWS} rows, {ex['global_box_mask'].sum(1).tolist()} boxes")
+    step = make_train_step(det, build_one_cycle_optimizer(
+        det.module, lr_max=lr_max, total_steps=1000))
+    before = {k: v.detach().clone() for k, v in det.module.state_dict().items()}
+    wrappers = kernel_wrappers()
+    drops = torch.Generator().manual_seed(SEED + 3)  # dropout and DropPath
+    times, launches = [], dict.fromkeys(wrappers, 0)
+    for i in range(TRAIN_STEPS + 1):   # step 0 warms up
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        met = step(ex, drops)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if i:
+            times.append(ms)
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        want = {"stem": 0, "scatter_max": 1, "swin_attn": 0, "swin_block": 0}
+        if counts != want:
+            raise AssertionError(f"train step {i}: launches {counts} != {want}")
+        for name in launches:
+            launches[name] += counts[name]
+        vals = {k: float(v) for k, v in met.items()}
+        log(f"train step {i}: {ms!r} ms, " + ", ".join(
+            f"{k} {v!r}" for k, v in sorted(vals.items())))
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"train step {i}: non-finite metrics")
+        if not vals["grad_norm"] > 0 or not vals["num_matched"] > 0:
+            raise AssertionError(f"train step {i}: no gradient or no match")
+    for name, p in det.module.named_parameters():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            raise AssertionError(f"train: gradient of {name} missing or "
+                                 "non-finite")
+    after = det.module.state_dict()
+    watched = [k for k, _ in det.module.named_parameters()] + [
+        k for k in before if k.endswith(("_mean", "_var"))]
+    still = [k for k in watched if torch.equal(before[k], after[k])]
+    if still:
+        raise AssertionError(f"train: unchanged after the steps: {still[:5]}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    median = statistics.median(times)
+    log(f"flagship train step, batch {batch}: median {median!r} ms over "
+        f"{TRAIN_STEPS} steps on {card} (host clock around a synchronized "
+        f"step), all {times!r}; peak memory {peak!r} GiB "
+        "(torch.cuda.max_memory_allocated, weights and Adam state included)")
+    log(f"train kernel launches over {TRAIN_STEPS + 1} steps: {launches}")
+    return launches, median, peak
+
+
+def one_train_step(m, tc, dev, state, ex, lr_max):
+    """One ``make_train_step`` step of a detector built from ``m`` on
+    ``dev`` with the weights ``state``; -> (metrics, matched query per gt,
+    gradients by parameter name), all on the CPU in float32."""
+    from partner_tpu_torch.losses import set_crit
+    from partner_tpu_torch.models import build_detector
+    from partner_tpu_torch.train.optim import build_one_cycle_optimizer
+    from partner_tpu_torch.train.train_state import make_train_step
+
+    det = build_detector(m, None, tc, device=dev)
+    det.module.load_state_dict(state)
+    seen = []
+    assign = set_crit.assign_auction
+
+    def recorded(*args, **kwargs):
+        seen.append(assign(*args, **kwargs))
+        return seen[-1]
+
+    set_crit.assign_auction = recorded
+    try:
+        met = make_train_step(det, build_one_cycle_optimizer(
+            det.module, lr_max=lr_max, total_steps=1000))(
+                to_device(ex, dev), torch.Generator().manual_seed(SEED + 4))
+    finally:
+        set_crit.assign_auction = assign
+    grads = {k: p.grad.float().cpu() for k, p in det.module.named_parameters()}
+    return ({k: float(v) for k, v in met.items()}, seen[0].cpu(), grads)
+
+
+def grad_errors(got, want):
+    """Per top-level module: (||grad got - grad want|| / ||grad want||,
+    ||grad got|| / ||grad want||)."""
+    res = {}
+    for top in ("backbone", "attns", "neck", "bbox_head"):
+        names = [k for k in want if k.startswith(top + ".")]
+        g = torch.cat([got[k].flatten() for k in names])
+        w = torch.cat([want[k].flatten() for k in names])
+        res[top] = (float((g - w).norm() / w.norm()), float(g.norm() / w.norm()))
+    return res
+
+
+def train_reference(card_dev, seed=SEED + 4):
+    """One train step on SMALL_GRID at full width, batch 2, with the same
+    weights, example and dropout draws: the card in the config's bf16 and
+    the card in float32, each against the CPU in float32. -> {"bf16": ...,
+    "float32": ...}, each a dict of the relative error of each loss term,
+    per top-level module the relative RMS error of the gradients and the
+    ratio of their norms, the matches that differ and num_matched of each
+    side."""
+    from partner_tpu_torch.models import build_detector
+
+    m, tc, _, lr_max = train_cfgs(SMALL_GRID)
+    m32, _, _, _ = train_cfgs(SMALL_GRID, "float32")
+    gen = torch.Generator().manual_seed(seed)
+    init = build_detector(m32, None, tc, device="cpu", generator=gen).module
+    randomize_norms(init, gen)
+    state = init.state_dict()
+    ex = train_example(np.random.RandomState(seed),
+                       m["bbox_head"]["voxel_generator"]["range"],
+                       SMALL_GRID, 2, 30_000, 36_000, 16)
+    want = one_train_step(m32, tc, "cpu", state, ex, lr_max)
+    out = {}
+    for tag, cfg in (("bf16", m), ("float32", m32)):
+        got = one_train_step(cfg, tc, card_dev, state, ex, lr_max)
+        out[tag] = {
+            "loss": {k: abs(got[0][k] - want[0][k]) / abs(want[0][k])
+                     for k in want[0] if k.startswith("loss")},
+            "grad": grad_errors(got[2], want[2]),
+            "flips": int((got[1] != want[1]).sum()),
+            "matched": (got[0]["num_matched"], want[0]["num_matched"])}
+    return out
+
+
+def train_reference_phase(dev):
+    bad = {}
+    for tag, res in train_reference(dev).items():
+        matched = res["matched"]
+        log(f"train reference, card {tag}: num_matched card {matched[0]!r}, "
+            f"cpu {matched[1]!r}; {res['flips']} matches differ")
+        if matched[0] != matched[1]:
+            bad[f"{tag} num_matched"] = matched
+        for k, e in sorted(res["loss"].items()):
+            bound = (TRAIN_LOSS_TOL.get(k, TRAIN_TERM_TOL) if tag == "bf16"
+                     else TRAIN_F32_LOSS_TOL)
+            log(f"train reference, card {tag}, {k}: relative error {e!r} "
+                f"(bound {bound})")
+            if not e <= bound:
+                bad[f"{tag} {k}"] = e
+        for k, (e, r) in res["grad"].items():
+            bound = (TRAIN_GRAD_TOL if tag == "bf16" else TRAIN_F32_GRAD_TOL
+                     ).get(k)
+            log(f"train reference, card {tag}, grad {k}: relative RMS error "
+                f"{e!r} (bound {bound or 'none: uncorrelated in bf16'}), "
+                f"norm ratio card / cpu {r!r} (bound {TRAIN_NORM_TOL})")
+            if bound is not None and not e <= bound:
+                bad[f"{tag} grad {k}"] = e
+            if not abs(np.log(r)) <= np.log(TRAIN_NORM_TOL):
+                bad[f"{tag} grad norm {k}"] = r
+    if bad:
+        raise AssertionError(f"train reference beyond its bounds: {bad}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this run needs one NVIDIA card")
@@ -527,7 +870,9 @@ def main():
     gen = torch.Generator().manual_seed(SEED)
     kres = kernel_phase(gen, dev)
     routes = frame_phase(dev, card)
+    train_launches, train_ms, train_peak = train_phase(dev, card)
     reference_phase(dev)
+    train_reference_phase(dev)
 
     meta = {
         "stem": ("partner_tpu_torch/csrc/stem.cu",
@@ -543,10 +888,13 @@ def main():
     }
     kernels = [dict(name=name, route="cuda", source=meta[name][0],
                     replaces=meta[name][1],
-                    launches=routes[meta[name][2]][0][name], **r)
+                    launches=routes[meta[name][2]][0][name],
+                    train_launches=train_launches[name], **r)
                for name, r in kres.items()]
     log("summary: card " + card + ", flagship frame median ms: " + ", ".join(
-        f"{route} {ms!r}" for route, (_, ms) in routes.items()))
+        f"{route} {ms!r}" for route, (_, ms) in routes.items())
+        + f"; flagship train step median ms {train_ms!r}, peak "
+        f"{train_peak!r} GiB")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,11 @@
-"""CenterCoder decode (counterpart of ``partner_tpu/core/center_coder.py``).
+"""CenterCoder (counterpart of ``partner_tpu/core/center_coder.py``).
 
-Only the inverse used at inference is ported: encoded predictions
-``[x, y, z, log dx, log dy, log dz, cos yaw, sin yaw]`` back to boxes
-``[x, y, z, dx, dy, dz, yaw]``.
+Boxes ``[x, y, z, dx, dy, dz, yaw]`` are encoded as ``[x, y, z, log dx,
+log dy, log dz, cos yaw, sin yaw]`` (sincos mode), dims clamped to >= 1e-5
+before the log; ``rectify`` re-expresses yaw relative to the center
+azimuth atan2(y, x), wrapped to (-pi, pi]. Predictions live in the same
+space, so ``get_delta`` is a difference with the gt encoded on the fly and
+``decode`` is the inverse of ``encode``.
 """
 
 import numpy as np
@@ -20,9 +23,40 @@ class CenterCoder:
         self.rectify = rectify
         self.code_size = code_size + (1 if encode_angle_by_sincos else 0)
 
+    @staticmethod
+    def _prep(boxes):
+        dims = torch.clamp(boxes[..., 3:6], min=1e-5)
+        return torch.cat([boxes[..., :3], dims, boxes[..., 6:]], dim=-1)
+
+    def _rectified_yaw(self, x, y, yaw):
+        if not self.rectify:
+            return yaw
+        return wrap_angle_pi(yaw - torch.atan2(y, x))
+
+    def encode(self, gt_boxes):
+        """(..., 7+) gt boxes -> (..., code_size) encodings."""
+        g = self._prep(gt_boxes)
+        yaw = self._rectified_yaw(g[..., 0], g[..., 1], g[..., 6])
+        if self.encode_angle_by_sincos:
+            ang = torch.stack([torch.cos(yaw), torch.sin(yaw)], dim=-1)
+        else:
+            ang = yaw[..., None]
+        return torch.cat([g[..., :3], torch.log(g[..., 3:6]), ang,
+                          g[..., 7:]], dim=-1)
+
+    def get_delta(self, gt_boxes, preds):
+        """Regression residual ``encode(gt_boxes) - preds`` (preds already
+        in encoded space); in plain-angle mode the yaw is regressed as
+        yaw / period."""
+        enc = self.encode(gt_boxes)
+        if not self.encode_angle_by_sincos:
+            enc = torch.cat([enc[..., :6], enc[..., 6:7] / self.period,
+                             enc[..., 7:]], dim=-1)
+        return enc - preds
+
     def decode(self, preds):
         """Encoded predictions -> raw boxes [x, y, z, dx, dy, dz, yaw, ...]
-        (the true inverse of the JAX coder's encode, rectify included)."""
+        (the true inverse of ``encode``, rectify included)."""
         xyz = preds[..., :3]
         dims = torch.exp(torch.clamp(preds[..., 3:6], -8.0, 8.0))
         if self.encode_angle_by_sincos:
@@ -38,7 +72,7 @@ class CenterCoder:
 
 
 def build_coder(cfg):
-    """The port decodes with the plain CenterCoder only."""
+    """The port has the plain CenterCoder only."""
     cfg = dict(cfg)
     kind = cfg.pop("type", "CenterCoder")
     if kind != "CenterCoder":

@@ -1,15 +1,18 @@
 """PolarDenseFHD point path (counterpart of ``partner_tpu/models/backbone_dense.py``).
 
-Only what the flagship inference frame runs is ported: ``encode_points``
+Only what the flagship frame and train step run is ported: ``encode_points``
 (decoration -> channel-major 2-layer stem -> one scatter-max into a
 z-folded canvas) and the ``trunk2d`` conv trunk that turns the canvas into
-the stride-8 BEV map. The 3D-conv trunk, the voxel input path and training
-(BatchNorm batch statistics, the scatter-max backward) are not ported yet.
+the stride-8 BEV map. The 3D-conv trunk and the voxel input path are not
+ported.
 
-The stem always runs through :func:`ops.stem.stem2_channel_major` and the
-scatter-max through :func:`ops.scatter_max.scatter_max_fold2d`, which
-reads the stem's channel-major output as it is: each the CUDA kernel for
-CUDA tensors, its plain twin for CPU tensors.
+In eval mode the stem runs through :func:`ops.stem.stem2_channel_major`
+(the CUDA kernel for CUDA tensors, its plain twin for CPU tensors). In
+train mode it runs the JAX package's train branch in plain torch, with
+BatchNorm batch statistics, as JAX never calls its stem kernel in
+training. The scatter-max reads the stem's channel-major output as it is,
+through :class:`ops.scatter_max.ScatterMaxFold2d` (the kernel forward of
+:func:`ops.scatter_max.scatter_max_fold2d`, the JAX tie-rule backward).
 """
 
 import numpy as np
@@ -18,7 +21,8 @@ import torch.nn as nn
 
 from ..ops import scatter_max, stem
 from ..utils.dtypes import resolve_compute_dtype
-from .layers import BN_EPS, BatchNorm, Conv2d, _lecun_normal_, constant
+from .layers import (BN_EPS, BN_MOMENTUM, BatchNorm, Conv2d, _lecun_normal_,
+                     constant, update_running)
 from .registry import BACKBONES
 
 
@@ -30,7 +34,7 @@ class Dense2DBlock(nn.Module):
         self.dtype = dtype
         self.Conv_0 = Conv2d(in_features, features, 3, stride, "SAME",
                              use_bias=False, dtype=dtype)
-        self.BatchNorm_0 = BatchNorm(features, BN_EPS)
+        self.BatchNorm_0 = BatchNorm(features, BN_EPS, BN_MOMENTUM)
 
     def forward(self, x):
         return torch.relu(self.BatchNorm_0(self.Conv_0(x))).to(self.dtype)
@@ -44,10 +48,10 @@ class Dense2DResBlock(nn.Module):
         self.dtype = dtype
         self.conv1 = Conv2d(features, features, 3, 1, "SAME", use_bias=False,
                             dtype=dtype)
-        self.BatchNorm_0 = BatchNorm(features, BN_EPS)
+        self.BatchNorm_0 = BatchNorm(features, BN_EPS, BN_MOMENTUM)
         self.conv2 = Conv2d(features, features, 3, 1, "SAME", use_bias=False,
                             dtype=dtype)
-        self.BatchNorm_1 = BatchNorm(features, BN_EPS)
+        self.BatchNorm_1 = BatchNorm(features, BN_EPS, BN_MOMENTUM)
 
     def forward(self, x):
         y = torch.relu(self.BatchNorm_0(self.conv1(x))).to(self.dtype)
@@ -122,6 +126,8 @@ class PolarDenseFHD(nn.Module):
 
     def _stem_t(self, x, mask):
         """Channel-major stem: x (B, C, P), mask (B, P) -> (B, F, P)."""
+        if self.training:
+            return self._stem_t_train(x, mask)
         dt = self.dtype
         ab = []
         for i in range(2):
@@ -133,6 +139,29 @@ class PolarDenseFHD(nn.Module):
             x.to(dt).contiguous(), mask.contiguous(),
             self.stem0_kernel.t().to(dt).contiguous(), ab[0][0], ab[0][1],
             self.stem1_kernel.t().to(dt).contiguous(), ab[1][0], ab[1][1])
+
+    def _stem_t_train(self, x, mask):
+        """The train branch of the JAX ``_stem_t`` (``backbone_dense.py:
+        379-399``): per layer a product with f32 accumulation, cast, x
+        mask, BatchNorm with the statistics of all (B, P) positions (masked
+        zeros included, biased variance, as ``jnp.var``), momentum 0.99 on
+        ``stem{i}_mean/var``, ReLU, cast."""
+        dt = self.dtype
+        m = mask[:, None, :].to(dt)
+        for i in range(len(self.stem_features)):
+            w = getattr(self, f"stem{i}_kernel").to(dt)
+            x = torch.einsum("bcp,cf->bfp", x.float(), w.float()).to(dt)
+            xf = (x * m).float()
+            mean = xf.mean((0, 2))
+            var = ((xf - mean[:, None]) ** 2).mean((0, 2))
+            update_running(getattr(self, f"stem{i}_mean"), mean, BN_MOMENTUM)
+            update_running(getattr(self, f"stem{i}_var"), var, BN_MOMENTUM)
+            y = (xf - mean[:, None]) * torch.rsqrt(var[:, None] + BN_EPS)
+            y = (y * getattr(self, f"stem{i}_scale")[:, None]
+                 + getattr(self, f"stem{i}_bias")[:, None])
+            x = torch.relu(y).to(dt)
+        # einsum may hand back a permuted layout; the scatter reads (B, F, P)
+        return x.contiguous()
 
     def _trunk(self, canvas):
         a = self.conv_a2d(canvas)
@@ -167,7 +196,7 @@ class PolarDenseFHD(nn.Module):
                                dim=1)
         x_t = torch.cat([pts_t, frac_t], dim=1).to(self.dtype)
         feats_t = self._stem_t(x_t, inb)                     # (B, F2, P)
-        canvas = scatter_max.scatter_max_fold2d(
+        canvas = scatter_max.ScatterMaxFold2d.apply(
             feats_t, idx_t.flip(1).contiguous(), inb.contiguous(),
             (cz, cy, cx))
         return self._trunk(canvas)

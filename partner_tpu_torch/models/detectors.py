@@ -1,14 +1,16 @@
-"""PARTNER detector, inference (counterpart of ``partner_tpu/models/detectors.py``).
+"""PARTNER detector (counterpart of ``partner_tpu/models/detectors.py``).
 
 ``build_voxelnet_v3`` turns the JAX package's VoxelNetV3 config into an
 :class:`E2EDetector`: the point fast path (``PolarDenseFHD.encode_points``)
--> ``SetBlockStack`` -> ``RPN`` -> ``E2ESWVoteHead``, then decode through
-the configured CenterCoder and rotated NMS.
+-> ``SetBlockStack`` -> ``RPN`` -> ``E2ESWVoteHead``, then at inference
+decode through the configured CenterCoder and rotated NMS, and in training
+the ``SetCriterion`` over the auction matcher.
 
     det = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg, device=dev)
     # or the head's whole-block route: build_detector(..., use_block_kernel=True)
     det.module.load_state_dict(convert.flax_to_torch(variables))  # optional
     preds = det.predict({"points": pts, "points_mask": mask})
+    losses = det.loss(example, generator)   # train mode, with targets
 """
 
 import torch
@@ -16,6 +18,7 @@ import torch.nn as nn
 
 from ..core.center_coder import build_coder
 from ..core.geometry import bev_cell_centers
+from ..losses.set_crit import SetCriterion
 from ..utils.dtypes import resolve_compute_dtype
 from . import e2e_head
 from .layers import constant, init_weights
@@ -58,34 +61,66 @@ class VoxelNetModule(nn.Module):
             num_heads=set_cfg.get("set_num_heads", 4),
             num_keypoints=set_cfg.get("set_h", 4),
             range_window=set_cfg.get("set_w", 8),
+            drop=set_cfg.get("set_drop", 0.1),
+            attn_drop=set_cfg.get("set_attn_drop", 0.1),
+            drop_path=set_cfg.get("set_drop_path", 0.1),
             dtype=resolve_compute_dtype(
                 set_cfg.get("set_compute_dtype", "float32")))
 
-    def forward(self, example):
+    def forward(self, example, generator=None):
         """example: {"points": (B, P, C) f32, "points_mask": (B, P) bool}
-        -> dict of head maps (B, n_az/8, n_r/8, .)."""
+        -> dict of head maps (B, n_az/8, n_r/8, .). ``generator`` feeds
+        the SetBlock's dropout and DropPath in train mode."""
         bev = self.backbone.encode_points(
             example["points"], example["points_mask"], self.grid_size,
             self.pc_range)                            # (B, n_az, n_r, C)
         x = bev.transpose(1, 2)                       # (B, n_r, n_az, C)
         pos = constant(self, "bev_pos", x.device, lambda: self.bev_pos)
-        x = self.attns(x, pos[None].expand(x.shape[0], -1, -1, -1))
+        x = self.attns(x, pos[None].expand(x.shape[0], -1, -1, -1),
+                       generator)
         return self.bbox_head(self.neck(x.transpose(1, 2)))
 
 
 class E2EDetector:
-    """VoxelNetV3 + E2ESWVoteHead at inference: forward, decode, NMS."""
+    """VoxelNetV3 + E2ESWVoteHead + SetCriterion: the train loss, and at
+    inference forward, decode and NMS."""
 
     input_kind = "points"
 
-    def __init__(self, module, coder, test_cfg=None):
+    def __init__(self, module, criterion, test_cfg=None):
         self.module = module
-        self.coder = coder
+        self.criterion = criterion
+        self.coder = criterion.coder
         self.test_cfg = dict(test_cfg or {})
+
+    def loss(self, example, generator=None):
+        """The set losses of one forward in the module's current mode.
+
+        example: "points", "points_mask" as for :meth:`predict`, plus
+        "global_box" (B, M, 8) [x, y, z, dx, dy, dz, yaw, class] with the
+        class 1-based (a 10-column box's velocity is dropped),
+        "global_box_mask" (B, M) bool and "votemap_flat" (B, N, 4 + ncls).
+        Returns the criterion's dict (loss terms, ``loss``,
+        ``num_matched``)."""
+        return self.set_losses(self.module(example, generator), example)
+
+    def set_losses(self, preds, example):
+        """Head maps + the example's targets -> the criterion's dict."""
+        grid = self.module.bbox_head.offset_grid_on(preds["hm"].device)
+        flat = e2e_head.flatten_head_preds(preds, grid)
+        gt = example["global_box"]
+        gt_boxes = torch.cat([gt[..., :6], gt[..., -2:-1]], dim=-1)
+        gt_classes = torch.clamp((gt[..., -1] - 1).to(torch.int32), min=0)
+        return self.criterion(flat, gt_boxes, gt_classes,
+                              example["global_box_mask"],
+                              example.get("votemap_flat"))
 
     @torch.no_grad()
     def predict(self, example):
-        """-> dict of (B, nms_post, ...) detections + validity mask."""
+        """-> dict of (B, nms_post, ...) detections + validity mask. Puts
+        the module in eval mode first (running statistics, no dropout), as
+        the JAX package's predict runs with ``train=False``."""
+        self.module.eval()
         return self.decode(self.module(example))
 
     @torch.no_grad()
@@ -116,9 +151,10 @@ def build_voxelnet_v3(reader, backbone, neck, bbox_head, seg_head=None,
     """PARTNER detector factory (detector cfg -> E2EDetector on ``device``).
 
     The module is built on the meta device and materialized on ``device``
-    with flax's default initializers drawn from ``generator``.
-    ``use_block_kernel`` puts the head's SwinVoteTransformer on its
-    whole-block route."""
+    with flax's default initializers drawn from ``generator``, in eval
+    mode. ``use_block_kernel`` puts the head's SwinVoteTransformer on its
+    whole-block route at inference. The criterion comes from the head's
+    ``SET_CRIT_CONFIG`` and ``MATCHER_CONFIG``, as in the JAX package."""
     if dict(backbone).get("type") != "PolarDenseFHD":
         raise ValueError("the port runs the PolarDenseFHD point path only")
     grid, pc_range, _ = _grid_spec(bbox_head)
@@ -159,6 +195,17 @@ def build_voxelnet_v3(reader, backbone, neck, bbox_head, seg_head=None,
     coder_cfg.setdefault("code_size", 7)
     coder_cfg.setdefault("encode_angle_by_sincos", True)
     coder_cfg.setdefault("rectify", False)
+    sc = bbox_head.get("SET_CRIT_CONFIG", {})
+    mc = bbox_head.get("MATCHER_CONFIG", {})
+    criterion = SetCriterion(
+        box_coder=build_coder(coder_cfg),
+        weight_dict=sc.get("weight_dict", {"loss_ce": 1, "loss_bbox": 2}),
+        losses=sc.get("losses", ["loss_ce", "loss_bbox"]),
+        sigma=sc.get("sigma", 3.0),
+        code_weights=tuple(sc.get("code_weights", (1.0,) * 8)),
+        gamma=sc.get("gamma", 2.0),
+        alpha=sc.get("alpha", 0.25),
+        matcher_weights=mc.get("weight_dict"))
     tc = dict(test_cfg or {})
     tc.setdefault("iou_factor", hc.get("iou_factor", 1))
-    return E2EDetector(module, build_coder(coder_cfg), tc)
+    return E2EDetector(module, criterion, tc)

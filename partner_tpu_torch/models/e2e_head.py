@@ -21,8 +21,10 @@ from .layers import BatchNorm, Conv2d, constant
 from .registry import BBOX_HEADS
 from .swin_vote import SwinVoteTransformer
 
-# torch nn.BatchNorm2d default, which the reference E2E head uses
+# torch nn.BatchNorm2d defaults, which the reference E2E head uses (flax
+# momentum 0.9 is torch's 0.1)
 HEAD_BN_EPS = 1e-5
+HEAD_BN_MOMENTUM = 0.9
 
 
 class ConvHead(nn.Module):
@@ -44,7 +46,7 @@ class ConvBNHead(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.Conv_0 = Conv2d(in_features, hidden, 3, 1, 1, dtype=dtype)
-        self.BatchNorm_0 = BatchNorm(hidden, HEAD_BN_EPS)
+        self.BatchNorm_0 = BatchNorm(hidden, HEAD_BN_EPS, HEAD_BN_MOMENTUM)
         self.Conv_1 = Conv2d(hidden, out, kernel, 1, kernel // 2, dtype=dtype,
                              init_bias=init_bias)
 

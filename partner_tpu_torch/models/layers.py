@@ -9,14 +9,16 @@ function:
   rounds once to bf16 on the way out.
 - Convolutions take and return NHWC tensors. Inside they run on the NCHW
   view of the same memory (channels-last for cuDNN), so no copy is made.
-- ``BatchNorm`` is the inference affine over the last axis, computed in
-  float32 with flax's operation order; its eps is explicit at every call
-  site (1e-3 for the conv trunks, 1e-5 for the head and pos-embed stacks).
+- ``BatchNorm`` normalizes over the last axis in float32 with flax's
+  operation order; its eps and momentum are explicit at every call site
+  (1e-3 and 0.99 for the conv trunks, stem and RPN; 1e-5 and 0.9 for the
+  head and pos-embed stacks). In train mode it uses flax's batch
+  statistics and running update, not ``nn.BatchNorm*``'s.
 - ``LayerNorm`` uses flax's eps of 1e-6 (torch's default is 1e-5).
 - GELU is the tanh approximation (flax ``approximate=True``).
-
-The port runs inference only: Dropout and DropPath are the identity there
-and are left out; BatchNorm always uses its running statistics.
+- ``Dropout`` and ``DropPath`` are the identity in eval mode; in train mode
+  they draw from a ``torch.Generator`` that the caller passes down the
+  forward, as flax draws from the ``dropout`` rng.
 """
 
 import math
@@ -25,8 +27,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-BN_EPS = 1e-3       # conv trunks, stem and RPN (flax BatchNorm momentum 0.99)
+BN_EPS = 1e-3       # conv trunks, stem and RPN
+BN_MOMENTUM = 0.99  # their flax momentum (the retained fraction)
 POS_BN_EPS = 1e-5   # pos-embed stacks (torch BatchNorm1d defaults)
+POS_BN_MOMENTUM = 0.9
 LN_EPS = 1e-6       # flax nn.LayerNorm default
 
 
@@ -146,48 +150,128 @@ class ConvTranspose2d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the last axis, float32 out.
+    """BatchNorm over the last axis, float32 out.
 
     Same operation order as flax's ``_normalize``:
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``. In eval mode mean
+    and var are the running statistics. In train mode they are the batch's,
+    in float32 over every axis but the last, the variance biased and taken
+    as flax takes it (``max(E[x^2] - E[x]^2, 0)``); the running statistics
+    then move to ``momentum * old + (1 - momentum) * batch``."""
 
-    def __init__(self, features, eps):
+    def __init__(self, features, eps, momentum):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = _empty(features)
         self.bias = _empty(features)
         self.register_buffer("running_mean", torch.empty(features))
         self.register_buffer("running_var", torch.empty(features))
 
     def forward(self, x):
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x.float() - self.running_mean) * mul + self.bias
+        xf = x.float()
+        if self.training:
+            mean, var = batch_stats(xf, tuple(range(x.dim() - 1)))
+            update_running(self.running_mean, mean, self.momentum)
+            update_running(self.running_var, var, self.momentum)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (xf - mean) * mul + self.bias
+
+
+def batch_stats(xf, dims):
+    """flax's train-mode statistics of float32 ``xf`` over ``dims``: the
+    mean and ``max(E[x^2] - E[x]^2, 0)``, the biased variance."""
+    mean = xf.mean(dims)
+    var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+    return mean, var
+
+
+@torch.no_grad()
+def update_running(stat, batch, momentum):
+    """flax's running update, in place: ``momentum * stat + (1 - momentum)
+    * batch``."""
+    stat.copy_(momentum * stat + (1.0 - momentum) * batch)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: keep each element with probability ``1 - rate``
+    and scale it by ``1 / (1 - rate)``; the identity in eval mode or at
+    rate 0. Draws from the generator passed to ``forward``."""
+
+    def __init__(self, rate):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = _uniform(x.shape, generator, x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class DropPath(nn.Module):
+    """Stochastic depth on a residual branch (``layers.py:126-139``): one
+    Bernoulli draw per sample with keep probability ``1 - rate``, then
+    ``x * mask / keep``; the identity in eval mode or at rate 0. Draws from
+    the generator passed to ``forward``."""
+
+    def __init__(self, rate):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        mask = _uniform(shape, generator, x.device) < keep
+        return x * mask / keep
+
+
+def _uniform(shape, generator, device):
+    """Uniform [0, 1) draws from ``generator`` on its own device, moved to
+    ``device``: a CPU generator gives the same masks to a CPU and a CUDA
+    run."""
+    if generator is None:
+        raise ValueError("train-mode dropout needs a torch.Generator")
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return u.to(device)
 
 
 class Mlp(nn.Module):
-    """Transformer MLP fc -> tanh-GELU -> fc (dropout is inference identity)."""
+    """Transformer MLP fc -> tanh-GELU -> dropout -> fc -> dropout."""
 
-    def __init__(self, features, hidden, out, dtype=torch.float32):
+    def __init__(self, features, hidden, out, drop=0.0, dtype=torch.float32):
         super().__init__()
         self.Dense_0 = Dense(features, hidden, dtype=dtype)
         self.Dense_1 = Dense(hidden, out, dtype=dtype)
+        self.drop = Dropout(drop)
 
-    def forward(self, x):
-        return self.Dense_1(gelu(self.Dense_0(x)))
+    def forward(self, x, generator=None):
+        x = self.drop(gelu(self.Dense_0(x)), generator)
+        return self.drop(self.Dense_1(x), generator)
 
 
 class PosEmbedMLP(nn.Module):
     """Relative-position bias MLP 2 -> hidden -> BN -> ReLU -> num_heads.
 
-    At inference it is only ever applied through
-    :func:`decompose_pos_mlp`, as in the JAX package."""
+    At inference it is applied through :func:`decompose_pos_mlp`; in train
+    mode directly on the pair tensor, its BN taking the pair tensor's batch
+    statistics, as in the JAX package."""
 
     def __init__(self, num_heads, hidden=16, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
         self.Dense_0 = Dense(2, hidden, dtype=dtype)
-        self.BatchNorm_0 = BatchNorm(hidden, POS_BN_EPS)
+        self.BatchNorm_0 = BatchNorm(hidden, POS_BN_EPS, POS_BN_MOMENTUM)
         self.Dense_1 = Dense(hidden, num_heads, dtype=dtype)
+
+    def forward(self, rel):
+        h = self.BatchNorm_0(self.Dense_0(rel)).to(self.dtype)
+        return self.Dense_1(torch.relu(h))
 
 
 def decompose_pos_mlp(mlp, dt):

@@ -11,7 +11,7 @@ import torch
 import torch.nn as nn
 
 from ..utils.dtypes import resolve_compute_dtype
-from .layers import BN_EPS, BatchNorm, Conv2d, ConvTranspose2d
+from .layers import BN_EPS, BN_MOMENTUM, BatchNorm, Conv2d, ConvTranspose2d
 from .registry import NECKS
 
 
@@ -42,7 +42,7 @@ class RPN(nn.Module):
                 stride = ds_layer_strides[i] if li == 0 else 1
                 units.append((add("Conv", Conv2d(cin, f, 3, stride, 1,
                                                  use_bias=False, dtype=dt)),
-                              add("BatchNorm", BatchNorm(f, BN_EPS))))
+                              add("BatchNorm", BatchNorm(f, BN_EPS, BN_MOMENTUM))))
                 cin = f
             up = None
             j = i - self.upsample_start
@@ -54,7 +54,7 @@ class RPN(nn.Module):
                     k = int(round(1 / s))
                     deb = add("Conv", Conv2d(f, uf, k, k, "SAME",
                                              use_bias=False, dtype=dt))
-                up = (deb, add("BatchNorm", BatchNorm(uf, BN_EPS)))
+                up = (deb, add("BatchNorm", BatchNorm(uf, BN_EPS, BN_MOMENTUM)))
             self.stages.append((units, up))
 
     def forward(self, x):

@@ -1,5 +1,5 @@
 """Vote-conditioned Swin window attention (counterpart of
-``partner_tpu/models/swin_vote.py``), inference.
+``partner_tpu/models/swin_vote.py``).
 
 - patch embed 1x1 conv in_ch -> embed_dim + LayerNorm;
 - ``depth`` SwinVoteBlocks, window ``ws``, alternating shift 0 / ws//2 with
@@ -23,7 +23,12 @@ Two routes, as in the JAX package:
   route, as in JAX.
 
 Each op is the CUDA kernel for CUDA tensors and its plain twin for CPU
-tensors. Not ported yet: the static-RPE cache.
+tensors. In train mode neither kernel runs, as JAX gates both on
+``deterministic``: the whole-block route falls through to the per-block
+modules, and ``WindowAttention`` takes the plain attention with
+pre-normalized q and k (``swin_vote.py:182-245``). The head's dropout
+rates are 0 in the JAX package (``E2ESWVoteHead`` never sets them), so it
+has no dropout sites. Not ported yet: the static-RPE cache.
 """
 
 import numpy as np
@@ -117,8 +122,9 @@ class WindowAttention(nn.Module):
     def forward(self, x, pos, vote, mask=None, pad_mask=None):
         """x (nB, T, C); pos (nB, T, 2) f32; vote (nB, T, 3); mask
         (nW, T, T) f32 or None, window w taking mask[w % nW]; pad_mask
-        (nW, T) bool (True = real cell) or None, tiled the same way. A pad
-        mask takes the plain attention, as in the JAX package."""
+        (nW, T) bool (True = real cell) or None, tiled the same way. Train
+        mode or a pad mask takes the plain attention, as in the JAX
+        package; otherwise the attention op (kernel or twin) runs."""
         nb, t, c = x.shape
         nh = self.num_heads
         hd = c // nh
@@ -128,7 +134,7 @@ class WindowAttention(nn.Module):
             2, 0, 3, 1, 4)
         q, k, v = ((qkv[i] + ve).contiguous() for i in range(3))
         rp = self.rpe
-        if pad_mask is None:
+        if pad_mask is None and not self.training:
             out = swin_attn.swin_vote_attention(
                 q, k, v, pos.float().contiguous(), mask,
                 rp.Dense_0.weight.t().float().contiguous(),
@@ -143,8 +149,8 @@ class WindowAttention(nn.Module):
     def _plain_attention(self, q, k, v, pos, mask, pad_mask):
         """The JAX package's plain attention (``swin_vote.py:182-245``):
         q / (|q| tau) and k / |k| rounded to the compute dtype, f32 logits,
-        + the decomposed RPE, + the region mask, pad keys set to -100,
-        softmax, ``P.V`` with f32 accumulation."""
+        + the decomposed RPE, + the region mask, pad keys (if any) set to
+        -100, softmax, ``P.V`` with f32 accumulation."""
         nb, nh, t, _ = q.shape
         dt = self.dtype
         qf, kf = q.float(), k.float()
@@ -156,11 +162,14 @@ class WindowAttention(nn.Module):
         attn = qh.float() @ kh.float().transpose(-1, -2) + swin_block.rpe_bias(
             pos, (rp.Dense_0.weight.t(), rp.Dense_0.bias,
                   rp.Dense_1.weight.t(), rp.Dense_1.bias), dt)
-        nw = pad_mask.shape[0]
-        attn = attn.reshape(nb // nw, nw, nh, t, t)
         if mask is not None:
-            attn = attn + mask[None, :, None]
-        attn = torch.where(pad_mask[None, :, None, None, :], attn, -100.0)
+            nw = mask.shape[0]
+            attn = (attn.reshape(nb // nw, nw, nh, t, t)
+                    + mask[None, :, None]).reshape(nb, nh, t, t)
+        if pad_mask is not None:
+            nw = pad_mask.shape[0]
+            attn = torch.where(pad_mask[None, :, None, None, :],
+                               attn.reshape(nb // nw, nw, nh, t, t), -100.0)
         attn = torch.softmax(attn.reshape(nb, nh, t, t), dim=-1).to(dt)
         return (attn.float() @ v.float()).to(dt)
 
@@ -230,7 +239,8 @@ class SwinVoteTransformer(nn.Module):
     """SwVoteHeadV4: patch-embed + depth blocks + final LayerNorm.
 
     ``use_block_kernel`` selects the whole-block route (the JAX module's
-    ``use_block_kernel`` field, without its environment-variable gate)."""
+    ``use_block_kernel`` field, without its environment-variable gate) at
+    inference; train mode always runs the per-block modules."""
 
     def __init__(self, in_channels, embed_dim=256, depth=2, num_heads=4,
                  window_size=7, mlp_ratio=1.0, compute_dtype="float32",
@@ -253,8 +263,8 @@ class SwinVoteTransformer(nn.Module):
         """x (B, H, W, in_ch); pos (B, H, W, 2); vote (B, H, W, 3)."""
         x = self.patch_norm(self.patch_embed(x).float())
         ws = self.window_size
-        whole = (self.use_block_kernel and x.shape[1] % ws == 0
-                 and x.shape[2] % ws == 0)
+        whole = (self.use_block_kernel and not self.training
+                 and x.shape[1] % ws == 0 and x.shape[2] % ws == 0)
         for i in range(self.depth):
             block = getattr(self, f"block{i}")
             if whole:

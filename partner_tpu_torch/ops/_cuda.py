@@ -41,6 +41,7 @@ _SIGNATURES = {
     "ptt_swin_block_bf16": [_P] * 21 + [_I, _I, _I, _P],
     # x, coords, mask, canvas, B, P, C, cz, cy, cx, stream
     "ptt_scatter_max_bf16": [_P] * 4 + [_I] * 6 + [_P],
+    "ptt_scatter_max_f32": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 
@@ -153,3 +154,19 @@ def stream_ptr(device):
 def require(cond, msg):
     if not cond:
         raise ValueError(msg)
+
+
+def refuse_autograd(name, *tensors):
+    """Raise when grad mode is on and an input needs a gradient: a kernel
+    wrapper returns a fresh tensor with no ``grad_fn``, so autograd would
+    silently treat its output as a constant. Train-mode modules route
+    around the raw wrappers, as the JAX package does, and the scatter-max
+    goes through its ``autograd.Function``. Checked on every device, so the
+    CPU tests pin it."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the kernel wrapper has no "
+            "backward; train-mode modules take the plain path")

@@ -1,8 +1,13 @@
-"""Rotated-rectangle intersection area by Green's theorem (counterpart of
-``rect_intersection_area_green_pretrig``, ``_green_body`` and ``_clip_aa``
-in ``partner_tpu/ops/rotated_iou.py``).
+"""Rotated-rectangle intersection areas and the 3D IoU of the set loss
+(counterpart of ``partner_tpu/ops/rotated_iou.py``).
 
-Area(A n B) = 1/2 of the contour integral of (x dy - y dx) over the
+Two exact algorithms, each where the JAX package uses it, so that results
+round alike: Green's theorem for the NMS (``rect_intersection_area_green_
+pretrig``, ``_green_body``, ``_clip_aa``), and Sutherland-Hodgman clipping
+for the IoU target of ``loss_iou`` (``rect_intersection_area_sh``,
+``boxes_iou3d``).
+
+Green: Area(A n B) = 1/2 of the contour integral of (x dy - y dx) over the
 boundary of A n B, which splits into the edges of A clipped inside B plus
 the edges of B clipped inside A; each straight piece P -> Q contributes
 cross(P, Q). Pieces on the other box's boundary count half from each side,
@@ -96,3 +101,97 @@ def _green_body(box_a, box_b, c, s, cb_, sb_):
 
     return 0.5 * (contrib(a0, a1, ta0, ta1, wa)
                   + contrib(b0, b1, tb0, tb1, wb)).abs()
+
+
+# ------------------------------------------------------- Sutherland-Hodgman
+
+_EPS = 1e-8
+
+
+def _box_corners(boxes):
+    """(..., 5) [x, y, dx, dy, yaw] -> (..., 4, 2) world corners, in the
+    JAX package's order ((-,-), (-,+), (+,+), (+,-) halves, rotated CCW)."""
+    hx, hy = boxes[..., 2] * 0.5, boxes[..., 3] * 0.5
+    lx = torch.stack([-hx, -hx, hx, hx], -1)
+    ly = torch.stack([-hy, hy, hy, -hy], -1)
+    c, s = torch.cos(boxes[..., 4])[..., None], torch.sin(boxes[..., 4])[..., None]
+    return torch.stack([lx * c - ly * s + boxes[..., 0:1],
+                        lx * s + ly * c + boxes[..., 1:2]], dim=-1)
+
+
+def _fill_next_defined(vals, defined):
+    """Replace undefined slots (..., M, 2) with the next defined vertex,
+    cyclically, in log2(M) jump passes."""
+    m = vals.shape[-2]
+    shift = 1
+    while shift < m:
+        nv = torch.roll(vals, -shift, dims=-2)
+        nd = torch.roll(defined, -shift, dims=-1)
+        vals = torch.where(defined[..., None], vals, nv)
+        defined = defined | nd
+        shift *= 2
+    return vals
+
+
+def _clip_halfplane(poly, axis, sign, bound):
+    """One Sutherland-Hodgman clip, keeping sign * poly[axis] <= bound:
+    (..., M, 2) vertices in order -> (..., 2M, 2) and a nonempty flag."""
+    bound = bound[..., None]
+    val = poly[..., axis] * sign
+    inside = val <= bound
+    nxt = torch.roll(poly, -1, dims=-2)
+    val_n = torch.roll(val, -1, dims=-1)
+    cross = inside != (val_n <= bound)
+    den = val_n - val
+    t = (bound - val) / torch.where(den.abs() < _EPS, torch.ones_like(den),
+                                    den)
+    t = torch.clamp(t, 0.0, 1.0)
+    inter = poly + t[..., None] * (nxt - poly)
+    out = torch.stack([poly, inter], dim=-2).reshape(
+        poly.shape[:-2] + (2 * poly.shape[-2], 2))
+    defined = torch.stack([inside, cross], dim=-1).reshape(
+        inside.shape[:-1] + (2 * inside.shape[-1],))
+    return _fill_next_defined(out, defined), defined.any(-1)
+
+
+def rect_intersection_area_sh(box_a, box_b):
+    """Exact rotated-rect intersection by Sutherland-Hodgman: A's corners
+    in B's local frame, clipped by B's four half-planes; dropped slots take
+    the next vertex, so zero-length edges add nothing to the shoelace sum.
+    Boxes (..., 5), broadcastable."""
+    rel = _box_corners(box_a) - box_b[..., None, :2]
+    c = torch.cos(box_b[..., 4])[..., None]
+    s = torch.sin(box_b[..., 4])[..., None]
+    poly = torch.stack([rel[..., 0] * c + rel[..., 1] * s,
+                        -rel[..., 0] * s + rel[..., 1] * c], dim=-1)
+    hx, hy = box_b[..., 2] * 0.5, box_b[..., 3] * 0.5
+    ok = torch.ones(poly.shape[:-2], dtype=torch.bool, device=poly.device)
+    for axis, sign, bound in ((0, 1.0, hx), (0, -1.0, hx), (1, 1.0, hy),
+                              (1, -1.0, hy)):
+        poly, nonempty = _clip_halfplane(poly, axis, sign, bound)
+        ok = ok & nonempty
+    nxt = torch.roll(poly, -1, dims=-2)
+    cross = poly[..., 0] * nxt[..., 1] - poly[..., 1] * nxt[..., 0]
+    area = 0.5 * cross.sum(-1).abs()
+    return torch.where(ok, area, torch.zeros_like(area))
+
+
+def _bev5(boxes7):
+    """(..., 7) boxes -> (..., 5) BEV rectangles [x, y, dx, dy, yaw]."""
+    return boxes7[..., [0, 1, 3, 4, 6]]
+
+
+def boxes_iou3d(boxes_a, boxes_b):
+    """Elementwise 3D IoU of aligned (..., 7) boxes [x, y, z, dx, dy, dz,
+    yaw] (z the center) -> (...,)."""
+    inter_bev = rect_intersection_area_sh(_bev5(boxes_a), _bev5(boxes_b))
+    za1 = boxes_a[..., 2] - boxes_a[..., 5] * 0.5
+    za2 = boxes_a[..., 2] + boxes_a[..., 5] * 0.5
+    zb1 = boxes_b[..., 2] - boxes_b[..., 5] * 0.5
+    zb2 = boxes_b[..., 2] + boxes_b[..., 5] * 0.5
+    overlap_z = torch.clamp(torch.minimum(za2, zb2) - torch.maximum(za1, zb1),
+                            min=0.0)
+    inter = inter_bev * overlap_z
+    vol_a = boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5]
+    vol_b = boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5]
+    return inter / torch.clamp(vol_a + vol_b - inter, min=_EPS)

@@ -45,7 +45,9 @@ def stem2_channel_major_plain(x, mask, w1, a1, b1, w2, a2, b2):
 def stem2_channel_major(x, mask, w1, a1, b1, w2, a2, b2):
     """Fused stem: the CUDA kernel for CUDA tensors, the plain twin for CPU
     tensors. Same arguments and result as :func:`stem2_channel_major_plain`;
-    the kernel takes bf16 features (C_in, F1, F2) = (10, 32, 64)."""
+    the kernel takes bf16 features (C_in, F1, F2) = (10, 32, 64). Forward
+    only: it raises when an input needs a gradient under grad mode."""
+    _cuda.refuse_autograd("stem", x, w1, a1, b1, w2, a2, b2)
     if x.device.type == "cpu":
         return stem2_channel_major_plain(x, mask, w1, a1, b1, w2, a2, b2)
     req = _cuda.require

@@ -62,7 +62,10 @@ def swin_vote_attention(q, k, v, pos, mask, w1, b1, w2, b2, tau):
     """Fused window attention: the CUDA kernel for CUDA tensors, the plain
     twin for CPU tensors. Same arguments and result as
     :func:`swin_vote_attention_plain`; the kernel takes bf16 q/k/v with
-    T = 64, hd = 64 and an RPE hidden width of 16."""
+    T = 64, hd = 64 and an RPE hidden width of 16. Forward only: it raises
+    when an input needs a gradient under grad mode."""
+    _cuda.refuse_autograd("swin_attn", q, k, v, pos, mask, w1, b1, w2, b2,
+                          tau)
     if q.device.type == "cpu":
         return swin_vote_attention_plain(q, k, v, pos, mask, w1, b1, w2, b2,
                                          tau)

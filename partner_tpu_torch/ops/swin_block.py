@@ -204,7 +204,12 @@ def swin_vote_block(x, vote, bias, params, nh, ws):
     twin for CPU tensors. Same arguments and result as
     :func:`swin_vote_block_plain`; the kernel takes a bf16 x with C = 256,
     nh = 4, hd = 64, ws = 8, an MLP hidden width of 256 and a vote-MLP
-    hidden width of 16, and raises for anything else."""
+    hidden width of 16, and raises for anything else. Forward only: it
+    raises when an input needs a gradient under grad mode."""
+    _cuda.refuse_autograd(
+        "swin_block", x, vote, bias,
+        *(t for k, v in params.items()
+          for t in (v if k == "rpe" else (v,))))
     if x.device.type == "cpu":
         return swin_vote_block_plain(x, vote, bias, params, nh, ws)
     req = _cuda.require

@@ -123,20 +123,23 @@ def test_block_kernel_matches_plain(cuda, shift):
     _close(out, swin_block.swin_vote_block_plain(x, vote, bias, params, 4, 8))
 
 
-def _scatter_args(dev, b=2, p=7013, seed=0, shape=(5, 12, 9)):
+def _scatter_args(dev, b=2, p=7013, seed=0, shape=(5, 12, 9),
+                  dtype=torch.bfloat16):
     g = torch.Generator().manual_seed(seed)
     x = torch.relu(torch.randn(b, 64, p, generator=g))
     x = torch.where(torch.rand(b, 64, p, generator=g) < 0.1, -0.0, x)
     coords = torch.stack([torch.randint(0, s, (b, p), generator=g)
                           for s in shape], 1).to(torch.int32)
     mask = torch.rand(b, p, generator=g) < 0.8
-    return [a.to(dev) for a in (x.to(torch.bfloat16), coords, mask)], shape
+    return [a.to(dev) for a in (x.to(dtype), coords, mask)], shape
 
 
-def test_scatter_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_scatter_kernel_matches_plain(cuda, dtype):
     from partner_tpu_torch.ops import scatter_max
 
-    args, shape = _scatter_args(cuda)  # ~50 rows a cell: contended atomics
+    # ~50 rows a cell: contended atomics
+    args, shape = _scatter_args(cuda, dtype=dtype)
     before = scatter_max.scatter_max_fold2d.launches
     out = scatter_max.scatter_max_fold2d(*args, shape)
     torch.cuda.synchronize()
@@ -167,9 +170,68 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         swin_block.swin_vote_block(x[:, :12].contiguous(), vote[:, :12],
                                    bias, params, 4, 8)
     args, shape = _scatter_args(cuda, b=1, p=100)
-    with pytest.raises(ValueError):  # f32 features: the kernel takes bf16
-        scatter_max.scatter_max_fold2d(args[0].float(), *args[1:], shape)
+    with pytest.raises(ValueError):  # f16: the kernel takes bf16 or f32
+        scatter_max.scatter_max_fold2d(args[0].half(), *args[1:], shape)
     with pytest.raises(ValueError):  # non-contiguous coords
         scatter_max.scatter_max_fold2d(
             args[0], args[1].transpose(1, 2).contiguous().transpose(1, 2),
             args[2], shape)
+
+
+def test_scatter_backward_kernel_route_matches_plain(cuda):
+    """``ScatterMaxFold2d`` on the kernel's forward against the same
+    backward on the twin's forward: the tie rule picks rows by an exact
+    compare, so the gradients are bit-equal."""
+    from partner_tpu_torch.ops import scatter_max
+
+    args, shape = _scatter_args(cuda)
+    x = args[0].requires_grad_()
+    g = torch.randn((2, *shape[1:], shape[0] * 64),
+                    generator=torch.Generator().manual_seed(1)).to(x)
+    before = scatter_max.scatter_max_fold2d.launches
+    scatter_max.ScatterMaxFold2d.apply(x, *args[1:], shape).backward(g)
+    assert scatter_max.scatter_max_fold2d.launches == before + 1
+    with torch.no_grad():
+        canvas = scatter_max.scatter_max_fold2d_plain(x, *args[1:], shape)
+        want = scatter_max.scatter_max_fold2d_backward(x, *args[1:], canvas,
+                                                       g, shape)
+    torch.cuda.synchronize()
+    assert torch.equal(x.grad, want)
+    assert (want != 0).sum() > (canvas > 0).sum()  # tied winners exist
+
+
+def test_flagship_train_step_on_the_card(cuda):
+    """One train step of the flagship config at full width and grid, batch
+    1, on a 20,000-point synthetic sweep: finite loss and gradients, the
+    scatter-max kernel once, the stem, attention and block kernels never."""
+    import os
+    import sys
+
+    import numpy as np
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    from partner_tpu_torch.models import build_detector
+    from partner_tpu_torch.train.optim import build_one_cycle_optimizer
+    from partner_tpu_torch.train.train_state import make_train_step
+
+    m, tc, _, lr_max = chip_smoke.train_cfgs()
+    gen = torch.Generator().manual_seed(0)
+    det = build_detector(m, None, tc, device=cuda, generator=gen)
+    chip_smoke.randomize_norms(det.module, gen)
+    ex = chip_smoke.to_device(chip_smoke.train_example(
+        np.random.RandomState(0), m["bbox_head"]["voxel_generator"]["range"],
+        det.module.grid_size, 1, 20_000, 24_000, 16), cuda)
+    wrappers = chip_smoke.kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    met = make_train_step(det, build_one_cycle_optimizer(
+        det.module, lr_max, 1000))(ex, torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    assert {k: fn.launches for k, fn in wrappers.items()} == {
+        "stem": 0, "scatter_max": 1, "swin_attn": 0, "swin_block": 0}
+    assert all(torch.isfinite(v).all() for v in met.values())
+    assert float(met["grad_norm"]) > 0
+    for name, p in det.module.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
