@@ -12,8 +12,12 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
 2. kernels: each hand-written kernel (stem, window attention, whole Swin
    block, scatter-max in bf16 and float32, and the scatter-max's
    gradient) against its plain PyTorch twin on the same inputs at the
-   flagship frame's shapes, with the error bound stated below, and the
-   median time of each beside its twin's;
+   flagship frame's shapes, with the error bound stated below; the time
+   of each (per call, and on the device alone: :func:`call_and_device_ms`)
+   beside its twin's, beside the one PyTorch call that computes the same
+   function where there is one (timed here only, never called by the
+   port), and beside its bound, the least time the card could take for
+   the work (:func:`kernel_work`, :func:`bound`);
 3. frame: the flagship PARTNER detector
    (``configs/waymo/waymo_partner_36epoch.py``) at full width in bf16,
    random weights from a seeded ``torch.Generator`` with every norm
@@ -123,8 +127,100 @@ def gpu_name_and_power_limit():
     return res.stdout.strip()
 
 
+# The H100 SXM's published dense peaks (NVIDIA's data sheet, at the full
+# 700 W): tensor-core bf16 and float32 outside the tensor cores, FLOP/s;
+# HBM3, bytes/s.
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_BYTES = 3.35e12
+
+
+def kernel_work(name, *args):
+    """FLOPs by type and bytes of one call of kernel ``name`` on the
+    arguments its wrapper takes: every input byte read once, every output
+    byte written once, and the products' FLOPs (2 a multiply-add; the
+    elementwise work beside them is not counted). Where the work depends
+    on the data, what these inputs need: the scatter-max reads the rows
+    its mask keeps. -> {"flops": {"bf16": n, "f32": n}, "bytes": n}"""
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    if name == "stem":
+        x, mask, w1, a1, b1, w2, a2, b2 = args
+        b, cin, p = x.shape
+        f1, f2 = w1.shape[0], w2.shape[0]
+        return {"flops": {"bf16": 2 * b * p * (f1 * cin + f2 * f1)},
+                "bytes": nbytes(*args) + b * f2 * p * x.element_size()}
+    if name == "swin_attn":
+        q, k, v, pos, mask, w1, b1, w2, b2, tau = args
+        nw, nh, t, hd = q.shape
+        hid = w1.shape[1]
+        return {"flops": {"bf16": 2 * 2 * nw * nh * t * t * hd,
+                          "f32": 2 * nw * t * t * (2 * hid + hid * nh)},
+                "bytes": nbytes(*args) + nbytes(q)}
+    if name == "swin_block":
+        x, vote, bias, params, nh, ws = args
+        b, h, w, c = x.shape
+        tokens, t = b * h * w, ws * ws
+        m, hid = params["fc1_w"].shape[0], params["vote_w1"].shape[1]
+        dense = 3 * c * c + c * c + m * c + c * m
+        attn = (tokens // t) * nh * 2 * 2 * t * t * (c // nh)
+        packed = [a for k, a in params.items() if k != "rpe"]
+        return {"flops": {"bf16": 2 * tokens * dense + attn,
+                          "f32": 2 * tokens * (3 * hid + hid * c)},
+                "bytes": nbytes(x, vote, bias, *packed) + nbytes(x)}
+    if name in ("scatter_max", "scatter_max_backward"):
+        x, coords, mask, shape = args[:4]
+        b, c, _ = x.shape
+        kept = int(mask.sum())
+        rows = kept * (c * x.element_size() + 3 * coords.element_size())
+        cells = b * int(np.prod(shape)) * c * x.element_size()
+        if name == "scatter_max":
+            return {"flops": {}, "bytes": rows + nbytes(mask) + cells}
+        # backward: canvas and cotangent read at the kept rows' cells, the
+        # gradient of every row written
+        gathered = 2 * min(kept * c * x.element_size(), cells)
+        return {"flops": {}, "bytes": rows + nbytes(mask) + gathered
+                + nbytes(x)}
+    raise ValueError(name)
+
+
+def bound(work):
+    """(least ms the card could take for ``work``, "bytes" or
+    "operations"): the larger of its bytes over the memory rate and, for
+    each number type, its FLOPs over that type's peak (tensor cores and
+    the float32 units run side by side)."""
+    t_bytes = work["bytes"] / PEAK_BYTES * 1e3
+    t_ops = max([f / PEAK_FLOPS[k] * 1e3 for k, f in work["flops"].items()]
+                or [0.0])
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_ms(fn, reps=20, warmup=3):
+    """Device time of one call of ``fn``: ``reps`` calls back to back
+    between two CUDA events, enqueued while the card sleeps, so that the
+    host's time to enqueue them is not counted."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    torch.cuda._sleep(int(2e9 * (1.5 * reps * host_s + 1e-3)))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def cuda_ms(fn, reps=20, warmup=3):
-    """Median time of one call of ``fn`` on the card, CUDA events."""
+    """Median time of one call of ``fn`` on the card, CUDA events around
+    each call: the device time, or the host's time to enqueue the call
+    where that is longer."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -138,6 +234,13 @@ def cuda_ms(fn, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def call_and_device_ms(key, fn):
+    """{key: the per-call median (:func:`cuda_ms`), key with its "ms" read
+    "device_ms": the device time (:func:`device_ms`)}. ``key`` names a
+    per-call time, as the ``kernels`` line has always reported it."""
+    return {key: cuda_ms(fn), key.replace("ms", "device_ms", 1): device_ms(fn)}
 
 
 def compare(name, out, ref, tol):
@@ -262,8 +365,10 @@ def scatter_backward_case(gen, sargs):
     ``ScatterMaxFold2d`` on the kernel's forward, and through the same
     backward on the twin's forward, with one seeded bf16 cotangent. The
     stem's bf16 post-ReLU rows tie within their cells (zeros most of all).
-    The two gradients must be bit-equal; returns the median fwd+bwd ms of
-    each (the kernel's through autograd) and of the backward alone."""
+    The two gradients must be bit-equal; returns the fwd+bwd ms of each
+    (the kernel's through autograd) and of the backward alone, per call
+    and on the device (:func:`call_and_device_ms`), and the backward's
+    bound."""
     from partner_tpu_torch.ops import scatter_max
 
     x, coords, mask, shape = sargs
@@ -299,8 +404,65 @@ def scatter_backward_case(gen, sargs):
     log("scatter_max backward (1, 64, 216000): bit-equal to the twin route")
     bwd = lambda: scatter_max.scatter_max_fold2d_backward(
         x.detach(), coords, mask, canvas, g, shape)
-    return dict(fwd_bwd_ms=cuda_ms(kernel_route),
-                plain_fwd_bwd_ms=cuda_ms(plain_route), bwd_ms=cuda_ms(bwd))
+    return dict(**call_and_device_ms("fwd_bwd_ms", kernel_route),
+                **call_and_device_ms("plain_fwd_bwd_ms", plain_route),
+                **call_and_device_ms("bwd_ms", bwd),
+                bwd_bound_ms=bound(kernel_work(
+                    "scatter_max_backward", x, coords, mask, shape))[0])
+
+
+def scatter_library_call(x_t, coords_t, mask, canvas_shape):
+    """The one PyTorch call that computes the scatter-max, on a canvas and
+    indices made beforehand: ``Tensor.scatter_reduce_(1, idx, src,
+    "amax", include_self=True)``, as the plain twin makes it."""
+    from partner_tpu_torch.ops import scatter_max
+
+    b, c, _ = x_t.shape
+    cells = int(np.prod(canvas_shape))
+    lin = scatter_max._cell_index(coords_t, mask, canvas_shape)
+    idx = lin[..., None].expand(-1, -1, c)
+    src = x_t.transpose(1, 2)
+    base = torch.zeros((b, cells + 1, c), dtype=x_t.dtype, device=x_t.device)
+    return lambda: base.scatter_reduce_(1, idx, src, "amax",
+                                        include_self=True)
+
+
+def attention_library_call(args):
+    """``F.scaled_dot_product_attention`` on the kernel's q, k, v with the
+    RPE bias and region mask summed beforehand into one bf16 table: a
+    yardstick of the attention core only (no cosine norms, no RPE MLP)."""
+    import torch.nn.functional as F
+
+    q, k, v, pos, mask, w1, b1, w2, b2, tau = args
+    rel = pos[:, :, None, :] - pos[:, None, :, :]
+    rpe = (torch.relu(rel @ w1 + b1) @ w2 + b2).permute(0, 3, 1, 2)
+    if mask is not None:
+        nm = mask.shape[0]
+        rpe = (rpe.reshape(-1, nm, *rpe.shape[1:]) + mask[None, :, None]
+               ).reshape(rpe.shape)
+    table = rpe.to(q.dtype).contiguous()
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=table,
+                                                  scale=1.0)
+
+
+def timed(name, args, kernel, plain, library=None):
+    """Times of the kernel, its plain twin and the library call, per call
+    (``ms``, ``plain_ms``, ``library_ms``) and on the device
+    (``device_ms``, ...; :func:`call_and_device_ms`), the kernel's bound
+    and the share of the bound its device time reaches."""
+    bound_ms, bound_by = bound(kernel_work(name, *args))
+    r = dict(**call_and_device_ms("ms", kernel),
+             **call_and_device_ms("plain_ms", plain),
+             **(dict(library_ms=None, library_device_ms=None)
+                if library is None else
+                call_and_device_ms("library_ms", library)),
+             bound_ms=bound_ms, bound_by=bound_by)
+    r["bound_share"] = bound_ms / r["device_ms"]
+    log(f"{name}: kernel {r['ms']!r} ms a call ({r['device_ms']!r} device), "
+        f"plain {r['plain_ms']!r} ({r['plain_device_ms']!r}), library "
+        f"{r['library_ms']!r} ({r['library_device_ms']!r}); bound "
+        f"{bound_ms!r} ms by {bound_by}, {r['bound_share']!r} of it reached")
+    return r
 
 
 def kernel_phase(gen, dev):
@@ -312,10 +474,9 @@ def kernel_phase(gen, dev):
     ref = stem.stem2_channel_major_plain(*args)
     torch.cuda.synchronize()
     err = compare("stem2_channel_major (1, 10, 216000)", out, ref, KERNEL_TOL)
-    results["stem"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: stem.stem2_channel_major(*args)),
-        plain_ms=cuda_ms(lambda: stem.stem2_channel_major_plain(*args)))
+    results["stem"] = dict(max_abs_err=err, **timed(
+        "stem", args, lambda: stem.stem2_channel_major(*args),
+        lambda: stem.stem2_channel_major_plain(*args)))
 
     sargs = scatter_case(ref, dev)
     out = scatter_max.scatter_max_fold2d(*sargs)
@@ -326,9 +487,10 @@ def kernel_phase(gen, dev):
         "canvas values > 0")
     err = compare("scatter_max_fold2d (1, 64, 216000) -> (1, 512, 288, 320)",
                   out, ref, 0.0)
-    results["scatter_max"] = dict(
-        ms=cuda_ms(lambda: scatter_max.scatter_max_fold2d(*sargs)),
-        plain_ms=cuda_ms(lambda: scatter_max.scatter_max_fold2d_plain(*sargs)))
+    results["scatter_max"] = timed(
+        "scatter_max", sargs, lambda: scatter_max.scatter_max_fold2d(*sargs),
+        lambda: scatter_max.scatter_max_fold2d_plain(*sargs),
+        scatter_library_call(*sargs))
     # the float32 entry (the float32 configuration), same rows
     fargs = (sargs[0].float(),) + tuple(sargs[1:])
     out = scatter_max.scatter_max_fold2d(*fargs)
@@ -338,8 +500,10 @@ def kernel_phase(gen, dev):
                            ref, 0.0))
     results["scatter_max"].update(
         max_abs_err=err,
-        ms_f32=cuda_ms(lambda: scatter_max.scatter_max_fold2d(*fargs)),
-        plain_ms_f32=cuda_ms(
+        **call_and_device_ms(
+            "ms_f32", lambda: scatter_max.scatter_max_fold2d(*fargs)),
+        **call_and_device_ms(
+            "plain_ms_f32",
             lambda: scatter_max.scatter_max_fold2d_plain(*fargs)))
     results["scatter_max"].update(scatter_backward_case(gen, sargs))
 
@@ -352,13 +516,15 @@ def kernel_phase(gen, dev):
         tag = "mask" if with_mask else "no_mask"
         errs.append(compare(f"swin_vote_attention (576, 4, 64, 64) {tag}",
                             out, ref, KERNEL_TOL))
-        times[tag] = (
-            cuda_ms(lambda: swin_attn.swin_vote_attention(*args)),
-            cuda_ms(lambda: swin_attn.swin_vote_attention_plain(*args)))
+        times[tag] = timed(
+            "swin_attn", args, lambda: swin_attn.swin_vote_attention(*args),
+            lambda: swin_attn.swin_vote_attention_plain(*args),
+            attention_library_call(args))
     results["swin_attn"] = dict(
-        max_abs_err=max(errs), ms=times["mask"][0],
-        plain_ms=times["mask"][1], ms_no_mask=times["no_mask"][0],
-        plain_ms_no_mask=times["no_mask"][1])
+        max_abs_err=max(errs), **times["mask"],
+        **{f"{k}_no_mask": times["no_mask"][k] for k in (
+            "ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
+            "library_device_ms")})
 
     errs, times = [], {}
     for shift in (4, 0):
@@ -369,32 +535,30 @@ def kernel_phase(gen, dev):
         tag = "shifted" if shift else "unshifted"
         errs.append(compare(f"swin_vote_block (1, 256, 144, 256) {tag}",
                             out, ref, KERNEL_TOL))
-        times[tag] = (
-            cuda_ms(lambda: swin_block.swin_vote_block(*args)),
-            cuda_ms(lambda: swin_block.swin_vote_block_plain(*args)),
-            cuda_ms(lambda: swin_block.block_bias_table(
+        times[tag] = timed(
+            "swin_block", args, lambda: swin_block.swin_vote_block(*args),
+            lambda: swin_block.swin_vote_block_plain(*args))
+        times[tag].update(call_and_device_ms(
+            "bias_table_ms", lambda: swin_block.block_bias_table(
                 pos, mask, params["rpe"], torch.bfloat16, args[-1])))
     results["swin_block"] = dict(
-        max_abs_err=max(errs), ms=times["shifted"][0],
-        plain_ms=times["shifted"][1], ms_unshifted=times["unshifted"][0],
-        plain_ms_unshifted=times["unshifted"][1],
-        bias_table_ms=times["shifted"][2])
+        max_abs_err=max(errs), **times["shifted"],
+        **{f"{k}_unshifted": times["unshifted"][k] for k in (
+            "ms", "device_ms", "plain_ms", "plain_device_ms")})
 
-    for name, r in results.items():
-        log(f"{name}: kernel {r['ms']!r} ms, plain {r['plain_ms']!r} ms "
-            "(median of 20 calls, CUDA events, warm L2)")
-    log(f"swin_attn unshifted: kernel {results['swin_attn']['ms_no_mask']!r}"
-        f" ms, plain {results['swin_attn']['plain_ms_no_mask']!r} ms")
     sm = results["scatter_max"]
-    log(f"scatter_max float32: kernel {sm['ms_f32']!r} ms, plain "
-        f"{sm['plain_ms_f32']!r} ms")
-    log(f"scatter_max fwd+bwd: kernel route {sm['fwd_bwd_ms']!r} ms "
-        f"(through autograd), twin route {sm['plain_fwd_bwd_ms']!r} ms; the "
-        f"backward alone {sm['bwd_ms']!r} ms")
+    log(f"scatter_max float32: kernel {sm['ms_f32']!r} ms a call "
+        f"({sm['device_ms_f32']!r} device), plain {sm['plain_ms_f32']!r} "
+        f"({sm['plain_device_ms_f32']!r})")
+    log(f"scatter_max fwd+bwd: kernel route {sm['fwd_bwd_ms']!r} ms a call "
+        f"({sm['fwd_bwd_device_ms']!r} device; through autograd), twin "
+        f"route {sm['plain_fwd_bwd_ms']!r} ({sm['plain_fwd_bwd_device_ms']!r})"
+        f"; the backward alone {sm['bwd_ms']!r} ({sm['bwd_device_ms']!r}), "
+        f"its bound {sm['bwd_bound_ms']!r} ms by bytes")
     sb = results["swin_block"]
-    log(f"swin_block unshifted: kernel {sb['ms_unshifted']!r} ms, plain "
-        f"{sb['plain_ms_unshifted']!r} ms; its bias table (plain torch, "
-        f"outside the kernel) {sb['bias_table_ms']!r} ms")
+    log(f"swin_block: its bias table (plain torch, outside the kernel) "
+        f"{sb['bias_table_ms']!r} ms a call ({sb['bias_table_device_ms']!r} "
+        "device)")
     return results
 
 
@@ -864,7 +1028,8 @@ def main():
     log(f"nvcc build of partner_tpu_torch/csrc: {lib.build_seconds!r} s "
         f"-> {os.path.relpath(lib.so_path, ROOT)}")
     for line in lib.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if ("registers" in line or "spill" in line
+                or "Compiling entry" in line):
             log("  ptxas:", line.strip())
 
     gen = torch.Generator().manual_seed(SEED)

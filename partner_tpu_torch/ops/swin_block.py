@@ -61,10 +61,10 @@ def swin_vote_block_params(block, dtype):
     ``SwinVoteTransformer._block_kernel_params`` gathers the flax block's.
 
     The qkv, proj and MLP weights are cast to ``dtype`` and keep torch's
-    (out, in) layout, in which the CUDA kernel reads each output column's
-    weights contiguously; everything else is float32: the norms, every
-    bias, the vote MLP (flax's (in, out) layout), ``itau = 1 /
-    max(tau, 0.01)`` and, under ``"rpe"``, the RPE MLP for
+    (out, in) layout, K contiguous, from which the CUDA kernel copies
+    tiles of 64 K columns into shared memory; everything else is float32:
+    the norms, every bias, the vote MLP (flax's (in, out) layout), ``itau
+    = 1 / max(tau, 0.01)`` and, under ``"rpe"``, the RPE MLP for
     :func:`block_bias_table`."""
     a = block.attn
     f32 = torch.float32
@@ -235,6 +235,10 @@ def swin_vote_block(x, vote, bias, params, nh, ws):
         req(tuple(a.shape) == shape,
             f"swin_block: {name} shape {tuple(a.shape)} != {shape}")
         req(a.is_contiguous(), f"swin_block: {name} must be contiguous")
+        # the kernel copies rows of x, the weights and vote_w2 16 bytes at
+        # a time
+        req(a.data_ptr() % 16 == 0, f"swin_block: {name} must be 16-byte "
+            "aligned")
     out = torch.empty_like(x)
     if b * nwy * nwx == 0:
         return out

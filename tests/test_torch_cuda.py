@@ -80,10 +80,11 @@ def test_attention_kernel_matches_plain(cuda, mask_windows):
     _close(out, swin_attn.swin_vote_attention_plain(*args))
 
 
-def _block_args(dev, shift, seed=0, h=16, w=24):
-    """Whole-block op inputs, batch 2 of a 16 x 24 map, at the kernel's
-    widths: a SwinVoteBlock with random weights and norms, cell positions
-    0-75 m, the real region mask for a shifted block."""
+def _block_args(dev, shift, seed=0, h=16, w=24, b=2):
+    """Whole-block op inputs, batch b of an h x w map (default 2 of 16 x
+    24), at the kernel's widths: a SwinVoteBlock with random weights and
+    norms, cell positions 0-75 m, the real region mask for a shifted
+    block."""
     from partner_tpu_torch.models.layers import init_weights
     from partner_tpu_torch.models.swin_vote import SwinVoteBlock, swin_attn_mask
     from partner_tpu_torch.ops import swin_block
@@ -98,9 +99,9 @@ def _block_args(dev, shift, seed=0, h=16, w=24):
             elif "norm" in name or name.endswith("tau"):
                 t.copy_(0.5 + torch.rand(t.shape, generator=g))
     block = block.to(dev)
-    x = torch.randn(2, h, w, 256, generator=g).to(torch.bfloat16)
-    pos = torch.rand(2, h, w, 2, generator=g) * 75
-    vote = torch.randn(2, h, w, 3, generator=g)
+    x = torch.randn(b, h, w, 256, generator=g).to(torch.bfloat16)
+    pos = torch.rand(b, h, w, 2, generator=g) * 75
+    vote = torch.randn(b, h, w, 3, generator=g)
     mask = (torch.from_numpy(swin_attn_mask(h, w, 8, shift)) if shift
             else None)
     x, pos, vote = (a.to(dev) for a in (x, pos, vote))
@@ -121,6 +122,72 @@ def test_block_kernel_matches_plain(cuda, shift):
     torch.cuda.synchronize()
     assert swin_block.swin_vote_block.launches == before + 1
     _close(out, swin_block.swin_vote_block_plain(x, vote, bias, params, 4, 8))
+
+
+@pytest.mark.parametrize("shift", [0, 4], ids=["unshifted", "shifted"])
+@pytest.mark.parametrize("b", [1, 2], ids=["15-windows", "batch-2"])
+def test_block_kernel_tiling_edges(cuda, shift, b):
+    """A 24 x 40 map: 15 windows a sample, a count that divides neither by
+    the SM count nor by the windows a persistent block takes."""
+    from partner_tpu_torch.ops import swin_block
+
+    x, vote, bias, params = _block_args(cuda, shift, seed=1, h=24, w=40, b=b)
+    out = swin_block.swin_vote_block(x, vote, bias, params, 4, 8)
+    torch.cuda.synchronize()
+    _close(out, swin_block.swin_vote_block_plain(x, vote, bias, params, 4, 8))
+
+
+@pytest.mark.parametrize("shift", [0, 4], ids=["unshifted", "shifted"])
+def test_block_kernel_walks_windows_against_plain(cuda, shift):
+    """300 windows (a 96 x 200 map): each persistent block walks 2 or 3
+    windows. Held against the plain twin within TOL, element by element.
+    Kernel and twin round the same intermediates to bf16 (LN outputs, q,
+    k, P, v, head outputs, the GELU) from sums taken in another order; a
+    bf16 flip early in a window can carry a few outputs beyond TOL of the
+    twin. Such an element passes only where the kernel lies within TOL of
+    the same block computed in float32 with no rounding (the twin on a
+    float32 x): there the twin, not the kernel, is the one that strayed."""
+    from partner_tpu_torch.ops import swin_block
+
+    x, vote, bias, params = _block_args(cuda, shift, seed=1, h=96, w=200,
+                                        b=1)
+    out = swin_block.swin_vote_block(x, vote, bias, params, 4, 8).float()
+    plain = swin_block.swin_vote_block_plain(x, vote, bias, params, 4,
+                                             8).float()
+    exact = swin_block.swin_vote_block_plain(x.float(), vote, bias, params,
+                                             4, 8)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    off_plain = (out - plain).abs() > TOL * (1 + plain.abs())
+    off_exact = (out - exact).abs() > TOL * (1 + exact.abs())
+    print(f"300 windows, shift {shift}: {int(off_plain.sum())} of "
+          f"{out.numel()} elements beyond TOL of the twin, "
+          f"{int((off_plain & off_exact).sum())} of them beyond TOL of "
+          f"float32; max |kernel - twin| {float((out - plain).abs().max())}"
+          f", max |kernel - float32| {float((out - exact).abs().max())}, "
+          f"max |twin - float32| {float((plain - exact).abs().max())}")
+    assert not bool((off_plain & off_exact).any())
+
+
+@pytest.mark.parametrize("shift", [0, 4], ids=["unshifted", "shifted"])
+def test_block_kernel_walks_windows_exactly(cuda, shift):
+    """300 windows (a 96 x 200 map): each persistent block walks 2 or 3
+    windows, its weight stream running on from one into the next. A window
+    is computed the same wherever it runs, so the result is bit-equal to
+    launching each row of 25 windows alone (fewer windows than SMs: one
+    window a block)."""
+    from partner_tpu_torch.ops import swin_block
+
+    x, vote, bias, params = _block_args(cuda, shift, seed=1, h=96, w=200,
+                                        b=1)
+    out = swin_block.swin_vote_block(x, vote, bias, params, 4, 8)
+    rows = [swin_block.swin_vote_block(
+        x[:, 8 * r:8 * r + 8].contiguous(), vote[:, 8 * r:8 * r + 8]
+        .contiguous(), bias[:, r:r + 1].contiguous(), params, 4, 8)
+        for r in range(12)]
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(out, torch.cat(rows, 1))
 
 
 def _scatter_args(dev, b=2, p=7013, seed=0, shape=(5, 12, 9),
