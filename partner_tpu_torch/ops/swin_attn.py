@@ -13,14 +13,19 @@ computed from pre-normalized bf16 q/k as the JAX package's plain path
 
 :func:`swin_vote_attention` launches ``csrc/swin_attn.cu`` for CUDA tensors
 and runs :func:`swin_vote_attention_plain` for CPU tensors; there is no
-other switch. ``swin_vote_attention.launches`` counts kernel launches.
+other switch. ``swin_vote_attention.launches`` counts kernel launches. The
+kernel takes one window per block over all 4 heads: both products on the
+tensor cores (``mma.sync``), logits and softmax in registers, and the RPE
+MLP evaluated once per window into a shared table for all heads (the
+source note has the design and its rounding).
 """
 
 import torch
 
 from . import _cuda
 
-T, HD, HIDDEN = 64, 64, 16  # the shapes csrc/swin_attn.cu is compiled for
+# the shapes csrc/swin_attn.cu is compiled for
+T, HD, HIDDEN, NH = 64, 64, 16, 4
 
 
 def swin_vote_attention_plain(q, k, v, pos, mask, w1, b1, w2, b2, tau):
@@ -62,8 +67,9 @@ def swin_vote_attention(q, k, v, pos, mask, w1, b1, w2, b2, tau):
     """Fused window attention: the CUDA kernel for CUDA tensors, the plain
     twin for CPU tensors. Same arguments and result as
     :func:`swin_vote_attention_plain`; the kernel takes bf16 q/k/v with
-    T = 64, hd = 64 and an RPE hidden width of 16. Forward only: it raises
-    when an input needs a gradient under grad mode."""
+    4 heads, T = 64, hd = 64 and an RPE hidden width of 16, every tensor
+    contiguous, and q, k, v, pos and the mask 16-byte aligned. Forward
+    only: it raises when an input needs a gradient under grad mode."""
     _cuda.refuse_autograd("swin_attn", q, k, v, pos, mask, w1, b1, w2, b2,
                           tau)
     if q.device.type == "cpu":
@@ -72,9 +78,9 @@ def swin_vote_attention(q, k, v, pos, mask, w1, b1, w2, b2, tau):
     req = _cuda.require
     req(q.device.type == "cuda", f"swin_attn: unsupported device {q.device}")
     nw, nh, t, hd = q.shape
-    req((t, hd, w1.shape[1]) == (T, HD, HIDDEN),
-        f"swin_attn kernel is built for T, hd, hidden = {T, HD, HIDDEN}; got "
-        f"{t, hd, w1.shape[1]}")
+    req((nh, t, hd, w1.shape[1]) == (NH, T, HD, HIDDEN),
+        f"swin_attn kernel is built for nh, T, hd, hidden = "
+        f"{NH, T, HD, HIDDEN}; got {nh, t, hd, w1.shape[1]}")
     nwm = nw if mask is None else mask.shape[0]
     req(nwm > 0 and nw % nwm == 0, "swin_attn: mask windows must divide nW")
     f32, bf16 = torch.float32, torch.bfloat16
@@ -91,6 +97,9 @@ def swin_vote_attention(q, k, v, pos, mask, w1, b1, w2, b2, tau):
         req(tuple(x.shape) == shape,
             f"swin_attn: {name} shape {tuple(x.shape)} != {shape}")
         req(x.is_contiguous(), f"swin_attn: {name} must be contiguous")
+        if name in ("q", "k", "v", "pos", "mask"):  # copied 16 bytes a time
+            req(x.data_ptr() % 16 == 0,
+                f"swin_attn: {name} must be 16-byte aligned")
     out = torch.empty_like(q)
     if nw == 0:
         return out

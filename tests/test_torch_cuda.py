@@ -52,7 +52,10 @@ def test_stem_kernel_matches_plain(cuda):
     _close(out, stem.stem2_channel_major_plain(*args))
 
 
-def _attn_args(dev, nw, mask_windows, seed=0):
+def _attn_args(dev, nw, mask_map=None, seed=0):
+    """Window attention inputs: nw windows of 4 heads, T 64, hd 64 in
+    bf16; with mask_map (h, w), the shifted-window region mask (shift 4)
+    of that map's windows, which window w takes as mask[w % nWm]."""
     from partner_tpu_torch.models.swin_vote import swin_attn_mask
 
     g = torch.Generator().manual_seed(seed)
@@ -60,9 +63,8 @@ def _attn_args(dev, nw, mask_windows, seed=0):
     q, k, v = (rnd(nw, 4, 64, 64).to(torch.bfloat16) for _ in range(3))
     pos = rnd(nw, 64, 2) * 20
     mask = None
-    if mask_windows:
-        m = torch.from_numpy(swin_attn_mask(16, 8 * mask_windows // 2, 8, 4))
-        mask = m[:mask_windows].contiguous()
+    if mask_map is not None:
+        mask = torch.from_numpy(swin_attn_mask(*mask_map, 8, 4))
     args = [q, k, v, pos, mask, 0.3 * rnd(2, 16), 0.1 * rnd(16),
             0.3 * rnd(16, 4), 0.1 * rnd(4), 0.5 + torch.rand(4, generator=g)]
     return [None if a is None else a.to(dev) for a in args]
@@ -72,12 +74,89 @@ def _attn_args(dev, nw, mask_windows, seed=0):
 def test_attention_kernel_matches_plain(cuda, mask_windows):
     from partner_tpu_torch.ops import swin_attn
 
-    args = _attn_args(cuda, 12, mask_windows)  # mask tiled 3x
+    # 4 mask windows tiled 3x
+    args = _attn_args(cuda, 12, (16, 16) if mask_windows else None)
     before = swin_attn.swin_vote_attention.launches
     out = swin_attn.swin_vote_attention(*args)
     torch.cuda.synchronize()
     assert swin_attn.swin_vote_attention.launches == before + 1
     _close(out, swin_attn.swin_vote_attention_plain(*args))
+
+
+# (windows, the map whose shifted-window mask they take, or None)
+ATTN_GRID_CASES = {
+    "1-no-mask": (1, None), "1-mask": (1, (8, 8)),
+    "13-no-mask": (13, None), "13-mask": (13, (8, 104)),
+    "133-no-mask": (133, None), "133-mask": (133, (56, 152)),
+    "26-mask-tiled": (26, (8, 104)),
+}
+
+
+@pytest.mark.parametrize("case", list(ATTN_GRID_CASES))
+def test_attention_kernel_grid_edges(cuda, case):
+    """Window counts that stress the grid of one block per window, one
+    resident per SM: one window, fewer windows than SMs, one more than 132
+    (a second wave), without the mask, with a mask per window, and with a
+    mask tiled across a batch of 2 (nW = 2 nWm)."""
+    from partner_tpu_torch.ops import swin_attn
+
+    nw, mask_map = ATTN_GRID_CASES[case]
+    args = _attn_args(cuda, nw, mask_map, seed=2)
+    out = swin_attn.swin_vote_attention(*args)
+    torch.cuda.synchronize()
+    _close(out, swin_attn.swin_vote_attention_plain(*args))
+
+
+ATTN_300_MASKS = {"no-mask": None, "mask": (96, 200),
+                   "mask-tiled": (80, 120)}
+
+
+@pytest.mark.parametrize("mask", list(ATTN_300_MASKS))
+def test_attention_kernel_300_windows_against_plain(cuda, mask):
+    """300 windows (a 96 x 200 map; tiled: 150 mask windows, a batch of 2),
+    2-3 waves of blocks. Held against the plain twin within TOL, element by
+    element. Kernel and twin round P and the output
+    to bf16 from f32 sums taken in another order, so a rounding can flip;
+    an element beyond TOL of the twin passes only where the kernel lies
+    within TOL of the same attention in float32 with no rounding (the twin
+    on float32 q, k, v: P is not rounded)."""
+    from partner_tpu_torch.ops import swin_attn
+
+    args = _attn_args(cuda, 300, ATTN_300_MASKS[mask], seed=1)
+    out = swin_attn.swin_vote_attention(*args).float()
+    plain = swin_attn.swin_vote_attention_plain(*args).float()
+    exact = swin_attn.swin_vote_attention_plain(
+        *(a.float() for a in args[:3]), *args[3:])
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    off_plain = (out - plain).abs() > TOL * (1 + plain.abs())
+    off_exact = (out - exact).abs() > TOL * (1 + exact.abs())
+    print(f"300 windows, {mask}: {int(off_plain.sum())} of {out.numel()} "
+          f"elements beyond TOL of the twin, "
+          f"{int((off_plain & off_exact).sum())} of them beyond TOL of "
+          f"float32; max |kernel - twin| {float((out - plain).abs().max())}"
+          f", max |kernel - float32| {float((out - exact).abs().max())}, "
+          f"max |twin - float32| {float((plain - exact).abs().max())}")
+    assert not bool((off_plain & off_exact).any())
+
+
+@pytest.mark.parametrize("mask", ["no-mask", "mask"])
+def test_attention_kernel_300_windows_exactly(cuda, mask):
+    """300 windows: a window is computed the same wherever and whenever it
+    runs, so the launch is bit-equal to launching each row of 25 windows
+    alone (fewer windows than SMs: one wave)."""
+    from partner_tpu_torch.ops import swin_attn
+
+    args = _attn_args(cuda, 300, ATTN_300_MASKS[mask], seed=1)
+    out = swin_attn.swin_vote_attention(*args)
+    rows = []
+    for r in range(12):
+        part = [a[25 * r:25 * r + 25].contiguous() for a in args[:4]]
+        m = None if args[4] is None else args[4][25 * r:25 * r + 25]
+        rows.append(swin_attn.swin_vote_attention(*part, m, *args[5:]))
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(out, torch.cat(rows))
 
 
 def _block_args(dev, shift, seed=0, h=16, w=24, b=2):
@@ -221,13 +300,23 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     args = _stem_args(cuda, b=1, p=64)
     with pytest.raises(ValueError):  # f32 features: the kernel takes bf16
         stem.stem2_channel_major(args[0].float(), *args[1:])
-    args = _attn_args(cuda, 2, 0)
+    args = _attn_args(cuda, 2)
     with pytest.raises(ValueError):  # non-contiguous q
         swin_attn.swin_vote_attention(args[0].transpose(2, 3), *args[1:])
     with pytest.raises(ValueError):  # T = 32: the kernel takes 64
         swin_attn.swin_vote_attention(
             *(a[:, :, :32].contiguous() for a in args[:3]), args[3][:, :32],
             *args[4:])
+    with pytest.raises(ValueError):  # 2 heads: the kernel takes 4
+        swin_attn.swin_vote_attention(
+            *(a[:, :2].contiguous() for a in args[:3]), *args[3:7],
+            args[7][:, :2].contiguous(), args[8][:2].contiguous(),
+            args[9][:2].contiguous())
+    q_off = torch.empty(args[0].numel() + 1, dtype=torch.bfloat16,
+                        device=cuda)[1:].view(args[0].shape)
+    q_off.copy_(args[0])
+    with pytest.raises(ValueError):  # q 2 bytes off a 16-byte boundary
+        swin_attn.swin_vote_attention(q_off, *args[1:])
     x, vote, bias, params = _block_args(cuda, 0)
     with pytest.raises(ValueError):  # f32 x: the kernel takes bf16
         swin_block.swin_vote_block(x.float(), vote, bias, params, 4, 8)
