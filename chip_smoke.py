@@ -17,7 +17,9 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
    beside its twin's, beside the one PyTorch call that computes the same
    function where there is one (timed here only, never called by the
    port), and beside its bound, the least time the card could take for
-   the work (:func:`kernel_work`, :func:`bound`);
+   the work (:func:`kernel_work`, :func:`bound`); for the stem also the
+   count of outputs not equal to its twin, for the scatter-max the time of
+   its canvas fill alone;
 3. frame: the flagship PARTNER detector
    (``configs/waymo/waymo_partner_36epoch.py``) at full width in bf16,
    random weights from a seeded ``torch.Generator`` with every norm
@@ -259,6 +261,15 @@ def compare(name, out, ref, tol):
     return max_err
 
 
+def not_equal(name, out, ref):
+    """{"not_equal": elements of ``out`` whose value differs from ``ref``,
+    "elements": their number}: a kernel that sums in another order than its
+    twin can flip a bf16 rounding within the bound."""
+    n = int((out.float() != ref.float()).sum())
+    log(f"{name}: {n} of {out.numel()} elements not equal to the twin")
+    return {"not_equal": n, "elements": out.numel()}
+
+
 # ------------------------------------------------------------------ kernels
 
 def stem_case(gen, dev):
@@ -474,9 +485,11 @@ def kernel_phase(gen, dev):
     ref = stem.stem2_channel_major_plain(*args)
     torch.cuda.synchronize()
     err = compare("stem2_channel_major (1, 10, 216000)", out, ref, KERNEL_TOL)
-    results["stem"] = dict(max_abs_err=err, **timed(
-        "stem", args, lambda: stem.stem2_channel_major(*args),
-        lambda: stem.stem2_channel_major_plain(*args)))
+    results["stem"] = dict(max_abs_err=err, **not_equal("stem", out, ref),
+                           **timed("stem", args,
+                                   lambda: stem.stem2_channel_major(*args),
+                                   lambda: stem.stem2_channel_major_plain(
+                                       *args)))
 
     sargs = scatter_case(ref, dev)
     out = scatter_max.scatter_max_fold2d(*sargs)
@@ -506,6 +519,12 @@ def kernel_phase(gen, dev):
             "plain_ms_f32",
             lambda: scatter_max.scatter_max_fold2d_plain(*fargs)))
     results["scatter_max"].update(scatter_backward_case(gen, sargs))
+    # the wrapper's zero fill of the canvas alone, in each dtype
+    b, c, _ = sargs[0].shape
+    for tag, dt in (("", torch.bfloat16), ("_f32", torch.float32)):
+        results["scatter_max"].update(call_and_device_ms(
+            f"zero_ms{tag}", lambda: torch.zeros(
+                (b, int(np.prod(sargs[3])), c), dtype=dt, device=dev)))
 
     errs, times = [], {}
     for with_mask in (True, False):
@@ -550,6 +569,9 @@ def kernel_phase(gen, dev):
     log(f"scatter_max float32: kernel {sm['ms_f32']!r} ms a call "
         f"({sm['device_ms_f32']!r} device), plain {sm['plain_ms_f32']!r} "
         f"({sm['plain_device_ms_f32']!r})")
+    log(f"scatter_max canvas fill alone (torch.zeros): {sm['zero_ms']!r} ms "
+        f"a call ({sm['zero_device_ms']!r} device); float32 "
+        f"{sm['zero_ms_f32']!r} ({sm['zero_device_ms_f32']!r})")
     log(f"scatter_max fwd+bwd: kernel route {sm['fwd_bwd_ms']!r} ms a call "
         f"({sm['fwd_bwd_device_ms']!r} device; through autograd), twin "
         f"route {sm['plain_fwd_bwd_ms']!r} ({sm['plain_fwd_bwd_device_ms']!r})"

@@ -65,10 +65,11 @@ def scatter_max_fold2d(x_t, coords_t, mask, canvas_shape):
     """Scatter-max into the z-folded canvas: the CUDA kernel for CUDA
     tensors, the plain twin for CPU tensors. Same arguments and result as
     :func:`scatter_max_fold2d_plain` (values equal; a -0.0 input leaves
-    +0.0); the kernel takes bf16 features with an even C, or float32
-    features. It drops a row whose coords fall outside the canvas where the
-    twin raises. Forward only: it raises when ``x_t`` needs a gradient
-    under grad mode (use :class:`ScatterMaxFold2d`)."""
+    +0.0); the kernel takes bf16 or float32 features with C a multiple of
+    8 and a canvas of fewer than 2**31 cells. It drops a row whose coords
+    fall outside the canvas where the twin raises. Forward only: it raises
+    when ``x_t`` needs a gradient under grad mode (use
+    :class:`ScatterMaxFold2d`)."""
     _cuda.refuse_autograd("scatter_max", x_t)
     if x_t.device.type == "cpu":
         return scatter_max_fold2d_plain(x_t, coords_t, mask, canvas_shape)
@@ -80,9 +81,11 @@ def scatter_max_fold2d(x_t, coords_t, mask, canvas_shape):
     entry = _ENTRY.get(x_t.dtype)
     req(entry is not None,
         f"scatter_max: x_t must be bfloat16 or float32, got {x_t.dtype}")
-    req(x_t.dtype != torch.bfloat16 or c % 2 == 0,
-        f"scatter_max: the bf16 kernel takes an even C, got {c}")
+    req(c % 8 == 0, f"scatter_max: the kernel takes C a multiple of 8, "
+        f"got {c}")
     cz, cy, cx = (int(s) for s in canvas_shape)
+    req(cz * cy * cx < 2 ** 31,
+        f"scatter_max: {cz * cy * cx} cells, the kernel takes < 2**31")
     for name, t, dt, shape in (
             ("x_t", x_t, x_t.dtype, (b, c, p)),
             ("coords_t", coords_t, torch.int32, (b, 3, p)),

@@ -45,8 +45,9 @@ def stem2_channel_major_plain(x, mask, w1, a1, b1, w2, a2, b2):
 def stem2_channel_major(x, mask, w1, a1, b1, w2, a2, b2):
     """Fused stem: the CUDA kernel for CUDA tensors, the plain twin for CPU
     tensors. Same arguments and result as :func:`stem2_channel_major_plain`;
-    the kernel takes bf16 features (C_in, F1, F2) = (10, 32, 64). Forward
-    only: it raises when an input needs a gradient under grad mode."""
+    the kernel takes bf16 features (C_in, F1, F2) = (10, 32, 64), any P,
+    and a w2 at a 4-byte boundary. Forward only: it raises when an input
+    needs a gradient under grad mode."""
     _cuda.refuse_autograd("stem", x, w1, a1, b1, w2, a2, b2)
     if x.device.type == "cpu":
         return stem2_channel_major_plain(x, mask, w1, a1, b1, w2, a2, b2)
@@ -65,6 +66,7 @@ def stem2_channel_major(x, mask, w1, a1, b1, w2, a2, b2):
             f"stem: {name} shape {tuple(t.shape)} != {shape} (the kernel is "
             f"built for C_in, F1, F2 = {CIN, F1, F2})")
         req(t.is_contiguous(), f"stem: {name} must be contiguous")
+    req(w2.data_ptr() % 4 == 0, "stem: w2 must start at a 4-byte boundary")
     out = torch.empty((bsz, F2, p), dtype=torch.bfloat16, device=x.device)
     if bsz == 0 or p == 0:
         return out

@@ -52,6 +52,39 @@ def test_stem_kernel_matches_plain(cuda):
     _close(out, stem.stem2_channel_major_plain(*args))
 
 
+# (batch, points, x 2 bytes past a 16-byte boundary)
+STEM_CASES = {"p1": (2, 1, False), "p15": (2, 15, False),
+              "p16": (2, 16, False), "p17": (2, 17, False),
+              "p5037": (2, 5037, False), "p216000": (1, 216_000, False),
+              "p4096-unaligned-x": (1, 4096, True)}
+
+
+@pytest.mark.parametrize("case", list(STEM_CASES))
+def test_stem_kernel_point_counts(cuda, case):
+    """Point counts below, at and past one 16-point m-tile, a ragged tail,
+    the flagship buffer, and an x off a 16-byte boundary (the scalar copies
+    of the kernel), against the twin within TOL. The tensor cores sum the
+    products in another order than the twin's f32 matmul, so a bf16
+    rounding can flip: fewer than 0.1% of the outputs may differ."""
+    from partner_tpu_torch.ops import stem
+
+    b, p, offset = STEM_CASES[case]
+    args = _stem_args(cuda, b=b, p=p, seed=3)
+    if offset:
+        x = torch.empty(args[0].numel() + 1, dtype=torch.bfloat16,
+                        device=cuda)[1:].view(args[0].shape)
+        x.copy_(args[0])
+        args[0] = x
+    out = stem.stem2_channel_major(*args)
+    ref = stem.stem2_channel_major_plain(*args)
+    torch.cuda.synchronize()
+    _close(out, ref)
+    n_diff = int((out.float() != ref.float()).sum())
+    print(f"stem {case}: {n_diff} of {out.numel()} outputs not equal to "
+          "the twin")
+    assert n_diff <= 1e-3 * out.numel()
+
+
 def _attn_args(dev, nw, mask_map=None, seed=0):
     """Window attention inputs: nw windows of 4 heads, T 64, hd 64 in
     bf16; with mask_map (h, w), the shifted-window region mask (shift 4)
@@ -280,6 +313,74 @@ def _scatter_args(dev, b=2, p=7013, seed=0, shape=(5, 12, 9),
     return [a.to(dev) for a in (x.to(dtype), coords, mask)], shape
 
 
+def _scatter_case(dev, case, dtype):
+    """(args, shape, the mask the twin takes) of a scatter edge case."""
+    if case in ("c8", "c128"):
+        args, shape = _scatter_args(dev, b=2, p=3000, seed=4, dtype=dtype)
+        x = (args[0][:, :8] if case == "c8"
+             else torch.cat([args[0], args[0].flip(2)], 1))
+        return [x.contiguous(), *args[1:]], shape, args[2]
+    kw = {"p-not-8": dict(b=1, p=1001), "batch-2": dict(b=2, p=4096),
+          "all-masked": dict(b=2, p=4096), "3-cells": dict(b=2, p=20_000),
+          "zeros-only": dict(b=1, p=4096), "outside": dict(b=2, p=4096),
+          "unaligned-x": dict(b=1, p=4096)}[case]
+    args, shape = _scatter_args(dev, seed=4, dtype=dtype, **kw)
+    x, coords, mask = args
+    if case == "all-masked":
+        mask = torch.zeros_like(mask)
+    elif case == "3-cells":
+        coords = coords[:, :, :3][:, :, torch.randint(
+            0, 3, (x.shape[2],), generator=torch.Generator().manual_seed(5))
+            .to(dev)].contiguous()
+    elif case == "zeros-only":
+        x = torch.where(x > 0, 0.0, x)         # +0.0 and -0.0 rows
+        assert bool((torch.signbit(x) & (x == 0)).any())
+    elif case == "unaligned-x":
+        xo = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:]
+        x = xo.view(x.shape)
+        x.copy_(args[0])
+    twin_mask = mask
+    if case == "outside":
+        # a fifth of the kept rows off the canvas on one axis: dropped
+        g = torch.Generator().manual_seed(6)
+        off = (torch.rand(mask.shape, generator=g) < 0.2).to(dev) & mask
+        axis = torch.randint(0, 3, mask.shape, generator=g).to(dev)
+        for a, s in enumerate(shape):
+            sel = off & (axis == a)
+            coords[:, a] = torch.where(sel & (coords[:, a] % 2 == 0), -1,
+                                       torch.where(sel, s, coords[:, a]))
+        twin_mask = mask & ~off
+    return [x, coords.contiguous(), mask], shape, twin_mask
+
+
+SCATTER_CASES = ["p-not-8", "batch-2", "all-masked", "3-cells",
+                 "zeros-only", "outside", "unaligned-x", "c8", "c128"]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", SCATTER_CASES)
+def test_scatter_kernel_edge_cases(cuda, case, dtype):
+    """Exact equality with the twin: P not a multiple of 8 with a ragged
+    tail tile, a batch of 2, every row masked, all rows into 3 cells
+    (~6,700 rows a cell), rows of only +0.0 and -0.0, rows whose coords
+    fall outside the canvas (dropped by the kernel; masked for the twin),
+    x off a 16-byte boundary (the scalar loads), C = 8 and C = 128 (two
+    slices of the slab). No -0.0 bits reach the canvas."""
+    from partner_tpu_torch.ops import scatter_max
+
+    args, shape, twin_mask = _scatter_case(cuda, case, dtype)
+    out = scatter_max.scatter_max_fold2d(*args, shape)
+    ref = scatter_max.scatter_max_fold2d_plain(args[0], args[1], twin_mask,
+                                               shape)
+    torch.cuda.synchronize()
+    assert torch.equal(out.float(), ref.float())  # a max is exact
+    bits = out.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
+    assert not bool((bits == torch.iinfo(bits.dtype).min).any())  # -0.0
+    if case in ("all-masked", "zeros-only"):
+        assert not bool(out.any())
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_scatter_kernel_matches_plain(cuda, dtype):
     from partner_tpu_torch.ops import scatter_max
@@ -332,6 +433,10 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         scatter_max.scatter_max_fold2d(
             args[0], args[1].transpose(1, 2).contiguous().transpose(1, 2),
             args[2], shape)
+    for dt in (torch.bfloat16, torch.float32):  # C = 12: not a multiple of 8
+        with pytest.raises(ValueError):
+            scatter_max.scatter_max_fold2d(
+                args[0][:, :12].to(dt).contiguous(), *args[1:], shape)
 
 
 def test_scatter_backward_kernel_route_matches_plain(cuda):

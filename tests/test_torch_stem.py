@@ -27,11 +27,14 @@ def _stem_inputs(rng, b=2, p=300):
     return x, mask, w1, a1, b1, w2, a2, b2
 
 
-def test_plain_stem_matches_pallas_interpret(rng):
+@pytest.mark.parametrize("p", [1, 17, 300])
+def test_plain_stem_matches_pallas_interpret(rng, p):
+    """P = 1, 17 and 300: one point, a ragged count, several chunks of the
+    kernel's 128-point tiles (the card kernel takes any P)."""
     from partner_tpu.ops import stem_pallas
     from partner_tpu_torch.ops import stem
 
-    args = _stem_inputs(rng)
+    args = _stem_inputs(rng, p=p)
     x, mask, *w = args
     ref = np.stack([
         np.asarray(stem_pallas.stem2_channel_major(
@@ -57,24 +60,37 @@ def test_stem_wrapper_routes_by_device(rng):
         stem.stem2_channel_major(*(a.to("meta") for a in args))
 
 
-def _scatter_inputs(rng, shape=(3, 8, 6), b=2, p=500, c=4):
-    """Channel-major post-ReLU rows with masked rows, many ties (values on
-    a 0.25 grid, a third of them zero) and -0.0 values."""
+def _scatter_inputs(rng, shape=(3, 8, 6), b=2, p=500, c=4, cells=None,
+                    keep=0.7):
+    """Channel-major post-ReLU rows with masked rows (a share ``keep``
+    kept), many ties (values on a 0.25 grid, a third of them zero) and
+    -0.0 values; with ``cells``, every row in one of that many cells."""
     feats = np.maximum(np.round(rng.randn(b, c, p) * 4) / 4, 0.0)
     feats[rng.rand(b, c, p) < 0.2] = -0.0
     coords = np.stack([rng.randint(0, s, (b, p)) for s in shape],
                       1).astype(np.int32)                   # (b, 3, p)
-    mask = rng.rand(b, p) > 0.3
+    if cells is not None:
+        coords = coords[:, :, rng.randint(0, p, cells)][
+            :, :, rng.randint(0, cells, p)]
+    mask = rng.rand(b, p) < keep
     return feats.astype(np.float32), coords, mask
 
 
-def test_scatter_canvas_fold2d_matches_jax(rng):
+# the card kernel's edge cases, held here for the twin it is compared with
+SCATTER_CASES = {"default": {}, "3-cells": dict(cells=3, p=2000),
+                 "p-not-8": dict(p=501), "all-masked": dict(keep=0.0)}
+
+
+@pytest.mark.parametrize("case", list(SCATTER_CASES))
+def test_scatter_canvas_fold2d_matches_jax(rng, case):
     from partner_tpu.models.backbone_dense import scatter_canvas
     from partner_tpu_torch.ops.scatter_max import scatter_max_fold2d_plain
 
     shape = (3, 8, 6)
-    feats, coords, mask = _scatter_inputs(rng, shape)
+    feats, coords, mask = _scatter_inputs(rng, shape, **SCATTER_CASES[case])
     assert np.any(np.signbit(feats) & (feats == 0))
+    if case == "3-cells":
+        assert len({tuple(c) for c in coords[0].T}) <= 3
     ref, _ = scatter_canvas(jnp.asarray(feats.transpose(0, 2, 1)),
                             jnp.asarray(coords.transpose(0, 2, 1)),
                             jnp.asarray(mask), shape, 1, 1, fold2d=True)

@@ -12,9 +12,9 @@ this file, rather than keep it in step with each kernel change.
 
 For each variant below, copies ``partner_tpu_torch`` into ``--work``
 (default ``attn_kernel_parts`` in the temporary directory) with the
-kernel's text edited, then times it with ``tools/attn_kernel_ab.py
---time-only`` in its own process, the intact kernel first and last. The
-cuts compute wrong results on purpose: only their time is read. The time a cut saves is an upper bound on what the
+kernel's text edited, then times it with ``tools/kernel_ab.py --kernel
+swin_attn --time-only`` in its own process, the intact kernel first and
+last. The cuts compute wrong results on purpose: only their time is read. The time a cut saves is an upper bound on what the
 part costs, since removing it also shortens the chains around it. Needs a
 CUDA card; prints one JSON line per tree and a summary (device ms, mask /
 no mask) as its last line.
@@ -98,8 +98,8 @@ def main():
     ms = {}
     for name, tree in trees:
         out = subprocess.run(
-            [sys.executable, os.path.join(HERE, "tools", "attn_kernel_ab.py"),
-             "--tree", tree, "--time-only"],
+            [sys.executable, os.path.join(HERE, "tools", "kernel_ab.py"),
+             "--kernel", "swin_attn", "--tree", tree, "--time-only"],
             capture_output=True, text=True)
         if out.returncode != 0:
             raise RuntimeError(f"{name}: {out.stdout[-2000:]}"

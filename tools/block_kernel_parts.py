@@ -12,12 +12,12 @@ delete this file, rather than keep it in step with each kernel change.
 
 For each part below, copies ``partner_tpu_torch`` into ``--work`` (default
 ``block_kernel_parts`` in the temporary directory) with that part cut out of
-the kernel, then times the cut kernel with ``tools/block_kernel_ab.py
---time-only`` in its own process, the intact kernel first and last. The cut
-kernels compute wrong results on purpose: only their time is read. The time
-a part saves is an upper bound on what it costs, since removing it also
-shortens the chains around it. Needs a CUDA card; prints one JSON line per
-tree and a summary (device ms) as its last line.
+the kernel, then times the cut kernel with ``tools/kernel_ab.py --kernel
+swin_block --time-only`` in its own process, the intact kernel first and
+last. The cut kernels compute wrong results on purpose: only their time is
+read. The time a part saves is an upper bound on what it costs, since
+removing it also shortens the chains around it. Needs a CUDA card; prints
+one JSON line per tree and a summary (device ms) as its last line.
 """
 
 import argparse
@@ -119,8 +119,9 @@ def main():
     ms = {}
     for name, tree in trees:
         out = subprocess.run(
-            [sys.executable, os.path.join(HERE, "tools", "block_kernel_ab.py"),
-             "--tree", tree, "--time-only"], capture_output=True, text=True)
+            [sys.executable, os.path.join(HERE, "tools", "kernel_ab.py"),
+             "--kernel", "swin_block", "--tree", tree, "--time-only"],
+            capture_output=True, text=True)
         if out.returncode != 0:
             raise RuntimeError(f"{name}: {out.stdout[-2000:]}"
                                f"{out.stderr[-4000:]}")
