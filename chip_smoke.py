@@ -43,7 +43,23 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
    weights and points, the head on both routes; then one train step on
    the same grid, the card in bf16 and in float32 each against the CPU in
    float32: the matches, each loss term and the gradients of each
-   top-level module.
+   top-level module;
+6. eval: the seeded random weights saved as a port checkpoint, and the
+   port's evaluation entry point (``partner_tpu_torch.tools.dist_test``)
+   over a synthetic Waymo val set of EVAL_FRAMES 180,000-point sweeps with
+   32-64 vehicle boxes each, on the card: each frame's kept boxes
+   bit-equal to a direct ``predict`` of the same collated batch, the
+   kernels' launch counts, finite Waymo metrics, the middle-third FPS,
+   the host time per frame beyond ``predict``, ``predict``'s time against
+   the same frames predicted with no loader thread running, and the card's
+   SM clock and power by third of the frames (``nvidia-smi`` every 100 ms);
+7. static RPE: the per-block route at full width after
+   ``E2EDetector.prepare_inference``, cached frames (no attention kernel)
+   and live frames taking turns: the cache's bytes, each mode's launches,
+   median frame ms and device busy; the cached frame's head maps and kept
+   boxes against the live plain frame (the fill pass's path) and the live
+   kernel frame, and the same readings of planted wrong tables, each of
+   which must break a bound.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises before it, so the
@@ -70,6 +86,12 @@ TRAIN_POINTS = 150_000       # bench.py's train sweep ...
 TRAIN_ROWS = 180_000         # ... in a 180,000-row buffer
 MAX_BOXES = 64               # gt slots per sample, up to 64 boxes filled
 TRAIN_STEPS = 5              # timed train steps after one warm-up
+# val frames through dist_test (cut this first). The FPS is taken over the
+# middle third, frames 10-19, clear of a fresh detector's first frames,
+# which can run slower (52-59 ms against 42.6 in one run on an NVIDIA H100
+# 80GB HBM3 at 700 W); 6 frames put the window on frames 2-3.
+EVAL_FRAMES = 30
+EVAL_ROWS = 216_000          # dist_test --max_points: bench.py's buffer
 
 # Kernel vs plain twin, both bf16 on the card: |kernel - plain| <=
 # KERNEL_TOL * (1 + |plain|), two bf16 ulps. Both accumulate in f32 but in
@@ -86,6 +108,35 @@ KERNEL_TOL = 2.0 ** -7
 # tie broken the other way, a discrete choice, could move it that far.
 REF_BF16 = 0.02
 REF_F32 = 0.01
+# Static-RPE phase, cached frames against two live frames, all bf16 on the
+# card, by the largest relative RMS error over the head maps and the share
+# of the live frame's kept boxes that have a cached kept box within
+# STATIC_MATCH_M.
+# - Against the live plain frame (the fill pass's path: the same plain
+#   attention, the RPE rebuilt each frame and the region mask added apart):
+#   the same arithmetic but for where the -100 mask is added, so the maps
+#   agree to STATIC_PLAIN_TOL and every kept box matches.
+# - Against the live kernel frame: the kernel rounds otherwise than the
+#   plain attention (bf16 probabilities, its own summation order), and the
+#   two blocks and the heads carry that on: 2.2% on the card at full grid
+#   (height, the map of smallest magnitude; a table with the RPE in float32,
+#   as the kernel evaluates it, reads 2.1%, so not the RPE's precision),
+#   0.3-1.6% on the CPU (SMALL_GRID, bf16, seeds 0-2). A near-tie score or
+#   suppression may flip and cascade through the greedy NMS: 0.974 of the
+#   kept boxes matched on the card (the CPU 0.986-0.994); the matched boxes
+#   to REF_BF16.
+# Planted faults must each break a bound. On the card (NVIDIA H100 80GB
+# HBM3, 700 W) the mask not folded in read 12.4% / 0.848 against the kernel
+# frame, the windows in column-major order 21.3% / 0.790, the table of
+# other weights 21.0% / 0.774: STATIC_MAP_TOL and STATIC_MATCH_SHARE sit
+# between those and the sound 2.2% / 0.974. The RPE in float32 read 2.1% /
+# 0.962, within the kernel-frame bounds; against the plain frame it read
+# 2.2% / 0.964, where the sound table reads 0.0 / 1.0 (bit-equal), so
+# STATIC_PLAIN_TOL and the exact match catch it.
+STATIC_PLAIN_TOL = 1e-3
+STATIC_MAP_TOL = 0.05
+STATIC_MATCH_M = 0.1
+STATIC_MATCH_SHARE = 0.95
 # Train reference: one step on SMALL_GRID, batch 2, the card against the CPU
 # in float32 (plain twins) with the same weights, example and dropout draws,
 # the card once in the config's bf16 and once in float32 (the scatter
@@ -734,14 +785,19 @@ def check_detections(out, tc):
         raise AssertionError(f"NMS kept {n_kept} boxes")
 
 
-def rel_rms(name, got, want, bound):
-    got = got.float().cpu()
+def rel_rms_of(name, got, want):
+    """(||got - want|| / ||want||, max |got - want|) on the CPU in f32."""
+    got, want = got.float().cpu(), want.float().cpu()
     if got.shape != want.shape or not torch.isfinite(got).all():
         raise AssertionError(f"reference {name}: shape or non-finite")
     err = (got - want).abs()
-    r = float(err.norm() / want.norm())
+    return float(err.norm() / want.norm()), float(err.max())
+
+
+def rel_rms(name, got, want, bound):
+    r, max_err = rel_rms_of(name, got, want)
     log(f"reference {name} {tuple(want.shape)}: relative RMS error {r!r} "
-        f"(bound {bound}), max abs err {float(err.max())!r}")
+        f"(bound {bound}), max abs err {max_err!r}")
     if not r <= bound:
         raise AssertionError(f"reference {name}: {r} beyond {bound}")
 
@@ -797,14 +853,35 @@ def reference_phase(dev):
 
 # -------------------------------------------------------------------- train
 
+def synthetic_scene(rng, pc_range, n_points, max_boxes):
+    """One synthetic sweep: ``max_boxes // 2`` to ``max_boxes`` vehicle
+    boxes [x, y, z, dx, dy, dz, yaw], half the points on them and half in
+    the background -> (boxes (nb, 7), cartesian xyz (n_points, 3))."""
+    nb = rng.randint(max_boxes // 2, max_boxes + 1)
+    rho = rng.uniform(pc_range[0] + 5, pc_range[3] * 0.8, nb)
+    phi = rng.uniform(pc_range[1] * 0.9, pc_range[4] * 0.9, nb)
+    boxes = np.stack([rho * np.cos(phi), rho * np.sin(phi),
+                      rng.uniform(-0.5, 0.5, nb), rng.uniform(3.5, 5.5, nb),
+                      rng.uniform(1.6, 2.2, nb), rng.uniform(1.4, 2.0, nb),
+                      rng.uniform(-np.pi, np.pi, nb)], 1)
+    per_box = n_points // (2 * nb)
+    on = [rng.uniform(-0.5, 0.5, (per_box, 3)) * bx[3:6] + bx[:3]
+          for bx in boxes]
+    n_bg = n_points - per_box * nb
+    bg_r = rng.uniform(pc_range[0] + 0.5, pc_range[3] - 0.5, n_bg)
+    bg_t = rng.uniform(pc_range[1], pc_range[4], n_bg)
+    bg = np.stack([bg_r * np.cos(bg_t), bg_r * np.sin(bg_t),
+                   rng.uniform(pc_range[2], pc_range[5], n_bg)], 1)
+    return boxes, np.concatenate(on + [bg])
+
+
 def train_example(rng, pc_range, grid, batch, n_points, rows, max_boxes):
     """bench.py's synthetic train batch, made with numpy and the port's
     ``core.targets`` (``partner_tpu.testing.make_flagship_example`` without
-    the JAX package): per sample up to ``max_boxes`` vehicle boxes, half
-    the points on them and half in the background, in the cylinder layout
-    [rho, phi, z, x, y, intensity, extra], padded to ``rows``; ``global_box``
-    [x, y, z, dx, dy, dz, yaw, class 1], its mask, and the flattened vote
-    maps."""
+    the JAX package): per sample a :func:`synthetic_scene` in the cylinder
+    layout [rho, phi, z, x, y, intensity, extra], padded to ``rows``;
+    ``global_box`` [x, y, z, dx, dy, dz, yaw, class 1], its mask, and the
+    flattened vote maps."""
     from partner_tpu_torch.core.targets import draw_votemap
 
     vs = [(pc_range[3 + i] - pc_range[i]) / grid[i] for i in range(3)]
@@ -813,22 +890,8 @@ def train_example(rng, pc_range, grid, batch, n_points, rows, max_boxes):
     mask = np.zeros((batch, rows), bool)
     votemaps = []
     for i in range(batch):
-        nb = rng.randint(max_boxes // 2, max_boxes + 1)
-        rho = rng.uniform(pc_range[0] + 5, pc_range[3] * 0.8, nb)
-        phi = rng.uniform(pc_range[1] * 0.9, pc_range[4] * 0.9, nb)
-        boxes = np.stack([rho * np.cos(phi), rho * np.sin(phi),
-                          rng.uniform(-0.5, 0.5, nb), rng.uniform(3.5, 5.5, nb),
-                          rng.uniform(1.6, 2.2, nb), rng.uniform(1.4, 2.0, nb),
-                          rng.uniform(-np.pi, np.pi, nb)], 1)
-        per_box = n_points // (2 * nb)
-        on = [rng.uniform(-0.5, 0.5, (per_box, 3)) * bx[3:6] + bx[:3]
-              for bx in boxes]
-        n_bg = n_points - per_box * nb
-        bg_r = rng.uniform(pc_range[0] + 0.5, pc_range[3] - 0.5, n_bg)
-        bg_t = rng.uniform(pc_range[1], pc_range[4], n_bg)
-        bg = np.stack([bg_r * np.cos(bg_t), bg_r * np.sin(bg_t),
-                       rng.uniform(pc_range[2], pc_range[5], n_bg)], 1)
-        xyz = np.concatenate(on + [bg])
+        boxes, xyz = synthetic_scene(rng, pc_range, n_points, max_boxes)
+        nb = len(boxes)
         r, a = np.hypot(xyz[:, 0], xyz[:, 1]), np.arctan2(xyz[:, 1], xyz[:, 0])
         pts[i, :n_points] = np.stack(
             [r, a, xyz[:, 2], xyz[:, 0], xyz[:, 1], rng.rand(n_points),
@@ -1032,6 +1095,400 @@ def train_reference_phase(dev):
         raise AssertionError(f"train reference beyond its bounds: {bad}")
 
 
+# --------------------------------------------------------- eval, static RPE
+
+def write_val_set(root, rng, pc_range, n_frames):
+    """A synthetic Waymo val info pkl under ``root``: per frame a
+    :func:`synthetic_scene` of N_POINTS points as raw [x, y, z, intensity,
+    elongation] rows (the pipeline's ``transform_points`` adds rho, phi),
+    its boxes as vehicle gts [x, y, z, dx, dy, dz, vx, vy, yaw]."""
+    import pickle
+
+    infos = []
+    for i in range(n_frames):
+        boxes, xyz = synthetic_scene(rng, pc_range, N_POINTS, MAX_BOXES)
+        gt = np.zeros((len(boxes), 9), np.float32)
+        gt[:, :6], gt[:, 8] = boxes[:, :6], boxes[:, 6]
+        pts = np.concatenate([xyz, rng.rand(len(xyz), 2)], 1)
+        infos.append({"token": f"frame_{i}", "points": pts.astype(np.float32),
+                      "gt_boxes": gt, "gt_names": np.array(["Vehicle"] * len(gt))})
+    path = os.path.join(root, "infos_val.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(infos, f)
+    return path
+
+
+def write_eval_config(root, info_path):
+    """The flagship config file with ``score_threshold`` 0 (as
+    :func:`frame_cfgs`) and ``data.val`` at ``info_path``."""
+    path = os.path.join(root, "eval_cfg.py")
+    with open(path, "w") as f:
+        f.write(f"exec(open({CONFIG!r}).read())\n"
+                "test_cfg['score_threshold'] = 0.0\n"
+                f"data['val'].update(info_path={info_path!r}, "
+                f"root_path={root!r})\n")
+    return path
+
+
+def sample_clocks(fn):
+    """Runs ``fn()`` while ``nvidia-smi -lms 100`` samples card 0's SM clock
+    and power draw into a file -> (fn's result, [(unix seconds, SM MHz,
+    W)]); an empty list where nvidia-smi gave no sample."""
+    import datetime
+    import tempfile
+
+    with tempfile.TemporaryFile("w+") as f:
+        proc = subprocess.Popen(
+            ["nvidia-smi", "--id=0", "--query-gpu=timestamp,clocks.sm,"
+             "power.draw", "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=f, stderr=subprocess.DEVNULL)
+        try:
+            time.sleep(0.3)
+            result = fn()
+            time.sleep(0.3)
+        finally:
+            proc.terminate()
+            proc.wait(timeout=30)
+        f.seek(0)
+        lines = f.read().splitlines()
+    samples = []
+    for line in lines:
+        try:
+            ts, mhz, watts = (x.strip() for x in line.split(","))
+            t = datetime.datetime.strptime(ts, "%Y/%m/%d %H:%M:%S.%f")
+            samples.append((t.timestamp(), float(mhz), float(watts)))
+        except ValueError:
+            continue
+    return result, samples
+
+
+def eval_phase(dev, card):
+    """The flagship detector's seeded random weights saved as a port
+    checkpoint, then ``partner_tpu_torch.tools.dist_test.main`` over a
+    synthetic val set of EVAL_FRAMES sweeps on the card: the launch counts
+    over the run, each frame's kept boxes against a direct ``predict`` of
+    the same collated batch (bit-equal), the metric keys, the middle-third
+    FPS, the host time per frame beyond ``predict``, ``predict``'s time in
+    dist_test against the direct detector's on batches collated first, and
+    the card's SM clock and power over each third of the frames."""
+    import pickle
+    import tempfile
+
+    from partner_tpu_torch.data import build_dataset
+    from partner_tpu_torch.data.loader import DataLoader
+    from partner_tpu_torch.models import build_detector
+    from partner_tpu_torch.models.detectors import E2EDetector
+    from partner_tpu_torch.tools import dist_test
+    from partner_tpu_torch.train.checkpoint import save_checkpoint
+    from partner_tpu_torch.utils.config import load_config
+
+    m, tc = frame_cfgs()
+    gen = torch.Generator().manual_seed(SEED + 5)
+    det = build_detector(m, None, tc, device=dev, generator=gen)
+    randomize_norms(det.module, gen)
+    depth = det.module.bbox_head.layer.depth
+    predict, spans = E2EDetector.predict, []
+
+    def timed_predict(self, example):
+        t0 = time.time()
+        out = predict(self, example)
+        torch.cuda.synchronize()
+        spans.append((t0, time.time()))
+        return out
+
+    with tempfile.TemporaryDirectory() as root:
+        info_path = write_val_set(root, np.random.RandomState(SEED + 5),
+                                  m["bbox_head"]["voxel_generator"]["range"],
+                                  EVAL_FRAMES)
+        cfg_path = write_eval_config(root, info_path)
+        save_checkpoint(os.path.join(root, "ckpt"), 0, det.module.state_dict())
+        work_dir = os.path.join(root, "eval")
+        wrappers = kernel_wrappers()
+        for fn in wrappers.values():
+            fn.launches = 0
+        E2EDetector.predict = timed_predict
+        try:
+            t0 = time.perf_counter()
+            ((metrics, _), fps), clocks = sample_clocks(
+                lambda: dist_test.main([
+                    cfg_path, "--checkpoint",
+                    os.path.join(root, "ckpt", "latest"),
+                    "--work_dir", work_dir, "--max_points", str(EVAL_ROWS),
+                    "--device", torch.device(dev).type]))
+            wall_s = time.perf_counter() - t0
+        finally:
+            E2EDetector.predict = predict
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        with open(os.path.join(work_dir, "prediction.pkl"), "rb") as f:
+            preds = pickle.load(f)
+        # the same batches collated first, then predicted by the direct
+        # detector (also fresh) with no loader thread running beside it
+        ds = build_dataset(dict(load_config(cfg_path)["data"]["val"]))
+        batches = list(DataLoader(ds, 1, shuffle=False, max_points=EVAL_ROWS))
+        direct, direct_ms = {}, []
+        for b in batches:
+            ex = to_device({k: b[k] for k in ("points", "points_mask")}, dev)
+            t0 = time.perf_counter()
+            out = det.predict(ex)
+            torch.cuda.synchronize()
+            direct_ms.append((time.perf_counter() - t0) * 1e3)
+            keep = out["mask"][0]
+            direct[b["metadata"][0]["token"]] = {
+                k: out[k][0][keep].cpu().numpy()
+                for k in ("box3d_lidar", "scores", "label_preds")}
+    want = {"stem": EVAL_FRAMES, "scatter_max": EVAL_FRAMES,
+            "swin_attn": depth * EVAL_FRAMES, "swin_block": 0}
+    log(f"eval kernel launches over {EVAL_FRAMES} frames: {launches}")
+    if launches != want:
+        raise AssertionError(f"eval: launches {launches} != {want}")
+    if sorted(preds) != sorted(direct):
+        raise AssertionError(f"eval: tokens {sorted(preds)}")
+    n_kept = 0
+    for token, d in sorted(direct.items()):
+        p = preds[token]
+        n_kept += len(p["scores"])
+        if not all(np.array_equal(p[k], d[k]) for k in d):
+            raise AssertionError(f"eval {token}: prediction.pkl differs from "
+                                 "a direct predict of the same batch")
+    log(f"eval: all {len(direct)} frames' {n_kept} kept boxes bit-equal to "
+        "a direct predict of the same batch")
+    for k in ("mAP/L1", "mAPH/L1", "mAP/L2", "mAPH/L2", "AP/L1/Vehicle"):
+        if k not in metrics or not np.isfinite(metrics[k]):
+            raise AssertionError(f"eval: metric {k} missing or not finite")
+    log("eval metrics: " + ", ".join(
+        f"{k} {metrics[k]!r}" for k in sorted(metrics) if "/[" not in k))
+    predict_ms = [(b - a) * 1e3 for a, b in spans]
+    third = max(1, EVAL_FRAMES // 3)
+    window = predict_ms[third: 2 * third]
+    beyond = 1e3 / fps - statistics.mean(window)
+    log(f"eval through dist_test on {card}: middle-third FPS {fps!r} "
+        f"({EVAL_FRAMES} frames of {N_POINTS} points in {EVAL_ROWS} rows, "
+        f"batch 1, the window frames {third}-{2 * third - 1}); predict ms "
+        f"(synchronized) {predict_ms!r}; mean predict in the window "
+        f"{statistics.mean(window)!r}; host time per frame beyond predict "
+        f"in the window {beyond!r} ms (host -> device copy and outputs "
+        f"back); whole main {wall_s!r} s")
+    quiet = statistics.mean(direct_ms[third: 2 * third])
+    log(f"eval: the same frames predicted with every batch collated first "
+        f"(no loader thread running): predict ms {direct_ms!r}; mean in the "
+        f"window {quiet!r}, so {statistics.mean(window) - quiet!r} ms a "
+        f"frame of dist_test's predict went to sharing the host with its "
+        f"loader's threads; FPS without them "
+        f"{1e3 / (quiet + beyond)!r}")
+    thirds = {}
+    for i, tag in enumerate(("first", "middle", "last")):
+        lo, hi = spans[i * third][0], spans[min((i + 1) * third,
+                                                EVAL_FRAMES) - 1][1]
+        got = [(mhz, w) for t, mhz, w in clocks if lo <= t <= hi]
+        thirds[tag] = (statistics.median([c for c, _ in got]) if got else
+                       None, statistics.median([w for _, w in got]) if got
+                       else None, len(got))
+    idle = [mhz for t, mhz, _ in clocks if t < spans[0][0]]
+    log(f"eval: nvidia-smi every 100 ms, {len(clocks)} samples; median SM "
+        f"MHz and power W by third of the frames (samples): {thirds}; "
+        f"before the first frame: SM MHz {idle!r}")
+    return launches, fps, beyond, thirds, quiet
+
+
+def device_busy(run, calls=3):
+    """torch.profiler over ``calls`` calls of ``run``: (summed device time
+    of the kernels, kernels) per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.device_time for e in kernels) / 1e3 / calls,
+            len(kernels) / calls)
+
+
+def matched_boxes(live, cached):
+    """Kept boxes of a live and a cached frame: each live box's nearest
+    cached box by center -> (share of live boxes with a cached box within
+    STATIC_MATCH_M, relative RMS error of those pairs' boxes)."""
+    a = live["box3d_lidar"][0][live["mask"][0]].float().cpu()
+    b = cached["box3d_lidar"][0][cached["mask"][0]].float().cpu()
+    d, j = torch.cdist(a[:, :3], b[:, :3]).min(1)
+    ok = d <= STATIC_MATCH_M
+    err = float((b[j[ok]] - a[ok]).norm() / a[ok].norm())
+    return float(ok.float().mean()), err
+
+
+def static_readings(maps, out, ref_maps, ref_out):
+    """(largest relative RMS error over the head maps, share of the
+    reference frame's kept boxes with a kept box of ``out`` within
+    STATIC_MATCH_M, relative RMS error of those boxes)."""
+    worst = max(rel_rms_of(k, maps[k], ref_maps[k])[0] for k in ref_maps)
+    return (worst,) + matched_boxes(ref_out, out)
+
+
+def static_verdict(plain, live):
+    """The bounds a cache's readings against the live plain frame and the
+    live kernel frame (:func:`static_readings`) break; [] if none."""
+    broken = []
+    if not plain[0] <= STATIC_PLAIN_TOL:
+        broken.append("maps vs plain")
+    if not plain[1] >= 1.0:
+        broken.append("kept boxes vs plain")
+    if not live[0] <= STATIC_MAP_TOL:
+        broken.append("maps vs kernel")
+    if not (live[1] >= STATIC_MATCH_SHARE and live[2] <= REF_BF16):
+        broken.append("kept boxes vs kernel")
+    return broken
+
+
+def planted_tables(det, tables, ex, m, tc, dev):
+    """Plausible wrong caches -> {fault: {attention name: table}}: the
+    region mask not folded in, the windows in column-major order, the
+    table filled by a detector of other weights, and the RPE in float32
+    (the kernel's precision, not the plain path's)."""
+    from partner_tpu_torch.models import build_detector, e2e_head, swin_vote
+
+    attns = dict(det.module.named_modules())
+    grid, pc_range, ws = flagship_grid()
+    h, w = e2e_head.head_offset_grid(grid, pc_range, 8).shape[:2]
+    faults = {"mask not folded": {}, "windows column-major": {}}
+    for name, t in tables.items():
+        shift = attns[name.rpartition(".")[0]].shift_size
+        mask = swin_vote.swin_attn_mask(h, w, ws, shift)
+        faults["mask not folded"][name] = (
+            t if mask is None else t - torch.from_numpy(mask).to(dev)[:, None])
+        faults["windows column-major"][name] = t.reshape(
+            h // ws, w // ws, *t.shape[1:]).transpose(0, 1).reshape(t.shape)
+    other = build_detector(m, None, tc, device=dev,
+                           generator=torch.Generator().manual_seed(SEED + 7))
+    faults["other weights"] = other.prepare_inference(ex)
+    del other
+    mods = [attns[name] for name in tables]
+    dtypes = [a.dtype for a in mods]
+    for a in mods:
+        a.dtype = torch.float32
+    try:
+        faults["RPE in float32"] = det.prepare_inference(ex)
+    finally:
+        for a, dt in zip(mods, dtypes):
+            a.dtype = dt
+    return faults
+
+
+@torch.no_grad()
+def static_rpe_phase(dev, card):
+    """The per-block route at full width, live frames (attention kernel)
+    and static-RPE cached frames (the table in the plain attention) taking
+    turns: cache bytes, launches per frame, median frame ms, device busy;
+    then the cached frame's head maps and kept boxes against the live plain
+    frame and the live kernel frame, and the same readings of planted
+    faults, each of which must break a bound."""
+    from partner_tpu_torch.models import build_detector
+
+    m, tc = frame_cfgs()
+    gen = torch.Generator().manual_seed(SEED)
+    det = build_detector(m, None, tc, device=dev, generator=gen)
+    randomize_norms(det.module, gen)
+    depth = det.module.bbox_head.layer.depth
+    pts, mask = synthetic_sweep(np.random.RandomState(SEED),
+                                m["bbox_head"]["voxel_generator"]["range"],
+                                N_POINTS)
+    ex = to_device({"points": pts, "points_mask": mask}, dev)
+    t0 = time.perf_counter()
+    tables = det.prepare_inference(ex)
+    torch.cuda.synchronize()
+    fill_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = sum(t.nbytes for t in tables.values())
+    log(f"static RPE: prepare_inference {fill_ms!r} ms; {len(tables)} tables "
+        f"{[tuple(t.shape) for t in tables.values()]}, {nbytes} bytes")
+    attns = dict(det.module.named_modules())
+
+    def use(chosen):
+        for name in tables:
+            attns[name].rpe_table = None if chosen is None else chosen[name]
+
+    wrappers = kernel_wrappers()
+    modes = {"live": None, "cached": tables}
+    tally = {mode: dict.fromkeys(wrappers, 0) for mode in modes}
+    times = {mode: [] for mode in modes}
+    outs, maps = {}, {}
+    for i in range(FRAMES + 1):  # round 0 warms up; the modes take turns
+        for mode in (list(modes) if i % 2 == 0 else list(modes)[::-1]):
+            use(modes[mode])
+            for fn in wrappers.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            outs[mode] = det.predict(ex)
+            torch.cuda.synchronize()
+            if i:
+                times[mode].append((time.perf_counter() - t0) * 1e3)
+            for name, fn in wrappers.items():
+                tally[mode][name] += fn.launches
+    frames = FRAMES + 1
+    res = {"cache_bytes": nbytes}
+    for mode in modes:
+        attn_n = depth * frames if mode == "live" else 0
+        want = {"stem": frames, "scatter_max": frames, "swin_attn": attn_n,
+                "swin_block": 0}
+        if tally[mode] != want:
+            raise AssertionError(f"static RPE {mode}: launches {tally[mode]} "
+                                 f"!= {want}")
+        use(modes[mode])
+        maps[mode] = det.module(ex)
+        busy, kernels = device_busy(lambda: det.predict(ex))
+        median = statistics.median(times[mode])
+        log(f"static RPE, {mode} frames on {card}: median {median!r} ms over "
+            f"{FRAMES} (host clock, modes interleaved), all {times[mode]!r}; "
+            f"device busy {busy!r} ms and {kernels!r} kernels a frame "
+            f"(torch.profiler, 3 frames); launches over {frames} frames "
+            f"{tally[mode]}")
+        check_detections(outs[mode], tc)
+        res[mode] = {"median_ms": median, "device_busy_ms": busy,
+                     "kernels": kernels, "launches": tally[mode]}
+    # the live plain frame: the fill pass's path, rebuilding the RPE
+    use(None)
+    for name in tables:
+        attns[name].rpe_fill = True
+    try:
+        outs["plain"], maps["plain"] = det.predict(ex), det.module(ex)
+    finally:
+        for name in tables:
+            attns[name].rpe_fill = False
+    for k in sorted(maps["live"]):
+        for ref in ("plain", "live"):
+            r, max_err = rel_rms_of(k, maps["cached"][k], maps[ref][k])
+            log(f"static RPE: cached against live {ref} head map {k}: "
+                f"relative RMS {r!r}, max abs err {max_err!r}")
+    readings = {}
+    for fault, chosen in [("sound", tables)] + list(planted_tables(
+            det, tables, ex, m, tc, dev).items()):
+        use(chosen)
+        out, fmaps = det.predict(ex), det.module(ex)
+        plain = static_readings(fmaps, out, maps["plain"], outs["plain"])
+        live = static_readings(fmaps, out, maps["live"], outs["live"])
+        broken = static_verdict(plain, live)
+        readings[fault] = {"plain": plain, "live": live, "broken": broken}
+        log(f"static RPE, {fault} table: against the live plain frame "
+            f"maps {plain[0]!r} (bound {STATIC_PLAIN_TOL}), kept boxes "
+            f"matched {plain[1]!r} (bound 1.0); against the live kernel "
+            f"frame maps {live[0]!r} (bound {STATIC_MAP_TOL}), kept boxes "
+            f"matched {live[1]!r} (bound {STATIC_MATCH_SHARE}), their "
+            f"relative RMS {live[2]!r} (bound {REF_BF16}); bounds broken: "
+            f"{broken or 'none'}")
+    use(None)
+    res["readings"] = readings
+    if readings["sound"]["broken"]:
+        raise AssertionError("static RPE: the cached frame breaks "
+                             f"{readings['sound']['broken']}")
+    missed = [f for f, r in readings.items() if f != "sound"
+              and not r["broken"]]
+    if missed:
+        raise AssertionError(f"static RPE: planted faults {missed} pass "
+                             "every bound")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this run needs one NVIDIA card")
@@ -1060,6 +1517,9 @@ def main():
     train_launches, train_ms, train_peak = train_phase(dev, card)
     reference_phase(dev)
     train_reference_phase(dev)
+    eval_launches, eval_fps, eval_beyond, eval_clocks, eval_quiet = (
+        eval_phase(dev, card))
+    static = static_rpe_phase(dev, card)
 
     meta = {
         "stem": ("partner_tpu_torch/csrc/stem.cu",
@@ -1076,12 +1536,23 @@ def main():
     kernels = [dict(name=name, route="cuda", source=meta[name][0],
                     replaces=meta[name][1],
                     launches=routes[meta[name][2]][0][name],
-                    train_launches=train_launches[name], **r)
+                    train_launches=train_launches[name],
+                    eval_launches=eval_launches[name],
+                    static_rpe_launches=static["cached"]["launches"][name],
+                    **r)
                for name, r in kres.items()]
     log("summary: card " + card + ", flagship frame median ms: " + ", ".join(
         f"{route} {ms!r}" for route, (_, ms) in routes.items())
         + f"; flagship train step median ms {train_ms!r}, peak "
-        f"{train_peak!r} GiB")
+        f"{train_peak!r} GiB; dist_test middle-third FPS {eval_fps!r} over "
+        f"{EVAL_FRAMES} frames, host {eval_beyond!r} ms a frame beyond "
+        f"predict, predict with no loader thread beside it {eval_quiet!r} "
+        f"ms, SM MHz / W by third {eval_clocks}; static RPE cached / "
+        f"live frame median {static['cached']['median_ms']!r} / "
+        f"{static['live']['median_ms']!r} ms, device busy "
+        f"{static['cached']['device_busy_ms']!r} / "
+        f"{static['live']['device_busy_ms']!r} ms, cache "
+        f"{static['cache_bytes']} bytes")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,7 @@ the ``SetCriterion`` over the auction matcher.
     # or the head's whole-block route: build_detector(..., use_block_kernel=True)
     det.module.load_state_dict(convert.flax_to_torch(variables))  # optional
     preds = det.predict({"points": pts, "points_mask": mask})
+    det.prepare_inference(example)   # optional: static-RPE cache, then predict
     losses = det.loss(example, generator)   # train mode, with targets
 """
 
@@ -24,6 +25,7 @@ from . import e2e_head
 from .layers import constant, init_weights
 from .registry import BACKBONES, BBOX_HEADS, DETECTORS, NECKS, build_from_cfg
 from .set_transformer import SetBlockStack
+from .swin_vote import WindowAttention
 
 
 def _grid_spec(cfg):
@@ -114,6 +116,36 @@ class E2EDetector:
         return self.criterion(flat, gt_boxes, gt_classes,
                               example["global_box_mask"],
                               example.get("votemap_flat"))
+
+    @torch.no_grad()
+    def prepare_inference(self, example):
+        """Fill the static-RPE cache (``detectors.py:245-266``): one eval
+        forward of ``example`` in which each per-block window attention
+        stores its (nW, nh, T, T) RPE table, region mask folded in. Later
+        eval forwards add the table in place of rebuilding the RPE;
+        ``load_state_dict`` and train mode drop it. The whole-block route
+        fills nothing, as in JAX.
+        Returns {attention module name: table}."""
+        self.module.eval()
+        attns = self._window_attentions()
+        for m in attns.values():
+            m.rpe_table, m.rpe_fill = None, True
+        try:
+            self.module(example)
+        finally:
+            for m in attns.values():
+                m.rpe_fill = False
+        return {name: m.rpe_table for name, m in attns.items()
+                if m.rpe_table is not None}
+
+    def clear_inference_cache(self):
+        """Back to the live path: drop every static-RPE table."""
+        for m in self._window_attentions().values():
+            m.rpe_table = None
+
+    def _window_attentions(self):
+        return {name: m for name, m in self.module.named_modules()
+                if isinstance(m, WindowAttention)}
 
     @torch.no_grad()
     def predict(self, example):

@@ -28,7 +28,19 @@ tensors. In train mode neither kernel runs, as JAX gates both on
 modules, and ``WindowAttention`` takes the plain attention with
 pre-normalized q and k (``swin_vote.py:182-245``). The head's dropout
 rates are 0 in the JAX package (``E2ESWVoteHead`` never sets them), so it
-has no dropout sites. Not ported yet: the static-RPE cache.
+has no dropout sites.
+
+The static-RPE cache (``swin_vote.py:125-228``): at inference the RPE bias
+is a function of the frozen RPE MLP and the window positions, the fixed
+cell-center grid, so one fill pass
+(:meth:`models.detectors.E2EDetector.prepare_inference`) stores each
+per-block attention's (nW, nh, T, T) table, region mask folded in, and
+later eval frames add it in the plain attention instead of rebuilding it.
+The fill pass and the cached frames take the plain attention, never the
+attention kernel, as JAX's cached branch never takes its Pallas kernel;
+the whole-block route neither fills nor reads the cache, as in JAX.
+``load_state_dict`` and ``train()`` drop the tables, which the old weights
+built.
 """
 
 import numpy as np
@@ -105,6 +117,11 @@ def pad_key_mask(h, w, ws, shift):
             .reshape(-1, ws * ws))
 
 
+def _drop_rpe_table(module, *args):
+    """load_state_dict pre-hook: the table was built from the old weights."""
+    module.rpe_table = None
+
+
 class WindowAttention(nn.Module):
     def __init__(self, dim, num_heads, dtype=torch.float32):
         super().__init__()
@@ -115,16 +132,33 @@ class WindowAttention(nn.Module):
         self.rpe = RPEMLP(num_heads, dtype=dtype)
         self.tau = nn.Parameter(torch.empty(1, num_heads, 1, 1))
         self.proj = Dense(dim, dim, dtype=dtype)
+        # the static-RPE cache: (nW, nh, T, T) f32 with the region mask
+        # folded in, or None; out of the state_dict, like JAX's rpe_cache
+        # collection, which no checkpoint holds. JAX's cache travels with
+        # its variables, so new weights come without it; here loading
+        # weights or going back to training drops the table.
+        self.register_buffer("rpe_table", None, persistent=False)
+        self.rpe_fill = False   # the next eval forward stores rpe_table
+        self.register_load_state_dict_pre_hook(_drop_rpe_table)
 
     def init_extra(self, generator):
         self.tau.data.fill_(1.0)
 
-    def forward(self, x, pos, vote, mask=None, pad_mask=None):
+    def train(self, mode=True):
+        if mode:
+            self.rpe_table = None
+        return super().train(mode)
+
+    def forward(self, x, pos, vote, mask=None, pad_mask=None,
+                num_windows=None):
         """x (nB, T, C); pos (nB, T, 2) f32; vote (nB, T, 3); mask
         (nW, T, T) f32 or None, window w taking mask[w % nW]; pad_mask
-        (nW, T) bool (True = real cell) or None, tiled the same way. Train
-        mode or a pad mask takes the plain attention, as in the JAX
-        package; otherwise the attention op (kernel or twin) runs."""
+        (nW, T) bool (True = real cell) or None, tiled the same way;
+        num_windows, the windows of one sample (the fill pass's nW where
+        there is no mask). Train mode or a pad mask takes the plain
+        attention, as in the JAX package; so do the static-RPE fill pass
+        and the frames that read its table; otherwise the attention op
+        (kernel or twin) runs."""
         nb, t, c = x.shape
         nh = self.num_heads
         hd = c // nh
@@ -134,7 +168,19 @@ class WindowAttention(nn.Module):
             2, 0, 3, 1, 4)
         q, k, v = ((qkv[i] + ve).contiguous() for i in range(3))
         rp = self.rpe
-        if pad_mask is None and not self.training:
+        cache_ok = pad_mask is None and not self.training
+        if cache_ok and self.rpe_fill:
+            rpe = self._rpe(pos)
+            nw = mask.shape[0] if mask is not None else num_windows
+            if nw is None:
+                raise ValueError("the static-RPE fill of an unshifted block "
+                                 "needs num_windows")
+            self.rpe_table = (rpe[:nw] if mask is None
+                              else rpe[:nw] + mask[:, None])
+            out = self._plain_attention(q, k, v, rpe, mask, None)
+        elif cache_ok and self.rpe_table is not None:
+            out = self._plain_attention(q, k, v, self.rpe_table, None, None)
+        elif cache_ok:
             out = swin_attn.swin_vote_attention(
                 q, k, v, pos.float().contiguous(), mask,
                 rp.Dense_0.weight.t().float().contiguous(),
@@ -143,14 +189,23 @@ class WindowAttention(nn.Module):
                 rp.Dense_1.bias.float().contiguous(),
                 torch.clamp(self.tau, min=0.01).reshape(nh).contiguous())
         else:
-            out = self._plain_attention(q, k, v, pos, mask, pad_mask)
+            out = self._plain_attention(q, k, v, self._rpe(pos), mask,
+                                        pad_mask)
         return self.proj(out.transpose(1, 2).reshape(nb, t, c))
 
-    def _plain_attention(self, q, k, v, pos, mask, pad_mask):
+    def _rpe(self, pos):
+        """The decomposed RPE bias of the windows, (nB, nh, T, T) f32."""
+        rp = self.rpe
+        return swin_block.rpe_bias(
+            pos, (rp.Dense_0.weight.t(), rp.Dense_0.bias,
+                  rp.Dense_1.weight.t(), rp.Dense_1.bias), self.dtype)
+
+    def _plain_attention(self, q, k, v, bias, mask, pad_mask):
         """The JAX package's plain attention (``swin_vote.py:182-245``):
         q / (|q| tau) and k / |k| rounded to the compute dtype, f32 logits,
-        + the decomposed RPE, + the region mask, pad keys (if any) set to
-        -100, softmax, ``P.V`` with f32 accumulation."""
+        + ``bias`` (the RPE of every window, or a cached (nW, nh, T, T)
+        table tiled over the batch), + the region mask, pad keys (if any)
+        set to -100, softmax, ``P.V`` with f32 accumulation."""
         nb, nh, t, _ = q.shape
         dt = self.dtype
         qf, kf = q.float(), k.float()
@@ -158,10 +213,10 @@ class WindowAttention(nn.Module):
         kn = torch.sqrt((kf * kf).sum(-1, keepdim=True) + 1e-12)
         qh = (qf / (qn * torch.clamp(self.tau, min=0.01))).to(dt)
         kh = (kf / kn).to(dt)
-        rp = self.rpe
-        attn = qh.float() @ kh.float().transpose(-1, -2) + swin_block.rpe_bias(
-            pos, (rp.Dense_0.weight.t(), rp.Dense_0.bias,
-                  rp.Dense_1.weight.t(), rp.Dense_1.bias), dt)
+        attn = qh.float() @ kh.float().transpose(-1, -2)
+        nwb = bias.shape[0]
+        attn = (attn.reshape(nb // nwb, nwb, nh, t, t)
+                + bias[None]).reshape(nb, nh, t, t)
         if mask is not None:
             nw = mask.shape[0]
             attn = (attn.reshape(nb // nw, nw, nh, t, t)
@@ -207,7 +262,8 @@ class SwinVoteBlock(nn.Module):
         pad_mask = constant(self, f"pad{h}x{w}", dev,
                             lambda: pad_key_mask(h, w, ws, shift))
         out = self.attn(window_partition(x, ws), window_partition(pos, ws),
-                        window_partition(vote, ws), mask, pad_mask)
+                        window_partition(vote, ws), mask, pad_mask,
+                        num_windows=(hp // ws) * (wp // ws))
         out = window_reverse(out, ws, b, hp, wp)
         if shift:
             out = torch.roll(out, (shift, shift), dims=(1, 2))

@@ -1,0 +1,85 @@
+"""Evaluation CLI of the port (counterpart of ``tools/dist_test.py``).
+
+    python -m partner_tpu_torch.tools.dist_test CONFIG --checkpoint CKPT
+        [--work_dir D] [--speed_test] [--testset] [--max_frames N]
+        [--max_points P] [--batch_size B] [--device cuda|cpu] [--static_rpe]
+
+Reads the config with ``utils.config.load_config``, builds the detector on
+``--device`` (the card unless ``--device cpu``; with no card it stops with
+an error rather than run on the CPU), loads the weights of a port or JAX
+checkpoint (a step directory, a ``latest`` pointer, ``state.pt`` or
+``state.pkl``; without one the weights are random, seed 0), and runs
+:func:`eval.evaluator.evaluate` over ``data.val``: middle-third FPS,
+``prediction.pkl`` and the Waymo metrics. ``--static_rpe`` fills the
+static-RPE cache (``E2EDetector.prepare_inference``) on a small all-padding
+example before the loop, as ``bench.py`` does behind its knob. The JAX
+CLI's ``--mesh`` is not ported (one process, one device), nor its
+``--input``: every ported detector takes points.
+"""
+
+import argparse
+import os
+import sys
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("config")
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--work_dir", default="./eval_out")
+    p.add_argument("--speed_test", action="store_true")
+    p.add_argument("--testset", action="store_true")
+    p.add_argument("--max_frames", type=int, default=None)
+    p.add_argument("--max_points", type=int, default=200000)
+    p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--static_rpe", action="store_true",
+                   help="fill the static-RPE cache before the loop")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    """-> (result, fps): ``dataset.evaluation``'s result and the
+    middle-third frames per second."""
+    args = parse_args(argv)
+    import torch
+
+    from ..data import build_dataset
+    from ..eval.evaluator import evaluate, init_example
+    from ..models import build_detector
+    from ..train.checkpoint import load_checkpoint
+    from ..train.hooks import get_logger
+    from ..utils.config import load_config
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        sys.exit("dist_test: no CUDA device; pass --device cpu to run on "
+                 "the CPU")
+    device = torch.device(args.device)
+    cfg = load_config(args.config)
+    os.makedirs(args.work_dir, exist_ok=True)
+    logger = get_logger(args.work_dir)
+
+    det = build_detector(cfg["model"], cfg.get("train_cfg"),
+                         cfg.get("test_cfg"), device=device)
+    dataset = build_dataset(dict(cfg["data"]["val"]))
+    logger.info(f"model type {cfg['model']['type']}, device {device}")
+    if args.checkpoint:
+        payload, _ = load_checkpoint(args.checkpoint)
+        det.module.load_state_dict(payload["state_dict"], strict=True)
+        logger.info(f"loaded {args.checkpoint}")
+    else:
+        logger.info("no checkpoint: random weights (seed 0)")
+    if args.static_rpe:
+        tables = det.prepare_inference(init_example(dataset, device))
+        logger.info(f"static-RPE cache: {len(tables)} tables, "
+                    f"{sum(t.nbytes for t in tables.values())} bytes")
+
+    # --speed_test forces batch 1, as the reference's dist_test does
+    batch_size = 1 if args.speed_test else args.batch_size
+    return evaluate(det, dataset, args.work_dir, logger, device,
+                    batch_size=batch_size, max_points=args.max_points,
+                    max_frames=args.max_frames, testset=args.testset)
+
+
+if __name__ == "__main__":
+    main()

@@ -115,3 +115,31 @@ def load_converted(module, variables):
 
     module.load_state_dict(flax_to_torch(variables), strict=True)
     return module.eval()
+
+
+def write_tiny_eval_config(path, info_path, root):
+    """A config file for the CLIs: the flagship config exec'd, then cut to
+    ``tiny_frame_cfg``'s grid and widths (float32), ``data.val`` pointed at
+    ``info_path``; both dist_test CLIs read it."""
+    import os
+
+    base = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), FLAGSHIP)
+    with open(path, "w") as f:
+        f.write(f"""
+exec(open({base!r}).read())
+_pr = voxel_generator["range"]
+voxel_generator["voxel_size"] = [(_pr[3 + i] - _pr[i]) / g
+                                 for i, g in enumerate({TINY_GRID!r})]
+bbox_head["in_channels"] = 64
+bbox_head["HEAD_CONFIG"]["compute_dtype"] = "float32"
+model["backbone"].update(a2d_features=32, out_features=32,
+                         compute_dtype="float32")
+model["neck"].update(layer_nums=[1, 1], ds_num_filters=[16, 32],
+                     us_num_filters=[32, 32], num_input_features=32,
+                     compute_dtype="float32")
+test_cfg["score_threshold"] = 0.0
+test_cfg["nms"].update(nms_pre_max_size=256, nms_post_max_size=64)
+data["val"].update(info_path={info_path!r}, root_path={root!r})
+""")
+    return path
