@@ -60,6 +60,18 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
    boxes against the live plain frame (the fill pass's path) and the live
    kernel frame, and the same readings of planted wrong tables, each of
    which must break a bound.
+8. train CLI: ``partner_tpu_torch.tools.train.main`` on the card at full
+   width and batch 4 over 8 synthetic 150,000-point Waymo frames written
+   as frame pickles, with GT-AUG from a database cut from them (the
+   flagship's Vehicle=15 quota, its filters and augmentations): 4 steps
+   in 2 epochs with a checkpoint and a validation after each, then a run
+   to step 6 that resumes from ``latest`` at step 4 with the checkpoint's
+   Adam count and moments. Readings: each step's loss terms, gradient
+   norm and phase times (finite), the median step time and the data share,
+   GT-AUG boxes inserted per sample, peak memory, each validation's
+   metrics, the kernels' launches per train step and per validation frame,
+   and the host data path alone (ms a sample in one thread, the loader's
+   batches a second with its threads).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises before it, so the
@@ -1489,6 +1501,307 @@ def static_rpe_phase(dev, card):
     return res
 
 
+# ---------------------------------------------------------------- train CLI
+
+TRAIN_CLI_FRAMES = 8         # train frames on disk (cut these first)
+TRAIN_CLI_SPARSE_BOXES = 12  # every other frame: 6-12 boxes, under the quota
+TRAIN_CLI_VAL_FRAMES = 3     # --eval_max_frames
+
+
+def write_train_set(root, rng, pc_range, n_frames):
+    """A synthetic Waymo train set under ``root``: per frame a
+    :func:`synthetic_scene` of TRAIN_POINTS points written as a Waymo frame
+    pickle (``lidars.points_xyz`` and ``points_feature``), the even frames
+    with 32-64 vehicle boxes (above the flagship's GT-AUG quota of 15, so
+    nothing is inserted), the odd ones with 6-12 (GT-AUG tops them up); and
+    its info pkl (path, 9-column gt boxes, names)."""
+    import pickle
+
+    os.makedirs(os.path.join(root, "lidar"))
+    infos = []
+    for i in range(n_frames):
+        boxes, xyz = synthetic_scene(
+            rng, pc_range, TRAIN_POINTS,
+            MAX_BOXES if i % 2 == 0 else TRAIN_CLI_SPARSE_BOXES)
+        gt = np.zeros((len(boxes), 9), np.float32)
+        gt[:, :6], gt[:, 8] = boxes[:, :6], boxes[:, 6]
+        path = os.path.join(root, "lidar", f"frame_{i}.pkl")
+        with open(path, "wb") as f:
+            pickle.dump({"lidars": {
+                "points_xyz": xyz.astype(np.float32),
+                "points_feature": rng.rand(len(xyz), 2).astype(np.float32)}},
+                f)
+        infos.append({"token": f"train_{i}", "path": path, "gt_boxes": gt,
+                      "gt_names": np.array(["Vehicle"] * len(gt))})
+    info_path = os.path.join(root, "infos_train.pkl")
+    with open(info_path, "wb") as f:
+        pickle.dump(infos, f)
+    return info_path
+
+
+def write_gt_database(root, info_path):
+    """The GT database of ``tools/create_data.py:create_groundtruth_database``
+    cut from the train frames with the port's ``points_in_rbbox``: per box
+    its points shifted to the box center, as float32 (n, 5) files, and a
+    dbinfos pkl with ``num_points_in_gt`` and difficulty 0 -> (its path,
+    objects written)."""
+    import pickle
+
+    from partner_tpu_torch.core.box_np_ops import points_in_rbbox
+    from partner_tpu_torch.data.pipeline import get_obj, read_single_waymo
+
+    with open(info_path, "rb") as f:
+        infos = pickle.load(f)
+    os.makedirs(os.path.join(root, "gt_database"))
+    db, count = {}, 0
+    for info in infos:
+        points = read_single_waymo(get_obj(info["path"])).astype(np.float32)
+        b7 = np.concatenate([info["gt_boxes"][:, :6],
+                             info["gt_boxes"][:, -1:]], 1)
+        inside = points_in_rbbox(points[:, :3], b7)
+        for i, name in enumerate(info["gt_names"]):
+            obj = points[inside[:, i]].copy()
+            obj[:, :3] -= b7[i, :3]
+            rel = os.path.join("gt_database", f"{name}_{count}.bin")
+            obj.tofile(os.path.join(root, rel))
+            db.setdefault(str(name), []).append({
+                "name": str(name), "path": rel,
+                "box3d_lidar": info["gt_boxes"][i],
+                "num_points_in_gt": int(inside[:, i].sum()), "difficulty": 0})
+            count += 1
+    path = os.path.join(root, "dbinfos_train.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(db, f)
+    return path, count
+
+
+def write_train_config(root, train_info, val_info, db_info):
+    """The flagship config file with ``data.train`` / ``data.val`` and the
+    GT-AUG database at the synthetic set, ``score_threshold`` 0 (as
+    :func:`frame_cfgs`), and a metrics record every step (the log still
+    flushes every ``log_config.interval`` steps). GT-AUG, its quota and
+    filters, and the augmentations stay as the config has them."""
+    path = os.path.join(root, "train_cfg.py")
+    with open(path, "w") as f:
+        f.write(f"exec(open({CONFIG!r}).read())\n"
+                "test_cfg['score_threshold'] = 0.0\n"
+                f"db_sampler['db_info_path'] = {db_info!r}\n"
+                f"data['train'].update(info_path={train_info!r}, "
+                f"root_path={root!r})\n"
+                f"data['val'].update(info_path={val_info!r}, "
+                f"root_path={root!r})\n"
+                "log_config['hooks'] = log_config['hooks'] + "
+                "[dict(type='MetricsSinkHook', interval=1)]\n")
+    return path
+
+
+def host_pipeline_ms(cfg_path, repeat=8):
+    """The train data path alone on the host: ms per sample of
+    ``dataset[i]`` (load, GT-AUG, augmentations, shuffle, targets) in one
+    thread over the train frames, ms to collate the first 4 into
+    TRAIN_ROWS rows, and the loader's batches of 4 per second with the
+    config's ``workers_per_gpu`` threads over the frames repeated
+    ``repeat`` times (no card work beside it)."""
+    from partner_tpu_torch.data import build_dataset
+    from partner_tpu_torch.data.collate import collate
+    from partner_tpu_torch.data.datasets import RepeatDataset
+    from partner_tpu_torch.data.loader import DataLoader
+    from partner_tpu_torch.utils.config import load_config
+
+    cfg = load_config(cfg_path)
+    ds = build_dataset(dict(cfg["data"]["train"]),
+                       dict(rng=np.random.RandomState(SEED)))
+    items, ms = [], []
+    for i in range(len(ds)):
+        t0 = time.perf_counter()
+        items.append(ds[i])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    collate(items[:4], max_points=TRAIN_ROWS)
+    collate_ms = (time.perf_counter() - t0) * 1e3
+    threads = cfg["data"]["workers_per_gpu"]
+    loader = DataLoader(RepeatDataset(ds, repeat), 4, num_workers=threads,
+                        max_points=TRAIN_ROWS)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    return ms, collate_ms, (n / (time.perf_counter() - t0), n, threads)
+
+
+def train_cli_phase(dev, card):
+    """``partner_tpu_torch.tools.train.main`` on the card at full width and
+    batch 4 over a synthetic Waymo train set with GT-AUG from a database cut
+    from it: 4 steps in 2 epochs with a checkpoint and a validation after
+    each, then a second run to step 6 that resumes from ``latest`` at step
+    4 with the Adam state of the checkpoint. Readings: step times and the
+    data share, GT-AUG boxes inserted per sample, peak memory, finite
+    losses and gradient norms every step, the validation metrics, and the
+    kernels' launches per train step and per validation frame."""
+    import json as _json
+    import tempfile
+    import threading
+
+    from partner_tpu_torch.data import gt_aug
+    from partner_tpu_torch.eval import evaluator
+    from partner_tpu_torch.models.detectors import E2EDetector
+    from partner_tpu_torch.tools import train
+    from partner_tpu_torch.train import checkpoint
+
+    m, _ = frame_cfgs()
+    pc_range = m["bbox_head"]["voxel_generator"]["range"]
+    depth = m["bbox_head"]["HEAD_CONFIG"]["sl_depth"][0]
+    wrappers = kernel_wrappers()
+    inserted, val_results, resumed, peaks = [], [], [], []
+    val_launches = dict.fromkeys(wrappers, 0)
+    lock = threading.Lock()
+    sample_all, predict = gt_aug.DataBaseSampler.sample_all, E2EDetector.predict
+    evaluate, restore = evaluator.evaluate, checkpoint.restore_train_state
+
+    def counting_sample_all(self, *args, **kwargs):
+        out = sample_all(self, *args, **kwargs)
+        with lock:
+            inserted.append(0 if out is None else len(out["gt_boxes"]))
+        return out
+
+    def counting_predict(self, example):
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        out = predict(self, example)
+        for k, fn in wrappers.items():
+            val_launches[k] += fn.launches - before[k]
+        return out
+
+    def recording_evaluate(*args, **kwargs):
+        # the peak memory of the steps before it, and of the validation
+        peaks.append(("train", torch.cuda.max_memory_allocated() / 2 ** 30))
+        torch.cuda.reset_peak_memory_stats()
+        result, fps = evaluate(*args, **kwargs)
+        peaks.append(("val", torch.cuda.max_memory_allocated() / 2 ** 30))
+        torch.cuda.reset_peak_memory_stats()
+        val_results.append(result[0])
+        return result, fps
+
+    def checked_restore(det, opt, payload):
+        step = restore(det, opt, payload)
+        names = [n for n, _ in det.module.named_parameters()]
+        st, got = payload["opt_state"], opt.state_dict()
+        same = all(torch.equal(got[key][i].cpu(), st[key][n])
+                   for key in ("mu", "nu") for i, n in enumerate(names))
+        resumed.append((step, got["count"], same))
+        return step
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        rng = np.random.RandomState(SEED + 6)
+        train_info = write_train_set(root, rng, pc_range, TRAIN_CLI_FRAMES)
+        db_info, n_objects = write_gt_database(root, train_info)
+        val_root = os.path.join(root, "val")
+        os.makedirs(val_root)
+        val_info = write_val_set(val_root, rng, pc_range,
+                                 TRAIN_CLI_VAL_FRAMES)
+        cfg = write_train_config(root, train_info, val_info, db_info)
+        log(f"train CLI: {TRAIN_CLI_FRAMES} train frames of {TRAIN_POINTS} "
+            f"points, a GT database of {n_objects} objects, "
+            f"{TRAIN_CLI_VAL_FRAMES} val frames, written in "
+            f"{time.perf_counter() - t0!r} s")
+        work_dir = os.path.join(root, "work")
+        common = [cfg, "--work_dir", work_dir, "--batch_size", "4",
+                  "--max_steps_per_epoch", "2", "--validate",
+                  "--eval_max_frames", str(TRAIN_CLI_VAL_FRAMES),
+                  "--max_points", str(TRAIN_ROWS), "--seed", str(SEED),
+                  "--device", torch.device(dev).type]
+        gt_aug.DataBaseSampler.sample_all = counting_sample_all
+        E2EDetector.predict = counting_predict
+        evaluator.evaluate = recording_evaluate
+        checkpoint.restore_train_state = checked_restore
+        try:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in wrappers.values():
+                fn.launches = 0
+            walls = []
+            for total in (4, 6):
+                t0 = time.perf_counter()
+                if train.main(common + ["--total_steps", str(total)]) != total:
+                    raise AssertionError(f"train CLI: did not reach {total}")
+                walls.append(time.perf_counter() - t0)
+            launches = {k: fn.launches for k, fn in wrappers.items()}
+        finally:
+            gt_aug.DataBaseSampler.sample_all = sample_all
+            E2EDetector.predict = predict
+            evaluator.evaluate = evaluate
+            checkpoint.restore_train_state = restore
+        peaks.append(("end", torch.cuda.max_memory_allocated() / 2 ** 30))
+        peak = max(p for _, p in peaks)
+        with open(os.path.join(work_dir, "metrics.jsonl")) as f:
+            recs = [_json.loads(line) for line in f]
+        ckpts = sorted(d for d in os.listdir(work_dir) if d.startswith("ckpt_"))
+        sample_ms, collate_ms, (rate, n_batches, threads) = (
+            host_pipeline_ms(cfg))
+    if [r["step"] for r in recs] != list(range(6)):
+        raise AssertionError(f"train CLI: steps {[r['step'] for r in recs]}")
+    if resumed != [(4, 4, True)]:
+        raise AssertionError(f"train CLI: resume (step, count, moments equal)"
+                             f" {resumed} != [(4, 4, True)]")
+    if ckpts != ["ckpt_00000002", "ckpt_00000004", "ckpt_00000006"]:
+        raise AssertionError(f"train CLI: checkpoints {ckpts}")
+    for r in recs:
+        vals = {k: v for k, v in r.items()
+                if k.startswith("loss") or k in ("grad_norm", "num_matched")}
+        log(f"train CLI step {r['step']} (epoch {r['epoch']}, lr "
+            f"{r['lr']!r}): time {r['time']!r} s, data_time "
+            f"{r['data_time']!r} s, " + ", ".join(
+                f"{k} {v!r}" for k, v in sorted(vals.items())))
+        if not all(np.isfinite(v) for v in vals.values()) or not (
+                vals["grad_norm"] > 0 and vals["num_matched"] > 0):
+            raise AssertionError(f"train CLI step {r['step']}: {vals}")
+    n_val = len(val_results) * TRAIN_CLI_VAL_FRAMES
+    train_launches = {k: launches[k] - val_launches[k] for k in wrappers}
+    want_train = {"stem": 0, "scatter_max": 6, "swin_attn": 0,
+                  "swin_block": 0}
+    want_val = {"stem": n_val, "scatter_max": n_val,
+                "swin_attn": depth * n_val, "swin_block": 0}
+    log(f"train CLI launches: 6 train steps {train_launches}, {n_val} val "
+        f"frames {val_launches}")
+    if train_launches != want_train or val_launches != want_val:
+        raise AssertionError(f"train CLI launches: train {train_launches} != "
+                             f"{want_train} or val {val_launches} != "
+                             f"{want_val}")
+    for epoch, met in enumerate(val_results, 1):
+        log(f"train CLI [val] epoch {epoch}: " + ", ".join(
+            f"{k} {met[k]!r}" for k in sorted(met) if "/[" not in k))
+        if not all(np.isfinite(met[k]) for k in ("mAP/L1", "mAPH/L2")):
+            raise AssertionError(f"train CLI [val] epoch {epoch}: {met}")
+    if len(val_results) != 3:
+        raise AssertionError(f"train CLI: {len(val_results)} validations")
+    # the first step of each run builds the detector's lazy state and the
+    # loader's first batch; the median is over the other 4
+    steady = [r for r in recs if r["step"] not in (0, 4)]
+    median = statistics.median(r["time"] for r in steady)
+    data_share = (sum(r["data_time"] for r in steady)
+                  / sum(r["time"] for r in steady))
+    log(f"train CLI on {card}: median step time {median!r} s (the CLI's "
+        f"`time`: data + transfer + the step's host time; the pageable copy "
+        f"of a batch waits for the card's last step), data_time "
+        f"{[r['data_time'] for r in steady]!r} s in steps 1-3 and 5, "
+        f"{data_share!r} of their summed time (the first step of each "
+        f"2-step epoch waits for a new loader's first batch); runs of 4 and "
+        f"2 steps, wall {walls!r} s (build, steps, checkpoints, "
+        f"validations); GT-AUG boxes inserted per sample {inserted!r} (mean "
+        f"{statistics.mean(inserted)!r}); peak memory {peak!r} GiB (GiB "
+        f"by span: {peaks!r}); resumed at step 4 with count 4 and the "
+        f"moments of the checkpoint")
+    log(f"train CLI host data path alone, one thread: dataset[i] "
+        f"{sample_ms!r} ms a sample (median {statistics.median(sample_ms)!r}"
+        f"), collate of 4 {collate_ms!r} ms; a batch of 4 needs "
+        f"{4 * statistics.median(sample_ms) + collate_ms!r} ms of one "
+        f"thread against a {median * 1e3!r} ms step; the loader alone with "
+        f"{threads} threads: {rate!r} batches of 4 a second over "
+        f"{n_batches} batches, against the {1 / median!r} a second the "
+        f"steps take")
+    return dict(launches=launches, median_s=median, data_share=data_share,
+                inserted=statistics.mean(inserted), peak=peak, walls=walls,
+                sample_ms=statistics.median(sample_ms), loader_rate=rate)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this run needs one NVIDIA card")
@@ -1520,6 +1833,7 @@ def main():
     eval_launches, eval_fps, eval_beyond, eval_clocks, eval_quiet = (
         eval_phase(dev, card))
     static = static_rpe_phase(dev, card)
+    cli = train_cli_phase(dev, card)
 
     meta = {
         "stem": ("partner_tpu_torch/csrc/stem.cu",
@@ -1539,6 +1853,7 @@ def main():
                     train_launches=train_launches[name],
                     eval_launches=eval_launches[name],
                     static_rpe_launches=static["cached"]["launches"][name],
+                    train_cli_launches=cli["launches"][name],
                     **r)
                for name, r in kres.items()]
     log("summary: card " + card + ", flagship frame median ms: " + ", ".join(
@@ -1552,7 +1867,11 @@ def main():
         f"{static['live']['median_ms']!r} ms, device busy "
         f"{static['cached']['device_busy_ms']!r} / "
         f"{static['live']['device_busy_ms']!r} ms, cache "
-        f"{static['cache_bytes']} bytes")
+        f"{static['cache_bytes']} bytes; train CLI median step "
+        f"{cli['median_s']!r} s, data share {cli['data_share']!r}, host "
+        f"{cli['sample_ms']!r} ms a sample, loader {cli['loader_rate']!r} "
+        f"batches a second, GT-AUG {cli['inserted']!r} boxes a sample, peak "
+        f"{cli['peak']!r} GiB")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

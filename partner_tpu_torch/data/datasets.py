@@ -1,12 +1,15 @@
-"""Dataset classes of the Waymo val path (counterpart of
-``partner_tpu/data/datasets.py``): ``PointCloudDataset`` over an info pkl
-and a pipeline, and ``WaymoDataset`` with its ``evaluation``. Not ported:
-the ``ConcatDataset`` / ``RepeatDataset`` wrappers and the sampler groups
-(``flag``) they carry (ROADMAP.md queue 1: the train-mode data path), and
+"""Dataset classes (counterpart of ``partner_tpu/data/datasets.py``):
+``PointCloudDataset`` over an info pkl and a pipeline, with its sampler
+group ``flag``; the ``ConcatDataset`` and ``RepeatDataset`` wrappers, whose
+flags keep each source its own group; and ``WaymoDataset`` with its
+``evaluation``. A dataset hands its ``rng`` (an ``np.random.RandomState``)
+to its pipeline, whose train-mode stages draw from it. Not ported:
 ``NuScenesDataset`` (ROADMAP.md queue 1: nuScenes).
 """
 
 import pickle
+
+import numpy as np
 
 from .registry import DATASETS, Compose
 
@@ -18,7 +21,7 @@ class PointCloudDataset:
 
     def __init__(self, root_path, info_path, pipeline=None, test_mode=False,
                  class_names=None, nsweeps=1, load_interval=1, mode="train",
-                 **kwargs):
+                 rng=None, **kwargs):
         self._root_path = root_path
         self._info_path = info_path
         self.test_mode = test_mode or mode in ("val", "test")
@@ -27,7 +30,8 @@ class PointCloudDataset:
         self.nsweeps = nsweeps
         self.load_interval = load_interval
         self._infos = None
-        self.pipeline = Compose(pipeline) if pipeline is not None else None
+        self.pipeline = (Compose(pipeline, dict(rng=rng))
+                         if pipeline is not None else None)
 
     def load_infos(self):
         with open(self._info_path, "rb") as f:
@@ -42,6 +46,13 @@ class PointCloudDataset:
 
     def __len__(self):
         return len(self.infos)
+
+    @property
+    def flag(self):
+        """Sampler group per sample: one group (0) for a single dataset."""
+        if getattr(self, "_flag", None) is None:
+            self._flag = np.zeros(len(self), dtype=np.uint8)
+        return self._flag
 
     def base_res(self, info):
         return {
@@ -62,6 +73,52 @@ class PointCloudDataset:
         res = self.base_res(info)
         data, _ = self.pipeline(res, info)
         return data
+
+
+@DATASETS.register_module(name="ConcatDataset")
+class ConcatDataset:
+    """Concatenated datasets, each source its own sampler group: a source's
+    flags are offset by one more than the largest flag before it
+    (``datasets.py:83-112``)."""
+
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+        self.cum = np.cumsum([len(d) for d in self.datasets])
+        flags = []
+        offset = 0
+        for d in self.datasets:
+            f = getattr(d, "flag", np.zeros(len(d), np.uint8))
+            f = np.asarray(f).astype(np.int64)
+            flags.append(f + offset)
+            offset += 1 + (int(f.max()) if len(f) else 0)
+        self.flag = (np.concatenate(flags) if flags
+                     else np.zeros(0, np.int64))
+
+    def __len__(self):
+        return int(self.cum[-1]) if len(self.datasets) else 0
+
+    def __getitem__(self, idx):
+        src = int(np.searchsorted(self.cum, idx, side="right"))
+        base = int(self.cum[src - 1]) if src else 0
+        return self.datasets[src][idx - base]
+
+
+@DATASETS.register_module(name="RepeatDataset")
+class RepeatDataset:
+    """``len(dataset) * times`` samples, the flags tiled
+    (``datasets.py:115-129``)."""
+
+    def __init__(self, dataset, times):
+        self.dataset = dataset
+        self.times = times
+        f = getattr(dataset, "flag", np.zeros(len(dataset), np.uint8))
+        self.flag = np.tile(np.asarray(f), times)
+
+    def __len__(self):
+        return len(self.dataset) * self.times
+
+    def __getitem__(self, idx):
+        return self.dataset[idx % len(self.dataset)]
 
 
 @DATASETS.register_module(name="WaymoDataset")

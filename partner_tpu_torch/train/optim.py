@@ -105,6 +105,27 @@ class OneCycleAdam:
         self.count = count
         return g_norm
 
+    def state_dict(self):
+        """{"count", "mu", "nu"}: the step count and the two moments, lists
+        in the order of ``params`` (``module.parameters()`` order)."""
+        return {"count": self.count, "mu": list(self.mu),
+                "nu": list(self.nu)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state):
+        """Copy ``state_dict()``'s count and moments in (onto the
+        parameters' devices and dtypes)."""
+        for key in ("mu", "nu"):
+            if len(state[key]) != len(self.params):
+                raise ValueError(f"{key}: {len(state[key])} moments for "
+                                 f"{len(self.params)} parameters")
+            for dst, src in zip(getattr(self, key), state[key]):
+                if tuple(dst.shape) != tuple(src.shape):
+                    raise ValueError(f"{key}: shape {tuple(src.shape)} for "
+                                     f"a parameter of {tuple(dst.shape)}")
+                dst.copy_(src)
+        self.count = int(state["count"])
+
 
 def build_one_cycle_optimizer(module, lr_max, total_steps, wd=0.01,
                               moms=(0.95, 0.85), div_factor=10.0,

@@ -3,8 +3,9 @@
 Infos made as ``tests/test_data_pipeline.py`` makes them (pre-materialized
 points), and path-based infos with sweeps from ``tools/create_data.py``;
 the flagship ``test_pipeline`` on both sides must give bit-equal collated
-batches. The epoch samplers give the same shards; what is not ported (train
-mode, host voxelization, nuScenes) raises.
+batches. The epoch samplers give the same shards; what is not ported (host
+voxelization, nuScenes, sector targets, seg labels) raises. The train mode
+is held in ``tests/test_torch_train_data.py``.
 """
 
 import copy
@@ -109,25 +110,20 @@ def test_samplers_give_the_same_shards(n, hosts, batch):
 
 
 def test_what_is_not_ported_raises(tmp_path):
-    import partner_tpu_torch.data as tdata
     from partner_tpu_torch.data import pipeline
     from partner_tpu_torch.utils.config import load_config
 
     cfg = load_config(os.path.join(ROOT, FLAGSHIP))
-    train = copy.deepcopy(cfg["data"]["train"])
-    train.update(info_path=make_waymo_infos(tmp_path), root_path="")
-    with pytest.raises(NotImplementedError, match="train-mode data path"):
-        tdata.build_dataset(train)
     with pytest.raises(NotImplementedError, match="native host library"):
         pipeline.Voxelization(dict(cfg["voxel_generator"],
                                    voxelize_mode="hard"))
     with pytest.raises(NotImplementedError, match="nuScenes"):
         pipeline.LoadPointCloudFromFile(dataset="NuScenesDataset")
-    res = {"mode": "train", "lidar": {}}
-    for stage in (pipeline.Voxelization(cfg["voxel_generator"]),
-                  pipeline.AssignLabel()):
-        with pytest.raises(NotImplementedError, match="train-mode"):
-            stage(res, {})
+    with pytest.raises(NotImplementedError, match="PolarStream"):
+        pipeline.AssignLabel(dict(cfg["assigner"], nsectors=2))
+    with pytest.raises(NotImplementedError, match="seg_head"):
+        pipeline.Preprocess(cfg["train_preprocessor"],
+                            super_tasks=["det", "seg"])
 
 
 @pytest.mark.parametrize("voxel_shape", ["cylinder", "cuboid"])

@@ -76,3 +76,49 @@ def test_three_updates_match_optax(rng):
     before = module.b.detach().clone()
     opt.step()
     assert not torch.equal(before, module.b.detach())
+
+
+def test_state_dict_carries_the_optax_state(rng):
+    """Two updates in optax, then its count and Adam moments loaded into a
+    fresh port optimizer (``load_state_dict``): the third update equals
+    optax's third. ``state_dict`` gives back what was loaded."""
+    from partner_tpu.train.optim import build_one_cycle_optimizer as jopt
+    from partner_tpu_torch.train.optim import build_one_cycle_optimizer
+
+    shapes = {"w": (6, 4), "b": (4,)}
+    params = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
+             for _ in range(3)]
+    tx = jopt(lr_max=3e-3, total_steps=10)
+    jp = {k: jnp.asarray(a) for k, a in params.items()}
+    state = tx.init(jp)
+    for g in grads[:2]:
+        updates, state = tx.update(g, state, jp)
+        jp = optax.apply_updates(jp, updates)
+    adam = state.inner_state[1]
+    assert type(adam).__name__ == "ScaleByAdamState"
+
+    module = torch.nn.Module()
+    for k in shapes:
+        module.register_parameter(
+            k, torch.nn.Parameter(torch.tensor(np.asarray(jp[k]))))
+    opt = build_one_cycle_optimizer(module, lr_max=3e-3, total_steps=10)
+    names = [k for k, _ in module.named_parameters()]
+    loaded = {"count": int(adam.count),
+              "mu": [torch.tensor(np.asarray(adam.mu[k])) for k in names],
+              "nu": [torch.tensor(np.asarray(adam.nu[k])) for k in names]}
+    opt.load_state_dict(loaded)
+    back = opt.state_dict()
+    assert back["count"] == 2
+    for a, b in zip(back["mu"] + back["nu"], loaded["mu"] + loaded["nu"]):
+        assert torch.equal(a, b)
+    updates, state = tx.update(grads[2], state, jp)
+    jp = optax.apply_updates(jp, updates)
+    for k, p in module.named_parameters():
+        p.grad = torch.from_numpy(grads[2][k])
+    opt.step()
+    for k, p in module.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[k]),
+                                   rtol=1e-6, atol=1e-7, err_msg=k)
+    with pytest.raises(ValueError):
+        opt.load_state_dict(dict(loaded, mu=loaded["mu"][:1]))

@@ -143,3 +143,25 @@ test_cfg["nms"].update(nms_pre_max_size=256, nms_post_max_size=64)
 data["val"].update(info_path={info_path!r}, root_path={root!r})
 """)
     return path
+
+
+def write_tiny_train_config(path, info_path, root, val_info_path=None):
+    """A train config file for the CLIs: ``write_tiny_eval_config``'s cut
+    of the flagship config, plus ``data.train`` at ``info_path`` with every
+    drop rate 0, ``no_augmentation`` and no GT-AUG (no random draw
+    anywhere, so the two packages' runs can be compared step by step), the
+    points kept in order, one loader thread, a log flush and a
+    ``metrics.jsonl`` record every step, and ``data.val`` at
+    ``val_info_path`` (``info_path`` when None)."""
+    write_tiny_eval_config(path, val_info_path or info_path, root)
+    with open(path, "a") as f:
+        f.write(f"""
+model["neck"].update(set_drop=0.0, set_attn_drop=0.0, set_drop_path=0.0)
+train_preprocessor.update(no_augmentation=True, shuffle_points=False)
+db_sampler["enable"] = False
+data["train"].update(info_path={info_path!r}, root_path={root!r})
+data["workers_per_gpu"] = 1
+log_config = dict(interval=1, hooks=[dict(type="TextLoggerHook"),
+                                     dict(type="MetricsSinkHook")])
+""")
+    return path
