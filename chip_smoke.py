@@ -19,7 +19,8 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
    port), and beside its bound, the least time the card could take for
    the work (:func:`kernel_work`, :func:`bound`); for the stem also the
    count of outputs not equal to its twin, for the scatter-max the time of
-   its canvas fill alone;
+   its canvas fill alone; the stem also at C_in 11 over 432,000 rows, the
+   two-sweep CenterPoint config's width and buffer;
 3. frame: the flagship PARTNER detector
    (``configs/waymo/waymo_partner_36epoch.py``) at full width in bf16,
    random weights from a seeded ``torch.Generator`` with every norm
@@ -71,7 +72,21 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
    GT-AUG boxes inserted per sample, peak memory, each validation's
    metrics, the kernels' launches per train step and per validation frame,
    and the host data path alone (ms a sample in one thread, the loader's
-   batches a second with its threads).
+   batches a second with its threads);
+9. CenterPoint: the Waymo CenterPoint family
+   (``configs/waymo/waymo_centerpoint_voxelnet_36epoch.py``, ``VoxelNet``
+   with the 3D trunk and ``CenterHead``) at full width, random weights with
+   norms randomized: the frame on the 180,000-point sweep (median ms,
+   device busy and launches a frame, the stem and scatter-max once a
+   frame, kept boxes, finite maps); the backbone BEV and each head map of
+   the card against the CPU on SMALL_GRID; the two-sweep velocity config
+   (8 features, the stem at C_in 11) on 2 x 180,000 points in 432,000 rows
+   (median ms, finite ``vel`` map); the train step at batch 4 with center
+   targets (median ms, peak memory, finite per-task losses, the scatter-max
+   once a step); ``dist_test`` from a port checkpoint over 10 synthetic
+   3-class frames (middle-third FPS, finite per-class metrics) and two
+   train-CLI steps at batch 4 from that set (finite losses, one
+   checkpoint).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises before it, so the
@@ -335,16 +350,18 @@ def not_equal(name, out, ref):
 
 # ------------------------------------------------------------------ kernels
 
-def stem_case(gen, dev):
-    """Stem inputs at the flagship shape: (1, 10, 216,000) bf16."""
+def stem_case(gen, dev, cin=10, n_points=N_POINTS):
+    """Stem inputs at a point-path shape, bf16: the flagship's (1, 10,
+    216,000) by default; (1, 11, 432,000) for the two-sweep CenterPoint
+    config (cin 11, 2 x N_POINTS points), the same 1.2x padding."""
     from partner_tpu_torch.ops import stem
 
-    p = int(N_POINTS * 1.2)
+    p = int(n_points * 1.2)
     bf = torch.bfloat16
     rnd = lambda *s: torch.randn(*s, generator=gen)
-    x = rnd(1, stem.CIN, p).to(bf)
-    mask = torch.rand(1, p, generator=gen) < N_POINTS / p
-    w1 = (rnd(stem.F1, stem.CIN) * stem.CIN ** -0.5).to(bf)
+    x = rnd(1, cin, p).to(bf)
+    mask = torch.rand(1, p, generator=gen) < n_points / p
+    w1 = (rnd(stem.F1, cin) * cin ** -0.5).to(bf)
     w2 = (rnd(stem.F2, stem.F1) * stem.F1 ** -0.5).to(bf)
     a1, a2 = (0.5 + torch.rand(f, generator=gen) for f in (stem.F1, stem.F2))
     b1, b2 = (0.2 * rnd(f) for f in (stem.F1, stem.F2))
@@ -416,14 +433,19 @@ def block_case(gen, dev, shift):
     return (x, vote, bias, params, swin_block.NH, ws), (pos, mask, params)
 
 
-def scatter_case(stem_out, dev):
-    """Scatter-max inputs at the flagship shape: the stem's (1, 64,
-    216,000) output and the canvas coords of a synthetic sweep on the
-    flagship grid (rows past the sweep and out of range masked)."""
+def scatter_case(stem_out, dev, n_points=N_POINTS):
+    """Scatter-max inputs at a point-path shape: the stem's (1, 64, rows)
+    output and the canvas coords of a synthetic sweep of ``n_points`` on
+    the flagship grid (rows past the sweep and out of range masked): the
+    flagship's 216,000 rows by default, 432,000 for the two-sweep
+    CenterPoint config (2 x N_POINTS)."""
     grid, pr, _ = flagship_grid()
     n_r, n_az, n_z = grid
     canvas = (n_z // 8, n_az // 4, n_r // 4)                # (cz, cy, cx)
-    pts, mask = synthetic_sweep(np.random.RandomState(SEED), pr, N_POINTS)
+    pts, mask = synthetic_sweep(np.random.RandomState(SEED), pr, n_points)
+    if pts.shape[1] != stem_out.shape[2]:
+        raise ValueError(f"{pts.shape[1]} rows of coords for a stem output "
+                         f"of {stem_out.shape[2]}")
     cell = np.asarray([(pr[3] - pr[0]) / n_r * 4, (pr[4] - pr[1]) / n_az * 4,
                        (pr[5] - pr[2]) / n_z * 8], np.float32)
     idx = np.floor((pts[0, :, :3] - np.asarray(pr[:3], np.float32)) / cell)
@@ -519,7 +541,7 @@ def attention_library_call(args):
                                                   scale=1.0)
 
 
-def timed(name, args, kernel, plain, library=None):
+def timed(name, args, kernel, plain, library=None, label=None):
     """Times of the kernel, its plain twin and the library call, per call
     (``ms``, ``plain_ms``, ``library_ms``) and on the device
     (``device_ms``, ...; :func:`call_and_device_ms`), the kernel's bound
@@ -532,14 +554,15 @@ def timed(name, args, kernel, plain, library=None):
                 call_and_device_ms("library_ms", library)),
              bound_ms=bound_ms, bound_by=bound_by)
     r["bound_share"] = bound_ms / r["device_ms"]
-    log(f"{name}: kernel {r['ms']!r} ms a call ({r['device_ms']!r} device), "
+    log(f"{label or name}: kernel {r['ms']!r} ms a call ({r['device_ms']!r} "
+        "device), "
         f"plain {r['plain_ms']!r} ({r['plain_device_ms']!r}), library "
         f"{r['library_ms']!r} ({r['library_device_ms']!r}); bound "
         f"{bound_ms!r} ms by {bound_by}, {r['bound_share']!r} of it reached")
     return r
 
 
-def kernel_phase(gen, dev):
+def kernel_phase(gen, dev, card):
     from partner_tpu_torch.ops import scatter_max, stem, swin_attn, swin_block
 
     results = {}
@@ -553,6 +576,20 @@ def kernel_phase(gen, dev):
                                    lambda: stem.stem2_channel_major(*args),
                                    lambda: stem.stem2_channel_major_plain(
                                        *args)))
+    # the two-sweep CenterPoint width: C_in 11 over a 432,000-row buffer
+    args = stem_case(gen, dev, cin=11, n_points=2 * N_POINTS)
+    out11 = stem.stem2_channel_major(*args)
+    ref11 = stem.stem2_channel_major_plain(*args)
+    torch.cuda.synchronize()
+    err11 = compare("stem2_channel_major (1, 11, 432000)", out11, ref11,
+                    KERNEL_TOL)
+    r11 = dict(**not_equal("stem C_in 11", out11, ref11),
+               **timed("stem", args, lambda: stem.stem2_channel_major(*args),
+                       lambda: stem.stem2_channel_major_plain(*args),
+                       label=f"stem C_in 11 (1, 11, 432000) on {card}"))
+    results["stem"]["max_abs_err"] = max(err, err11)
+    results["stem"].update({f"{k}_cin11": v for k, v in r11.items()
+                            if not k.startswith("library")})
 
     sargs = scatter_case(ref, dev)
     out = scatter_max.scatter_max_fold2d(*sargs)
@@ -582,6 +619,26 @@ def kernel_phase(gen, dev):
             "plain_ms_f32",
             lambda: scatter_max.scatter_max_fold2d_plain(*fargs)))
     results["scatter_max"].update(scatter_backward_case(gen, sargs))
+    # the two-sweep CenterPoint frame's rows: the C_in 11 stem's (1, 64,
+    # 432,000) output into the same canvas
+    sargs2 = scatter_case(ref11, dev, n_points=2 * N_POINTS)
+    out = scatter_max.scatter_max_fold2d(*sargs2)
+    ref = scatter_max.scatter_max_fold2d_plain(*sargs2)
+    torch.cuda.synchronize()
+    log(f"scatter_max: {int(sargs2[2].sum())} of {sargs2[2].shape[1]} rows "
+        f"in the canvas {sargs2[3]}, {-(-sargs2[2].shape[1] // 128)} tiles "
+        "of 128 rows")
+    err2 = compare("scatter_max_fold2d (1, 64, 432000) -> (1, 512, 288, 320)",
+                   out, ref, 0.0)
+    r2 = dict(**not_equal("scatter_max 432000 rows", out, ref),
+              **timed("scatter_max", sargs2,
+                      lambda: scatter_max.scatter_max_fold2d(*sargs2),
+                      lambda: scatter_max.scatter_max_fold2d_plain(*sargs2),
+                      scatter_library_call(*sargs2),
+                      label=f"scatter_max (1, 64, 432000) on {card}"))
+    results["scatter_max"]["max_abs_err"] = max(err, err2)
+    results["scatter_max"].update({f"{k}_p432000": v for k, v in r2.items()})
+    del sargs2, out, ref, out11, ref11
     # the wrapper's zero fill of the canvas alone, in each dtype
     b, c, _ = sargs[0].shape
     for tag, dt in (("", torch.bfloat16), ("_f32", torch.float32)):
@@ -717,7 +774,10 @@ def frame_cfgs(grid=None, compute_dtype=None):
 
 
 def to_device(example, dev):
-    return {k: torch.from_numpy(v).to(dev) for k, v in example.items()}
+    """numpy arrays (and per-task lists of them) -> tensors on ``dev``."""
+    move = lambda a: torch.from_numpy(a).to(dev)
+    return {k: [move(a) for a in v] if isinstance(v, list) else move(v)
+            for k, v in example.items()}
 
 
 def frame_phase(dev, card):
@@ -752,15 +812,12 @@ def frame_phase(dev, card):
     outs = {}
     for i in range(FRAMES + 1):  # round 0 warms up; the routes take turns
         for route in (list(dets) if i % 2 == 0 else list(dets)[::-1]):
-            for fn in wrappers.values():
-                fn.launches = 0
-            t0 = time.perf_counter()
-            outs[route] = dets[route].predict(ex)
-            torch.cuda.synchronize()
+            ms, outs[route], counts = counted(
+                lambda: dets[route].predict(ex))
             if i:
-                times[route].append((time.perf_counter() - t0) * 1e3)
-            for name, fn in wrappers.items():
-                tally[route][name] += fn.launches
+                times[route].append(ms)
+            for name in wrappers:
+                tally[route][name] += counts[name]
     frames = FRAMES + 1
     results = {}
     for route, launches in tally.items():
@@ -779,9 +836,9 @@ def frame_phase(dev, card):
     return results
 
 
-def check_detections(out, tc):
+def check_detections(out, tc, box_dim=7):
     post = tc["nms"]["nms_post_max_size"]
-    shapes = {"box3d_lidar": (1, post, 7), "scores": (1, post),
+    shapes = {"box3d_lidar": (1, post, box_dim), "scores": (1, post),
               "label_preds": (1, post), "mask": (1, post)}
     for k, shape in shapes.items():
         if tuple(out[k].shape) != shape:
@@ -795,6 +852,7 @@ def check_detections(out, tc):
         f"(post max {post})")
     if not 0 < n_kept < tc["nms"]["nms_pre_max_size"]:
         raise AssertionError(f"NMS kept {n_kept} boxes")
+    return n_kept
 
 
 def rel_rms_of(name, got, want):
@@ -919,6 +977,52 @@ def train_example(rng, pc_range, grid, batch, n_points, rows, max_boxes):
             "votemap_flat": vm.reshape(batch, -1, vm.shape[-1])}
 
 
+def centerpoint_train_example(rng, model_cfg, train_cfg, batch, n_points,
+                              rows, max_boxes):
+    """A CenterPoint train batch made with numpy and the port's
+    ``CenterTargetAssigner`` (what ``AssignLabel`` gives the CLI): per
+    sample a :func:`synthetic_scene` whose boxes take the config's classes
+    in turn and a random velocity, in the cylinder layout [rho, phi, z, x,
+    y, then uniform extras up to the backbone's input features], padded to
+    ``rows``; per task ``hm`` (B, az, r, C), ``anno_box``, ``ind``,
+    ``mask`` and ``cat``."""
+    from partner_tpu_torch.core.targets import CenterTargetAssigner
+
+    bh = model_cfg["bbox_head"]
+    vg = bh["voxel_generator"]
+    pc_range = vg["range"]
+    grid = [int(round((pc_range[3 + i] - pc_range[i]) / vg["voxel_size"][i]))
+            for i in range(3)]
+    a = train_cfg["assigner"]
+    assigner = CenterTargetAssigner(
+        bh["tasks"], a["out_size_factor"], a["gaussian_overlap"],
+        a["max_objs"], a["min_radius"], a["voxel_shape"])
+    n_cls = sum(len(t["class_names"]) for t in bh["tasks"])
+    c = model_cfg["backbone"]["num_input_features"]
+    pts = np.zeros((batch, rows, c), np.float32)
+    mask = np.zeros((batch, rows), bool)
+    targets = []
+    for i in range(batch):
+        boxes, xyz = synthetic_scene(rng, pc_range, n_points, max_boxes)
+        r, ph = np.hypot(xyz[:, 0], xyz[:, 1]), np.arctan2(xyz[:, 1],
+                                                          xyz[:, 0])
+        cols = [r, ph, xyz[:, 2], xyz[:, 0], xyz[:, 1]]
+        cols += [rng.rand(n_points) for _ in range(c - len(cols))]
+        pts[i, :n_points] = np.stack(cols, 1)
+        mask[i, :n_points] = True
+        gt = np.concatenate([boxes[:, :6], rng.randn(len(boxes), 2),
+                             boxes[:, 6:]], 1).astype(np.float32)
+        classes = np.arange(len(boxes)) % n_cls + 1
+        targets.append(assigner.assign(gt, classes, grid, vg["voxel_size"],
+                                       pc_range))
+    ex = {"points": pts, "points_mask": mask}
+    for k in ("hm", "anno_box", "ind", "mask", "cat"):
+        ex[k] = [np.stack([t[k][j] for t in targets])
+                 for j in range(len(bh["tasks"]))]
+    ex["hm"] = [h.transpose(0, 2, 3, 1) for h in ex["hm"]]   # NHWC
+    return ex
+
+
 def train_cfgs(grid=None, compute_dtype=None):
     """(model cfg, test cfg, samples per card, lr_max) of the flagship."""
     from partner_tpu_torch.utils.config import load_config
@@ -937,10 +1041,69 @@ def kernel_wrappers():
             "swin_block": swin_block.swin_vote_block}
 
 
+def counted(fn):
+    """``fn()`` with every kernel wrapper's launch count set to 0 just
+    before it and read just after, the card synchronized -> (host ms,
+    its result, {kernel: launches})."""
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return ms, out, {name: w.launches for name, w in wrappers.items()}
+
+
+def timed_train_steps(det, step, ex, drops, want, label):
+    """One warm-up and TRAIN_STEPS timed calls of ``step(ex, drops)``,
+    each :func:`counted` and launching ``want``, with finite metrics (each
+    task's too) and a gradient norm > 0; after them every parameter's
+    gradient present and finite, and every parameter and BatchNorm
+    statistic of ``det`` moved. -> (launches summed over every step,
+    median host ms of the timed steps, all their ms, each step's metrics
+    as floats, peak memory in GiB since the caller's reset)."""
+    before = {k: v.detach().clone() for k, v in det.module.state_dict().items()}
+    times, launches, steps = [], dict.fromkeys(want, 0), []
+    for i in range(TRAIN_STEPS + 1):   # step 0 warms up
+        ms, met, counts = counted(lambda: step(ex, drops))
+        if counts != want:
+            raise AssertionError(f"{label} {i}: launches {counts} != {want}")
+        if i:
+            times.append(ms)
+        for name in launches:
+            launches[name] += counts[name]
+        vals = {k: [float(x) for x in v] if isinstance(v, list) else float(v)
+                for k, v in met.items()}
+        log(f"{label} {i}: {ms!r} ms, " + ", ".join(
+            f"{k} {v!r}" for k, v in sorted(vals.items())))
+        flat = [x for v in vals.values()
+                for x in (v if isinstance(v, list) else [v])]
+        if not all(np.isfinite(flat)):
+            raise AssertionError(f"{label} {i}: non-finite metrics")
+        if not vals["grad_norm"] > 0:
+            raise AssertionError(f"{label} {i}: no gradient")
+        steps.append(vals)
+    for name, p in det.module.named_parameters():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            raise AssertionError(f"{label}: gradient of {name} missing or "
+                                 "non-finite")
+    after = det.module.state_dict()
+    watched = [k for k, _ in det.module.named_parameters()] + [
+        k for k in before if k.endswith(("_mean", "_var"))]
+    still = [k for k in watched if torch.equal(before[k], after[k])]
+    if still:
+        raise AssertionError(f"{label}: unchanged after the steps: "
+                             f"{still[:5]}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return launches, statistics.median(times), times, steps, peak
+
+
 def train_phase(dev, card):
     """The flagship train step at full width and the config's batch:
     launch counts per step, step times, peak memory, finite losses and
-    gradients, and parameters and BatchNorm statistics that moved."""
+    gradients, and parameters and BatchNorm statistics that moved
+    (:func:`timed_train_steps`), and a match in every step."""
     from partner_tpu_torch.models import build_detector
     from partner_tpu_torch.train.optim import build_one_cycle_optimizer
     from partner_tpu_torch.train.train_state import make_train_step
@@ -959,44 +1122,12 @@ def train_phase(dev, card):
         f"{TRAIN_ROWS} rows, {ex['global_box_mask'].sum(1).tolist()} boxes")
     step = make_train_step(det, build_one_cycle_optimizer(
         det.module, lr_max=lr_max, total_steps=1000))
-    before = {k: v.detach().clone() for k, v in det.module.state_dict().items()}
-    wrappers = kernel_wrappers()
     drops = torch.Generator().manual_seed(SEED + 3)  # dropout and DropPath
-    times, launches = [], dict.fromkeys(wrappers, 0)
-    for i in range(TRAIN_STEPS + 1):   # step 0 warms up
-        for fn in wrappers.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        met = step(ex, drops)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        if i:
-            times.append(ms)
-        counts = {name: fn.launches for name, fn in wrappers.items()}
-        want = {"stem": 0, "scatter_max": 1, "swin_attn": 0, "swin_block": 0}
-        if counts != want:
-            raise AssertionError(f"train step {i}: launches {counts} != {want}")
-        for name in launches:
-            launches[name] += counts[name]
-        vals = {k: float(v) for k, v in met.items()}
-        log(f"train step {i}: {ms!r} ms, " + ", ".join(
-            f"{k} {v!r}" for k, v in sorted(vals.items())))
-        if not all(np.isfinite(v) for v in vals.values()):
-            raise AssertionError(f"train step {i}: non-finite metrics")
-        if not vals["grad_norm"] > 0 or not vals["num_matched"] > 0:
-            raise AssertionError(f"train step {i}: no gradient or no match")
-    for name, p in det.module.named_parameters():
-        if p.grad is None or not torch.isfinite(p.grad).all():
-            raise AssertionError(f"train: gradient of {name} missing or "
-                                 "non-finite")
-    after = det.module.state_dict()
-    watched = [k for k, _ in det.module.named_parameters()] + [
-        k for k in before if k.endswith(("_mean", "_var"))]
-    still = [k for k in watched if torch.equal(before[k], after[k])]
-    if still:
-        raise AssertionError(f"train: unchanged after the steps: {still[:5]}")
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    median = statistics.median(times)
+    want = {"stem": 0, "scatter_max": 1, "swin_attn": 0, "swin_block": 0}
+    launches, median, times, steps, peak = timed_train_steps(
+        det, step, ex, drops, want, "train step")
+    if not all(v["num_matched"] > 0 for v in steps):
+        raise AssertionError("train: a step with no match")
     log(f"flagship train step, batch {batch}: median {median!r} ms over "
         f"{TRAIN_STEPS} steps on {card} (host clock around a synchronized "
         f"step), all {times!r}; peak memory {peak!r} GiB "
@@ -1109,11 +1240,12 @@ def train_reference_phase(dev):
 
 # --------------------------------------------------------- eval, static RPE
 
-def write_val_set(root, rng, pc_range, n_frames):
+def write_val_set(root, rng, pc_range, n_frames, names=("Vehicle",)):
     """A synthetic Waymo val info pkl under ``root``: per frame a
     :func:`synthetic_scene` of N_POINTS points as raw [x, y, z, intensity,
     elongation] rows (the pipeline's ``transform_points`` adds rho, phi),
-    its boxes as vehicle gts [x, y, z, dx, dy, dz, vx, vy, yaw]."""
+    its boxes as gts [x, y, z, dx, dy, dz, vx, vy, yaw] named by
+    ``names`` in turn (vehicles only by default)."""
     import pickle
 
     infos = []
@@ -1123,7 +1255,8 @@ def write_val_set(root, rng, pc_range, n_frames):
         gt[:, :6], gt[:, 8] = boxes[:, :6], boxes[:, 6]
         pts = np.concatenate([xyz, rng.rand(len(xyz), 2)], 1)
         infos.append({"token": f"frame_{i}", "points": pts.astype(np.float32),
-                      "gt_boxes": gt, "gt_names": np.array(["Vehicle"] * len(gt))})
+                      "gt_boxes": gt, "gt_names": np.array(
+                          [names[j % len(names)] for j in range(len(gt))])})
     path = os.path.join(root, "infos_val.pkl")
     with open(path, "wb") as f:
         pickle.dump(infos, f)
@@ -1215,22 +1348,17 @@ def eval_phase(dev, card):
         cfg_path = write_eval_config(root, info_path)
         save_checkpoint(os.path.join(root, "ckpt"), 0, det.module.state_dict())
         work_dir = os.path.join(root, "eval")
-        wrappers = kernel_wrappers()
-        for fn in wrappers.values():
-            fn.launches = 0
         E2EDetector.predict = timed_predict
         try:
-            t0 = time.perf_counter()
-            ((metrics, _), fps), clocks = sample_clocks(
-                lambda: dist_test.main([
+            wall_ms, (((metrics, _), fps), clocks), launches = counted(
+                lambda: sample_clocks(lambda: dist_test.main([
                     cfg_path, "--checkpoint",
                     os.path.join(root, "ckpt", "latest"),
                     "--work_dir", work_dir, "--max_points", str(EVAL_ROWS),
-                    "--device", torch.device(dev).type]))
-            wall_s = time.perf_counter() - t0
+                    "--device", torch.device(dev).type])))
+            wall_s = wall_ms / 1e3
         finally:
             E2EDetector.predict = predict
-        launches = {name: fn.launches for name, fn in wrappers.items()}
         with open(os.path.join(work_dir, "prediction.pkl"), "rb") as f:
             preds = pickle.load(f)
         # the same batches collated first, then predicted by the direct
@@ -1428,15 +1556,11 @@ def static_rpe_phase(dev, card):
     for i in range(FRAMES + 1):  # round 0 warms up; the modes take turns
         for mode in (list(modes) if i % 2 == 0 else list(modes)[::-1]):
             use(modes[mode])
-            for fn in wrappers.values():
-                fn.launches = 0
-            t0 = time.perf_counter()
-            outs[mode] = det.predict(ex)
-            torch.cuda.synchronize()
+            ms, outs[mode], counts = counted(lambda: det.predict(ex))
             if i:
-                times[mode].append((time.perf_counter() - t0) * 1e3)
-            for name, fn in wrappers.items():
-                tally[mode][name] += fn.launches
+                times[mode].append(ms)
+            for name in wrappers:
+                tally[mode][name] += counts[name]
     frames = FRAMES + 1
     res = {"cache_bytes": nbytes}
     for mode in modes:
@@ -1715,15 +1839,18 @@ def train_cli_phase(dev, card):
         try:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            for fn in wrappers.values():
-                fn.launches = 0
-            walls = []
-            for total in (4, 6):
-                t0 = time.perf_counter()
-                if train.main(common + ["--total_steps", str(total)]) != total:
-                    raise AssertionError(f"train CLI: did not reach {total}")
-                walls.append(time.perf_counter() - t0)
-            launches = {k: fn.launches for k, fn in wrappers.items()}
+            def both_runs():
+                walls = []
+                for total in (4, 6):
+                    t0 = time.perf_counter()
+                    if train.main(common + ["--total_steps",
+                                            str(total)]) != total:
+                        raise AssertionError(
+                            f"train CLI: did not reach {total}")
+                    walls.append(time.perf_counter() - t0)
+                return walls
+
+            _, walls, launches = counted(both_runs)
         finally:
             gt_aug.DataBaseSampler.sample_all = sample_all
             E2EDetector.predict = predict
@@ -1802,6 +1929,266 @@ def train_cli_phase(dev, card):
                 sample_ms=statistics.median(sample_ms), loader_rate=rate)
 
 
+# ---------------------------------------------------------------- CenterPoint
+
+CP_CONFIG = os.path.join(ROOT, "configs", "waymo",
+                         "waymo_centerpoint_voxelnet_36epoch.py")
+CP_VELO_CONFIG = os.path.join(
+    ROOT, "configs", "waymo",
+    "waymo_centerpoint_voxelnet_two_sweeps_3x_with_velo.py")
+CP_CLASSES = ("Vehicle", "Pedestrian", "Cyclist")
+CP_VELO_FRAMES = 5           # timed two-sweep frames after one warm-up
+CP_EVAL_FRAMES = 10          # synthetic 3-class val frames (cut first)
+
+
+def centerpoint_cfgs(config=CP_CONFIG, grid=None, compute_dtype=None):
+    """(model cfg, train cfg, test cfg) of a CenterPoint config, with
+    ``score_threshold`` 0 (as :func:`frame_cfgs`), optionally on another
+    grid (same widths) or with every compute dtype replaced."""
+    import copy
+
+    from partner_tpu_torch.utils.config import load_config
+
+    cfg = load_config(config)
+    m = copy.deepcopy(cfg["model"])
+    tc = copy.deepcopy(cfg["test_cfg"])
+    tc["score_threshold"] = 0.0
+    if grid is not None:
+        vg = m["bbox_head"]["voxel_generator"]
+        r = vg["range"]
+        vg["voxel_size"] = [(r[3 + i] - r[i]) / grid[i] for i in range(3)]
+    if compute_dtype is not None:
+        m["backbone"]["compute_dtype"] = compute_dtype
+        m["neck"]["compute_dtype"] = compute_dtype
+    return m, copy.deepcopy(cfg["train_cfg"]), tc
+
+
+def timed_predicts(det, ex, frames, want):
+    """``frames`` timed predicts after one warm-up, each :func:`counted`
+    and launching ``want`` -> (median host ms, all ms, the last output,
+    launches summed over the timed frames)."""
+    times, tally, out = [], dict.fromkeys(want, 0), None
+    for i in range(frames + 1):
+        ms, out, counts = counted(lambda: det.predict(ex))
+        if counts != want:
+            raise AssertionError(f"frame {i}: launches {counts} != {want}")
+        if i:
+            times.append(ms)
+            for k in tally:
+                tally[k] += counts[k]
+    return statistics.median(times), times, out, tally
+
+
+@torch.no_grad()
+def centerpoint_reference(dev, card):
+    """The CenterPoint widths on SMALL_GRID, same weights and points: the
+    backbone BEV and each head map of the card (bf16 backbone with the
+    stem and scatter kernels) against the CPU (float32, plain twins), each
+    stage fed the CPU's input."""
+    from partner_tpu_torch.models import build_detector
+
+    m, _, tc = centerpoint_cfgs(grid=SMALL_GRID)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    gpu = build_detector(m, None, tc, device=dev, generator=gen).module
+    randomize_norms(gpu, gen)
+    m32, _, _ = centerpoint_cfgs(grid=SMALL_GRID, compute_dtype="float32")
+    cpu = build_detector(m32, None, tc, device="cpu").module
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    pts, mask = synthetic_sweep(np.random.RandomState(SEED + 7),
+                                m["bbox_head"]["voxel_generator"]["range"],
+                                30_000)
+    exc = to_device({"points": pts, "points_mask": mask}, "cpu")
+    exg = to_device({"points": pts, "points_mask": mask}, dev)
+    bev = cpu.backbone.encode_points(exc["points"], exc["points_mask"],
+                                     cpu.grid_size, cpu.pc_range)
+    rel_rms(f"CenterPoint backbone BEV on {card}",
+            gpu.backbone.encode_points(exg["points"], exg["points_mask"],
+                                       gpu.grid_size, gpu.pc_range),
+            bev, REF_BF16)
+    want = cpu.bbox_head(cpu.neck(bev))["det_preds"][0]
+    got = gpu.bbox_head(gpu.neck(bev.to(dev)))["det_preds"][0]
+    for k in sorted(want):
+        rel_rms(f"CenterPoint RPN + head {k}", got[k], want[k], REF_BF16)
+
+
+def write_centerpoint_config(root, info_path):
+    """The CenterPoint config file with ``score_threshold`` 0 (as
+    :func:`centerpoint_cfgs`), ``data.train`` and ``data.val`` at
+    ``info_path``, and a metrics record every step."""
+    path = os.path.join(root, "centerpoint_cfg.py")
+    with open(path, "w") as f:
+        f.write(f"exec(open({CP_CONFIG!r}).read())\n"
+                "test_cfg['score_threshold'] = 0.0\n"
+                f"for _s in ('train', 'val'):\n"
+                f"    data[_s].update(info_path={info_path!r}, "
+                f"root_path={root!r})\n"
+                "log_config['hooks'] = log_config['hooks'] + "
+                "[dict(type='MetricsSinkHook', interval=1)]\n")
+    return path
+
+
+def centerpoint_phase(dev, card):
+    """The Waymo CenterPoint family on the card at full width: the
+    one-sweep frame, the card against the CPU on a small grid, the
+    two-sweep velocity frame (the stem at C_in 11), the batch-4 train step,
+    and both entry points (dist_test from a port checkpoint; two train-CLI
+    steps)."""
+    import json as _json
+    import tempfile
+
+    from partner_tpu_torch.models import build_detector
+    from partner_tpu_torch.tools import dist_test, train
+    from partner_tpu_torch.train.checkpoint import save_checkpoint
+    from partner_tpu_torch.train.optim import build_one_cycle_optimizer
+    from partner_tpu_torch.train.train_state import make_train_step
+    from partner_tpu_torch.utils.config import load_config
+
+    res = {}
+    per_frame = {"stem": 1, "scatter_max": 1, "swin_attn": 0, "swin_block": 0}
+    # ---- the one-sweep frame
+    m, train_cfg, tc = centerpoint_cfgs()
+    gen = torch.Generator().manual_seed(SEED + 6)
+    t0 = time.perf_counter()
+    det = build_detector(m, None, tc, device=dev, generator=gen)
+    randomize_norms(det.module, gen)
+    n_params = sum(p.numel() for p in det.module.parameters())
+    log(f"CenterPoint detector: grid {det.module.grid_size}, {n_params} "
+        f"params, built in {time.perf_counter() - t0:.1f} s")
+    pr = m["bbox_head"]["voxel_generator"]["range"]
+    pts, mask = synthetic_sweep(np.random.RandomState(SEED), pr, N_POINTS)
+    ex = to_device({"points": pts, "points_mask": mask}, dev)
+    median, times, out, tally = timed_predicts(det, ex, FRAMES,
+                                                   per_frame)
+    busy, kernels = device_busy(lambda: det.predict(ex))
+    with torch.no_grad():
+        maps = det.module(ex)["det_preds"][0]
+    if not all(torch.isfinite(v).all() for v in maps.values()):
+        raise AssertionError("CenterPoint frame: non-finite head maps")
+    kept = check_detections(out, tc)
+    log(f"CenterPoint frame on {card}: median {median!r} ms over {FRAMES} "
+        f"frames (host clock around a synchronized predict), all {times!r}; "
+        f"device busy {busy!r} ms and {kernels!r} launches a frame "
+        f"(torch.profiler, 3 frames); kernel launches over {FRAMES} frames "
+        f"{tally}; {kept} boxes kept; maps {sorted(maps)} finite")
+    res["frame"] = dict(median_ms=median, device_busy_ms=busy,
+                        launches_per_frame=kernels, launches=tally,
+                        kept=kept)
+    del det, maps, out
+    torch.cuda.empty_cache()
+
+    centerpoint_reference(dev, card)
+
+    # ---- the two-sweep velocity frame: 8 features, the stem at C_in 11
+    mv, _, tcv = centerpoint_cfgs(CP_VELO_CONFIG)
+    gen = torch.Generator().manual_seed(SEED + 8)
+    det = build_detector(mv, None, tcv, device=dev, generator=gen)
+    randomize_norms(det.module, gen)
+    pts, mask = synthetic_sweep(np.random.RandomState(SEED + 8), pr,
+                                2 * N_POINTS, c=8)
+    ex = to_device({"points": pts, "points_mask": mask}, dev)
+    median, times, out, tally = timed_predicts(det, ex, CP_VELO_FRAMES,
+                                                   per_frame)
+    with torch.no_grad():
+        maps = det.module(ex)["det_preds"][0]
+    if "vel" not in maps or not torch.isfinite(maps["vel"]).all():
+        raise AssertionError("two-sweep frame: vel map missing or not finite")
+    kept = check_detections(out, tcv, box_dim=9)
+    log(f"CenterPoint two-sweep frame on {card}: {2 * N_POINTS} points in "
+        f"{pts.shape[1]} rows, 8 features (stem C_in 11): median {median!r} "
+        f"ms over {CP_VELO_FRAMES} frames, all {times!r}; launches {tally}; "
+        f"{kept} boxes kept (9 columns, velocity); vel map finite")
+    res["two_sweep"] = dict(median_ms=median, launches=tally, kept=kept)
+    del det, maps, out
+    torch.cuda.empty_cache()
+
+    # ---- the train step at batch 4
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator().manual_seed(SEED + 9)
+    det = build_detector(m, None, tc, device=dev, generator=gen)
+    randomize_norms(det.module, gen)
+    cfg = load_config(CP_CONFIG)
+    batch = cfg["data"]["samples_per_gpu"]
+    ex = to_device(centerpoint_train_example(
+        np.random.RandomState(SEED + 9), m, train_cfg, batch, TRAIN_POINTS,
+        TRAIN_ROWS, MAX_BOXES), dev)
+    log(f"CenterPoint train batch: {batch} samples of {TRAIN_POINTS} points "
+        f"in {TRAIN_ROWS} rows, {[int(t.sum()) for t in ex['mask'][0]]} "
+        f"center targets")
+    step = make_train_step(det, build_one_cycle_optimizer(
+        det.module, lr_max=cfg["lr_config"]["lr_max"], total_steps=1000))
+    want = {"stem": 0, "scatter_max": 1, "swin_attn": 0, "swin_block": 0}
+    launches, median, times, _, peak = timed_train_steps(
+        det, step, ex, None, want, "CenterPoint train step")
+    log(f"CenterPoint train step, batch {batch}, on {card}: median {median!r} "
+        f"ms over {TRAIN_STEPS} steps (host clock around a synchronized "
+        f"step), all {times!r}; peak memory {peak!r} GiB; launches over "
+        f"{TRAIN_STEPS + 1} steps {launches}; every gradient finite, every "
+        "parameter and BatchNorm statistic moved")
+    res["train"] = dict(median_ms=median, peak_gib=peak, launches=launches)
+
+    # ---- the entry points
+    with tempfile.TemporaryDirectory() as root:
+        info_path = write_val_set(root, np.random.RandomState(SEED + 10), pr,
+                                  CP_EVAL_FRAMES, names=CP_CLASSES)
+        cfg_path = write_centerpoint_config(root, info_path)
+        save_checkpoint(os.path.join(root, "ckpt"), 0,
+                        det.module.state_dict())
+        del det, step, ex
+        torch.cuda.empty_cache()
+        _, ((metrics, _), fps), eval_launches = counted(
+            lambda: dist_test.main([
+                cfg_path, "--checkpoint",
+                os.path.join(root, "ckpt", "latest"), "--work_dir",
+                os.path.join(root, "eval"), "--max_points", str(EVAL_ROWS),
+                "--device", torch.device(dev).type]))
+        want = {k: n * CP_EVAL_FRAMES for k, n in per_frame.items()}
+        if eval_launches != want:
+            raise AssertionError(f"CenterPoint dist_test: launches "
+                                 f"{eval_launches} != {want}")
+        keys = [f"AP/L1/{c}" for c in CP_CLASSES] + ["mAP/L1", "mAPH/L2"]
+        for k in keys:
+            if k not in metrics or not np.isfinite(metrics[k]):
+                raise AssertionError(f"CenterPoint dist_test: {k} missing or "
+                                     "not finite")
+        log(f"CenterPoint dist_test on {card}: middle-third FPS {fps!r} over "
+            f"{CP_EVAL_FRAMES} frames of {N_POINTS} points in {EVAL_ROWS} "
+            f"rows; launches {eval_launches}; " + ", ".join(
+                f"{k} {metrics[k]!r}" for k in keys))
+        res["dist_test"] = dict(fps=fps, launches=eval_launches)
+
+        work_dir = os.path.join(root, "train")
+        wall_ms, steps, cli_launches = counted(lambda: train.main([
+            cfg_path, "--work_dir", work_dir, "--batch_size", "4",
+            "--total_steps", "2", "--max_steps_per_epoch", "2",
+            "--max_points", str(TRAIN_ROWS), "--seed", str(SEED),
+            "--device", torch.device(dev).type]))
+        wall = wall_ms / 1e3
+        with open(os.path.join(work_dir, "metrics.jsonl")) as f:
+            recs = [_json.loads(line) for line in f]
+        ckpts = sorted(d for d in os.listdir(work_dir)
+                       if d.startswith("ckpt_"))
+    if steps != 2 or ckpts != ["ckpt_00000002"] or [
+            r["step"] for r in recs] != [0, 1]:
+        raise AssertionError(f"CenterPoint train CLI: steps {steps}, "
+                             f"checkpoints {ckpts}, records {recs}")
+    if cli_launches != {"stem": 0, "scatter_max": 2, "swin_attn": 0,
+                        "swin_block": 0}:
+        raise AssertionError(f"CenterPoint train CLI: launches {cli_launches}")
+    for r in recs:
+        vals = {k: r[k] for k in ("loss", "hm_loss", "loc_loss", "det_loss",
+                                  "grad_norm")}
+        log(f"CenterPoint train CLI step {r['step']} on {card}: time "
+            f"{r['time']!r} s, data_time {r['data_time']!r} s, {vals}")
+        flat = [x for v in vals.values()
+                for x in (v if isinstance(v, list) else [v])]
+        if not all(np.isfinite(flat)):
+            raise AssertionError(f"CenterPoint train CLI: {vals}")
+    log(f"CenterPoint train CLI: 2 steps at batch 4 and one checkpoint in "
+        f"{wall!r} s (build, data, steps, checkpoint)")
+    res["train_cli"] = dict(launches=cli_launches, wall_s=wall)
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this run needs one NVIDIA card")
@@ -1825,7 +2212,7 @@ def main():
             log("  ptxas:", line.strip())
 
     gen = torch.Generator().manual_seed(SEED)
-    kres = kernel_phase(gen, dev)
+    kres = kernel_phase(gen, dev, card)
     routes = frame_phase(dev, card)
     train_launches, train_ms, train_peak = train_phase(dev, card)
     reference_phase(dev)
@@ -1834,6 +2221,7 @@ def main():
         eval_phase(dev, card))
     static = static_rpe_phase(dev, card)
     cli = train_cli_phase(dev, card)
+    cp = centerpoint_phase(dev, card)
 
     meta = {
         "stem": ("partner_tpu_torch/csrc/stem.cu",
@@ -1854,6 +2242,14 @@ def main():
                     eval_launches=eval_launches[name],
                     static_rpe_launches=static["cached"]["launches"][name],
                     train_cli_launches=cli["launches"][name],
+                    centerpoint_launches=cp["frame"]["launches"][name],
+                    centerpoint_two_sweep_launches=cp["two_sweep"][
+                        "launches"][name],
+                    centerpoint_train_launches=cp["train"]["launches"][name],
+                    centerpoint_dist_test_launches=cp["dist_test"][
+                        "launches"][name],
+                    centerpoint_train_cli_launches=cp["train_cli"][
+                        "launches"][name],
                     **r)
                for name, r in kres.items()]
     log("summary: card " + card + ", flagship frame median ms: " + ", ".join(
@@ -1872,6 +2268,22 @@ def main():
         f"{cli['sample_ms']!r} ms a sample, loader {cli['loader_rate']!r} "
         f"batches a second, GT-AUG {cli['inserted']!r} boxes a sample, peak "
         f"{cli['peak']!r} GiB")
+    log(f"summary: card {card}, CenterPoint frame median "
+        f"{cp['frame']['median_ms']!r} ms, device busy "
+        f"{cp['frame']['device_busy_ms']!r} ms and "
+        f"{cp['frame']['launches_per_frame']!r} launches a frame, "
+        f"{cp['frame']['kept']} boxes kept; two-sweep frame median "
+        f"{cp['two_sweep']['median_ms']!r} ms; train step median "
+        f"{cp['train']['median_ms']!r} ms, peak {cp['train']['peak_gib']!r} "
+        f"GiB; dist_test middle-third FPS {cp['dist_test']['fps']!r}; train "
+        f"CLI 2 steps in {cp['train_cli']['wall_s']!r} s; stem C_in 11 "
+        f"device {kres['stem']['device_ms_cin11']!r} ms, bound "
+        f"{kres['stem']['bound_ms_cin11']!r} ms, share "
+        f"{kres['stem']['bound_share_cin11']!r}; scatter-max at 432,000 rows "
+        f"device {kres['scatter_max']['device_ms_p432000']!r} ms, bound "
+        f"{kres['scatter_max']['bound_ms_p432000']!r} ms, share "
+        f"{kres['scatter_max']['bound_share_p432000']!r}, "
+        f"{kres['scatter_max']['not_equal_p432000']} not equal to the twin")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,10 @@ The other direction of ``partner_tpu/train/torch_convert.py``. The port's
 submodules carry flax's names (``Conv_0``, ``BatchNorm_0``,
 ``block_a2d0``, ...), so one walker maps every leaf by name:
 
-- ``kernel`` of a Conv: HWIO -> OIHW; of a Dense: (in, out) -> (out, in);
-  of a ConvTranspose: (kh, kw, I, O) flipped spatially -> (I, O, kh, kw),
-  the inverse of ``torch_convert.convert_torch_convtranspose2d``;
+- ``kernel`` of a Conv: HWIO -> OIHW, and DHWIO -> OIDHW for a 3D conv;
+  of a Dense: (in, out) -> (out, in); of a ConvTranspose: (kh, kw, I, O)
+  flipped spatially -> (I, O, kh, kw), the inverse of
+  ``torch_convert.convert_torch_convtranspose2d``;
 - ``scale`` -> ``weight``; batch stats ``mean``/``var`` ->
   ``running_mean``/``running_var``;
 - the ``layers.BatchNorm`` wrapper's nested ``BatchNorm_k/BatchNorm_0``
@@ -47,6 +48,8 @@ def _param(path, arr):
             arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
         elif arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
+        elif arr.ndim == 5:
+            arr = arr.transpose(4, 3, 0, 1, 2)
         elif arr.ndim == 2:
             arr = arr.T
         else:

@@ -4,7 +4,10 @@
 // (the pl.pallas_call at :79). Plain twin and wrapper:
 // partner_tpu_torch/ops/stem.py.
 //
-// Computes, per point p of x (B, 10, P) bf16, channel-major:
+// Computes, per point p of x (B, C_in, P) bf16, channel-major, for the
+// point-path widths of the repo's configs, C_in = 10 (7 point features +
+// 3 decorations) and 11 (the two-sweep configs' 8 + 3), each its own
+// instantiation of the kernel template on CIN:
 //   h   = relu(fl(bf16(W1 x) * m) * a1 + b1)          -> bf16, 32 wide
 //   out = relu(fl(bf16(W2 h) * m) * a2 + b2)          -> bf16, 64 wide
 // with f32 accumulation, m the point mask, and a/b the folded inference
@@ -12,7 +15,8 @@
 // by the wrapper. The bf16 round trips are the TPU kernel's.
 //
 // What bounds it on the H100: by its algorithm, bytes. A point reads 20 B
-// of features and 1 B of mask and writes 128 B; at P = 216,000 that is
+// (C_in 10) of features and 1 B of mask and writes 128 B; at P = 216,000
+// that is
 // 32 MB, 0.0096 ms at 3.35 TB/s, 86% of it the output. Its 1.02 GFLOP of
 // products would take 0.015 ms on the float32 units alone, more than the
 // byte bound, so they run on the tensor cores (0.001 ms at the bf16 peak).
@@ -32,8 +36,8 @@
 //   copies the next tile's x and mask into the second of two shared
 //   buffers by cp.async (16-byte copies along the points, 4-byte for the
 //   mask) while it computes the current one.
-// - x stays channel-major in shared memory, rows 10-15 zeros (K padded to
-//   16); ldmatrix.x4.trans gives the A fragments straight from that layout
+// - x stays channel-major in shared memory, rows C_in-15 zeros (K padded
+//   to 16); ldmatrix.x4.trans gives the A fragments straight from that layout
 //   (rows padded to 72 values: the 8 row addresses of a phase fall in
 //   distinct 16-byte bank groups).
 // - Layer 1 feeds layer 2 from registers: the m16n8 accumulators of
@@ -50,7 +54,9 @@
 //   row with 16-byte stores along the points.
 // - Any P: the 16-byte copies and stores serve tiles inside P when P is a
 //   multiple of 8 and x, out and the mask are aligned; the ragged tail
-//   tile and other P take scalar loads and stores in the same kernel.
+//   tile and other P take scalar loads and stores in the same kernel. A
+//   sample's x starts at b * C_in * P values, a multiple of 8 with P for
+//   any C_in, so the 16-byte path holds at 11 as at 10.
 // Numerics: bf16 x bf16 products are exact in f32, but the tensor cores
 // add them in another order (and not as a chain of IEEE adds) than the
 // twin's f32 matmul, so a bf16 rounding of a hidden value or an output can
@@ -65,7 +71,6 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int CIN = 10;
 constexpr int K1 = 16;  // CIN padded to the mma's K
 constexpr int F1 = 32;
 constexpr int F2 = 64;
@@ -153,7 +158,7 @@ __device__ __forceinline__ void stsm_x4_trans(const uint32_t (&r)[4],
 // Copies tile t (sample t / tiles, points p0 = (t % tiles) TP ..) of x and
 // the mask into buffer buf: 16-byte and 4-byte cp.async for a whole tile on
 // the vector path, plain loads otherwise (zeros past P).
-template <bool VEC>
+template <int CIN, bool VEC>
 __device__ __forceinline__ void stage(const bf16* __restrict__ x,
                                       const uint8_t* __restrict__ mask,
                                       unsigned char* smem, int buf, int t,
@@ -182,7 +187,7 @@ __device__ __forceinline__ void stage(const bf16* __restrict__ x,
   }
 }
 
-template <bool VEC>
+template <int CIN, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 stem2_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ mask,
              const bf16* __restrict__ w1, const float* __restrict__ a1,
@@ -199,7 +204,8 @@ stem2_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ mask,
   const int g = lane >> 2, t4 = lane & 3;
 
   int t = blockIdx.x;
-  stage<VEC>(x, mask, smem, 0, t, tiles, P);
+  static_assert(CIN >= 8 && CIN <= K1, "K rows 0-7 of W1 are all read");
+  stage<CIN, VEC>(x, mask, smem, 0, t, tiles, P);
   asm volatile("cp.async.commit_group;\n" ::);
   // K padded with zero rows in both buffers; the affines
   for (int e = tid; e < 2 * (K1 - CIN) * TP / 2; e += THREADS) {
@@ -224,10 +230,11 @@ stem2_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ mask,
     const uint16_t* r = w1u + (8 * j + g) * CIN;
     bw1[j][0] = (uint32_t)__ldg(r + 2 * t4) |
                 ((uint32_t)__ldg(r + 2 * t4 + 1) << 16);
-    // k 2t + 8 < CIN only for t = 0
-    bw1[j][1] = t4 == 0 ? ((uint32_t)__ldg(r + 8) |
-                           ((uint32_t)__ldg(r + 9) << 16))
-                        : 0u;
+    // k 2t + 8 and 2t + 9, zero at and past CIN (the padded K rows): at
+    // C_in 10 only t = 0 reads, at 11 also t = 1 its low half
+    const int k = 2 * t4 + 8;
+    bw1[j][1] = (k < CIN ? (uint32_t)__ldg(r + k) : 0u) |
+                ((k + 1 < CIN ? (uint32_t)__ldg(r + k + 1) : 0u) << 16);
   }
   uint32_t bw2[F2 / 8][F1 / 16][2];
 #pragma unroll
@@ -243,7 +250,7 @@ stem2_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ mask,
     const int buf = it & 1;
     // the next tile's copies go out before this one is computed
     if (t + gridDim.x < total)
-      stage<VEC>(x, mask, smem, buf ^ 1, t + gridDim.x, tiles, P);
+      stage<CIN, VEC>(x, mask, smem, buf ^ 1, t + gridDim.x, tiles, P);
     asm volatile("cp.async.commit_group;\n" ::);
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     __syncthreads();
@@ -321,22 +328,22 @@ bool aligned16(const void* p) {
 }
 
 // Blocks of the persistent grid on the current device (SMs x blocks that
-// fit on one), worked out once per device and entry.
-int persistent_slots(bool vec, int* slots) {
+// fit on one), worked out once per device and instantiation.
+template <int CIN, bool VEC>
+int persistent_slots(int* slots) {
   constexpr int MAX_DEVICES = 64;
-  static int cached[MAX_DEVICES][2] = {};
+  static int cached[MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  int& c = cached[dev][vec];
+  int& c = cached[dev];
   if (c == 0) {
-    const auto kernel = vec ? stem2_kernel<true> : stem2_kernel<false>;
     int sms = 0, per_sm = 0;
     if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                       dev)) != cudaSuccess ||
         (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, THREADS, SMEM)) != cudaSuccess)
+             &per_sm, stem2_kernel<CIN, VEC>, THREADS, SMEM)) != cudaSuccess)
       return (int)err;
     c = sms * per_sm;
   }
@@ -344,15 +351,28 @@ int persistent_slots(bool vec, int* slots) {
   return 0;
 }
 
+template <int CIN, bool VEC>
+int launch(const bf16* x, const uint8_t* mask, const bf16* w1,
+           const float* a1, const float* b1, const bf16* w2, const float* a2,
+           const float* b2, bf16* out, int B, int P, cudaStream_t s) {
+  const int tiles = (P + TP - 1) / TP, total = B * tiles;
+  int slots = 0;
+  const int err = persistent_slots<CIN, VEC>(&slots);
+  if (err) return err;
+  stem2_kernel<CIN, VEC><<<total < slots ? total : slots, THREADS, SMEM, s>>>(
+      x, mask, w1, a1, b1, w2, a2, b2, out, P, tiles, total);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// cin selects the instantiation: 10 or 11, else cudaErrorInvalidValue.
 extern "C" int ptt_stem2_bf16(const void* x, const void* mask, const void* w1,
                               const void* a1, const void* b1, const void* w2,
                               const void* a2, const void* b2, void* out,
-                              int B, int P, void* stream) {
+                              int B, int P, int cin, void* stream) {
   // the B fragments read W2 as 32-bit words
   if (reinterpret_cast<uintptr_t>(w2) & 3u) return (int)cudaErrorInvalidValue;
-  const int tiles = (P + TP - 1) / TP, total = B * tiles;
   const auto s = (cudaStream_t)stream;
   const auto* x_ = (const bf16*)x;
   const auto* m_ = (const uint8_t*)mask;
@@ -365,11 +385,15 @@ extern "C" int ptt_stem2_bf16(const void* x, const void* mask, const void* w1,
   auto* o_ = (bf16*)out;
   const bool vec = P % 8 == 0 && aligned16(x) && aligned16(out) &&
                    (reinterpret_cast<uintptr_t>(mask) & 3u) == 0;
-  int slots = 0;
-  const int err = persistent_slots(vec, &slots);
-  if (err) return err;
-  const auto kernel = vec ? stem2_kernel<true> : stem2_kernel<false>;
-  kernel<<<total < slots ? total : slots, THREADS, SMEM, s>>>(
-      x_, m_, w1_, a1_, b1_, w2_, a2_, b2_, o_, P, tiles, total);
-  return (int)cudaGetLastError();
+#define PTT_STEM_LAUNCH(C, V) \
+  launch<C, V>(x_, m_, w1_, a1_, b1_, w2_, a2_, b2_, o_, B, P, s)
+  switch (cin) {
+    case 10:
+      return vec ? PTT_STEM_LAUNCH(10, true) : PTT_STEM_LAUNCH(10, false);
+    case 11:
+      return vec ? PTT_STEM_LAUNCH(11, true) : PTT_STEM_LAUNCH(11, false);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef PTT_STEM_LAUNCH
 }

@@ -1,18 +1,20 @@
 from .registry import (  # noqa: F401
     BACKBONES, BBOX_HEADS, DETECTORS, NECKS, Registry, build_from_cfg,
 )
-from . import backbone_dense, detectors, e2e_head, rpn  # noqa: F401
+from . import (backbone_dense, center_head, detectors, e2e_head,  # noqa: F401
+               rpn)
 
 
 def build_detector(cfg, train_cfg=None, test_cfg=None, *, device,
                    generator=None, use_block_kernel=False):
-    """Counterpart of ``partner_tpu.models.build_detector`` (inference).
+    """Counterpart of ``partner_tpu.models.build_detector``: a
+    ``VoxelNetV3`` (PARTNER) or ``VoxelNet`` (CenterPoint) config.
 
     Builds the detector's module on ``device``; its weights are drawn from
     ``generator`` (a CPU ``torch.Generator``; seed 0 when None) and are
     usually replaced by converted flax weights or a checkpoint.
     ``use_block_kernel=True`` runs the E2E head's Swin blocks on the
-    whole-block route (``ops/swin_block.py``)."""
+    whole-block route (``ops/swin_block.py``); a VoxelNet refuses it."""
     return build_from_cfg(dict(cfg), DETECTORS,
                           dict(train_cfg=train_cfg, test_cfg=test_cfg,
                                device=device, generator=generator,

@@ -1,10 +1,13 @@
 """PolarDenseFHD point path (counterpart of ``partner_tpu/models/backbone_dense.py``).
 
-Only what the flagship frame and train step run is ported: ``encode_points``
-(decoration -> channel-major 2-layer stem -> one scatter-max into a
-z-folded canvas) and the ``trunk2d`` conv trunk that turns the canvas into
-the stride-8 BEV map. The 3D-conv trunk and the voxel input path are not
-ported.
+The point path is ported: ``encode_points`` (decoration -> channel-major
+2-layer stem -> one scatter-max into a z-folded canvas), then either trunk
+that turns the canvas into the stride-8 BEV map: the 2D ``trunk2d`` trunk
+of the PARTNER configs, or the 3D-conv trunk of the CenterPoint configs
+(the canvas unfolded to (B, cz, cy, cx, C); 3x3x3 stages at 1/4 and 1/8
+resolution, then the z-squeeze ``extra_conv`` and the channel fold). The
+3D trunk's ``factorized`` option (no config sets it) and the voxel input
+path are not ported.
 
 In eval mode the stem runs through :func:`ops.stem.stem2_channel_major`
 (the CUDA kernel for CUDA tensors, its plain twin for CPU tensors). In
@@ -21,8 +24,8 @@ import torch.nn as nn
 
 from ..ops import scatter_max, stem
 from ..utils.dtypes import resolve_compute_dtype
-from .layers import (BN_EPS, BN_MOMENTUM, BatchNorm, Conv2d, _lecun_normal_,
-                     constant, update_running)
+from .layers import (BN_EPS, BN_MOMENTUM, BatchNorm, Conv2d, Conv3d,
+                     _lecun_normal_, constant, update_running)
 from .registry import BACKBONES
 
 
@@ -59,9 +62,42 @@ class Dense2DResBlock(nn.Module):
         return torch.relu(y.to(self.dtype) + x)
 
 
+class DenseConvBlock(nn.Module):
+    """3D conv (no bias) + BN + ReLU (the 3D trunk's stage convs)."""
+
+    def __init__(self, in_features, features, kernel=(3, 3, 3),
+                 stride=(1, 1, 1), padding="SAME", dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.Conv_0 = Conv3d(in_features, features, kernel, stride, padding,
+                             dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(features, BN_EPS, BN_MOMENTUM)
+
+    def forward(self, x):
+        return torch.relu(self.BatchNorm_0(self.Conv_0(x))).to(self.dtype)
+
+
+class DenseBasicBlock(nn.Module):
+    """Two 3x3x3 convs with residual."""
+
+    def __init__(self, features, dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.conv1 = Conv3d(features, features, (3, 3, 3), dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(features, BN_EPS, BN_MOMENTUM)
+        self.conv2 = Conv3d(features, features, (3, 3, 3), dtype=dtype)
+        self.BatchNorm_1 = BatchNorm(features, BN_EPS, BN_MOMENTUM)
+
+    def forward(self, x):
+        y = torch.relu(self.BatchNorm_0(self.conv1(x))).to(self.dtype)
+        y = self.BatchNorm_1(self.conv2(y))
+        return torch.relu(y.to(self.dtype) + x)
+
+
 @BACKBONES.register_module(name="PolarDenseFHD")
 class PolarDenseFHD(nn.Module):
-    """Dense middle extractor, point path with ``trunk2d=True``.
+    """Dense middle extractor, point path, with the 2D trunk
+    (``trunk2d=True``) or the 3D one.
 
     Raw parameters keep the flax names and layouts (``stem{i}_kernel`` is
     (C_in, F), ``stem{i}_scale/bias`` and the ``stem{i}_mean/var`` buffers
@@ -70,13 +106,16 @@ class PolarDenseFHD(nn.Module):
     def __init__(self, num_input_features=7, ds_factor=8, bev_pool=4,
                  z_pool=8, stem_features=(32, 64), stage_a_blocks=1,
                  stage_b_blocks=2, compute_dtype="bfloat16", trunk2d=False,
-                 a2d_features=160, out_features=256, input_shape=None,
-                 **kwargs):
-        """``input_shape`` is the (n_r, n_az, n_z) grid: the first trunk
-        conv's width, cz * F2, depends on it."""
+                 a2d_features=160, out_features=256, factorized=False,
+                 input_shape=None, **kwargs):
+        """``input_shape`` is the (n_r, n_az, n_z) grid: the first 2D trunk
+        conv's width, cz * F2, and the 3D trunk's BEV width depend on
+        it."""
         super().__init__()
-        if not trunk2d:
-            raise ValueError("only the trunk2d PolarDenseFHD is ported")
+        if factorized:
+            raise NotImplementedError(
+                "PolarDenseFHD(factorized=True) is not ported: no config "
+                "of the repo sets it")
         if len(stem_features) != 2:
             raise ValueError("the fused stem takes exactly two layers")
         self.num_input_features = num_input_features
@@ -92,20 +131,35 @@ class PolarDenseFHD(nn.Module):
             setattr(self, f"stem{i}_bias", nn.Parameter(torch.empty(f)))
             self.register_buffer(f"stem{i}_mean", torch.empty(f))
             self.register_buffer(f"stem{i}_var", torch.empty(f))
-        self.out_features = out_features
+        self.trunk2d = trunk2d
         self.stage_a_blocks = stage_a_blocks
         self.stage_b_blocks = stage_b_blocks
         dt = self.dtype
-        cin = self.canvas_shape(input_shape)[0] * self.stem_features[-1]
-        self.conv_a2d = Dense2DBlock(cin, a2d_features, dtype=dt)
+        cz = self.canvas_shape(input_shape)[0]
+        f = self.stem_features[-1]
+        if trunk2d:
+            self.out_features = out_features
+            self.conv_a2d = Dense2DBlock(cz * f, a2d_features, dtype=dt)
+            for i in range(stage_a_blocks):
+                setattr(self, f"block_a2d{i}",
+                        Dense2DResBlock(a2d_features, dtype=dt))
+            self.conv_b2d = Dense2DBlock(a2d_features, out_features,
+                                         stride=2, dtype=dt)
+            for i in range(stage_b_blocks):
+                setattr(self, f"block_b2d{i}",
+                        Dense2DResBlock(out_features, dtype=dt))
+            return
+        # the z-squeeze leaves (cz - 3) // 2 + 1 planes of 2F channels
+        self.out_features = 2 * f * ((cz - 3) // 2 + 1)
+        self.conv_a = DenseConvBlock(f, f, dtype=dt)
         for i in range(stage_a_blocks):
-            setattr(self, f"block_a2d{i}",
-                    Dense2DResBlock(a2d_features, dtype=dt))
-        self.conv_b2d = Dense2DBlock(a2d_features, out_features, stride=2,
-                                     dtype=dt)
+            setattr(self, f"block_a{i}", DenseBasicBlock(f, dtype=dt))
+        self.conv_b = DenseConvBlock(f, 2 * f, stride=(1, 2, 2), dtype=dt)
         for i in range(stage_b_blocks):
-            setattr(self, f"block_b2d{i}",
-                    Dense2DResBlock(out_features, dtype=dt))
+            setattr(self, f"block_b{i}", DenseBasicBlock(2 * f, dtype=dt))
+        self.extra_conv = DenseConvBlock(2 * f, 2 * f, kernel=(3, 1, 1),
+                                         stride=(2, 1, 1), padding="VALID",
+                                         dtype=dt)
 
     def init_extra(self, generator):
         for i in range(len(self.stem_features)):
@@ -164,13 +218,29 @@ class PolarDenseFHD(nn.Module):
         return x.contiguous()
 
     def _trunk(self, canvas):
-        a = self.conv_a2d(canvas)
+        """z-folded canvas (B, cy, cx, cz * C) -> BEV map, float32."""
+        if self.trunk2d:
+            a = self.conv_a2d(canvas)
+            for i in range(self.stage_a_blocks):
+                a = getattr(self, f"block_a2d{i}")(a)
+            b = self.conv_b2d(a)
+            for i in range(self.stage_b_blocks):
+                b = getattr(self, f"block_b2d{i}")(b)
+            return b.float()
+        bb, cy, cx, czc = canvas.shape
+        c = self.stem_features[-1]
+        # unfold z: the JAX package's (B, cz, cy, cx, C) canvas
+        x = canvas.reshape(bb, cy, cx, czc // c, c).permute(0, 3, 1, 2, 4)
+        a = self.conv_a(x)
         for i in range(self.stage_a_blocks):
-            a = getattr(self, f"block_a2d{i}")(a)
-        b = self.conv_b2d(a)
+            a = getattr(self, f"block_a{i}")(a)
+        b = self.conv_b(a)
         for i in range(self.stage_b_blocks):
-            b = getattr(self, f"block_b2d{i}")(b)
-        return b.float()
+            b = getattr(self, f"block_b{i}")(b)
+        e = self.extra_conv(b)
+        # channel fold (B, nz', ny, nx, C) -> (B, ny, nx, C * nz'), C outer
+        bb, nz2, ny, nx, cc = e.shape
+        return e.permute(0, 2, 3, 4, 1).reshape(bb, ny, nx, cc * nz2).float()
 
     def encode_points(self, points, mask, input_shape, pc_range):
         """Point input -> BEV map (B, n_az/8, n_r/8, out_features) f32.

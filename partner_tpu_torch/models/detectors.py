@@ -1,16 +1,21 @@
-"""PARTNER detector (counterpart of ``partner_tpu/models/detectors.py``).
+"""Detectors (counterpart of ``partner_tpu/models/detectors.py``).
 
 ``build_voxelnet_v3`` turns the JAX package's VoxelNetV3 config into an
-:class:`E2EDetector`: the point fast path (``PolarDenseFHD.encode_points``)
--> ``SetBlockStack`` -> ``RPN`` -> ``E2ESWVoteHead``, then at inference
-decode through the configured CenterCoder and rotated NMS, and in training
-the ``SetCriterion`` over the auction matcher.
+:class:`E2EDetector` (PARTNER): the point fast path
+(``PolarDenseFHD.encode_points``) -> ``SetBlockStack`` -> ``RPN`` ->
+``E2ESWVoteHead``, then at inference decode through the configured
+CenterCoder and rotated NMS, and in training the ``SetCriterion`` over the
+auction matcher. ``build_voxelnet`` turns a VoxelNet config into a
+:class:`CenterPointDetector`: the same point path -> ``RPN`` ->
+``CenterHead``, per-task decode and rotated NMS, and in training the
+FastFocal + L1 peak regression loss.
 
     det = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg, device=dev)
-    # or the head's whole-block route: build_detector(..., use_block_kernel=True)
+    # or the E2E head's whole-block route: build_detector(...,
+    # use_block_kernel=True)
     det.module.load_state_dict(convert.flax_to_torch(variables))  # optional
     preds = det.predict({"points": pts, "points_mask": mask})
-    det.prepare_inference(example)   # optional: static-RPE cache, then predict
+    det.prepare_inference(example)   # E2E only: static-RPE cache
     losses = det.loss(example, generator)   # train mode, with targets
 """
 
@@ -22,6 +27,8 @@ from ..core.geometry import bev_cell_centers
 from ..losses.set_crit import SetCriterion
 from ..utils.dtypes import resolve_compute_dtype
 from . import e2e_head
+from .center_head import (center_head_decode, center_head_loss,
+                          center_head_post_process)
 from .layers import constant, init_weights
 from .registry import BACKBONES, BBOX_HEADS, DETECTORS, NECKS, build_from_cfg
 from .set_transformer import SetBlockStack
@@ -38,17 +45,24 @@ def _grid_spec(cfg):
 
 
 class VoxelNetModule(nn.Module):
-    """Point-path backbone + SetBlock stack + neck + E2E head, NHWC."""
+    """Point-path backbone + (optional SetBlock stack) + neck + head, NHWC.
+
+    The SetBlock stack (``attns``) and its cell positions exist only with
+    ``with_set_attention`` (VoxelNetV3)."""
 
     def __init__(self, backbone_cfg, neck_cfg, head_cfg, grid_size, pc_range,
-                 out_size_factor=8, set_cfg=None):
+                 out_size_factor=8, with_set_attention=False, set_cfg=None):
         super().__init__()
         self.grid_size = tuple(grid_size)
         self.pc_range = tuple(pc_range)
+        self.out_size_factor = out_size_factor
+        self.with_set_attention = with_set_attention
         self.backbone = build_from_cfg(dict(backbone_cfg), BACKBONES,
                                        dict(input_shape=self.grid_size))
         self.neck = build_from_cfg(dict(neck_cfg), NECKS)
         self.bbox_head = build_from_cfg(dict(head_cfg), BBOX_HEADS)
+        if not with_set_attention:
+            return
         voxel_size = tuple((pc_range[3 + i] - pc_range[i]) / grid_size[i]
                            for i in range(3))
         n_r = grid_size[0] // out_size_factor
@@ -71,16 +85,23 @@ class VoxelNetModule(nn.Module):
 
     def forward(self, example, generator=None):
         """example: {"points": (B, P, C) f32, "points_mask": (B, P) bool}
-        -> dict of head maps (B, n_az/8, n_r/8, .). ``generator`` feeds
+        -> the head's maps (B, n_az/8, n_r/8, .). ``generator`` feeds
         the SetBlock's dropout and DropPath in train mode."""
+        if "features" in example or "voxels" in example:
+            raise NotImplementedError(
+                "voxel inputs (features / voxels) are not ported; the port "
+                "takes points (ROADMAP.md queue 1, off the main path: "
+                "ops/voxelize.py:dynamic_voxelize and the readers)")
         bev = self.backbone.encode_points(
             example["points"], example["points_mask"], self.grid_size,
             self.pc_range)                            # (B, n_az, n_r, C)
-        x = bev.transpose(1, 2)                       # (B, n_r, n_az, C)
-        pos = constant(self, "bev_pos", x.device, lambda: self.bev_pos)
-        x = self.attns(x, pos[None].expand(x.shape[0], -1, -1, -1),
-                       generator)
-        return self.bbox_head(self.neck(x.transpose(1, 2)))
+        if self.with_set_attention:
+            x = bev.transpose(1, 2)                   # (B, n_r, n_az, C)
+            pos = constant(self, "bev_pos", x.device, lambda: self.bev_pos)
+            x = self.attns(x, pos[None].expand(x.shape[0], -1, -1, -1),
+                           generator)
+            bev = x.transpose(1, 2)
+        return self.bbox_head(self.neck(bev))
 
 
 class E2EDetector:
@@ -88,6 +109,9 @@ class E2EDetector:
     inference forward, decode and NMS."""
 
     input_kind = "points"
+    # the batch keys :meth:`loss` reads
+    loss_keys = ("points", "points_mask", "global_box", "global_box_mask",
+                 "votemap_flat")
 
     def __init__(self, module, criterion, test_cfg=None):
         self.module = module
@@ -175,6 +199,85 @@ class E2EDetector:
             nms_cfg.get("nms_post_max_size", 500))
 
 
+class CenterPointDetector:
+    """VoxelNet + CenterHead: the FastFocal + L1 peak regression loss, and
+    at inference forward, per-task decode and NMS. Segmentation heads are
+    not ported (``build_voxelnet`` refuses them)."""
+
+    input_kind = "points"
+    # the batch keys :meth:`loss` reads; all but the points are per-task
+    # lists
+    loss_keys = ("points", "points_mask", "hm", "anno_box", "ind", "mask",
+                 "cat")
+
+    def __init__(self, module, code_weights, weight, voxel_size=None,
+                 test_cfg=None, voxel_shape="cylinder"):
+        self.module = module
+        self.code_weights = tuple(code_weights)
+        self.weight = weight
+        self.voxel_size = voxel_size
+        self.voxel_shape = voxel_shape
+        self.test_cfg = dict(test_cfg or {})
+
+    def loss(self, example, generator=None):
+        """The head's losses of one forward in the module's current mode.
+
+        example: "points", "points_mask" as for :meth:`predict`, plus the
+        per-task lists "hm", "anno_box", "ind", "mask", "cat" of the
+        center target assigner. Returns :func:`center_head_loss`'s dict."""
+        return center_head_loss(self.module(example, generator), example,
+                                self.code_weights, self.weight)
+
+    @torch.no_grad()
+    def predict(self, example):
+        """-> dict of (B, tasks x nms_post, ...) detections + validity
+        mask, the tasks concatenated in order with their labels offset by
+        the classes before them. Puts the module in eval mode first."""
+        self.module.eval()
+        return self.decode(self.module(example))
+
+    @torch.no_grad()
+    def decode(self, preds):
+        """Head maps -> decoded, score-masked, NMS'd detections."""
+        if self.test_cfg.get("double_flip"):
+            raise NotImplementedError(
+                "test_cfg double_flip: double_flip_average is not ported "
+                "(ROADMAP.md queue 1, off the main path: DCNSepHead, "
+                "deform_conv and double_flip_average)")
+        outs, offset = [], 0
+        for task_preds in preds["det_preds"]:
+            hm = task_preds["hm"]
+            boxes, scores = center_head_decode(
+                task_preds, (hm.shape[1], hm.shape[2]), self.voxel_size,
+                self.module.pc_range, self.module.out_size_factor,
+                voxel_shape=self.voxel_shape,
+                rectify=self.test_cfg.get("rectify", False))
+            outs.append(center_head_post_process(boxes, scores,
+                                                 self.test_cfg,
+                                                 class_offset=offset))
+            offset += hm.shape[-1]
+        if len(outs) == 1:
+            return outs[0]
+        return {k: torch.cat([o[k] for o in outs], dim=1) for k in outs[0]}
+
+
+def _neck_cfg(neck):
+    return {k: v for k, v in dict(neck).items()
+            if not k.startswith("set_") and k != "logger"}
+
+
+def _materialize(device, generator, module_kwargs):
+    """A :class:`VoxelNetModule` built on the meta device, then on
+    ``device`` in eval mode with flax's default initializers drawn from
+    ``generator`` (seed 0 when None)."""
+    with torch.device("meta"):
+        module = VoxelNetModule(**module_kwargs)
+    module = module.to_empty(device=device).eval()
+    init_weights(module, generator if generator is not None
+                 else torch.Generator().manual_seed(0))
+    return module
+
+
 @DETECTORS.register_module(name="VoxelNetV3")
 def build_voxelnet_v3(reader, backbone, neck, bbox_head, seg_head=None,
                       part_head=None, pretrained=None, train_cfg=None,
@@ -211,18 +314,11 @@ def build_voxelnet_v3(reader, backbone, neck, bbox_head, seg_head=None,
         "use_block_kernel": use_block_kernel,
     }
     neck = dict(neck)
-    with torch.device("meta"):
-        module = VoxelNetModule(
-            backbone_cfg=dict(backbone),
-            neck_cfg={k: v for k, v in neck.items()
-                      if not k.startswith("set_") and k != "logger"},
-            head_cfg=head_cfg, grid_size=grid, pc_range=pc_range,
-            out_size_factor=osf,
-            set_cfg={k: v for k, v in neck.items() if k.startswith("set_")})
-    module = module.to_empty(device=device).eval()
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
-    init_weights(module, generator)
+    module = _materialize(device, generator, dict(
+        backbone_cfg=dict(backbone), neck_cfg=_neck_cfg(neck),
+        head_cfg=head_cfg, grid_size=grid, pc_range=pc_range,
+        out_size_factor=osf, with_set_attention=True,
+        set_cfg={k: v for k, v in neck.items() if k.startswith("set_")}))
     coder_cfg = dict(bbox_head.get("CODER_CONFIG", {}))
     coder_cfg.setdefault("code_size", 7)
     coder_cfg.setdefault("encode_angle_by_sincos", True)
@@ -241,3 +337,57 @@ def build_voxelnet_v3(reader, backbone, neck, bbox_head, seg_head=None,
     tc = dict(test_cfg or {})
     tc.setdefault("iou_factor", hc.get("iou_factor", 1))
     return E2EDetector(module, criterion, tc)
+
+
+@DETECTORS.register_module(name="VoxelNet")
+def build_voxelnet(reader, backbone, neck, bbox_head, seg_head=None,
+                   part_head=None, pretrained=None, train_cfg=None,
+                   test_cfg=None, *, device, generator=None,
+                   use_block_kernel=False):
+    """CenterPoint detector factory (VoxelNet config ->
+    CenterPointDetector on ``device``), with the JAX package's rewrites of
+    the head config: ``tasks`` as tuples of class names, ``common_heads``
+    sorted, and ``voxel_shape``, ``code_weights``, ``weight`` and
+    ``dataset`` taken out for the detector (``dataset`` names the data
+    set only; the loss is the same for each).
+
+    The port runs the point path only, so ``reader`` is accepted and not
+    built: on that path the JAX package builds a reader without parameters
+    and never calls it. The module is built as :func:`build_voxelnet_v3`
+    builds its own. ``use_block_kernel`` belongs to the E2E head and must
+    stay False here."""
+    if use_block_kernel:
+        raise ValueError("use_block_kernel is an option of the E2E head's "
+                         "Swin blocks; VoxelNet's CenterHead has none")
+    if dict(backbone).get("type") != "PolarDenseFHD":
+        raise ValueError("the port runs the PolarDenseFHD point path only "
+                         "(ROADMAP.md queue 1, off the main path: the "
+                         "sparse backbone, pillar.py, and the voxel readers "
+                         "with dynamic_voxelize)")
+    if seg_head:
+        raise NotImplementedError(
+            "VoxelNet seg_head is not ported (ROADMAP.md queue 1, off the "
+            "main path: seg_head.py)")
+    if bbox_head is None:
+        raise NotImplementedError(
+            "VoxelNet with bbox_head=None (segmentation only) is not ported "
+            "(ROADMAP.md queue 1, off the main path: seg_head.py)")
+    grid, pc_range, voxel_size = _grid_spec(bbox_head)
+    osf = bbox_head.get("out_size_factor", 8)
+    head_cfg = dict(bbox_head)
+    for k in ("voxel_shape", "code_weights", "weight", "dataset"):
+        head_cfg.pop(k, None)
+    head_cfg["tasks"] = tuple({"class_names": tuple(t["class_names"])}
+                              for t in bbox_head["tasks"])
+    if "common_heads" in head_cfg:
+        head_cfg["common_heads"] = tuple(sorted(
+            (k, tuple(v)) for k, v in dict(bbox_head["common_heads"]).items()))
+    module = _materialize(device, generator, dict(
+        backbone_cfg=dict(backbone), neck_cfg=_neck_cfg(neck),
+        head_cfg=head_cfg, grid_size=grid, pc_range=pc_range,
+        out_size_factor=osf))
+    return CenterPointDetector(
+        module, code_weights=bbox_head.get("code_weights", [1.0] * 10),
+        weight=bbox_head.get("weight", 0.25), voxel_size=voxel_size,
+        test_cfg=test_cfg, voxel_shape=bbox_head.get("voxel_shape",
+                                                     "cylinder"))

@@ -3,12 +3,13 @@
 Conventions carried over from flax so converted weights compute the same
 function:
 
-- ``Dense``/``Conv2d``/``ConvTranspose2d`` keep their parameters in float32
-  and cast input and parameters to their compute ``dtype`` at the call, as
-  a flax layer with ``dtype=`` does. A bf16 product accumulates in f32 and
+- ``Dense``/``Conv2d``/``Conv3d``/``ConvTranspose2d`` keep their
+  parameters in float32 and cast input and parameters to their compute
+  ``dtype`` at the call, as a flax layer with ``dtype=`` does. A bf16 product accumulates in f32 and
   rounds once to bf16 on the way out.
-- Convolutions take and return NHWC tensors. Inside they run on the NCHW
-  view of the same memory (channels-last for cuDNN), so no copy is made.
+- Convolutions take and return NHWC (NDHWC) tensors. Inside they run on the
+  NCHW (NCDHW) view of the same memory (channels-last for cuDNN), so no
+  copy is made.
 - ``BatchNorm`` normalizes over the last axis in float32 with flax's
   operation order; its eps and momentum are explicit at every call site
   (1e-3 and 0.99 for the conv trunks, stem and RPN; 1e-5 and 0.9 for the
@@ -124,6 +125,36 @@ class Conv2d(nn.Module):
         b = None if self.bias is None else self.bias.to(dt)
         y = F.conv2d(x, self.weight.to(dt), b, self.stride, pad)
         return y.permute(0, 2, 3, 1)
+
+
+class Conv3d(nn.Module):
+    """flax ``nn.Conv`` with a 3D kernel on NDHWC tensors, no bias;
+    ``padding`` is "SAME" (XLA's, per axis) or "VALID"."""
+
+    def __init__(self, in_features, out_features, kernel, stride=(1, 1, 1),
+                 padding="SAME", dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.stride = tuple(stride)
+        self.padding = padding
+        self.weight = _empty(out_features, in_features, *kernel)
+
+    def fan_in(self):
+        return math.prod(self.weight.shape[1:])
+
+    def forward(self, x):
+        dt = self.dtype
+        x = x.permute(0, 4, 1, 2, 3).to(dt)
+        pad = 0
+        if self.padding == "SAME":
+            pads = [same_pads(x.shape[2 + i], self.weight.shape[2 + i],
+                              self.stride[i]) for i in range(3)]
+            if all(a == b for a, b in pads):
+                pad = tuple(a for a, _ in pads)
+            else:
+                x = F.pad(x, [v for p in pads[::-1] for v in p])
+        y = F.conv3d(x, self.weight.to(dt), None, self.stride, pad)
+        return y.permute(0, 2, 3, 4, 1)
 
 
 class ConvTranspose2d(nn.Module):
@@ -320,7 +351,7 @@ def init_weights(module, generator):
     norm scales one, BN statistics (0, 1); modules with raw parameters
     provide ``init_extra(generator)``."""
     for m in module.modules():
-        if isinstance(m, (Dense, Conv2d, ConvTranspose2d)):
+        if isinstance(m, (Dense, Conv2d, Conv3d, ConvTranspose2d)):
             _lecun_normal_(m.weight, m.fan_in(), generator)
             if getattr(m, "bias", None) is not None:
                 m.bias.fill_(getattr(m, "init_bias", None) or 0.0)

@@ -32,8 +32,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 _SIGNATURES = {
-    # x, mask, w1, a1, b1, w2, a2, b2, out, B, P, stream
-    "ptt_stem2_bf16": [_P] * 9 + [_I, _I, _P],
+    # x, mask, w1, a1, b1, w2, a2, b2, out, B, P, C_in, stream
+    "ptt_stem2_bf16": [_P] * 9 + [_I, _I, _I, _P],
     # q, k, v, pos, mask|NULL, w1, b1, w2, b2, tau, out, nW, nh, nW_mask,
     # stream
     "ptt_swin_attn_bf16": [_P] * 11 + [_I, _I, _I, _P],

@@ -16,7 +16,9 @@ import torch
 
 from . import _cuda
 
-CIN, F1, F2 = 10, 32, 64  # the shapes csrc/stem.cu is compiled for
+# the shapes csrc/stem.cu is compiled for: C_in 10 (7 point features + 3
+# decorations) or 11 (the two-sweep configs' 8 + 3), F1, F2
+CINS, F1, F2 = (10, 11), 32, 64
 
 
 def stem2_channel_major_plain(x, mask, w1, a1, b1, w2, a2, b2):
@@ -45,26 +47,30 @@ def stem2_channel_major_plain(x, mask, w1, a1, b1, w2, a2, b2):
 def stem2_channel_major(x, mask, w1, a1, b1, w2, a2, b2):
     """Fused stem: the CUDA kernel for CUDA tensors, the plain twin for CPU
     tensors. Same arguments and result as :func:`stem2_channel_major_plain`;
-    the kernel takes bf16 features (C_in, F1, F2) = (10, 32, 64), any P,
-    and a w2 at a 4-byte boundary. Forward only: it raises when an input
-    needs a gradient under grad mode."""
+    the kernel takes bf16 features with C_in in ``CINS`` (one instantiation
+    each) and (F1, F2) = (32, 64), any P, and a w2 at a 4-byte boundary.
+    Forward only: it raises when an input needs a gradient under grad
+    mode."""
     _cuda.refuse_autograd("stem", x, w1, a1, b1, w2, a2, b2)
     if x.device.type == "cpu":
         return stem2_channel_major_plain(x, mask, w1, a1, b1, w2, a2, b2)
     req = _cuda.require
     req(x.device.type == "cuda", f"stem: unsupported device {x.device}")
-    bsz, _, p = x.shape
+    req(x.dim() == 3, f"stem: x must be (B, C_in, P), got {tuple(x.shape)}")
+    bsz, cin, p = x.shape
+    req(cin in CINS, f"stem: C_in {cin}; the kernel is built for C_in in "
+        f"{CINS}")
     f32, bf16 = torch.float32, torch.bfloat16
     for name, t, dt, shape in (
-            ("x", x, bf16, (bsz, CIN, p)), ("mask", mask, torch.bool, (bsz, p)),
-            ("w1", w1, bf16, (F1, CIN)), ("w2", w2, bf16, (F2, F1)),
+            ("x", x, bf16, (bsz, cin, p)), ("mask", mask, torch.bool, (bsz, p)),
+            ("w1", w1, bf16, (F1, cin)), ("w2", w2, bf16, (F2, F1)),
             ("a1", a1, f32, (F1,)), ("b1", b1, f32, (F1,)),
             ("a2", a2, f32, (F2,)), ("b2", b2, f32, (F2,))):
         req(t.device == x.device, f"stem: {name} on {t.device}, x on {x.device}")
         req(t.dtype == dt, f"stem: {name} must be {dt}, got {t.dtype}")
         req(tuple(t.shape) == shape,
             f"stem: {name} shape {tuple(t.shape)} != {shape} (the kernel is "
-            f"built for C_in, F1, F2 = {CIN, F1, F2})")
+            f"built for F1, F2 = {F1, F2})")
         req(t.is_contiguous(), f"stem: {name} must be contiguous")
     req(w2.data_ptr() % 4 == 0, "stem: w2 must start at a 4-byte boundary")
     out = torch.empty((bsz, F2, p), dtype=torch.bfloat16, device=x.device)
@@ -74,7 +80,7 @@ def stem2_channel_major(x, mask, w1, a1, b1, w2, a2, b2):
     err = lib.ptt_stem2_bf16(
         x.data_ptr(), mask.data_ptr(), w1.data_ptr(), a1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), a2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), bsz, p, _cuda.stream_ptr(x.device))
+        out.data_ptr(), bsz, p, cin, _cuda.stream_ptr(x.device))
     _cuda.check(err, "stem2")
     stem2_channel_major.launches += 1
     return out

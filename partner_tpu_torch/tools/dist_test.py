@@ -12,7 +12,8 @@ checkpoint (a step directory, a ``latest`` pointer, ``state.pt`` or
 :func:`eval.evaluator.evaluate` over ``data.val``: middle-third FPS,
 ``prediction.pkl`` and the Waymo metrics. ``--static_rpe`` fills the
 static-RPE cache (``E2EDetector.prepare_inference``) on a small all-padding
-example before the loop, as ``bench.py`` does behind its knob. The JAX
+example before the loop, as ``bench.py`` does behind its knob; a detector
+without the cache (CenterPoint's ``VoxelNet``) stops with a message. The JAX
 CLI's ``--mesh`` is not ported (one process, one device), nor its
 ``--input``: every ported detector takes points.
 """
@@ -70,6 +71,10 @@ def main(argv=None):
     else:
         logger.info("no checkpoint: random weights (seed 0)")
     if args.static_rpe:
+        if not hasattr(det, "prepare_inference"):
+            sys.exit(f"dist_test: --static_rpe fills the E2E head's "
+                     f"static-RPE cache; {cfg['model']['type']} has no such "
+                     "cache")
         tables = det.prepare_inference(init_example(dataset, device))
         logger.info(f"static-RPE cache: {len(tables)} tables, "
                     f"{sum(t.nbytes for t in tables.values())} bytes")

@@ -17,6 +17,8 @@ one-cycle Adam loop of ``make_train_step`` as the JAX CLI does:
   weights, BatchNorm statistics, the Adam count and moments and the step,
   from a port or a JAX checkpoint; else ``--load_from`` loads the
   parameters only (BatchNorm statistics keep their initial values);
+- any ported detector: PARTNER (``VoxelNetV3``) or CenterPoint
+  (``VoxelNet``), whose per-task loss terms are logged as lists;
 - metrics stay on the device between log flushes (one copy to the host
   per ``log_config.interval`` steps); the text log carries ``data_time``,
   ``transfer_time``, ``forward_time``, ``time`` and ``sync_time``; a
@@ -51,12 +53,6 @@ import sys
 
 import numpy as np
 
-# the batch keys the detector's loss reads (the JAX CLI's ``keep`` set
-# less the voxel, seg and CenterPoint targets no ported detector reads)
-EXAMPLE_KEYS = ("points", "points_mask", "global_box", "global_box_mask",
-                "votemap_flat")
-
-
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("config")
@@ -83,11 +79,16 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def example_to_device(batch, device):
-    """Collated numpy batch -> the loss's tensors on ``device``."""
+def example_to_device(batch, device, keys):
+    """Collated numpy batch -> the tensors of ``keys`` (the detector's
+    ``loss_keys``) on ``device``, per-task lists as lists of tensors."""
     import torch
 
-    return {k: torch.from_numpy(batch[k]).to(device) for k in EXAMPLE_KEYS}
+    def move(a):
+        return torch.from_numpy(a).to(device)
+
+    return {k: [move(a) for a in batch[k]] if isinstance(batch[k], list)
+            else move(batch[k]) for k in keys}
 
 
 def dropout_generator(seed, step):
@@ -165,6 +166,9 @@ def main(argv=None):
         max_points=args.max_points,
         max_voxels=vg_mv if isinstance(vg_mv, int) else vg_mv[0])
 
+    if len(loader) == 0:
+        sys.exit(f"train: the train set's {len(dataset)} samples make no "
+                 f"whole batch of {batch_size}")
     steps_per_epoch = args.max_steps_per_epoch or len(loader)
     total_steps = args.total_steps or (steps_per_epoch
                                        * cfg.get("total_epochs", 1))
@@ -212,11 +216,20 @@ def main(argv=None):
         keys = [k for k in pending[0][2] if k in ("loss", "grad_norm",
                                                   "num_matched")
                 or k.startswith("loss_") or k.endswith("_loss")]
-        fetched = torch.stack([torch.stack([m[k].float() for k in keys])
-                               for _, _, m, _ in pending]).cpu().tolist()
+        # a per-task list (the CenterPoint terms) is logged as a list
+        sizes = [len(pending[0][2][k]) if isinstance(pending[0][2][k], list)
+                 else 0 for k in keys]
+        fetched = torch.stack([
+            torch.cat([torch.stack(m[k]).float().reshape(-1) if n
+                       else m[k].float().reshape(1)
+                       for k, n in zip(keys, sizes)])
+            for _, _, m, _ in pending]).cpu().tolist()
         sync_time = timer.lap()  # the host's wait for the window's work
-        for (si, ep, _, tim), vals in zip(pending, fetched):
-            scal = dict(zip(keys, vals))
+        for (si, ep, _, tim), flat in zip(pending, fetched):
+            scal, i = {}, 0
+            for k, n in zip(keys, sizes):
+                scal[k] = flat[i: i + n] if n else flat[i]
+                i += max(n, 1)
             buffer.update({**tim, **scal})
             lr = float(lr_sched(si))
             if tb_hook is not None:
@@ -266,7 +279,7 @@ def main(argv=None):
                 profiler = None
                 logger.info(f"profiler trace written to {path}")
             data_time = timer.lap()
-            ex = example_to_device(batch, device)
+            ex = example_to_device(batch, device, det.loss_keys)
             transfer_time = timer.lap()
             metrics = step(ex, dropout_generator(args.seed, step_i))
             # no host read here: the next step's data work overlaps the

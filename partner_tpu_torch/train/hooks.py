@@ -17,7 +17,8 @@ import numpy as np
 
 class LogBuffer:
     """Every value logged, by key, and the means of the last ``n`` of them
-    in ``output`` after :meth:`average`."""
+    in ``output`` after :meth:`average`; a list value (a per-task loss)
+    averages element by element."""
 
     def __init__(self):
         self.val_history = OrderedDict()
@@ -36,7 +37,9 @@ class LogBuffer:
         for k in self.val_history:
             vals = np.array(self.val_history[k][-n:], dtype=np.float64)
             nums = np.array(self.n_history[k][-n:], dtype=np.float64)
-            self.output[k] = float((vals * nums).sum() / nums.sum())
+            w = nums.reshape((-1,) + (1,) * (vals.ndim - 1))
+            avg = (vals * w).sum(0) / nums.sum()
+            self.output[k] = avg.tolist() if vals.ndim > 1 else float(avg)
 
 
 def get_logger(work_dir=None, name="partner_tpu_torch", level=logging.INFO):
@@ -68,8 +71,9 @@ class TextLoggerHook:
     def after_iter(self, buffer: LogBuffer, step, epoch, lr,
                    max_steps_in_epoch=None):
         """Every ``interval`` global steps: one line of the buffer's means
-        over the last ``interval`` entries, the iteration within the epoch
-        and the card's memory."""
+        over the last ``interval`` entries (a per-task loss as its values
+        one after another, as the reference's logger prints it), the
+        iteration within the epoch and the card's memory."""
         if (step + 1) % self.interval:
             return
         buffer.average(self.interval)
@@ -78,7 +82,9 @@ class TextLoggerHook:
                  + (f"/{max_steps_in_epoch}]" if max_steps_in_epoch else "]")]
         parts.append(f"lr: {lr:.5f}")
         for k, v in buffer.output.items():
-            if k.endswith("time"):
+            if isinstance(v, list):
+                parts.append(f"{k}: " + ", ".join(f"{x:.4f}" for x in v))
+            elif k.endswith("time"):
                 parts.append(f"{k}: {v:.3f}")
             else:
                 parts.append(f"{k}: {v:.4f}")
@@ -126,6 +132,11 @@ class TensorBoardLoggerHook:
         if step % self.interval:
             return
         for k, v in scalars.items():
+            if isinstance(v, list):   # a per-task loss: one curve a task
+                for i, x in enumerate(v):
+                    self.writer.add_scalar(f"train/{k}/task{i}", float(x),
+                                           step)
+                continue
             try:
                 self.writer.add_scalar(f"train/{k}", float(v), step)
             except (TypeError, ValueError):
@@ -139,9 +150,9 @@ class TensorBoardLoggerHook:
 
 class MetricsSinkHook:
     """Structured metrics: one ``{step, epoch, lr, metric: value}`` record
-    every ``interval`` steps, to a JSON-lines file (default
-    ``metrics.jsonl``) or to any callable ``sink``. Configs name it
-    ``PaviLoggerHook`` or ``MetricsSinkHook``."""
+    (a per-task loss as a list) every ``interval`` steps, to a JSON-lines
+    file (default ``metrics.jsonl``) or to any callable ``sink``. Configs
+    name it ``PaviLoggerHook`` or ``MetricsSinkHook``."""
 
     def __init__(self, path=None, sink=None, interval=5):
         self.interval = interval
@@ -165,7 +176,8 @@ class MetricsSinkHook:
             rec["lr"] = float(lr)
         for k, v in scalars.items():
             try:
-                rec[k] = float(v)
+                rec[k] = ([float(x) for x in v] if isinstance(v, list)
+                          else float(v))
             except (TypeError, ValueError):
                 continue
         self.sink(rec)

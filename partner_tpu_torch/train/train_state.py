@@ -11,7 +11,8 @@ moments and step count, and one step updates both in place:
 
 
 def make_train_step(det, opt):
-    """``step(example, generator) -> metrics`` for an ``E2EDetector`` and a
+    """``step(example, generator) -> metrics`` for a detector
+    (``E2EDetector`` or ``CenterPointDetector``) and a
     :class:`~partner_tpu_torch.train.optim.OneCycleAdam` on its module.
 
     A step puts the module in train mode, runs the forward (BatchNorm
@@ -19,8 +20,10 @@ def make_train_step(det, opt):
     the loss, backpropagates, reads the global gradient norm before
     clipping, clips, updates the parameters and counts the step. Each
     parameter's ``.grad`` holds that step's gradient afterwards. ``metrics``
-    holds every loss term, ``loss``, ``num_matched`` and ``grad_norm``, as
-    tensors on the module's device (nothing is copied to the host)."""
+    holds the detector's loss dict (every term and ``loss``; the E2E
+    detector's ``num_matched``; the CenterPoint detector's per-task lists
+    ``det_loss``, ``hm_loss``, ``loc_loss``) and ``grad_norm``, as tensors
+    on the module's device (nothing is copied to the host)."""
 
     def step(example, generator):
         det.module.train()
@@ -28,7 +31,8 @@ def make_train_step(det, opt):
             p.grad = None
         losses = det.loss(example, generator)
         losses["loss"].backward()
-        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics = {k: [t.detach() for t in v] if isinstance(v, list)
+                   else v.detach() for k, v in losses.items()}
         metrics["grad_norm"] = opt.step()
         return metrics
 

@@ -1,6 +1,6 @@
 """partner_tpu_torch stands alone: no jax, flax, optax or partner_tpu at
-import, and the flax converter covers every parameter and buffer of the
-port's detector."""
+import or when it builds its detectors, and the flax converter covers every
+parameter and buffer of the port's detectors."""
 
 import os
 import subprocess
@@ -21,14 +21,21 @@ def test_import_leaves_out_jax_and_flax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'partner_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 52, names\n"
+        "assert len(names) >= 53, names\n"
         "for n in ('ops.swin_block', 'ops.scatter_max', 'core.targets',\n"
         "          'losses.centernet', 'losses.matcher', 'losses.set_crit',\n"
         "          'train.optim', 'train.train_state', 'data.pipeline',\n"
         "          'eval.evaluator', 'train.checkpoint', 'tools.dist_test',\n"
         "          'data.augment', 'data.gt_aug', 'data.loader',\n"
-        "          'train.hooks', 'tools.train'):\n"
+        "          'train.hooks', 'tools.train', 'models.center_head'):\n"
         "    assert 'partner_tpu_torch.' + n in names, n\n"
+        "from partner_tpu_torch.models import build_detector\n"
+        "from partner_tpu_torch.utils.config import load_config\n"
+        "for c in ('waymo_partner_36epoch', 'waymo_centerpoint_voxelnet_36epoch',\n"
+        "          'waymo_centerpoint_voxelnet_two_sweeps_3x_with_velo'):\n"
+        "    cfg = load_config(f'configs/waymo/{c}.py')\n"
+        "    build_detector(cfg['model'], cfg['train_cfg'], cfg['test_cfg'],\n"
+        "                   device='meta')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'partner_tpu')]\n"
         "assert not bad, bad\n"
@@ -60,6 +67,37 @@ def test_converter_covers_the_detector_exactly(rng):
     assert sorted(sd) == sorted(want)
     for k, t in want.items():
         assert tuple(sd[k].shape) == tuple(t.shape), k
+    module.load_state_dict(sd, strict=True)
+
+
+def test_converter_covers_the_centerpoint_detector_exactly(rng):
+    """The same for the CenterPoint VoxelNet: the 3D trunk's kernels
+    (DHWIO) and CenterHead's flax names (``Conv_0``, ``task0/hm_conv0``,
+    ``task0/hm_out``, ...) map by the walker's rules, none added for it but
+    the 3D kernel layout."""
+    import jax
+
+    from partner_tpu.models import build_detector as jax_build
+    from partner_tpu_torch.convert import flax_to_torch
+    from partner_tpu_torch.models import build_detector
+
+    from torch_port_fixtures import (CENTERPOINT_VELO, synthetic_points,
+                                     tiny_centerpoint_cfg)
+
+    model_cfg, test_cfg = tiny_centerpoint_cfg(CENTERPOINT_VELO)
+    pts, mask = synthetic_points(
+        rng, model_cfg["bbox_head"]["voxel_generator"]["range"], 50, 64, c=8)
+    v = jax_build(model_cfg, None, test_cfg).init(
+        jax.random.PRNGKey(0), {"points": pts, "points_mask": mask})
+    sd = flax_to_torch(jax.tree_util.tree_map(np.asarray, dict(v)))
+    module = build_detector(model_cfg, None, test_cfg, device="cpu").module
+    want = module.state_dict()
+    assert sorted(sd) == sorted(want)
+    for k, t in want.items():
+        assert tuple(sd[k].shape) == tuple(t.shape), k
+    assert "bbox_head.task0.hm_out.bias" in sd
+    assert tuple(sd["backbone.conv_a.Conv_0.weight"].shape) == (64, 64, 3, 3,
+                                                                3)
     module.load_state_dict(sd, strict=True)
 
 

@@ -11,6 +11,9 @@ import copy
 import numpy as np
 
 FLAGSHIP = "configs/waymo/waymo_partner_36epoch.py"
+CENTERPOINT = "configs/waymo/waymo_centerpoint_voxelnet_36epoch.py"
+CENTERPOINT_VELO = ("configs/waymo/"
+                    "waymo_centerpoint_voxelnet_two_sweeps_3x_with_velo.py")
 TINY_GRID = (128, 256, 40)  # BEV 32 (az) x 16 (r): exact 8x8 windows
 
 
@@ -40,6 +43,32 @@ def tiny_frame_cfg(compute_dtype="float32"):
     tc = copy.deepcopy(cfg["test_cfg"])
     # random weights put almost every score under the flagship's 0.1
     # threshold; 0 makes the NMS do real work
+    tc["score_threshold"] = 0.0
+    tc["nms"] = dict(tc["nms"], nms_pre_max_size=256, nms_post_max_size=64)
+    return m, tc
+
+
+def tiny_centerpoint_cfg(config=CENTERPOINT, compute_dtype="float32"):
+    """(model cfg, test cfg): a CenterPoint config at ``TINY_GRID`` with a
+    narrow RPN (the backbone keeps its stem and 3D trunk widths), built in
+    ``compute_dtype`` on both sides; the NMS cut as in
+    :func:`tiny_frame_cfg`."""
+    import os
+
+    from partner_tpu_torch.utils.config import load_config
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(root, config))
+    m = copy.deepcopy(cfg["model"])
+    bh = m["bbox_head"]
+    vg = bh["voxel_generator"]
+    pr = vg["range"]
+    vg["voxel_size"] = [(pr[3 + i] - pr[i]) / TINY_GRID[i] for i in range(3)]
+    bh["in_channels"] = 64
+    m["backbone"] = dict(m["backbone"], compute_dtype=compute_dtype)
+    m["neck"] = dict(m["neck"], layer_nums=[1, 1], ds_num_filters=[16, 32],
+                     us_num_filters=[32, 32], compute_dtype=compute_dtype)
+    tc = copy.deepcopy(cfg["test_cfg"])
     tc["score_threshold"] = 0.0
     tc["nms"] = dict(tc["nms"], nms_pre_max_size=256, nms_post_max_size=64)
     return m, tc
@@ -164,4 +193,71 @@ data["workers_per_gpu"] = 1
 log_config = dict(interval=1, hooks=[dict(type="TextLoggerHook"),
                                      dict(type="MetricsSinkHook")])
 """)
+    return path
+
+
+def write_tiny_centerpoint_config(path, train_info, val_info, root,
+                                  config=CENTERPOINT):
+    """A CenterPoint config file for the CLIs: ``config`` exec'd, then cut
+    as :func:`tiny_centerpoint_cfg` cuts it (float32), ``data.train`` at
+    ``train_info`` with no augmentation and the points kept in order (no
+    random draw), ``data.val`` at ``val_info``, one loader thread, a log
+    flush and a ``metrics.jsonl`` record every step."""
+    import os
+
+    base = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), config)
+    with open(path, "w") as f:
+        f.write(f"""
+exec(open({base!r}).read())
+_pr = voxel_generator["range"]
+voxel_generator["voxel_size"] = [(_pr[3 + i] - _pr[i]) / g
+                                 for i, g in enumerate({TINY_GRID!r})]
+bbox_head["in_channels"] = 64
+model["backbone"].update(compute_dtype="float32")
+model["neck"].update(layer_nums=[1, 1], ds_num_filters=[16, 32],
+                     us_num_filters=[32, 32], compute_dtype="float32")
+test_cfg["score_threshold"] = 0.0
+test_cfg["nms"].update(nms_pre_max_size=256, nms_post_max_size=64)
+train_preprocessor.update(no_augmentation=True, shuffle_points=False)
+data["train"].update(info_path={train_info!r}, root_path={root!r})
+data["val"].update(info_path={val_info!r}, root_path={root!r})
+data["workers_per_gpu"] = 1
+log_config = dict(interval=1, hooks=[dict(type="TextLoggerHook"),
+                                     dict(type="MetricsSinkHook")])
+""")
+    return path
+
+
+def write_three_class_infos(path, rng, n=4, n_points=(3000, 5000)):
+    """A synthetic Waymo info pkl of ``n`` frames that carry their points:
+    [x, y, z, intensity, elongation] rows within 34 m, and 3-8 boxes each
+    of Vehicle, Pedestrian and Cyclist sizes (9 columns, the velocity
+    included)."""
+    import pickle
+
+    sizes = {"Vehicle": (4.5, 2.0, 1.6), "Pedestrian": (0.8, 0.8, 1.8),
+             "Cyclist": (1.8, 0.7, 1.7)}
+    infos = []
+    for i in range(n):
+        npts = rng.randint(*n_points)
+        r = rng.uniform(1, 34, npts)
+        th = rng.uniform(-np.pi, np.pi, npts)
+        pts = np.stack([r * np.cos(th), r * np.sin(th),
+                        rng.uniform(-1.5, 2.5, npts), rng.rand(npts),
+                        rng.rand(npts)], 1).astype(np.float32)
+        nb = rng.randint(3, 9)
+        names = np.array(list(sizes))[rng.randint(0, 3, nb)]
+        names[:3] = list(sizes)      # every class in every frame
+        boxes = np.zeros((nb, 9), np.float32)
+        rho, phi = rng.uniform(5, 30, nb), rng.uniform(-2.5, 2.5, nb)
+        boxes[:, 0], boxes[:, 1] = rho * np.cos(phi), rho * np.sin(phi)
+        boxes[:, 2] = rng.uniform(-0.5, 0.5, nb)
+        boxes[:, 3:6] = [sizes[nm] for nm in names]
+        boxes[:, 6:8] = rng.randn(nb, 2)
+        boxes[:, 8] = rng.uniform(-np.pi, np.pi, nb)
+        infos.append({"token": f"frame{i}", "points": pts, "gt_boxes": boxes,
+                      "gt_names": names})
+    with open(path, "wb") as f:
+        pickle.dump(infos, f)
     return path

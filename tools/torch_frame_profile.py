@@ -4,6 +4,8 @@ CUDA card.
 
     python3 tools/torch_frame_profile.py [--frames 10] [--out DIR]
                                          [--use-block-kernel] [--train]
+                                         [--model flagship|centerpoint|
+                                                  centerpoint-velo]
 
 Builds the flagship detector of ``partner_tpu_torch`` exactly as
 ``chip_smoke.py`` does (full width and grid, bf16, seeded random weights,
@@ -17,6 +19,12 @@ its whole-block route), then:
 2. traces three frames with ``torch.profiler`` and reports the summed
    device time of every kernel against the wall time (the device's busy
    share) and the kernels that take the most device time.
+
+``--model centerpoint`` profiles the CenterPoint frame of
+``chip_smoke.py``'s CenterPoint phase instead (the one-sweep config on the
+same sweep; ``centerpoint-velo``: the two-sweep config on 2 x 180,000
+points in 432,000 rows), with the stages backbone, RPN, head and decode +
+NMS.
 
 ``--train`` profiles the flagship train step instead, on ``chip_smoke.py``'s
 train batch (4 synthetic 150,000-point sweeps with their boxes and vote
@@ -53,26 +61,30 @@ def stage_times(det, ex, frames):
 
     mod = det.module
     names = ["backbone", "setblock", "rpn", "head", "decode_nms"]
+    if not mod.with_set_attention:
+        names.remove("setblock")
     per = {n: [] for n in names}
     totals = []
     for _ in range(frames):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(names) + 1)]
         t0 = time.perf_counter()
         with torch.no_grad():
             ev[0].record()
-            bev = mod.backbone.encode_points(
+            x = mod.backbone.encode_points(
                 ex["points"], ex["points_mask"], mod.grid_size, mod.pc_range)
             ev[1].record()
-            pos = constant(mod, "bev_pos", bev.device,
-                           lambda: mod.bev_pos)[None]
-            x = mod.attns(bev.transpose(1, 2), pos).transpose(1, 2)
-            ev[2].record()
+            if mod.with_set_attention:
+                pos = constant(mod, "bev_pos", x.device,
+                               lambda: mod.bev_pos)[None]
+                x = mod.attns(x.transpose(1, 2), pos).transpose(1, 2)
+                ev[2].record()
             x = mod.neck(x)
-            ev[3].record()
+            ev[-3].record()
             preds = mod.bbox_head(x)
-            ev[4].record()
+            ev[-2].record()
             det.decode(preds)
-            ev[5].record()
+            ev[-1].record()
         torch.cuda.synchronize()
         totals.append((time.perf_counter() - t0) * 1e3)
         for i, n in enumerate(names):
@@ -154,23 +166,31 @@ def trace(run, out_dir, tag):
 def profile_frame(dev, args):
     from partner_tpu_torch.models import build_detector
 
-    m, tc = chip_smoke.frame_cfgs()
+    n_points, c = chip_smoke.N_POINTS, 7
+    if args.model == "flagship":
+        m, tc = chip_smoke.frame_cfgs()
+    elif args.model == "centerpoint":
+        m, _, tc = chip_smoke.centerpoint_cfgs()
+    else:   # the two-sweep velocity config: 8 features, twice the points
+        m, _, tc = chip_smoke.centerpoint_cfgs(chip_smoke.CP_VELO_CONFIG)
+        n_points, c = 2 * chip_smoke.N_POINTS, 8
     gen = torch.Generator().manual_seed(chip_smoke.SEED)
     det = build_detector(m, None, tc, device=dev, generator=gen,
                          use_block_kernel=args.use_block_kernel)
     chip_smoke.randomize_norms(det.module, gen)
     pts, mask = chip_smoke.synthetic_sweep(
         np.random.RandomState(chip_smoke.SEED),
-        m["bbox_head"]["voxel_generator"]["range"], chip_smoke.N_POINTS)
+        m["bbox_head"]["voxel_generator"]["range"], n_points, c=c)
     ex = chip_smoke.to_device({"points": pts, "points_mask": mask}, dev)
     for _ in range(2):
         det.predict(ex)
     torch.cuda.synchronize()
     return {"card": chip_smoke.gpu_name_and_power_limit(),
-            "torch": torch.__version__,
+            "torch": torch.__version__, "model": args.model,
             "use_block_kernel": args.use_block_kernel,
             "stage_ms": stage_times(det, ex, args.frames),
-            "trace": trace(lambda: det.predict(ex), args.out, "frame")}
+            "trace": trace(lambda: det.predict(ex), args.out,
+                           args.model.replace("flagship", "frame"))}
 
 
 def profile_train(dev, args):
@@ -209,7 +229,12 @@ def main():
                     help="the head's whole-block route")
     ap.add_argument("--train", action="store_true",
                     help="profile the train step instead of the frame")
+    ap.add_argument("--model", default="flagship",
+                    choices=["flagship", "centerpoint", "centerpoint-velo"],
+                    help="the frame's model (the train step: flagship)")
     args = ap.parse_args()
+    if args.train and args.model != "flagship":
+        sys.exit("torch_frame_profile: --train profiles the flagship only")
     if not torch.cuda.is_available():
         sys.exit("torch_frame_profile: no CUDA device")
     os.makedirs(args.out, exist_ok=True)
@@ -222,7 +247,8 @@ def main():
         result = profile_train(dev, args)
     else:
         result = profile_frame(dev, args)
-    name = "train_profile.json" if args.train else "frame_profile.json"
+    name = ("train_profile.json" if args.train
+            else f"{args.model.replace('flagship', 'frame')}_profile.json")
     with open(os.path.join(args.out, name), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result), flush=True)
