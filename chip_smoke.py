@@ -86,7 +86,27 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
    once a step); ``dist_test`` from a port checkpoint over 10 synthetic
    3-class frames (middle-third FPS, finite per-class metrics) and two
    train-CLI steps at batch 4 from that set (finite losses, one
-   checkpoint).
+   checkpoint);
+10. serving: the voxel-input contract and the serving tools at full
+   width. The flagship frame through ``features`` (``dynamic_voxelize``
+   on the card at the config's 150,000-voxel capacity, the reader,
+   ``PolarDenseFHD.forward``) taking turns with the point-path frame on
+   the same weights: median ms, device busy and launches a frame, the
+   voxelizer's device time and launches, voxels found against the
+   capacity, a repeated frame bit-equal; ``dynamic_voxelize`` of the full
+   sweep on the card against the CPU, and the backbone's voxel path on
+   SMALL_GRID against the CPU in float32; ``single_inference`` from a
+   port checkpoint (ms and detections a frame, each frame bit-equal to a
+   direct ``predict``, a repeated frame bit-equal, ``--once`` writing the
+   same detections); ``multi_sweep_inference --nsweeps 2`` with the
+   two-sweep velocity CenterPoint config over SERVE_FRAMES timed frames
+   with ego poses (middle-third FPS, launches, the last frame bit-equal to
+   a direct ``predict``). The kernel phase holds the stem and the
+   scatter-max at the voxel path's shapes too;
+11. native: the port's C++ host library built on the card's host (the
+   run fails where it is not available), its three functions bit-equal to
+   the numpy bodies at train sizes, and their host ms both ways; the
+   train-CLI phase reads the host data path with and without it.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises before it, so the
@@ -339,6 +359,63 @@ def compare(name, out, ref, tol):
     return max_err
 
 
+def stem_terms(x, mask, w1, a1, b1, w2, a2, b2):
+    """Per output of the stem, the magnitude of the terms it sums: |a2|
+    (|w2| @ (|a1| |w1 @ x|)), in float32 (the hidden values are the ones
+    each layer's bf16 rounding acts on)."""
+    h = a1[:, None].abs() * (w1.float() @ x.float()).abs()
+    return a2[:, None].abs() * (w2.float().abs() @ h) * mask[:, None, :]
+
+
+def stem_twin_f64(x, mask, w1, a1, b1, w2, a2, b2):
+    """The stem's plain twin with each layer's products summed in float64
+    (then rounded to float32, as the twin's sums are): the twin in another
+    summation order."""
+    cdt, m, t = x.dtype, mask[:, None, :].to(x.dtype), x
+    for w, a, b in ((w1, a1, b1), (w2, a2, b2)):
+        acc = (w.double() @ t.double()).float()
+        acc = (acc.to(cdt) * m).float() * a[:, None] + b[:, None]
+        t = torch.relu(acc).to(cdt)
+    return t
+
+
+def compare_stem(name, out, ref, args, tol=KERNEL_TOL):
+    """The stem held to its twin at real point magnitudes (the voxel
+    path's rows carry rho, x and y up to 75 m): every output within
+    ``tol`` (1 + |twin| + T) of the twin, T the magnitude of the terms it
+    sums (:func:`stem_terms`), and under 0.1% of the outputs not equal.
+    The kernel sums each product in another order than the twin, so a
+    hidden value near 50 can round to the other side of a 0.25 bf16 step
+    and move an output by 2^-7 of the terms it sums, where the (1 +
+    |twin|) bound of :func:`compare` scales with the output alone. The
+    twin against itself summed in float64 (:func:`stem_twin_f64`) is
+    read by the same two rules beside it. Returns the max |out - twin|."""
+    ref = ref.float()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    terms = stem_terms(*args)
+    readings = {}
+    for who, got in (("kernel", out.float()),
+                     ("twin summed in float64", stem_twin_f64(*args).float())):
+        err = (got - ref).abs()
+        readings[who] = (
+            float(err.max()),
+            float((err / (1 + ref.abs() + terms)).max()),
+            int((err > tol * (1 + ref.abs() + terms)).sum()),
+            int((err > tol * (1 + ref.abs())).sum()),
+            int((got != ref).sum()))
+        log(f"{name}, {who} against the twin: max_abs_err "
+            f"{readings[who][0]!r}, max err / (1 + |plain| + terms) "
+            f"{readings[who][1]!r} (bound {tol!r}), {readings[who][2]} "
+            f"elements beyond it ({readings[who][3]} beyond {tol!r} (1 + "
+            f"|plain|)); {readings[who][4]} of {got.numel()} not equal")
+    max_err, _, n_bad, _, n_diff = readings["kernel"]
+    if n_bad or n_diff > 1e-3 * out.numel():
+        raise AssertionError(f"{name}: {n_bad} elements beyond the bound, "
+                             f"{n_diff} not equal")
+    return max_err
+
+
 def not_equal(name, out, ref):
     """{"not_equal": elements of ``out`` whose value differs from ``ref``,
     "elements": their number}: a kernel that sums in another order than its
@@ -366,6 +443,42 @@ def stem_case(gen, dev, cin=10, n_points=N_POINTS):
     a1, a2 = (0.5 + torch.rand(f, generator=gen) for f in (stem.F1, stem.F2))
     b1, b2 = (0.2 * rnd(f) for f in (stem.F1, stem.F2))
     return [t.to(dev) for t in (x, mask, w1, a1, b1, w2, a2, b2)]
+
+
+def voxel_case(gen, dev, cin=10, n_points=N_POINTS):
+    """Stem and scatter-max inputs on the voxel path
+    (``PolarDenseFHD.forward``): the dynamic voxels (capacity
+    ``max_voxel_num``) of a synthetic sweep of ``n_points`` on the flagship
+    grid, 7 point features (8 with ``cin`` 11, the two-sweep width)
+    decorated by each voxel's place in its pooled cell, bf16 and
+    channel-major, with stem weights drawn as :func:`stem_case` draws them
+    -> (stem args, pooled coords (1, 3, V) int32 (z, az, r), canvas
+    shape, voxels found)."""
+    from partner_tpu_torch.ops import stem
+    from partner_tpu_torch.ops.voxelize import DeviceVoxelizer
+    from partner_tpu_torch.utils.config import load_config
+
+    vg = load_config(CONFIG)["voxel_generator"]
+    pts, mask = synthetic_sweep(np.random.RandomState(SEED), vg["range"],
+                                n_points, c=cin - 3)
+    v = DeviceVoxelizer(vg, dev, vg["max_voxel_num"])(
+        torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev))
+    pools = torch.tensor([8, 4, 4], device=dev)
+    frac = torch.remainder(v["coords"].float(), pools.float()) / pools - 0.5
+    x = torch.cat([v["features"], frac], -1).to(torch.bfloat16)
+    x = x.transpose(1, 2).contiguous()
+    rnd = lambda *s: torch.randn(*s, generator=gen)
+    bf = torch.bfloat16
+    w1 = (rnd(stem.F1, cin) * cin ** -0.5).to(bf)
+    w2 = (rnd(stem.F2, stem.F1) * stem.F1 ** -0.5).to(bf)
+    a1, a2 = (0.5 + torch.rand(f, generator=gen) for f in (stem.F1, stem.F2))
+    b1, b2 = (0.2 * rnd(f) for f in (stem.F1, stem.F2))
+    args = [x, v["voxel_mask"].contiguous()] + [
+        t.to(dev) for t in (w1, a1, b1, w2, a2, b2)]
+    pooled = (v["coords"] // pools).to(torch.int32).transpose(1, 2)
+    grid, _, _ = flagship_grid()
+    canvas = (grid[2] // 8, grid[1] // 4, grid[0] // 4)
+    return args, pooled.contiguous(), canvas, int(v["voxel_mask"].sum())
 
 
 def attn_case(gen, dev, with_mask):
@@ -645,6 +758,55 @@ def kernel_phase(gen, dev, card):
         results["scatter_max"].update(call_and_device_ms(
             f"zero_ms{tag}", lambda: torch.zeros(
                 (b, int(np.prod(sargs[3])), c), dtype=dt, device=dev)))
+
+    # the voxel path's shapes: the stem over the voxel rows (capacity
+    # max_voxel_num) at C_in 10 and 11, the scatter-max of their pooled
+    # coords (up to 128 full-resolution voxels a canvas cell)
+    for cin, n_pts, tag in ((10, N_POINTS, "voxel"),
+                            (11, 2 * N_POINTS, "voxel_cin11")):
+        vargs, pooled, canvas, found = voxel_case(gen, dev, cin, n_pts)
+        vout = stem.stem2_channel_major(*vargs)
+        vref = stem.stem2_channel_major_plain(*vargs)
+        torch.cuda.synchronize()
+        shape = tuple(vargs[0].shape)
+        verr = compare_stem(f"stem2_channel_major voxel path {shape}, "
+                            f"{found} voxels", vout, vref, vargs)
+        r = dict(voxels=found, max_abs_err=verr,
+                 **not_equal(f"stem {tag}", vout, vref),
+                 **timed("stem", vargs,
+                         lambda: stem.stem2_channel_major(*vargs),
+                         lambda: stem.stem2_channel_major_plain(*vargs),
+                         label=f"stem voxel path {shape} on {card}"))
+        results["stem"]["max_abs_err"] = max(results["stem"]["max_abs_err"],
+                                             verr)
+        results["stem"].update({f"{k}_{tag}": x for k, x in r.items()
+                                if not k.startswith("library")})
+        if cin == 11:
+            continue
+        vs_args = (vref, pooled, vargs[1], canvas)
+        out = scatter_max.scatter_max_fold2d(*vs_args)
+        ref = scatter_max.scatter_max_fold2d_plain(*vs_args)
+        torch.cuda.synchronize()
+        lin = scatter_max._cell_index(pooled, vargs[1], canvas)[vargs[1]]
+        per_cell = torch.bincount(lin).max()
+        log(f"scatter_max voxel path: {found} voxels in "
+            f"{int(torch.unique(lin).numel())} canvas cells, at most "
+            f"{int(per_cell)} a cell")
+        serr = compare(f"scatter_max_fold2d voxel path (1, 64, {found}) -> "
+                       f"(1, 512, 288, 320)", out, ref, 0.0)
+        r = dict(max_cell_voxels=int(per_cell),
+                 **not_equal("scatter_max voxel path", out, ref),
+                 **timed("scatter_max", vs_args,
+                         lambda: scatter_max.scatter_max_fold2d(*vs_args),
+                         lambda: scatter_max.scatter_max_fold2d_plain(
+                             *vs_args),
+                         scatter_library_call(*vs_args),
+                         label=f"scatter_max voxel path on {card}"))
+        results["scatter_max"]["max_abs_err"] = max(
+            results["scatter_max"]["max_abs_err"], serr)
+        results["scatter_max"].update({f"{k}_voxel": x for k, x in r.items()})
+        del vs_args, out, ref
+    del vargs, vout, vref
 
     errs, times = [], {}
     for with_mask in (True, False):
@@ -1751,6 +1913,48 @@ def host_pipeline_ms(cfg_path, repeat=8):
     return ms, collate_ms, (n / (time.perf_counter() - t0), n, threads)
 
 
+def native_sample_ms(cfg_path, passes=2):
+    """The train data path with and without the native library, sample by
+    sample: two datasets seeded alike (the library and the numpy bodies
+    give the same draws), ``dataset[i]`` of each in turn (which goes first
+    alternates), ``passes`` passes over the frames (the first reads them
+    from disk) -> {True: library, False: numpy} of (ms per sample of the
+    last pass, ms of that pass spent in GT-AUG's collision test)."""
+    from contextlib import nullcontext
+
+    from partner_tpu_torch import native
+    from partner_tpu_torch.data import build_dataset, gt_aug
+    from partner_tpu_torch.utils.config import load_config
+
+    train = dict(load_config(cfg_path)["data"]["train"])
+    test = gt_aug.box_collision_test
+    spent = {}
+
+    def timed_test(a, b):
+        t0 = time.perf_counter()
+        out = test(a, b)
+        key = native.available()
+        spent[key] = spent.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+    gt_aug.box_collision_test = timed_test
+    try:
+        for _ in range(passes):
+            ds = {lib: build_dataset(dict(train),
+                                     dict(rng=np.random.RandomState(SEED)))
+                  for lib in (True, False)}
+            ms, spent = {True: [], False: []}, {}
+            for i in range(len(ds[True])):
+                for lib in ((True, False) if i % 2 == 0 else (False, True)):
+                    with nullcontext() if lib else native.numpy_only():
+                        t0 = time.perf_counter()
+                        ds[lib][i]
+                        ms[lib].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        gt_aug.box_collision_test = test
+    return {lib: (ms[lib], spent.get(lib, 0.0)) for lib in (True, False)}
+
+
 def train_cli_phase(dev, card):
     """``partner_tpu_torch.tools.train.main`` on the card at full width and
     batch 4 over a synthetic Waymo train set with GT-AUG from a database cut
@@ -1863,6 +2067,11 @@ def train_cli_phase(dev, card):
         ckpts = sorted(d for d in os.listdir(work_dir) if d.startswith("ckpt_"))
         sample_ms, collate_ms, (rate, n_batches, threads) = (
             host_pipeline_ms(cfg))
+        from partner_tpu_torch import native
+
+        with native.numpy_only():
+            _, _, (rate_np, _, _) = host_pipeline_ms(cfg)
+        paired = native_sample_ms(cfg)
     if [r["step"] for r in recs] != list(range(6)):
         raise AssertionError(f"train CLI: steps {[r['step'] for r in recs]}")
     if resumed != [(4, 4, True)]:
@@ -1924,9 +2133,22 @@ def train_cli_phase(dev, card):
         f"{threads} threads: {rate!r} batches of 4 a second over "
         f"{n_batches} batches, against the {1 / median!r} a second the "
         f"steps take")
+    (lib_ms, lib_test), (np_ms, np_test) = paired[True], paired[False]
+    log(f"train CLI host data path with and without the native library, "
+        f"sample by sample in turns (second pass over the frames), one "
+        f"thread: dataset[i] {lib_ms!r} ms with it (median "
+        f"{statistics.median(lib_ms)!r}), {np_ms!r} ms with the numpy "
+        f"bodies (median {statistics.median(np_ms)!r}); GT-AUG's collision "
+        f"test took {lib_test!r} ms of the pass with it, {np_test!r} ms "
+        f"without ({np_test / sum(np_ms)!r} of the numpy pass); the loader "
+        f"with {threads} threads and the numpy bodies {rate_np!r} batches of "
+        f"4 a second ({rate!r} with the library)")
     return dict(launches=launches, median_s=median, data_share=data_share,
                 inserted=statistics.mean(inserted), peak=peak, walls=walls,
-                sample_ms=statistics.median(sample_ms), loader_rate=rate)
+                sample_ms=statistics.median(sample_ms), loader_rate=rate,
+                sample_ms_lib=statistics.median(lib_ms),
+                sample_ms_numpy=statistics.median(np_ms),
+                loader_rate_numpy=rate_np)
 
 
 # ---------------------------------------------------------------- CenterPoint
@@ -1963,13 +2185,15 @@ def centerpoint_cfgs(config=CP_CONFIG, grid=None, compute_dtype=None):
     return m, copy.deepcopy(cfg["train_cfg"]), tc
 
 
-def timed_predicts(det, ex, frames, want):
-    """``frames`` timed predicts after one warm-up, each :func:`counted`
-    and launching ``want`` -> (median host ms, all ms, the last output,
-    launches summed over the timed frames)."""
+def timed_predicts(det, ex, frames, want, run=None):
+    """``frames`` timed predicts after one warm-up (``run()`` in place of
+    ``det.predict(ex)`` where given), each :func:`counted` and launching
+    ``want`` -> (median host ms, all ms, the last output, launches summed
+    over the timed frames)."""
     times, tally, out = [], dict.fromkeys(want, 0), None
+    run = run or (lambda: det.predict(ex))
     for i in range(frames + 1):
-        ms, out, counts = counted(lambda: det.predict(ex))
+        ms, out, counts = counted(run)
         if counts != want:
             raise AssertionError(f"frame {i}: launches {counts} != {want}")
         if i:
@@ -2189,6 +2413,456 @@ def centerpoint_phase(dev, card):
     return res
 
 
+# ------------------------------------------------------------------ serving
+
+SERVE_FRAMES = 8             # frames through each serving tool (cut first)
+SERVE_ROWS = 200_000         # single_inference --max_points (its default)
+MSI_ROWS = 432_000           # multi_sweep_inference --max_points: 2 sweeps
+VOX_TOL = 1e-5               # dynamic voxel means, card against CPU
+
+
+def identical(a, b):
+    """Two detection dicts (tensors or numpy) equal bit for bit."""
+    as_np = lambda x: x.cpu().numpy() if torch.is_tensor(x) else x
+    return sorted(a) == sorted(b) and all(
+        np.array_equal(as_np(a[k]), as_np(b[k])) for k in a)
+
+
+def kept_boxes(out):
+    """The kept boxes of sample 0 of a ``predict`` output, numpy."""
+    m = out["mask"][0]
+    return {k: out[k][0][m].cpu().numpy()
+            for k in ("box3d_lidar", "scores", "label_preds")}
+
+
+def cartesian_frames(rng, pc_range, n_frames):
+    """SERVE_FRAMES-style synthetic sweeps: :func:`synthetic_scene`'s
+    N_POINTS cartesian points with intensity and elongation, (N, 5)
+    float32 each."""
+    out = []
+    for _ in range(n_frames):
+        _, xyz = synthetic_scene(rng, pc_range, N_POINTS, MAX_BOXES)
+        out.append(np.concatenate([xyz, rng.rand(len(xyz), 2)], 1).astype(
+            np.float32))
+    return out
+
+
+def write_serving_config(root, config):
+    """``config`` exec'd (its own path as ``__file__``, for the configs that
+    read a sibling) with ``score_threshold`` 0, as :func:`frame_cfgs`."""
+    path = os.path.join(root, "serving_" + os.path.basename(config))
+    with open(path, "w") as f:
+        f.write(f"__file__ = {config!r}\n"
+                f"exec(open({config!r}).read())\n"
+                "test_cfg['score_threshold'] = 0.0\n")
+    return path
+
+
+@torch.no_grad()
+def voxel_reference(dev, card):
+    """The voxel path against the CPU: ``dynamic_voxelize`` of the full
+    180,000-point sweep on the card and on the CPU (coords, mask, counts
+    equal; means within VOX_TOL (1 + |cpu|)), and the flagship backbone's
+    voxel path on SMALL_GRID, the card (bf16, kernels) against the CPU
+    (float32, plain twins) with the same weights, by relative RMS error
+    (REF_BF16)."""
+    from partner_tpu_torch.models import build_detector
+    from partner_tpu_torch.ops.voxelize import DeviceVoxelizer
+    from partner_tpu_torch.utils.config import load_config
+
+    vg = load_config(CONFIG)["voxel_generator"]
+    pts, mask = synthetic_sweep(np.random.RandomState(SEED + 12),
+                                vg["range"], N_POINTS)
+    got = DeviceVoxelizer(vg, dev, vg["max_voxel_num"])(
+        torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev))
+    want = DeviceVoxelizer(vg, "cpu", vg["max_voxel_num"])(
+        torch.from_numpy(pts), torch.from_numpy(mask))
+    for k in ("coords", "voxel_mask"):
+        if not torch.equal(got[k].cpu(), want[k]):
+            raise AssertionError(f"dynamic_voxelize {k}: card != CPU")
+    err = (got["features"].cpu() - want["features"]).abs()
+    n_bad = int((err > VOX_TOL * (1 + want["features"].abs())).sum())
+    log(f"dynamic_voxelize on {card} against the CPU: "
+        f"{int(want['voxel_mask'].sum())} voxels, coords and mask equal, "
+        f"means max abs err {float(err.max())!r}, "
+        f"{int((err != 0).sum())} of {err.numel()} not equal, {n_bad} beyond "
+        f"{VOX_TOL} (1 + |cpu|)")
+    if n_bad:
+        raise AssertionError("dynamic_voxelize: card means beyond the bound")
+
+    m, tc = frame_cfgs(grid=SMALL_GRID)
+    gen = torch.Generator().manual_seed(SEED + 12)
+    gpu = build_detector(m, None, tc, device=dev, generator=gen).module
+    randomize_norms(gpu, gen)
+    m32, _ = frame_cfgs(grid=SMALL_GRID, compute_dtype="float32")
+    cpu = build_detector(m32, None, tc, device="cpu").module
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    vg_small = m["bbox_head"]["voxel_generator"]
+    pts, mask = synthetic_sweep(np.random.RandomState(SEED + 12),
+                                vg_small["range"], 30_000)
+    vox = DeviceVoxelizer(vg_small, "cpu", 30_000)(torch.from_numpy(pts),
+                                                    torch.from_numpy(mask))
+    feats = cpu.reader(vox["features"])
+    bev = cpu.backbone(feats, vox["coords"], vox["voxel_mask"], cpu.grid_size)
+    on = {k: t.to(dev) for k, t in vox.items()}
+    rel_rms(f"voxel-path backbone BEV on {card}", gpu.backbone(
+        gpu.reader(on["features"]), on["coords"], on["voxel_mask"],
+        gpu.grid_size), bev, REF_BF16)
+
+
+def serving_phase(dev, card):
+    """The voxel-input contract and the two serving tools on the card at
+    full width:
+    - the flagship frame through ``features`` (``dynamic_voxelize`` on the
+      card, the reader, ``PolarDenseFHD.forward``), taking turns with the
+      point-path frame on the same weights and sweep: median ms, device
+      busy and launches a frame, the voxelizer's device time and launches,
+      voxels found against the capacity, a repeated frame bit-equal;
+    - :func:`voxel_reference`;
+    - ``single_inference`` from a port checkpoint of those weights:
+      ``run_frame`` over SERVE_FRAMES sweeps (detections and ms a frame,
+      launches), each bit-equal to a direct ``predict`` of the same
+      buffers, a repeated frame bit-equal, and ``--once`` over two frame
+      files writing the same detections;
+    - ``multi_sweep_inference --nsweeps 2`` with the two-sweep velocity
+      CenterPoint config over SERVE_FRAMES timed frames with ego poses:
+      launches, middle-third FPS, the last frame bit-equal to a direct
+      ``predict`` of its two sweeps, and repeated."""
+    import pickle
+    import tempfile
+
+    from partner_tpu_torch.core import box_np_ops
+    from partner_tpu_torch.models import build_detector
+    from partner_tpu_torch.ops.voxelize import (DeviceVoxelizer,
+                                                dynamic_voxelize)
+    from partner_tpu_torch.tools import multi_sweep_inference as msi
+    from partner_tpu_torch.tools import single_inference as si
+    from partner_tpu_torch.train.checkpoint import save_checkpoint
+    from partner_tpu_torch.utils.config import load_config
+
+    res = {}
+    vg = load_config(CONFIG)["voxel_generator"]
+    cap = vg["max_voxel_num"]
+    m, tc = frame_cfgs()
+    pr = m["bbox_head"]["voxel_generator"]["range"]
+    gen = torch.Generator().manual_seed(SEED + 11)
+    det = build_detector(m, None, tc, device=dev, generator=gen)
+    randomize_norms(det.module, gen)
+    depth = det.module.bbox_head.layer.depth
+    per_frame = {"stem": 1, "scatter_max": 1, "swin_attn": depth,
+                 "swin_block": 0}
+    pts, mask = synthetic_sweep(np.random.RandomState(SEED), pr, N_POINTS)
+    ex = to_device({"points": pts, "points_mask": mask}, dev)
+    vox = DeviceVoxelizer(vg, dev, cap)
+    runs = {"voxel": lambda: det.predict(vox(ex["points"],
+                                             ex["points_mask"])),
+            "point": lambda: det.predict(ex)}
+    times = {k: [] for k in runs}
+    tally = {k: dict.fromkeys(per_frame, 0) for k in runs}
+    outs = {}
+    for i in range(FRAMES + 1):   # round 0 warms up; the paths take turns
+        for k in (list(runs) if i % 2 == 0 else list(runs)[::-1]):
+            ms, outs[k], counts = counted(runs[k])
+            if counts != per_frame:
+                raise AssertionError(f"{k} frame {i}: launches {counts} != "
+                                     f"{per_frame}")
+            if i:
+                times[k].append(ms)
+                for n in per_frame:
+                    tally[k][n] += counts[n]
+    again = runs["voxel"]()
+    if not identical(again, outs["voxel"]):
+        raise AssertionError("voxel frame: a repeated frame differs")
+    kept = check_detections(outs["voxel"], tc)
+    v = vox(ex["points"], ex["points_mask"])
+    found = int(v["voxel_mask"].sum())
+    fullest = int(dynamic_voxelize(
+        ex["points"], ex["points_mask"], vox.voxel_size, vox.pc_range,
+        vox.grid_size, cap)["num_points"].max())
+    occupied = int(DeviceVoxelizer(vg, dev, pts.shape[1])(
+        ex["points"], ex["points_mask"])["voxel_mask"].sum())
+    busy, launches = device_busy(runs["voxel"])
+    point_busy, point_launches = device_busy(runs["point"])
+    vox_busy, vox_launches = device_busy(lambda: vox(ex["points"],
+                                                     ex["points_mask"]))
+    feats = det.module.reader(v["features"])
+    with torch.no_grad():
+        bb_busy, bb_launches = device_busy(lambda: det.module.backbone(
+            feats, v["coords"], v["voxel_mask"], det.module.grid_size))
+        pbb_busy, pbb_launches = device_busy(
+            lambda: det.module.backbone.encode_points(
+                ex["points"], ex["points_mask"], det.module.grid_size,
+                det.module.pc_range))
+    vox_ms = statistics.median(counted(lambda: vox(
+        ex["points"], ex["points_mask"]))[0] for _ in range(5))
+    medians = {k: statistics.median(t) for k, t in times.items()}
+    log(f"voxel-path frame on {card}: {N_POINTS} points in {pts.shape[1]} "
+        f"rows -> {found} voxels of a {cap} capacity ({occupied} cells "
+        f"occupied, {found / cap!r} of the table full); median "
+        f"{medians['voxel']!r} ms over {FRAMES} frames, all "
+        f"{times['voxel']!r}; the point-path frame on the same weights, "
+        f"taking turns: median {medians['point']!r} ms, all "
+        f"{times['point']!r}; launches over {FRAMES} frames "
+        f"{tally['voxel']}; {kept} boxes kept; a repeated frame bit-equal")
+    log(f"voxel-path frame device busy {busy!r} ms and {launches!r} launches "
+        f"a frame (point path {point_busy!r} ms, {point_launches!r}); "
+        f"dynamic_voxelize {vox_busy!r} ms device and {vox_launches!r} "
+        f"launches ({fullest} rows in the fullest voxel: one round of its "
+        f"slot loop each), {vox_ms!r} ms host clock synchronized; the "
+        f"backbone's voxel path {bb_busy!r} ms device and {bb_launches!r} "
+        f"launches "
+        f"(point path {pbb_busy!r} ms, {pbb_launches!r}) (torch.profiler, "
+        "3 calls each)")
+    res["voxel_frame"] = dict(
+        median_ms=medians["voxel"], point_median_ms=medians["point"],
+        device_busy_ms=busy, launches_per_frame=launches,
+        point_device_busy_ms=point_busy, voxelize_device_ms=vox_busy,
+        voxelize_launches=vox_launches, voxelize_ms=vox_ms,
+        fullest_voxel=fullest,
+        backbone_device_ms=bb_busy, point_backbone_device_ms=pbb_busy,
+        voxels=found, occupied=occupied, capacity=cap, kept=kept,
+        launches=tally["voxel"])
+    del feats, v, outs, again
+
+    voxel_reference(dev, card)
+
+    with tempfile.TemporaryDirectory() as root:
+        # ---- single_inference from a checkpoint of these weights
+        save_checkpoint(os.path.join(root, "ckpt"), 0,
+                        det.module.state_dict())
+        ckpt = os.path.join(root, "ckpt", "latest")
+        cfg_path = write_serving_config(root, CONFIG)
+        del det
+        torch.cuda.empty_cache()
+        sdet, predict, meta = si.build_predictor(
+            load_config(cfg_path), ckpt, SERVE_ROWS, device=dev)
+        frames = cartesian_frames(np.random.RandomState(SEED + 13), pr,
+                                  SERVE_FRAMES)
+        svox = DeviceVoxelizer(vg, dev, cap)
+        n_dets, ms, tally, saved = [], [], dict.fromkeys(per_frame, 0), []
+        for i, cart in enumerate([frames[0]] + frames):  # one warm-up
+            _, got, counts = counted(lambda: si.run_frame(predict, meta, cart,
+                                                          0.0))
+            if counts != per_frame:
+                raise AssertionError(f"single_inference frame {i}: launches "
+                                     f"{counts} != {per_frame}")
+            feats = np.zeros((1, SERVE_ROWS, meta["n_feat"]), np.float32)
+            fp = box_np_ops.transform_points(cart, "cylinder")[
+                :, :meta["n_feat"]]
+            feats[0, :len(fp)] = fp
+            fmask = np.zeros((1, SERVE_ROWS), bool)
+            fmask[0, :len(fp)] = True
+            fex = to_device({"points": feats, "points_mask": fmask}, dev)
+            direct = kept_boxes(sdet.predict(svox(fex["points"],
+                                                  fex["points_mask"])))
+            if not identical({k: got[k] for k in direct}, direct):
+                raise AssertionError(f"single_inference frame {i}: differs "
+                                     "from a direct predict")
+            if i:
+                saved.append(direct)
+                n_dets.append(len(got["scores"]))
+                ms.append(got["time"] * 1e3)
+                for k in per_frame:
+                    tally[k] += counts[k]
+        again = si.run_frame(predict, meta, frames[-1], 0.0)
+        if not identical({k: again[k] for k in direct}, direct):
+            raise AssertionError("single_inference: a repeated frame differs")
+        at_default = int((got["scores"] >= 0.3).sum())
+        watch = os.path.join(root, "frames")
+        os.makedirs(watch)
+        for i in range(2):
+            frames[i].tofile(os.path.join(watch, f"f{i}.bin"))
+        del sdet, predict
+        torch.cuda.empty_cache()
+        _, _, once_launches = counted(lambda: si.main([
+            cfg_path, "--once", "--watch_dir", watch, "--checkpoint", ckpt,
+            "--score", "0.0", "--device", torch.device(dev).type]))
+        for i in range(2):
+            npz = np.load(os.path.join(watch, f"f{i}.det.npz"))
+            if not identical(dict(npz), saved[i]):
+                raise AssertionError(f"single_inference --once f{i}: its "
+                                     ".det.npz differs from run_frame's")
+        log(f"single_inference on {card}: {SERVE_FRAMES} frames of "
+            f"{N_POINTS} points in {SERVE_ROWS} rows, ms a frame (the "
+            f"tool's synchronized clock, copy in to outputs back) {ms!r}, "
+            f"median {statistics.median(ms)!r}; detections a frame "
+            f"(--score 0) {n_dets!r}, {at_default} of the last frame's at "
+            f"the default --score 0.3; launches {tally}; every frame "
+            f"bit-equal to a direct predict of the same buffers, a repeated "
+            f"frame bit-equal; --once over 2 .bin files wrote the same "
+            f"detections to their .det.npz (launches {once_launches})")
+        res["single_inference"] = dict(median_ms=statistics.median(ms),
+                                       ms=ms, detections=n_dets,
+                                       launches=tally)
+
+        # ---- multi_sweep_inference, the two-sweep velocity CenterPoint
+        mv, _, tcv = centerpoint_cfgs(CP_VELO_CONFIG)
+        gen = torch.Generator().manual_seed(SEED + 14)
+        cdet = build_detector(mv, None, tcv, device=dev, generator=gen)
+        randomize_norms(cdet.module, gen)
+        save_checkpoint(os.path.join(root, "cp_ckpt"), 0,
+                        cdet.module.state_dict())
+        cp_cfg = write_serving_config(root, CP_VELO_CONFIG)
+        rng = np.random.RandomState(SEED + 15)
+        infos = []
+        for i, cart in enumerate(cartesian_frames(rng, pr, SERVE_FRAMES)):
+            pose = np.eye(4)
+            yaw = 0.02 * i
+            pose[:2, :2] = [[np.cos(yaw), -np.sin(yaw)],
+                            [np.sin(yaw), np.cos(yaw)]]
+            pose[:3, 3] = [1.2 * i, 0.1 * i, 0.0]
+            infos.append({"token": f"sweep_{i}", "points": cart,
+                          "pose": pose, "timestamp": 1.0e6 + 0.1 * i})
+        info_path = os.path.join(root, "sweeps.pkl")
+        with open(info_path, "wb") as f:
+            pickle.dump(infos[::-1], f)     # the tool sorts by timestamp
+        cp_frame = {"stem": 1, "scatter_max": 1, "swin_attn": 0,
+                    "swin_block": 0}
+        _, (dets, fps), msi_launches = counted(lambda: msi.main([
+            cp_cfg, "--info_path", info_path, "--checkpoint",
+            os.path.join(root, "cp_ckpt", "latest"), "--nsweeps", "2",
+            "--max_points", str(MSI_ROWS), "--work_dir",
+            os.path.join(root, "msi"), "--device", torch.device(dev).type]))
+        want = {k: n * SERVE_FRAMES for k, n in cp_frame.items()}
+        if msi_launches != want:
+            raise AssertionError(f"multi_sweep_inference: launches "
+                                 f"{msi_launches} != {want}")
+        kept = [(i["points"], i["pose"], i["timestamp"]) for i in infos[-2:]]
+        fp = msi.frame_points(kept, infos[-1]["pose"], infos[-1]["timestamp"],
+                              "cylinder", 8)
+        feats = np.zeros((1, MSI_ROWS, 8), np.float32)
+        feats[0, :len(fp)] = fp
+        fmask = np.zeros((1, MSI_ROWS), bool)
+        fmask[0, :len(fp)] = True
+        fex = to_device({"points": feats, "points_mask": fmask}, dev)
+        cp_vg = load_config(cp_cfg)["voxel_generator"]
+        cvox = DeviceVoxelizer(cp_vg, dev, cp_vg["max_voxel_num"])
+        direct = [kept_boxes(cdet.predict(cvox(fex["points"],
+                                               fex["points_mask"])))
+                  for _ in range(2)]
+        last = dets[infos[-1]["token"]]
+        if not (identical(last, direct[0]) and identical(direct[0],
+                                                         direct[1])):
+            raise AssertionError("multi_sweep_inference: the last frame "
+                                 "differs from a direct predict")
+        if last["box3d_lidar"].shape[1] != 9:
+            raise AssertionError("multi_sweep_inference: boxes without "
+                                 "velocity")
+        n_dets = [len(d["scores"]) for d in dets.values()]
+        log(f"multi_sweep_inference --nsweeps 2 on {card}: {SERVE_FRAMES} "
+            f"frames of {N_POINTS} points, two sweeps ({len(fp)} points of "
+            f"the last frame) in {MSI_ROWS} rows: middle-third FPS {fps!r}; "
+            f"detections a frame {n_dets!r}; launches {msi_launches}; the "
+            f"last frame bit-equal to a direct predict of its two sweeps, "
+            f"and that predict repeated bit-equal")
+        res["multi_sweep"] = dict(fps=fps, launches=msi_launches,
+                                  detections=n_dets)
+    return res
+
+
+NATIVE_EDGE_M = 1e-4   # metres: how near a face a disagreement may lie
+
+
+def rbbox_margin(points, boxes, pairs):
+    """For (point, box) index pairs, the float64 distance of the point from
+    the box's surface in the box frame (positive inside): the larger of
+    the axes' |local| - half, negated."""
+    p = points[pairs[:, 0], :3].astype(np.float64)
+    b = boxes[pairs[:, 1]].astype(np.float64)
+    d = p - b[:, :3]
+    c, s = np.cos(b[:, -1]), np.sin(b[:, -1])
+    local = np.stack([d[:, 0] * c + d[:, 1] * s, -d[:, 0] * s + d[:, 1] * c,
+                      d[:, 2]], 1)
+    return -np.max(np.abs(local) - b[:, 3:6] / 2, axis=1)
+
+
+def collision_gap(corners, pairs):
+    """For box index pairs, the float64 separating-axis gap in metres: the
+    largest gap between the two boxes' projections over the 8 edge
+    normals (positive where they are apart)."""
+    a = corners[pairs[:, 0]].astype(np.float64)
+    b = corners[pairs[:, 1]].astype(np.float64)
+    gaps = []
+    for box in (a, b):
+        e = np.roll(box, -1, axis=1) - box
+        n = np.stack([-e[..., 1], e[..., 0]], -1)
+        n /= np.linalg.norm(n, axis=-1, keepdims=True)
+        for k in range(4):
+            pa = np.einsum("ni,npi->np", n[:, k], a)
+            pb = np.einsum("ni,npi->np", n[:, k], b)
+            gaps.append(np.maximum(pb.min(1) - pa.max(1),
+                                   pa.min(1) - pb.max(1)))
+    return np.max(gaps, axis=0)
+
+
+def native_phase(card):
+    """The native host library on the card's host: built and loaded (the
+    run fails where it is not), its three functions against the numpy
+    bodies at train sizes, and the host ms of each both ways. The hard
+    voxelizer (a 180,000-point sweep at the flagship's voxel generator)
+    must be bit-equal. The collision test (64 gt and 50-100 sampled boxes)
+    and points in boxes (a sweep's points in its 32-64 boxes) compute in
+    double where the numpy bodies compute in float32, so each
+    disagreement, counted, must lie within NATIVE_EDGE_M of a box face (of
+    touching) in float64."""
+    from partner_tpu_torch import native
+    from partner_tpu_torch.core import box_np_ops
+    from partner_tpu_torch.data import augment
+    from partner_tpu_torch.ops import voxelize
+    from partner_tpu_torch.utils.config import load_config
+
+    if not native.available():
+        raise AssertionError("native: the library did not build or load")
+    log(f"native library: {os.path.relpath(native.library_path(), ROOT)}")
+    vg = load_config(CONFIG)["voxel_generator"]
+    rng = np.random.RandomState(SEED + 16)
+    pts, mask = synthetic_sweep(rng, vg["range"], N_POINTS)
+    pts = pts[0][mask[0]]
+    boxes, xyz = synthetic_scene(rng, vg["range"], N_POINTS, MAX_BOXES)
+    boxes, xyz = boxes.astype(np.float32), xyz.astype(np.float32)
+    more, _ = synthetic_scene(rng, vg["range"], 1000, 100)
+    every = np.concatenate([boxes, more.astype(np.float32)])
+    corners = box_np_ops.center_to_corner_box2d(
+        every[:, :2], every[:, 3:5], every[:, 6]).astype(np.float32)
+    gen = voxelize.VoxelGenerator(vg["voxel_size"], vg["range"],
+                                  vg["max_points_in_voxel"],
+                                  vg["max_voxel_num"])
+    cases = {
+        "points_to_voxel": lambda: gen.generate(pts),
+        "box_collision_test": lambda: augment.box_collision_test(corners,
+                                                                 corners),
+        "points_in_rbbox": lambda: box_np_ops.points_in_rbbox(xyz, boxes),
+    }
+    out = {}
+    for name, fn in cases.items():
+        t0 = time.perf_counter()
+        lib = fn()
+        lib_ms = (time.perf_counter() - t0) * 1e3
+        with native.numpy_only():
+            t0 = time.perf_counter()
+            body = fn()
+            np_ms = (time.perf_counter() - t0) * 1e3
+        if name == "points_to_voxel":
+            differ = sum(int((a != b).sum()) if a.shape == b.shape else
+                         max(a.size, b.size) for a, b in zip(lib, body))
+            edge = 0.0
+            size = sum(a.size for a in body)
+        else:
+            pairs = np.argwhere(lib != body)
+            differ, size = len(pairs), body.size
+            margin = (rbbox_margin(xyz, boxes, pairs)
+                      if name == "points_in_rbbox"
+                      else collision_gap(corners, pairs))
+            edge = float(np.abs(margin).max()) if differ else 0.0
+        log(f"native {name} on the card's host: {differ} of {size} outputs "
+            f"differ from the numpy body (the farthest {edge!r} m from a "
+            f"face); {lib_ms!r} ms with the library, {np_ms!r} ms without")
+        if (name == "points_to_voxel" and differ) or edge > NATIVE_EDGE_M:
+            raise AssertionError(f"native {name}: differs from numpy")
+        out[name] = dict(ms=lib_ms, numpy_ms=np_ms, differ=differ)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this run needs one NVIDIA card")
@@ -2222,6 +2896,8 @@ def main():
     static = static_rpe_phase(dev, card)
     cli = train_cli_phase(dev, card)
     cp = centerpoint_phase(dev, card)
+    serving = serving_phase(dev, card)
+    nat = native_phase(card)
 
     meta = {
         "stem": ("partner_tpu_torch/csrc/stem.cu",
@@ -2250,6 +2926,12 @@ def main():
                         "launches"][name],
                     centerpoint_train_cli_launches=cp["train_cli"][
                         "launches"][name],
+                    voxel_frame_launches=serving["voxel_frame"]["launches"][
+                        name],
+                    single_inference_launches=serving["single_inference"][
+                        "launches"][name],
+                    multi_sweep_launches=serving["multi_sweep"]["launches"][
+                        name],
                     **r)
                for name, r in kres.items()]
     log("summary: card " + card + ", flagship frame median ms: " + ", ".join(
@@ -2284,6 +2966,29 @@ def main():
         f"{kres['scatter_max']['bound_ms_p432000']!r} ms, share "
         f"{kres['scatter_max']['bound_share_p432000']!r}, "
         f"{kres['scatter_max']['not_equal_p432000']} not equal to the twin")
+    vf, sm, st = serving["voxel_frame"], kres["scatter_max"], kres["stem"]
+    log(f"summary: card {card}, voxel-path frame median "
+        f"{vf['median_ms']!r} ms (point path {vf['point_median_ms']!r} ms, "
+        f"taking turns), device busy {vf['device_busy_ms']!r} ms and "
+        f"{vf['launches_per_frame']!r} launches a frame, dynamic_voxelize "
+        f"{vf['voxelize_device_ms']!r} ms device and "
+        f"{vf['voxelize_launches']!r} launches, {vf['voxels']} voxels of "
+        f"{vf['capacity']}; single_inference median "
+        f"{serving['single_inference']['median_ms']!r} ms a frame, "
+        f"{serving['single_inference']['detections']} detections; "
+        f"multi_sweep_inference middle-third FPS "
+        f"{serving['multi_sweep']['fps']!r}; stem at the voxel rows device "
+        f"{st['device_ms_voxel']!r} ms (bound {st['bound_ms_voxel']!r}), "
+        f"C_in 11 {st['device_ms_voxel_cin11']!r} ms (bound "
+        f"{st['bound_ms_voxel_cin11']!r}); scatter-max at the voxel rows "
+        f"{sm['device_ms_voxel']!r} ms (bound {sm['bound_ms_voxel']!r}), "
+        f"{sm['not_equal_voxel']} not equal to the twin; native "
+        f"{ {k: (v['ms'], v['numpy_ms']) for k, v in nat.items()} } ms "
+        f"(library, numpy); train host path {cli['sample_ms_lib']!r} ms a "
+        f"sample with the library, {cli['sample_ms_numpy']!r} without "
+        f"(in turns); "
+        f"loader {cli['loader_rate']!r} / {cli['loader_rate_numpy']!r} "
+        f"batches a second")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

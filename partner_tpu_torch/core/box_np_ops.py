@@ -8,8 +8,9 @@ filters, point layouts); the port cannot import that module, because
 +z and (x, y, z) the geometric box center; 2D corners run clockwise from
 the (-dx/2, -dy/2) corner.
 
-``points_in_rbbox`` keeps only the numpy body: the JAX package's native
-host library (``partner_tpu/native/``) is not ported.
+``points_in_rbbox`` runs the port's native library where it is built
+(``partner_tpu_torch/native``) and its numpy body, ``points_in_rbbox_np``,
+elsewhere, as the JAX package dispatches.
 """
 
 import numpy as np
@@ -123,8 +124,20 @@ def filter_gt_cart_range(gt_boxes, bv_range):
 
 
 def points_in_rbbox(points, boxes):
-    """Boolean (P, N) membership of points in rotated 3D boxes: points
-    moved into each box frame and compared against its half-dims."""
+    """Boolean (P, N) membership of points in rotated 3D boxes: the native
+    library where it is available, else :func:`points_in_rbbox_np`."""
+    if len(boxes) == 0:
+        return np.zeros((points.shape[0], 0), dtype=bool)
+    from .. import native
+
+    if native.available():
+        return native.points_in_rbbox(points, boxes)
+    return points_in_rbbox_np(points, boxes)
+
+
+def points_in_rbbox_np(points, boxes):
+    """The numpy body: points moved into each box frame and compared
+    against its half-dims (the parity oracle)."""
     if len(boxes) == 0:
         return np.zeros((points.shape[0], 0), dtype=bool)
     shift = points[:, None, :3] - boxes[None, :, :3]  # (P, N, 3)

@@ -7,8 +7,9 @@ every column but yaw (velocities included). Each function draws from the
 ``np.random.RandomState`` it is given, in the JAX package's order, so the
 same seed gives the same boxes and points in both packages.
 
-``box_collision_test`` is the JAX package's numpy body
-(``box_collision_test_np``); its native C++ twin is not ported.
+``box_collision_test`` runs the port's native library where it is built
+(``partner_tpu_torch/native``) and its numpy body,
+``box_collision_test_np``, elsewhere, as the JAX package dispatches.
 """
 
 import numpy as np
@@ -68,7 +69,21 @@ def global_translate(gt_boxes, points, noise_translate_std=0.0, *, rng):
 
 def box_collision_test(corners_a, corners_b):
     """Rectangle overlap by separating axes: corners_a (N, 4, 2),
-    corners_b (K, 4, 2) -> bool (N, K), True where they overlap."""
+    corners_b (K, 4, 2) -> bool (N, K), True where they overlap. The
+    native library where it is available, else
+    :func:`box_collision_test_np`."""
+    n, k = len(corners_a), len(corners_b)
+    if n == 0 or k == 0:
+        return np.zeros((n, k), dtype=bool)
+    from .. import native
+
+    if native.available():
+        return native.box_collision_test(corners_a, corners_b)
+    return box_collision_test_np(corners_a, corners_b)
+
+
+def box_collision_test_np(corners_a, corners_b):
+    """The numpy body (the parity oracle)."""
     n, k = len(corners_a), len(corners_b)
     if n == 0 or k == 0:
         return np.zeros((n, k), dtype=bool)

@@ -6,7 +6,8 @@ that module (it imports jax through ``partner_tpu.core`` and
 ``partner_tpu.ops.voxelize``). Same registry names and ``(res, info)``
 contract; the pipeline's output is a padded point buffer (plus, in train
 mode, padded targets), and the voxel grid is built on the device inside
-the model:
+the model, unless ``Voxelization`` runs in ``hard`` mode (host voxels,
+through the native library where it is built):
 
   LoadPointCloudFromFile -> LoadPointCloudAnnotations -> Preprocess
   (train: GT-AUG, flips, rotation, scaling, translation; both modes:
@@ -20,10 +21,9 @@ dataset passes its own), in the JAX package's order, where the JAX package
 draws from the global ``np.random``: one seed gives the same batches.
 
 Not ported, and raising ``NotImplementedError`` where a config asks for
-them: host ``hard`` voxelization (ROADMAP.md queue 1, the native host
-library), the nuScenes loader (ROADMAP.md queue 1, nuScenes), sector
-targets (``nsectors > 1``, PolarStream) and the seg labels (``seg_head``;
-both ROADMAP.md queue 1, off the main path).
+them: the nuScenes loader (ROADMAP.md queue 1, nuScenes), sector targets
+(``nsectors > 1``, PolarStream) and the seg labels (``seg_head``; both
+ROADMAP.md queue 1, off the main path).
 """
 
 import pickle
@@ -32,6 +32,7 @@ import numpy as np
 
 from ..core import box_np_ops
 from ..core.targets import CenterTargetAssigner, draw_votemap
+from ..ops.voxelize import VoxelGenerator
 from . import augment
 from .gt_aug import DataBaseSampler
 from .registry import PIPELINES
@@ -207,21 +208,24 @@ class Preprocess:
 
 @PIPELINES.register_module(name="Voxelization")
 class Voxelization:
-    """Records the grid's metadata (``device`` mode): the padded point
-    buffer flows through and the model builds the grid on the device. In
-    train mode the gt boxes outside the BEV range are dropped first."""
+    """Records the grid's metadata; voxelizes on the host only in ``hard``
+    mode (``ops.voxelize.VoxelGenerator``, up to ``max_voxel_num`` voxels,
+    its first entry where it is a list). In ``device`` mode (the default)
+    the padded point buffer flows through and the model builds the grid on
+    the device. In train mode the gt boxes outside the BEV range are
+    dropped first."""
 
     def __init__(self, cfg=None, **kwargs):
         cfg = dict(cfg or {})
         self.range = np.asarray(cfg["range"], np.float32)
         self.voxel_size = np.asarray(cfg["voxel_size"], np.float32)
-        if cfg.get("voxelize_mode", "device") != "device":
-            raise NotImplementedError(
-                "host hard voxelization is not ported to partner_tpu_torch "
-                "(ROADMAP.md queue 1: the native host library)")
-        # as partner_tpu/ops/voxelize.py's VoxelGenerator: float32, rounded
-        grid = (self.range[3:] - self.range[:3]) / self.voxel_size
-        self.grid_size = np.round(grid).astype(np.int64)
+        mv = cfg.get("max_voxel_num", 150000)
+        self.max_voxel_num = mv if isinstance(mv, int) else mv[0]
+        self.mode = cfg.get("voxelize_mode", "device")
+        self.generator = VoxelGenerator(
+            self.voxel_size, self.range, cfg.get("max_points_in_voxel", 5),
+            self.max_voxel_num)
+        self.grid_size = self.generator.grid_size
 
     def __call__(self, res, info):
         if res.get("mode") in TRAIN_MODES:
@@ -234,8 +238,15 @@ class Voxelization:
                     m = box_np_ops.filter_gt_polar_range(anno["gt_boxes"], bv)
                 res["lidar"]["annotations"] = {k: v[m]
                                                for k, v in anno.items()}
-        res["lidar"]["voxels"] = dict(
-            shape=self.grid_size, range=self.range, size=self.voxel_size)
+        meta = dict(shape=self.grid_size, range=self.range,
+                    size=self.voxel_size)
+        if self.mode == "hard":
+            voxels, coords, num_points = self.generator.generate(
+                res["lidar"]["points"])
+            meta.update(voxels=voxels, coordinates=coords,
+                        num_points=num_points,
+                        num_voxels=np.array([len(voxels)], np.int64))
+        res["lidar"]["voxels"] = meta
         return res, info
 
 
@@ -307,6 +318,11 @@ class Reformat:
         bundle["grid_size"] = voxels.get("shape")
         bundle["pc_range"] = voxels.get("range")
         bundle["voxel_size"] = voxels.get("size")
+        if "voxels" in voxels:
+            bundle.update(voxels=voxels["voxels"],
+                          coordinates=voxels["coordinates"],
+                          num_points=voxels["num_points"],
+                          num_voxels=voxels["num_voxels"])
         if "targets" in res["lidar"]:
             bundle.update(res["lidar"]["targets"])
         return bundle, info

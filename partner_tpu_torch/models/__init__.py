@@ -1,8 +1,9 @@
 from .registry import (  # noqa: F401
-    BACKBONES, BBOX_HEADS, DETECTORS, NECKS, Registry, build_from_cfg,
+    BACKBONES, BBOX_HEADS, DETECTORS, NECKS, READERS, Registry,
+    build_from_cfg,
 )
 from . import (backbone_dense, center_head, detectors, e2e_head,  # noqa: F401
-               rpn)
+               readers, rpn)
 
 
 def build_detector(cfg, train_cfg=None, test_cfg=None, *, device,

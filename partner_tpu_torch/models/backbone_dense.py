@@ -1,13 +1,16 @@
-"""PolarDenseFHD point path (counterpart of ``partner_tpu/models/backbone_dense.py``).
+"""PolarDenseFHD (counterpart of ``partner_tpu/models/backbone_dense.py``).
 
-The point path is ported: ``encode_points`` (decoration -> channel-major
-2-layer stem -> one scatter-max into a z-folded canvas), then either trunk
-that turns the canvas into the stride-8 BEV map: the 2D ``trunk2d`` trunk
-of the PARTNER configs, or the 3D-conv trunk of the CenterPoint configs
-(the canvas unfolded to (B, cz, cy, cx, C); 3x3x3 stages at 1/4 and 1/8
-resolution, then the z-squeeze ``extra_conv`` and the channel fold). The
-3D trunk's ``factorized`` option (no config sets it) and the voxel input
-path are not ported.
+Two inputs, one stem and one scatter-max each: the point path
+``encode_points`` (decoration by sub-cell offsets -> channel-major 2-layer
+stem -> one scatter-max into a z-folded canvas) and the voxel path
+``forward`` (full-resolution voxel features decorated by each voxel's
+place in its pooled cell -> the same stem over the voxel rows -> the
+scatter-max of the pooled coords). Then either trunk turns the canvas
+into the stride-8 BEV map: the 2D ``trunk2d`` trunk of the PARTNER
+configs, or the 3D-conv trunk of the CenterPoint configs (the canvas
+unfolded to (B, cz, cy, cx, C); 3x3x3 stages at 1/4 and 1/8 resolution,
+then the z-squeeze ``extra_conv`` and the channel fold). The 3D trunk's
+``factorized`` option (no config sets it) is not ported.
 
 In eval mode the stem runs through :func:`ops.stem.stem2_channel_major`
 (the CUDA kernel for CUDA tensors, its plain twin for CPU tensors). In
@@ -269,4 +272,28 @@ class PolarDenseFHD(nn.Module):
         canvas = scatter_max.ScatterMaxFold2d.apply(
             feats_t, idx_t.flip(1).contiguous(), inb.contiguous(),
             (cz, cy, cx))
+        return self._trunk(canvas)
+
+    def forward(self, voxel_features, coords, mask, input_shape):
+        """Voxel input -> BEV map (B, n_az/8, n_r/8, out_features) f32
+        (JAX ``PolarDenseFHD.__call__``).
+
+        Args:
+          voxel_features: (B, N, C) per-voxel features (the reader's
+            output), C = ``num_input_features``.
+          coords: (B, N, 3) int32 full-resolution (z, azimuth, range).
+          mask: (B, N) bool.
+          input_shape: the (n_r, n_az, n_z) grid."""
+        cz, cy, cx = self.canvas_shape(input_shape)
+        pools = constant(self, "pools", coords.device, lambda: np.asarray(
+            [self.z_pool, self.bev_pool, self.bev_pool], np.int32))
+        # each voxel's place in its pooled cell, in (z, az, r) order
+        frac = (torch.remainder(coords.float(), pools.float())
+                / pools.float() - 0.5)
+        x_t = torch.cat([voxel_features.float(), frac], dim=-1).to(
+            self.dtype).transpose(1, 2).contiguous()          # (B, C_in, N)
+        feats_t = self._stem_t(x_t, mask.contiguous())        # (B, F2, N)
+        pooled_t = (coords // pools).to(torch.int32).transpose(1, 2)
+        canvas = scatter_max.ScatterMaxFold2d.apply(
+            feats_t, pooled_t.contiguous(), mask.contiguous(), (cz, cy, cx))
         return self._trunk(canvas)

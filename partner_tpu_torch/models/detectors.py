@@ -1,14 +1,20 @@
 """Detectors (counterpart of ``partner_tpu/models/detectors.py``).
 
 ``build_voxelnet_v3`` turns the JAX package's VoxelNetV3 config into an
-:class:`E2EDetector` (PARTNER): the point fast path
-(``PolarDenseFHD.encode_points``) -> ``SetBlockStack`` -> ``RPN`` ->
+:class:`E2EDetector` (PARTNER): the backbone (``PolarDenseFHD``: the point
+fast path ``encode_points``, or the reader and the voxel path
+``forward``) -> ``SetBlockStack`` -> ``RPN`` ->
 ``E2ESWVoteHead``, then at inference decode through the configured
 CenterCoder and rotated NMS, and in training the ``SetCriterion`` over the
 auction matcher. ``build_voxelnet`` turns a VoxelNet config into a
 :class:`CenterPointDetector`: the same point path -> ``RPN`` ->
 ``CenterHead``, per-task decode and rotated NMS, and in training the
 FastFocal + L1 peak regression loss.
+
+Both take either input contract of the JAX package: ``points`` +
+``points_mask`` (the point fast path, ``input_kind``), or voxels,
+``features`` (B, N, C) dynamic means or ``voxels`` (B, N, K, C) +
+``num_points`` hard voxels, with ``coords`` and ``voxel_mask``.
 
     det = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg, device=dev)
     # or the E2E head's whole-block route: build_detector(...,
@@ -30,7 +36,8 @@ from . import e2e_head
 from .center_head import (center_head_decode, center_head_loss,
                           center_head_post_process)
 from .layers import constant, init_weights
-from .registry import BACKBONES, BBOX_HEADS, DETECTORS, NECKS, build_from_cfg
+from .registry import (BACKBONES, BBOX_HEADS, DETECTORS, NECKS, READERS,
+                       build_from_cfg)
 from .set_transformer import SetBlockStack
 from .swin_vote import WindowAttention
 
@@ -45,18 +52,27 @@ def _grid_spec(cfg):
 
 
 class VoxelNetModule(nn.Module):
-    """Point-path backbone + (optional SetBlock stack) + neck + head, NHWC.
+    """Reader + backbone + (optional SetBlock stack) + neck + head, NHWC.
 
-    The SetBlock stack (``attns``) and its cell positions exist only with
+    The reader (no parameters) serves the voxel inputs only. The SetBlock
+    stack (``attns``) and its cell positions exist only with
     ``with_set_attention`` (VoxelNetV3)."""
 
-    def __init__(self, backbone_cfg, neck_cfg, head_cfg, grid_size, pc_range,
-                 out_size_factor=8, with_set_attention=False, set_cfg=None):
+    def __init__(self, reader_cfg, backbone_cfg, neck_cfg, head_cfg,
+                 grid_size, pc_range, out_size_factor=8,
+                 with_set_attention=False, set_cfg=None):
         super().__init__()
         self.grid_size = tuple(grid_size)
         self.pc_range = tuple(pc_range)
         self.out_size_factor = out_size_factor
         self.with_set_attention = with_set_attention
+        reader_cfg = dict(reader_cfg)
+        if READERS.get(reader_cfg.get("type")) is None:
+            raise NotImplementedError(
+                f"reader {reader_cfg.get('type')} is not ported (ROADMAP.md "
+                "queue 1, off the main path: the PFN readers wait for "
+                "pillar.py)")
+        self.reader = build_from_cfg(reader_cfg, READERS)
         self.backbone = build_from_cfg(dict(backbone_cfg), BACKBONES,
                                        dict(input_shape=self.grid_size))
         self.neck = build_from_cfg(dict(neck_cfg), NECKS)
@@ -84,17 +100,25 @@ class VoxelNetModule(nn.Module):
                 set_cfg.get("set_compute_dtype", "float32")))
 
     def forward(self, example, generator=None):
-        """example: {"points": (B, P, C) f32, "points_mask": (B, P) bool}
-        -> the head's maps (B, n_az/8, n_r/8, .). ``generator`` feeds
-        the SetBlock's dropout and DropPath in train mode."""
+        """example: {"points": (B, P, C) f32, "points_mask": (B, P) bool},
+        or voxels: {"features": (B, N, C) f32} or {"voxels": (B, N, K, C)
+        f32, "num_points": (B, N)}, each with "coords" (B, N, 3) int32
+        (z, az, r) and "voxel_mask" (B, N) bool -> the head's maps
+        (B, n_az/8, n_r/8, .). Voxels win where both are given, as in JAX.
+        ``generator`` feeds the SetBlock's dropout and DropPath in train
+        mode."""
         if "features" in example or "voxels" in example:
-            raise NotImplementedError(
-                "voxel inputs (features / voxels) are not ported; the port "
-                "takes points (ROADMAP.md queue 1, off the main path: "
-                "ops/voxelize.py:dynamic_voxelize and the readers)")
-        bev = self.backbone.encode_points(
-            example["points"], example["points_mask"], self.grid_size,
-            self.pc_range)                            # (B, n_az, n_r, C)
+            if "voxels" in example:   # hard voxels (B, N, K, C)
+                features = self.reader(example["voxels"],
+                                       example["num_points"])
+            else:                     # dynamic means (B, N, C)
+                features = self.reader(example["features"])
+            bev = self.backbone(features, example["coords"],
+                                example["voxel_mask"], self.grid_size)
+        else:
+            bev = self.backbone.encode_points(
+                example["points"], example["points_mask"], self.grid_size,
+                self.pc_range)                        # (B, n_az, n_r, C)
         if self.with_set_attention:
             x = bev.transpose(1, 2)                   # (B, n_r, n_az, C)
             pos = constant(self, "bev_pos", x.device, lambda: self.bev_pos)
@@ -291,7 +315,7 @@ def build_voxelnet_v3(reader, backbone, neck, bbox_head, seg_head=None,
     whole-block route at inference. The criterion comes from the head's
     ``SET_CRIT_CONFIG`` and ``MATCHER_CONFIG``, as in the JAX package."""
     if dict(backbone).get("type") != "PolarDenseFHD":
-        raise ValueError("the port runs the PolarDenseFHD point path only")
+        raise ValueError("the port runs the PolarDenseFHD backbone only")
     grid, pc_range, _ = _grid_spec(bbox_head)
     osf = bbox_head.get("out_size_factor", 8)
     hc = bbox_head["HEAD_CONFIG"]
@@ -315,9 +339,9 @@ def build_voxelnet_v3(reader, backbone, neck, bbox_head, seg_head=None,
     }
     neck = dict(neck)
     module = _materialize(device, generator, dict(
-        backbone_cfg=dict(backbone), neck_cfg=_neck_cfg(neck),
-        head_cfg=head_cfg, grid_size=grid, pc_range=pc_range,
-        out_size_factor=osf, with_set_attention=True,
+        reader_cfg=dict(reader), backbone_cfg=dict(backbone),
+        neck_cfg=_neck_cfg(neck), head_cfg=head_cfg, grid_size=grid,
+        pc_range=pc_range, out_size_factor=osf, with_set_attention=True,
         set_cfg={k: v for k, v in neck.items() if k.startswith("set_")}))
     coder_cfg = dict(bbox_head.get("CODER_CONFIG", {}))
     coder_cfg.setdefault("code_size", 7)
@@ -351,19 +375,15 @@ def build_voxelnet(reader, backbone, neck, bbox_head, seg_head=None,
     ``dataset`` taken out for the detector (``dataset`` names the data
     set only; the loss is the same for each).
 
-    The port runs the point path only, so ``reader`` is accepted and not
-    built: on that path the JAX package builds a reader without parameters
-    and never calls it. The module is built as :func:`build_voxelnet_v3`
-    builds its own. ``use_block_kernel`` belongs to the E2E head and must
+    The module is built as :func:`build_voxelnet_v3` builds its own. ``use_block_kernel`` belongs to the E2E head and must
     stay False here."""
     if use_block_kernel:
         raise ValueError("use_block_kernel is an option of the E2E head's "
                          "Swin blocks; VoxelNet's CenterHead has none")
     if dict(backbone).get("type") != "PolarDenseFHD":
-        raise ValueError("the port runs the PolarDenseFHD point path only "
+        raise ValueError("the port runs the PolarDenseFHD backbone only "
                          "(ROADMAP.md queue 1, off the main path: the "
-                         "sparse backbone, pillar.py, and the voxel readers "
-                         "with dynamic_voxelize)")
+                         "sparse backbone and pillar.py)")
     if seg_head:
         raise NotImplementedError(
             "VoxelNet seg_head is not ported (ROADMAP.md queue 1, off the "
@@ -383,9 +403,9 @@ def build_voxelnet(reader, backbone, neck, bbox_head, seg_head=None,
         head_cfg["common_heads"] = tuple(sorted(
             (k, tuple(v)) for k, v in dict(bbox_head["common_heads"]).items()))
     module = _materialize(device, generator, dict(
-        backbone_cfg=dict(backbone), neck_cfg=_neck_cfg(neck),
-        head_cfg=head_cfg, grid_size=grid, pc_range=pc_range,
-        out_size_factor=osf))
+        reader_cfg=dict(reader), backbone_cfg=dict(backbone),
+        neck_cfg=_neck_cfg(neck), head_cfg=head_cfg, grid_size=grid,
+        pc_range=pc_range, out_size_factor=osf))
     return CenterPointDetector(
         module, code_weights=bbox_head.get("code_weights", [1.0] * 10),
         weight=bbox_head.get("weight", 0.25), voxel_size=voxel_size,

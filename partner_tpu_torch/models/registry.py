@@ -54,6 +54,7 @@ def build_from_cfg(cfg, registry, default_args=None):
     return obj_cls(**args)
 
 
+READERS = Registry("reader")
 BACKBONES = Registry("backbone")
 NECKS = Registry("neck")
 BBOX_HEADS = Registry("bbox_head")

@@ -509,6 +509,9 @@ REFUSALS = {
                  NotImplementedError, "seg_head.py"),
     "no-bbox-head": (dict(bbox_head=None), NotImplementedError,
                      "seg_head.py"),
+    "pfn-reader": (dict(reader=dict(type="PillarFeatureNet",
+                                    num_input_features=7)),
+                   NotImplementedError, "pillar.py"),
 }
 
 
@@ -522,8 +525,8 @@ def test_voxelnet_parts_not_ported_raise(case):
 
 
 def test_voxelnet_options_not_ported_raise():
-    """per_class_nms, double_flip, the E2E head's block route and voxel
-    inputs each raise naming their ROADMAP item."""
+    """per_class_nms, double_flip and the E2E head's block route each
+    raise naming their ROADMAP item."""
     from partner_tpu_torch.models import build_detector
 
     m, tc = tiny_centerpoint_cfg()
@@ -538,5 +541,3 @@ def test_voxelnet_options_not_ported_raise():
         det = build_detector(m, None, dict(tc, **{key: True}), device="cpu")
         with pytest.raises(NotImplementedError, match=item):
             det.predict(ex)
-    with pytest.raises(NotImplementedError, match="dynamic_voxelize"):
-        det.predict(dict(ex, voxels=torch.zeros(1, 4, 5, 7)))

@@ -529,3 +529,45 @@ def test_flagship_train_step_on_the_card(cuda):
     assert float(met["grad_norm"]) > 0
     for name, p in det.module.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
+@pytest.mark.parametrize("case", ["below-capacity", "over-capacity",
+                                  "dense", "empty"])
+def test_dynamic_voxelize_on_card_matches_cpu_and_repeats(cuda, case):
+    """``dynamic_voxelize`` on the card: coords, mask, counts and point
+    slots equal to the CPU's, means within 1e-6 (1 + |cpu|), and a second
+    run bit-equal (no atomic sums), below and over capacity, with many
+    rows a voxel, and with no valid row."""
+    import numpy as np
+
+    from partner_tpu_torch.ops.voxelize import dynamic_voxelize
+
+    rng = np.random.RandomState(0)
+    pr = np.array([0.3, -np.pi, -2.0, 75.18, np.pi, 4.0], np.float32)
+    vs, cap, n = {
+        "below-capacity": ((0.065, 0.0030679616, 0.15), 200_000, 180_000),
+        "over-capacity": ((0.065, 0.0030679616, 0.15), 50_000, 180_000),
+        "dense": ((15.0, 2.0, 3.0), 400, 60_000),
+        "empty": ((0.065, 0.0030679616, 0.15), 1_000, 0)}[case]
+    grid = tuple(int(round((pr[3 + i] - pr[i]) / vs[i])) for i in range(3))
+    pts = np.zeros((2, 216_000, 7), np.float32)
+    pts[:, :, 0] = rng.uniform(0.3, 75.0, (2, 216_000))
+    pts[:, :, 1] = rng.uniform(-np.pi, np.pi, (2, 216_000))
+    pts[:, :, 2] = rng.uniform(-2.0, 4.0, (2, 216_000))
+    pts[:, :, 3:] = rng.rand(2, 216_000, 4)
+    mask = np.zeros((2, 216_000), bool)
+    mask[:, :n] = True
+    args = (np.asarray(vs, np.float32), pr, grid, cap)
+    want = dynamic_voxelize(torch.from_numpy(pts), torch.from_numpy(mask),
+                            *args, return_point_voxel=True)
+    got = [dynamic_voxelize(torch.from_numpy(pts).to(cuda),
+                            torch.from_numpy(mask).to(cuda), *args,
+                            return_point_voxel=True) for _ in range(2)]
+    for k in ("coords", "mask", "num_points", "point_voxel"):
+        assert torch.equal(got[0][k].cpu(), want[k]), k
+    for k in got[0]:
+        assert torch.equal(got[0][k], got[1][k]), k
+    err = (got[0]["features"].cpu() - want["features"]).abs()
+    assert bool((err <= 1e-6 * (1 + want["features"].abs())).all())
+    if case == "over-capacity":
+        assert bool(want["mask"].all())

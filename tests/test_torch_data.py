@@ -3,8 +3,9 @@
 Infos made as ``tests/test_data_pipeline.py`` makes them (pre-materialized
 points), and path-based infos with sweeps from ``tools/create_data.py``;
 the flagship ``test_pipeline`` on both sides must give bit-equal collated
-batches. The epoch samplers give the same shards; what is not ported (host
-voxelization, nuScenes, sector targets, seg labels) raises. The train mode
+batches. The epoch samplers give the same shards; what is not ported
+(nuScenes, sector targets, seg labels) raises. Host (``hard``)
+voxelization is held in ``tests/test_torch_voxelize.py``. The train mode
 is held in ``tests/test_torch_train_data.py``.
 """
 
@@ -114,9 +115,6 @@ def test_what_is_not_ported_raises(tmp_path):
     from partner_tpu_torch.utils.config import load_config
 
     cfg = load_config(os.path.join(ROOT, FLAGSHIP))
-    with pytest.raises(NotImplementedError, match="native host library"):
-        pipeline.Voxelization(dict(cfg["voxel_generator"],
-                                   voxelize_mode="hard"))
     with pytest.raises(NotImplementedError, match="nuScenes"):
         pipeline.LoadPointCloudFromFile(dataset="NuScenesDataset")
     with pytest.raises(NotImplementedError, match="PolarStream"):

@@ -21,13 +21,15 @@ def test_import_leaves_out_jax_and_flax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'partner_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 53, names\n"
+        "assert len(names) >= 58, names\n"
         "for n in ('ops.swin_block', 'ops.scatter_max', 'core.targets',\n"
         "          'losses.centernet', 'losses.matcher', 'losses.set_crit',\n"
         "          'train.optim', 'train.train_state', 'data.pipeline',\n"
         "          'eval.evaluator', 'train.checkpoint', 'tools.dist_test',\n"
         "          'data.augment', 'data.gt_aug', 'data.loader',\n"
-        "          'train.hooks', 'tools.train', 'models.center_head'):\n"
+        "          'train.hooks', 'tools.train', 'models.center_head',\n"
+        "          'native', 'ops.voxelize', 'models.readers',\n"
+        "          'tools.single_inference', 'tools.multi_sweep_inference'):\n"
         "    assert 'partner_tpu_torch.' + n in names, n\n"
         "from partner_tpu_torch.models import build_detector\n"
         "from partner_tpu_torch.utils.config import load_config\n"
@@ -36,6 +38,8 @@ def test_import_leaves_out_jax_and_flax():
         "    cfg = load_config(f'configs/waymo/{c}.py')\n"
         "    build_detector(cfg['model'], cfg['train_cfg'], cfg['test_cfg'],\n"
         "                   device='meta')\n"
+        "from partner_tpu_torch import native\n"
+        "assert native.available()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'partner_tpu')]\n"
         "assert not bad, bad\n"

@@ -208,7 +208,9 @@ def write_tiny_centerpoint_config(path, train_info, val_info, root,
     base = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), config)
     with open(path, "w") as f:
+        # the config's own path, for a config that reads a sibling file
         f.write(f"""
+__file__ = {base!r}
 exec(open({base!r}).read())
 _pr = voxel_generator["range"]
 voxel_generator["voxel_size"] = [(_pr[3 + i] - _pr[i]) / g
