@@ -20,7 +20,9 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
    the work (:func:`kernel_work`, :func:`bound`); for the stem also the
    count of outputs not equal to its twin, for the scatter-max the time of
    its canvas fill alone; the stem also at C_in 11 over 432,000 rows, the
-   two-sweep CenterPoint config's width and buffer;
+   two-sweep CenterPoint config's width and buffer, and with the
+   scatter-max at a train step's batch of 4 (4 x 180,000 rows), where the
+   frozen two-stage step runs them;
 3. frame: the flagship PARTNER detector
    (``configs/waymo/waymo_partner_36epoch.py``) at full width in bf16,
    random weights from a seeded ``torch.Generator`` with every norm
@@ -63,7 +65,9 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
    which must break a bound.
 8. train CLI: ``partner_tpu_torch.tools.train.main`` on the card at full
    width and batch 4 over 8 synthetic 150,000-point Waymo frames written
-   as frame pickles, with GT-AUG from a database cut from them (the
+   as the converter's frame and anno pickles, their infos and GT database
+   prepared by the port's ``create_data`` (``waymo_data_prep``,
+   ``create_groundtruth_database``), with GT-AUG from that database (the
    flagship's Vehicle=15 quota, its filters and augmentations): 4 steps
    in 2 epochs with a checkpoint and a validation after each, then a run
    to step 6 that resumes from ``latest`` at step 4 with the checkpoint's
@@ -87,7 +91,27 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
    3-class frames (middle-third FPS, finite per-class metrics) and two
    train-CLI steps at batch 4 from that set (finite losses, one
    checkpoint);
-10. serving: the voxel-input contract and the serving tools at full
+10. two-stage: the frozen Waymo two-stage CenterPoint
+   (``configs/waymo/two_stage/waymo_centerpoint_voxelnet_two_stage_bev_
+   5point_ft_6epoch_freeze.py``: the VoxelNet first stage, 500 proposals a
+   frame, 5 BEV samples each, the RoI head 2561 -> 256 -> 256) at full
+   width, random weights with norms randomized: its frame on the
+   180,000-point sweep taking turns with the one-stage frame of the same
+   first stage (median ms, device busy and launches a frame, the stem and
+   scatter-max once a frame, the refine stage's device ms by CUDA events,
+   kept boxes, a repeat bit-equal); the two-sweep velocity config on 2 x
+   180,000 points (the stem at C_in 11, the velocity columns the first
+   stage's); the frozen train step at batch 4 with planted positive
+   proposals (median ms, peak memory, finite RoI losses, the first stage
+   bit-unchanged and every RoI parameter moved, the kernels once a step);
+   then on the card's host the port's ``create_data`` over fake Waymo
+   frames at the TOP lidar's size (ms a frame for the converter, the
+   infos and the GT database), a seeded one-stage checkpoint, two
+   train-CLI steps of the frozen config from it through ``pretrained``
+   with GT-AUG from that database (the first stage bit-equal to the
+   checkpoint's afterwards), and ``dist_test`` over those frames, each
+   bit-equal to a direct ``predict``;
+11. serving: the voxel-input contract and the serving tools at full
    width. The flagship frame through ``features`` (``dynamic_voxelize``
    on the card at the config's 150,000-voxel capacity, the reader,
    ``PolarDenseFHD.forward``) taking turns with the point-path frame on
@@ -103,7 +127,7 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
    with ego poses (middle-third FPS, launches, the last frame bit-equal to
    a direct ``predict``). The kernel phase holds the stem and the
    scatter-max at the voxel path's shapes too;
-11. native: the port's C++ host library built on the card's host (the
+12. native: the port's C++ host library built on the card's host (the
    run fails where it is not available), its three functions bit-equal to
    the numpy bodies at train sizes, and their host ms both ways; the
    train-CLI phase reads the host data path with and without it.
@@ -427,17 +451,18 @@ def not_equal(name, out, ref):
 
 # ------------------------------------------------------------------ kernels
 
-def stem_case(gen, dev, cin=10, n_points=N_POINTS):
+def stem_case(gen, dev, cin=10, n_points=N_POINTS, batch=1):
     """Stem inputs at a point-path shape, bf16: the flagship's (1, 10,
     216,000) by default; (1, 11, 432,000) for the two-sweep CenterPoint
-    config (cin 11, 2 x N_POINTS points), the same 1.2x padding."""
+    config (cin 11, 2 x N_POINTS points); (4, 10, 180,000) for a train
+    step's batch (``batch`` 4 of TRAIN_POINTS); the same 1.2x padding."""
     from partner_tpu_torch.ops import stem
 
     p = int(n_points * 1.2)
     bf = torch.bfloat16
     rnd = lambda *s: torch.randn(*s, generator=gen)
-    x = rnd(1, cin, p).to(bf)
-    mask = torch.rand(1, p, generator=gen) < n_points / p
+    x = rnd(batch, cin, p).to(bf)
+    mask = torch.rand(batch, p, generator=gen) < n_points / p
     w1 = (rnd(stem.F1, cin) * cin ** -0.5).to(bf)
     w2 = (rnd(stem.F2, stem.F1) * stem.F1 ** -0.5).to(bf)
     a1, a2 = (0.5 + torch.rand(f, generator=gen) for f in (stem.F1, stem.F2))
@@ -547,26 +572,31 @@ def block_case(gen, dev, shift):
 
 
 def scatter_case(stem_out, dev, n_points=N_POINTS):
-    """Scatter-max inputs at a point-path shape: the stem's (1, 64, rows)
-    output and the canvas coords of a synthetic sweep of ``n_points`` on
-    the flagship grid (rows past the sweep and out of range masked): the
-    flagship's 216,000 rows by default, 432,000 for the two-sweep
-    CenterPoint config (2 x N_POINTS)."""
+    """Scatter-max inputs at a point-path shape: the stem's (B, 64, rows)
+    output and the canvas coords of B synthetic sweeps of ``n_points`` on
+    the flagship grid (seeds SEED, SEED + 1, ...; rows past the sweep and
+    out of range masked): the flagship's 216,000 rows by default, 432,000
+    for the two-sweep CenterPoint config (2 x N_POINTS), 4 x 180,000 for a
+    train step's batch."""
     grid, pr, _ = flagship_grid()
     n_r, n_az, n_z = grid
     canvas = (n_z // 8, n_az // 4, n_r // 4)                # (cz, cy, cx)
-    pts, mask = synthetic_sweep(np.random.RandomState(SEED), pr, n_points)
+    sweeps = [synthetic_sweep(np.random.RandomState(SEED + i), pr, n_points)
+              for i in range(stem_out.shape[0])]
+    pts = np.concatenate([sw[0] for sw in sweeps])
+    mask = np.concatenate([sw[1] for sw in sweeps])
     if pts.shape[1] != stem_out.shape[2]:
         raise ValueError(f"{pts.shape[1]} rows of coords for a stem output "
                          f"of {stem_out.shape[2]}")
     cell = np.asarray([(pr[3] - pr[0]) / n_r * 4, (pr[4] - pr[1]) / n_az * 4,
                        (pr[5] - pr[2]) / n_z * 8], np.float32)
-    idx = np.floor((pts[0, :, :3] - np.asarray(pr[:3], np.float32)) / cell)
-    idx = idx.astype(np.int32)                              # (P, 3) r, az, z
-    inb = mask[0] & np.all((idx >= 0) & (idx < np.asarray(canvas[::-1])), 1)
-    coords = np.ascontiguousarray(idx[:, ::-1].T)[None]     # (1, 3, P) z, az, r
+    idx = np.floor((pts[..., :3] - np.asarray(pr[:3], np.float32)) / cell)
+    idx = idx.astype(np.int32)                           # (B, P, 3) r, az, z
+    inb = mask & np.all((idx >= 0) & (idx < np.asarray(canvas[::-1])), -1)
+    coords = np.ascontiguousarray(
+        idx[..., ::-1].transpose(0, 2, 1))                 # (B, 3, P) z, az, r
     return (stem_out, torch.from_numpy(coords).to(dev),
-            torch.from_numpy(inb[None]).to(dev), canvas)
+            torch.from_numpy(inb).to(dev), canvas)
 
 
 def scatter_backward_case(gen, sargs):
@@ -752,6 +782,44 @@ def kernel_phase(gen, dev, card):
     results["scatter_max"]["max_abs_err"] = max(err, err2)
     results["scatter_max"].update({f"{k}_p432000": v for k, v in r2.items()})
     del sargs2, out, ref, out11, ref11
+    # a train step's batch (the frozen two-stage step runs both kernels
+    # there): the stem at (4, 10, 180,000), tiles of all four samples in
+    # one persistent launch, and the scatter-max of its output; drawn from
+    # a generator of their own, so the cases after them keep their draws
+    args4 = stem_case(torch.Generator().manual_seed(SEED + 16), dev,
+                      n_points=TRAIN_POINTS, batch=4)
+    shape4 = tuple(args4[0].shape)
+    out4 = stem.stem2_channel_major(*args4)
+    ref4 = stem.stem2_channel_major_plain(*args4)
+    torch.cuda.synchronize()
+    err4 = compare(f"stem2_channel_major {shape4}", out4, ref4, KERNEL_TOL)
+    r4 = dict(**not_equal("stem batch 4", out4, ref4),
+              **timed("stem", args4, lambda: stem.stem2_channel_major(*args4),
+                      lambda: stem.stem2_channel_major_plain(*args4),
+                      label=f"stem batch 4 {shape4} on {card}"))
+    results["stem"]["max_abs_err"] = max(results["stem"]["max_abs_err"],
+                                         err4)
+    results["stem"].update({f"{k}_b4": v for k, v in r4.items()
+                            if not k.startswith("library")})
+    sargs4 = scatter_case(ref4, dev, n_points=TRAIN_POINTS)
+    out = scatter_max.scatter_max_fold2d(*sargs4)
+    ref = scatter_max.scatter_max_fold2d_plain(*sargs4)
+    torch.cuda.synchronize()
+    log(f"scatter_max batch 4: {sargs4[2].sum(1).tolist()} of "
+        f"{sargs4[2].shape[1]} rows a sample in the canvas {sargs4[3]}")
+    err4 = compare(f"scatter_max_fold2d {tuple(ref4.shape)} -> (4, 512, "
+                   "288, 320)", out, ref, 0.0)
+    r4 = dict(**not_equal("scatter_max batch 4", out, ref),
+              **timed("scatter_max", sargs4,
+                      lambda: scatter_max.scatter_max_fold2d(*sargs4),
+                      lambda: scatter_max.scatter_max_fold2d_plain(*sargs4),
+                      scatter_library_call(*sargs4),
+                      label=f"scatter_max batch 4 {tuple(ref4.shape)} on "
+                            f"{card}"))
+    results["scatter_max"]["max_abs_err"] = max(
+        results["scatter_max"]["max_abs_err"], err4)
+    results["scatter_max"].update({f"{k}_b4": v for k, v in r4.items()})
+    del args4, out4, ref4, sargs4, out, ref
     # the wrapper's zero fill of the canvas alone, in each dtype
     b, c, _ = sargs[0].shape
     for tag, dt in (("", torch.bfloat16), ("_f32", torch.float32)):
@@ -1147,7 +1215,9 @@ def centerpoint_train_example(rng, model_cfg, train_cfg, batch, n_points,
     in turn and a random velocity, in the cylinder layout [rho, phi, z, x,
     y, then uniform extras up to the backbone's input features], padded to
     ``rows``; per task ``hm`` (B, az, r, C), ``anno_box``, ``ind``,
-    ``mask`` and ``cat``."""
+    ``mask`` and ``cat``; and ``global_box`` (B, max_boxes, 10) [x, y, z,
+    dx, dy, dz, vx, vy, yaw, class 1-based] with its mask (the two-stage
+    RoI targets)."""
     from partner_tpu_torch.core.targets import CenterTargetAssigner
 
     bh = model_cfg["bbox_head"]
@@ -1163,6 +1233,7 @@ def centerpoint_train_example(rng, model_cfg, train_cfg, batch, n_points,
     c = model_cfg["backbone"]["num_input_features"]
     pts = np.zeros((batch, rows, c), np.float32)
     mask = np.zeros((batch, rows), bool)
+    global_box = np.zeros((batch, max_boxes, 10), np.float32)
     targets = []
     for i in range(batch):
         boxes, xyz = synthetic_scene(rng, pc_range, n_points, max_boxes)
@@ -1177,7 +1248,10 @@ def centerpoint_train_example(rng, model_cfg, train_cfg, batch, n_points,
         classes = np.arange(len(boxes)) % n_cls + 1
         targets.append(assigner.assign(gt, classes, grid, vg["voxel_size"],
                                        pc_range))
-    ex = {"points": pts, "points_mask": mask}
+        global_box[i, :len(gt), :9] = gt
+        global_box[i, :len(gt), 9] = classes
+    ex = {"points": pts, "points_mask": mask, "global_box": global_box,
+          "global_box_mask": global_box[..., -1] > 0}
     for k in ("hm", "anno_box", "ind", "mask", "cat"):
         ex[k] = [np.stack([t[k][j] for t in targets])
                  for j in range(len(bh["tasks"]))]
@@ -1795,70 +1869,43 @@ TRAIN_CLI_VAL_FRAMES = 3     # --eval_max_frames
 
 
 def write_train_set(root, rng, pc_range, n_frames):
-    """A synthetic Waymo train set under ``root``: per frame a
-    :func:`synthetic_scene` of TRAIN_POINTS points written as a Waymo frame
-    pickle (``lidars.points_xyz`` and ``points_feature``), the even frames
-    with 32-64 vehicle boxes (above the flagship's GT-AUG quota of 15, so
-    nothing is inserted), the odd ones with 6-12 (GT-AUG tops them up); and
-    its info pkl (path, 9-column gt boxes, names)."""
+    """A synthetic Waymo train set under ``root``, prepared by the port's
+    ``create_data``: per frame a :func:`synthetic_scene` of TRAIN_POINTS
+    points, the even frames with 32-64 vehicle boxes (above the flagship's
+    GT-AUG quota of 15, so nothing is inserted), the odd ones with 6-12
+    (GT-AUG tops them up), written as the converter writes a frame
+    (``root/train/lidar/seq_0_frame_{i}.pkl`` with ``lidars.points_xyz``
+    and ``points_feature``, and under ``annos/`` its objects' ``box`` and
+    ``name``); then ``waymo_data_prep`` writes the info pkl and
+    ``create_groundtruth_database`` the GT database -> (info path, db info
+    path, objects in the database)."""
     import pickle
 
-    os.makedirs(os.path.join(root, "lidar"))
-    infos = []
+    from partner_tpu_torch.tools import create_data
+
+    for sub in ("lidar", "annos"):
+        os.makedirs(os.path.join(root, "train", sub))
     for i in range(n_frames):
         boxes, xyz = synthetic_scene(
             rng, pc_range, TRAIN_POINTS,
             MAX_BOXES if i % 2 == 0 else TRAIN_CLI_SPARSE_BOXES)
         gt = np.zeros((len(boxes), 9), np.float32)
         gt[:, :6], gt[:, 8] = boxes[:, :6], boxes[:, 6]
-        path = os.path.join(root, "lidar", f"frame_{i}.pkl")
-        with open(path, "wb") as f:
+        name = f"seq_0_frame_{i}.pkl"
+        with open(os.path.join(root, "train", "lidar", name), "wb") as f:
             pickle.dump({"lidars": {
                 "points_xyz": xyz.astype(np.float32),
                 "points_feature": rng.rand(len(xyz), 2).astype(np.float32)}},
                 f)
-        infos.append({"token": f"train_{i}", "path": path, "gt_boxes": gt,
-                      "gt_names": np.array(["Vehicle"] * len(gt))})
-    info_path = os.path.join(root, "infos_train.pkl")
-    with open(info_path, "wb") as f:
-        pickle.dump(infos, f)
-    return info_path
-
-
-def write_gt_database(root, info_path):
-    """The GT database of ``tools/create_data.py:create_groundtruth_database``
-    cut from the train frames with the port's ``points_in_rbbox``: per box
-    its points shifted to the box center, as float32 (n, 5) files, and a
-    dbinfos pkl with ``num_points_in_gt`` and difficulty 0 -> (its path,
-    objects written)."""
-    import pickle
-
-    from partner_tpu_torch.core.box_np_ops import points_in_rbbox
-    from partner_tpu_torch.data.pipeline import get_obj, read_single_waymo
-
-    with open(info_path, "rb") as f:
-        infos = pickle.load(f)
-    os.makedirs(os.path.join(root, "gt_database"))
-    db, count = {}, 0
-    for info in infos:
-        points = read_single_waymo(get_obj(info["path"])).astype(np.float32)
-        b7 = np.concatenate([info["gt_boxes"][:, :6],
-                             info["gt_boxes"][:, -1:]], 1)
-        inside = points_in_rbbox(points[:, :3], b7)
-        for i, name in enumerate(info["gt_names"]):
-            obj = points[inside[:, i]].copy()
-            obj[:, :3] -= b7[i, :3]
-            rel = os.path.join("gt_database", f"{name}_{count}.bin")
-            obj.tofile(os.path.join(root, rel))
-            db.setdefault(str(name), []).append({
-                "name": str(name), "path": rel,
-                "box3d_lidar": info["gt_boxes"][i],
-                "num_points_in_gt": int(inside[:, i].sum()), "difficulty": 0})
-            count += 1
-    path = os.path.join(root, "dbinfos_train.pkl")
-    with open(path, "wb") as f:
-        pickle.dump(db, f)
-    return path, count
+        with open(os.path.join(root, "train", "annos", name), "wb") as f:
+            pickle.dump({"objects": [{"box": b, "name": "Vehicle",
+                                      "difficulty": 0} for b in gt]}, f)
+    info_path = create_data.waymo_data_prep(root, "train")
+    db_info = create_data.create_groundtruth_database("WaymoDataset", root,
+                                                      info_path)
+    with open(db_info, "rb") as f:
+        n_objects = sum(len(v) for v in pickle.load(f).values())
+    return info_path, db_info, n_objects
 
 
 def write_train_config(root, train_info, val_info, db_info):
@@ -2019,8 +2066,8 @@ def train_cli_phase(dev, card):
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
         rng = np.random.RandomState(SEED + 6)
-        train_info = write_train_set(root, rng, pc_range, TRAIN_CLI_FRAMES)
-        db_info, n_objects = write_gt_database(root, train_info)
+        train_info, db_info, n_objects = write_train_set(
+            root, rng, pc_range, TRAIN_CLI_FRAMES)
         val_root = os.path.join(root, "val")
         os.makedirs(val_root)
         val_info = write_val_set(val_root, rng, pc_range,
@@ -2164,9 +2211,10 @@ CP_EVAL_FRAMES = 10          # synthetic 3-class val frames (cut first)
 
 
 def centerpoint_cfgs(config=CP_CONFIG, grid=None, compute_dtype=None):
-    """(model cfg, train cfg, test cfg) of a CenterPoint config, with
-    ``score_threshold`` 0 (as :func:`frame_cfgs`), optionally on another
-    grid (same widths) or with every compute dtype replaced."""
+    """(model cfg, train cfg, test cfg) of a CenterPoint config (or a
+    two-stage one, at its own grid and dtypes), with ``score_threshold`` 0
+    (as :func:`frame_cfgs`), optionally on another grid (same widths) or
+    with every compute dtype replaced."""
     import copy
 
     from partner_tpu_torch.utils.config import load_config
@@ -2410,6 +2458,449 @@ def centerpoint_phase(dev, card):
     log(f"CenterPoint train CLI: 2 steps at batch 4 and one checkpoint in "
         f"{wall!r} s (build, data, steps, checkpoint)")
     res["train_cli"] = dict(launches=cli_launches, wall_s=wall)
+    return res
+
+
+# ---------------------------------------------------------------- two-stage
+
+TS_CONFIG = os.path.join(
+    ROOT, "configs", "waymo", "two_stage",
+    "waymo_centerpoint_voxelnet_two_stage_bev_5point_ft_6epoch_freeze.py")
+TS_VELO_CONFIG = os.path.join(
+    ROOT, "configs", "waymo", "two_stage",
+    "waymo_centerpoint_voxelnet_two_sweep_two_stage_bev_5point_ft_6epoch_"
+    "freeze_with_vel.py")
+TS_FRAMES = 6                # timed frames of each detector, taking turns
+TS_VELO_FRAMES = 3           # timed two-sweep frames after one warm-up
+TS_PREP_FRAMES = 4           # fake Waymo frames through create_data
+RANGE_IMAGE = (64, 2650)     # the Waymo TOP lidar's range image, H x W
+TOP_INCLINATION = (-0.3078, 0.0420)   # its beams' span, radians
+TS_SIZES = {1: ("Vehicle", (4.5, 2.0, 1.6)), 2: ("Pedestrian", (0.8, 0.8, 1.8)),
+            4: ("Cyclist", (1.8, 0.7, 1.7))}
+
+
+def plant_positives(det, ex, dev, n=8):
+    """Random first stages propose boxes that overlap no synthetic gt, so
+    the RoI regression would see no positive: the first ``n`` gt rows of
+    each sample become copies, shifted by 5% of their size, of every third
+    of the top proposals the frozen (eval-mode) first stage makes on these
+    points, in their class 1."""
+    with torch.no_grad():
+        preds, _ = det.module(to_device(
+            {k: ex[k] for k in ("points", "points_mask")}, dev))
+        boxes, scores = det.decode_proposals(preds["det_preds"][0])
+        top = torch.sort(scores.amax(-1), dim=1, descending=True,
+                         stable=True).indices[:, : 3 * n: 3]
+        props = torch.take_along_dim(boxes, top[..., None], 1).cpu().numpy()
+    gb = ex["global_box"]
+    gb[:, :n, :6], gb[:, :n, 8] = props[..., :6], props[..., -1]
+    gb[:, :n, :2] += 0.05 * props[..., 3:5]
+    gb[:, :n, 9] = 1
+    ex["global_box_mask"] = gb[..., -1] > 0
+    return ex
+
+
+def fake_waymo_frame(rng, frame_id, n_objects=40):
+    """A Waymo frame as ``data.waymo_decoder`` reads one (dicts in place of
+    the protos, numpy range images in place of zlib payloads): the TOP
+    lidar's 64 x 2650 range image mounted 2 m up, ranges log-uniform over
+    2-75 m and cut where a downward beam meets the ground, 2% of pixels in
+    the no-label zone, a second return on 10% of pixels, the per-pixel
+    pose of a car moving 10 m a frame (the rolling-shutter path), and
+    ``n_objects`` labels of the three classes in turn centered on returns
+    of the first."""
+    from partner_tpu_torch.data import waymo_decoder as wd
+
+    h, w = RANGE_IMAGE
+    ext = np.eye(4)
+    ext[2, 3] = 2.0
+    incl = wd.compute_inclination(*TOP_INCLINATION, h)[::-1]
+    ground = 2.0 / np.maximum(-np.sin(incl), 1e-3)
+    ri1 = np.stack([
+        np.minimum(np.exp(rng.uniform(np.log(2.0), np.log(75.0), (h, w))),
+                   ground[:, None]),
+        rng.rand(h, w), rng.rand(h, w) * 0.2,
+        np.where(rng.rand(h, w) < 0.02, 1.0, -1.0)], -1)
+    ri2 = ri1.copy()
+    ri2[..., 0] = np.where(rng.rand(h, w) < 0.1, ri1[..., 0] * 1.05, 0.0)
+    pose_ri = np.zeros((h, w, 6))
+    pose_ri[..., 3] = 10.0 * frame_id + np.linspace(0.5, -0.5, w)[None]
+    frame_pose = np.eye(4)
+    frame_pose[0, 3] = 10.0 * frame_id
+    pts = wd.decode_range_image(ri1, ext, incl)
+    rho = np.hypot(pts[:, 0], pts[:, 1])
+    cand = pts[(rho > 5) & (rho < 70) & (np.abs(pts[:, 2]) < 1.5)]
+    centers = cand[rng.choice(len(cand), n_objects, replace=False)]
+    labels = []
+    for j, c in enumerate(centers):
+        kind = (1, 2, 4)[j % 3]
+        dims = TS_SIZES[kind][1]
+        labels.append({
+            "id": f"obj{j}", "type": kind,
+            "box": {"center_x": c[0], "center_y": c[1], "center_z": c[2],
+                    "length": dims[0], "width": dims[1], "height": dims[2],
+                    "heading": rng.uniform(-np.pi, np.pi)},
+            "metadata": {"speed_x": rng.randn(), "speed_y": rng.randn(),
+                         "accel_x": 0.0, "accel_y": 0.0},
+            "num_lidar_points_in_box": 10,
+            "detection_difficulty_level": 0})
+    return {
+        "context": {"name": "synthetic", "stats": {
+            "location": "synthetic", "time_of_day": "Day"},
+            "laser_calibrations": [{
+                "name": 1, "extrinsic": {"transform": list(ext.ravel())},
+                "beam_inclinations": [],
+                "beam_inclination_min": TOP_INCLINATION[0],
+                "beam_inclination_max": TOP_INCLINATION[1]}]},
+        "timestamp_micros": 1_000_000 + 100_000 * frame_id,
+        "pose": {"transform": list(frame_pose.ravel())},
+        "lasers": [{"name": 1,
+                    "ri_return1": {"range_image": ri1,
+                                   "range_image_pose_compressed": pose_ri},
+                    "ri_return2": {"range_image": ri2}}],
+        "laser_labels": labels,
+    }
+
+
+def write_two_stage_config(root, info_path, db_info, pretrained):
+    """The frozen two-stage config file at full width with the first
+    stage's ``pretrained`` at ``pretrained``, ``score_threshold`` 0,
+    ``data.train`` and ``data.val`` at ``info_path``, GT-AUG from
+    ``db_info`` (15 vehicles, 10 pedestrians, 10 cyclists a sample, at
+    least 5 points each; the CenterPoint configs have none of their own),
+    and a metrics record every step."""
+    path = os.path.join(root, "two_stage_cfg.py")
+    db = dict(type="GT-AUG", enable=True, db_info_path=db_info,
+              sample_groups=[dict(Vehicle=15), dict(Pedestrian=10),
+                             dict(Cyclist=10)],
+              db_prep_steps=[dict(filter_by_min_num_points=dict(
+                  Vehicle=5, Pedestrian=5, Cyclist=5)),
+                  dict(filter_by_difficulty=[-1])],
+              global_random_rotation_range_per_object=[0, 0], rate=1.0)
+    with open(path, "w") as f:
+        # the config's own path, for the sibling file it reads
+        f.write(f"__file__ = {TS_CONFIG!r}\n"
+                f"exec(open({TS_CONFIG!r}).read())\n"
+                f"model['first_stage_cfg']['pretrained'] = {pretrained!r}\n"
+                "test_cfg['score_threshold'] = 0.0\n"
+                "for _s in ('train', 'val'):\n"
+                f"    data[_s].update(info_path={info_path!r}, "
+                f"root_path={root!r})\n"
+                "for _p in data['train']['pipeline']:\n"
+                "    if _p['type'] == 'Preprocess':\n"
+                f"        _p['cfg']['db_sampler'] = {db!r}\n"
+                "log_config['hooks'] = log_config['hooks'] + "
+                "[dict(type='MetricsSinkHook', interval=1)]\n")
+    return path
+
+
+def two_stage_prep_and_cli(dev, card, m, train_cfg, tc):
+    """The card's host prepares a Waymo set with the port's ``create_data``
+    (converter, infos, GT database) from TS_PREP_FRAMES fake frames; a
+    seeded one-stage CenterPoint checkpoint is saved; two train-CLI steps
+    of the frozen two-stage config run from it through ``pretrained`` on
+    that set with GT-AUG from that database; then ``dist_test`` from the
+    CLI's checkpoint over the same frames, each bit-equal to a direct
+    ``predict``."""
+    import json as _json
+    import pickle
+    import tempfile
+
+    from partner_tpu_torch.data import build_dataset
+    from partner_tpu_torch.data.loader import DataLoader
+    from partner_tpu_torch.models import build_detector
+    from partner_tpu_torch.tools import create_data, dist_test, train
+    from partner_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                    save_checkpoint)
+    from partner_tpu_torch.utils.config import load_config
+
+    res = {}
+    rng = np.random.RandomState(SEED + 12)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        frames = [fake_waymo_frame(rng, i) for i in range(TS_PREP_FRAMES)]
+        record = os.path.join(root, "records.pkl")
+        with open(record, "wb") as f:
+            pickle.dump(frames, f)
+        del frames
+        make_s = time.perf_counter() - t0
+        prep = {}
+        t0 = time.perf_counter()
+        create_data.main(["waymo_convert", "--record_path", record,
+                          "--root_path", root])
+        prep["waymo_convert"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        info_path = create_data.main(["waymo_data_prep", "--root_path",
+                                      root])
+        prep["waymo_data_prep"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        db_info = create_data.main(["create_groundtruth_database",
+                                    "--root_path", root, "--info_path",
+                                    info_path])
+        prep["create_groundtruth_database"] = time.perf_counter() - t0
+        with open(info_path, "rb") as f:
+            infos = pickle.load(f)
+        with open(db_info, "rb") as f:
+            db = pickle.load(f)
+        n_pts = [len(pickle.load(open(i["path"], "rb"))["lidars"][
+            "points_xyz"]) for i in infos]
+        per_frame_ms = {k: v * 1e3 / TS_PREP_FRAMES for k, v in prep.items()}
+        if len(infos) != TS_PREP_FRAMES or sorted(db) != sorted(
+                ["Cyclist", "Pedestrian", "Vehicle"]) or max(n_pts) > EVAL_ROWS:
+            raise AssertionError(f"create_data: {len(infos)} infos, db "
+                                 f"{sorted(db)}, points {n_pts}")
+        log(f"two-stage data prep on the card's host: {TS_PREP_FRAMES} fake "
+            f"Waymo frames ({RANGE_IMAGE[0]} x {RANGE_IMAGE[1]} TOP range "
+            f"image, two returns, rolling shutter; made in {make_s!r} s) -> "
+            f"{n_pts} points a frame; ms a frame: {per_frame_ms!r}; GT "
+            f"database {({k: len(v) for k, v in db.items()})} objects")
+        res["prep_ms"] = per_frame_ms
+
+        gen = torch.Generator().manual_seed(SEED + 13)
+        one = build_detector(m["first_stage_cfg"], None, tc, device=dev,
+                             generator=gen)
+        randomize_norms(one.module, gen)
+        pretrained = os.path.join(root, "one_stage", "latest")
+        save_checkpoint(os.path.dirname(pretrained), 0,
+                        one.module.state_dict())
+        del one
+        torch.cuda.empty_cache()
+        cfg_path = write_two_stage_config(root, info_path, db_info,
+                                          pretrained)
+        work_dir = os.path.join(root, "train")
+        wall_ms, steps, cli_launches = counted(lambda: train.main([
+            cfg_path, "--work_dir", work_dir, "--batch_size", "4",
+            "--total_steps", "2", "--max_steps_per_epoch", "1",
+            "--max_points", str(EVAL_ROWS), "--seed", str(SEED),
+            "--device", torch.device(dev).type]))
+        with open(os.path.join(work_dir, "metrics.jsonl")) as f:
+            recs = [_json.loads(line) for line in f]
+        want = {"stem": 2, "scatter_max": 2, "swin_attn": 0, "swin_block": 0}
+        if steps != 2 or [r["step"] for r in recs] != [0, 1] or (
+                cli_launches != want):
+            raise AssertionError(f"two-stage train CLI: steps {steps}, "
+                                 f"records {recs}, launches {cli_launches}")
+        for r in recs:
+            vals = {k: r[k] for k in ("loss", "roi_cls_loss", "roi_reg_loss",
+                                      "grad_norm")}
+            log(f"two-stage train CLI step {r['step']} on {card}: time "
+                f"{r['time']!r} s, data_time {r['data_time']!r} s, {vals}")
+            if not all(np.isfinite(list(vals.values()))):
+                raise AssertionError(f"two-stage train CLI: {vals}")
+        ckpt = os.path.join(work_dir, "latest")
+        payload = load_checkpoint(ckpt)[0]
+        pre = load_checkpoint(pretrained)[0]["state_dict"]
+        moved = [k for k in pre if not torch.equal(
+            payload["state_dict"]["first." + k], pre[k])]
+        if moved or sorted(payload["opt_state"]["mu"]) != sorted(
+                k for k in payload["state_dict"] if k.startswith("roi_head.")):
+            raise AssertionError(f"two-stage train CLI: first stage moved "
+                                 f"{moved[:5]} or Adam state not the RoI "
+                                 "head's")
+        log(f"two-stage train CLI: 2 steps at batch 4 from the pretrained "
+            f"one-stage checkpoint in {wall_ms / 1e3!r} s (build, load, "
+            f"data, steps, checkpoints); launches {cli_launches}; the first "
+            "stage bit-equal to the checkpoint's, Adam moments the RoI "
+            "head's alone")
+        res["train_cli"] = dict(launches=cli_launches, wall_s=wall_ms / 1e3)
+
+        _, ((metrics, _), fps), eval_launches = counted(
+            lambda: dist_test.main([
+                cfg_path, "--checkpoint", ckpt, "--work_dir",
+                os.path.join(root, "eval"), "--max_points", str(EVAL_ROWS),
+                "--device", torch.device(dev).type]))
+        want = {"stem": TS_PREP_FRAMES, "scatter_max": TS_PREP_FRAMES,
+                "swin_attn": 0, "swin_block": 0}
+        if eval_launches != want:
+            raise AssertionError(f"two-stage dist_test: launches "
+                                 f"{eval_launches} != {want}")
+        with open(os.path.join(root, "eval", "prediction.pkl"), "rb") as f:
+            pred = pickle.load(f)
+        cfg = load_config(cfg_path)
+        det = build_detector(cfg["model"], None, cfg["test_cfg"], device=dev)
+        det.module.load_state_dict(payload["state_dict"])
+        ds = build_dataset(dict(cfg["data"]["val"]))
+        n_same = 0
+        for b in DataLoader(ds, 1, shuffle=False, max_points=EVAL_ROWS):
+            o = det.predict(to_device({k: b[k] for k in ("points",
+                                                         "points_mask")},
+                                      dev))
+            m_ = o["mask"][0]
+            got = pred[b["metadata"][0]["token"]]
+            for k in ("box3d_lidar", "scores", "label_preds"):
+                if not np.array_equal(got[k], o[k][0][m_].cpu().numpy()):
+                    raise AssertionError(f"two-stage dist_test {k} differs "
+                                         "from a direct predict")
+            n_same += 1
+        keys = ["mAP/L1", "mAPH/L2"]
+        if n_same != TS_PREP_FRAMES or not all(np.isfinite(metrics[k])
+                                               for k in keys):
+            raise AssertionError(f"two-stage dist_test: {n_same} frames, "
+                                 f"{metrics}")
+        log(f"two-stage dist_test on {card}: {n_same} frames, each bit-equal "
+            f"to a direct predict; middle-third FPS {fps!r}; launches "
+            f"{eval_launches}; " + ", ".join(f"{k} {metrics[k]!r}"
+                                              for k in keys))
+        res["dist_test"] = dict(fps=fps, launches=eval_launches)
+    return res
+
+
+def two_stage_phase(dev, card):
+    """The frozen Waymo two-stage CenterPoint on the card at full width:
+    its frame taking turns with the one-stage frame of the same first
+    stage, the refine stage alone, a repeated frame, the two-sweep
+    velocity frame, the frozen train step at batch 4, and the data prep,
+    train CLI and dist_test of :func:`two_stage_prep_and_cli`."""
+    from partner_tpu_torch.models import build_detector
+    from partner_tpu_torch.models.center_head import center_head_post_process
+    from partner_tpu_torch.train.optim import build_one_cycle_optimizer
+    from partner_tpu_torch.train.train_state import make_train_step
+
+    res = {}
+    per_frame = {"stem": 1, "scatter_max": 1, "swin_attn": 0, "swin_block": 0}
+    m, train_cfg, tc = centerpoint_cfgs(TS_CONFIG)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    t0 = time.perf_counter()
+    det = build_detector(m, train_cfg, tc, device=dev, generator=gen)
+    randomize_norms(det.module, gen)
+    head = det.module.roi_head
+    log(f"two-stage detector: grid {det.module.first.grid_size}, RoI head "
+        f"{head.Dense_0.weight.shape[1]} -> {head.Dense_0.weight.shape[0]} "
+        f"-> {head.Dense_1.weight.shape[0]}, "
+        f"{sum(p.numel() for p in det.module.parameters())} params, frozen "
+        f"first stage; built in {time.perf_counter() - t0:.1f} s")
+    pr = m["first_stage_cfg"]["bbox_head"]["voxel_generator"]["range"]
+    pts, mask = synthetic_sweep(np.random.RandomState(SEED), pr, N_POINTS)
+    ex = to_device({"points": pts, "points_mask": mask}, dev)
+    # ---- the frame, taking turns with the one-stage frame (same weights)
+    runs = {"two-stage": lambda: det.predict(ex),
+            "one-stage": lambda: det.first_driver.predict(ex)}
+    times = {k: [] for k in runs}
+    tally = dict.fromkeys(per_frame, 0)
+    for i in range(TS_FRAMES + 1):
+        for name, run in runs.items():
+            ms, out, counts = counted(run)
+            if counts != per_frame:
+                raise AssertionError(f"{name} frame {i}: launches {counts}")
+            if i:
+                times[name].append(ms)
+                if name == "two-stage":
+                    for k in tally:
+                        tally[k] += counts[k]
+    out = det.predict(ex)
+    again = det.predict(ex)
+    if not all(torch.equal(out[k], again[k]) for k in out):
+        raise AssertionError("two-stage frame: a repeat differs")
+    kept = check_detections(out, tc)
+    busy = {name: device_busy(run) for name, run in runs.items()}
+    with torch.no_grad():
+        preds, bev = det.module(ex)
+        boxes, scores = det.decode_proposals(preds["det_preds"][0])
+        post = center_head_post_process(boxes, scores, det.test_cfg)
+        props7 = torch.cat([post["box3d_lidar"][..., :6],
+                            post["box3d_lidar"][..., -1:]], -1)
+        refine = lambda: det.module.refine(bev, props7, post["scores"])
+        refine_ms = device_ms(refine)
+        refine_busy = device_busy(refine)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"two-stage frame on {card}: median {med['two-stage']!r} ms against "
+        f"the one-stage frame's {med['one-stage']!r} on the same first stage, "
+        f"taking turns over {TS_FRAMES} frames each (host clock around a "
+        f"synchronized predict), all {times!r}; device busy and launches a "
+        f"frame {busy!r} (torch.profiler, 3 frames); the refine stage "
+        f"({tuple(bev.shape)} BEV, {props7.shape[1]} proposals x 5 points) "
+        f"{refine_ms!r} ms device time (CUDA events), {refine_busy!r} "
+        f"(busy ms, launches); kernel launches over {TS_FRAMES} frames "
+        f"{tally}; {kept} boxes kept; a repeat bit-equal")
+    res["frame"] = dict(median_ms=med["two-stage"],
+                        one_stage_median_ms=med["one-stage"],
+                        device_busy_ms=busy["two-stage"][0],
+                        launches_per_frame=busy["two-stage"][1],
+                        refine_ms=refine_ms, refine_launches=refine_busy[1],
+                        launches=tally, kept=kept)
+    del det, preds, bev, boxes, scores, post, out, again, runs
+    torch.cuda.empty_cache()
+
+    # ---- the two-sweep velocity frame: 8 features, the stem at C_in 11
+    mv, _, tcv = centerpoint_cfgs(TS_VELO_CONFIG)
+    gen = torch.Generator().manual_seed(SEED + 14)
+    det = build_detector(mv, None, tcv, device=dev, generator=gen)
+    randomize_norms(det.module, gen)
+    pts, mask = synthetic_sweep(np.random.RandomState(SEED + 14), pr,
+                                2 * N_POINTS, c=8)
+    ex = to_device({"points": pts, "points_mask": mask}, dev)
+    median, times, out, tally = timed_predicts(det, ex, TS_VELO_FRAMES,
+                                                   per_frame)
+    kept = check_detections(out, tcv, box_dim=9)
+    first = det.first_driver.predict(ex)
+    if not (torch.equal(out["box3d_lidar"][..., 6:8],
+                        first["box3d_lidar"][..., 6:8])
+            and torch.equal(out["mask"], first["mask"])):
+        raise AssertionError("two-sweep two-stage: velocity columns or kept "
+                             "set differ from the first stage's")
+    log(f"two-stage two-sweep frame on {card}: {2 * N_POINTS} points in "
+        f"{pts.shape[1]} rows, 8 features (stem C_in 11): median {median!r} "
+        f"ms over {TS_VELO_FRAMES} frames, all {times!r}; launches {tally}; "
+        f"{kept} boxes kept, 9 columns, the velocity columns the first "
+        "stage's")
+    res["two_sweep"] = dict(median_ms=median, launches=tally, kept=kept)
+    del det, out, first, ex
+    torch.cuda.empty_cache()
+
+    # ---- the frozen train step at the config's batch of 4
+    from partner_tpu_torch.utils.config import load_config
+
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator().manual_seed(SEED + 15)
+    det = build_detector(m, train_cfg, tc, device=dev, generator=gen)
+    randomize_norms(det.module, gen)
+    batch = load_config(TS_CONFIG)["data"]["samples_per_gpu"]
+    ex = centerpoint_train_example(
+        np.random.RandomState(SEED + 15), m["first_stage_cfg"], train_cfg,
+        batch, TRAIN_POINTS, TRAIN_ROWS, MAX_BOXES)
+    ex = to_device({k: v for k, v in plant_positives(det, ex, dev).items()
+                    if k in det.loss_keys}, dev)
+    opt = build_one_cycle_optimizer(det.module, lr_max=3e-3,
+                                    total_steps=1000)
+    step = make_train_step(det, opt)
+    before = {k: v.detach().clone() for k, v in
+              det.module.state_dict().items()}
+    want = {"stem": 1, "scatter_max": 1, "swin_attn": 0, "swin_block": 0}
+    times, launches = [], dict.fromkeys(want, 0)
+    for i in range(TRAIN_STEPS + 1):
+        ms, met, counts = counted(lambda: step(ex, None))
+        if counts != want:
+            raise AssertionError(f"frozen step {i}: launches {counts}")
+        vals = {k: float(v) for k, v in met.items()}
+        log(f"two-stage frozen step {i}: {ms!r} ms, {vals}")
+        if not all(np.isfinite(list(vals.values()))) or not (
+                vals["roi_reg_loss"] > 0):
+            raise AssertionError(f"frozen step {i}: {vals}")
+        if i:
+            times.append(ms)
+        for k in launches:
+            launches[k] += counts[k]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    after = det.module.state_dict()
+    moved_first = [k for k in after if k.startswith("first.")
+                   and not torch.equal(after[k], before[k])]
+    still_roi = [k for k in after if k.startswith("roi_head.")
+                 and torch.equal(after[k], before[k])]
+    if moved_first or still_roi or len(opt.params) != 12:
+        raise AssertionError(f"frozen step: first stage moved {moved_first[:5]}"
+                             f", RoI unchanged {still_roi}")
+    median = statistics.median(times)
+    log(f"two-stage frozen train step, batch {batch} ({TRAIN_POINTS} points "
+        f"a sample in {TRAIN_ROWS} rows), on {card}: median {median!r} ms "
+        f"over {TRAIN_STEPS} steps (host clock around a synchronized step), "
+        f"all {times!r}; peak memory {peak!r} GiB; launches over "
+        f"{TRAIN_STEPS + 1} steps {launches}; the first stage's parameters "
+        "and statistics bit-unchanged, every RoI parameter moved")
+    res["train"] = dict(median_ms=median, peak_gib=peak, launches=launches)
+    del det, opt, step, ex, before, after
+    torch.cuda.empty_cache()
+
+    res.update(two_stage_prep_and_cli(dev, card, m, train_cfg, tc))
     return res
 
 
@@ -2896,6 +3387,7 @@ def main():
     static = static_rpe_phase(dev, card)
     cli = train_cli_phase(dev, card)
     cp = centerpoint_phase(dev, card)
+    ts = two_stage_phase(dev, card)
     serving = serving_phase(dev, card)
     nat = native_phase(card)
 
@@ -2925,6 +3417,15 @@ def main():
                     centerpoint_dist_test_launches=cp["dist_test"][
                         "launches"][name],
                     centerpoint_train_cli_launches=cp["train_cli"][
+                        "launches"][name],
+                    two_stage_launches=ts["frame"]["launches"][name],
+                    two_stage_two_sweep_launches=ts["two_sweep"][
+                        "launches"][name],
+                    two_stage_frozen_train_launches=ts["train"]["launches"][
+                        name],
+                    two_stage_train_cli_launches=ts["train_cli"]["launches"][
+                        name],
+                    two_stage_dist_test_launches=ts["dist_test"][
                         "launches"][name],
                     voxel_frame_launches=serving["voxel_frame"]["launches"][
                         name],
@@ -2966,6 +3467,26 @@ def main():
         f"{kres['scatter_max']['bound_ms_p432000']!r} ms, share "
         f"{kres['scatter_max']['bound_share_p432000']!r}, "
         f"{kres['scatter_max']['not_equal_p432000']} not equal to the twin")
+    st, sm = kres["stem"], kres["scatter_max"]
+    log(f"summary: card {card}, at a train step's batch of 4: stem (4, 10, "
+        f"180000) device {st['device_ms_b4']!r} ms, bound "
+        f"{st['bound_ms_b4']!r} ms, share {st['bound_share_b4']!r}, "
+        f"{st['not_equal_b4']} not equal to the twin; scatter-max device "
+        f"{sm['device_ms_b4']!r} ms, bound {sm['bound_ms_b4']!r} ms, share "
+        f"{sm['bound_share_b4']!r}, {sm['not_equal_b4']} not equal to the "
+        "twin")
+    tf = ts["frame"]
+    log(f"summary: card {card}, two-stage frame median {tf['median_ms']!r} "
+        f"ms against the one-stage {tf['one_stage_median_ms']!r} taking "
+        f"turns, device busy {tf['device_busy_ms']!r} ms and "
+        f"{tf['launches_per_frame']!r} launches a frame, refine "
+        f"{tf['refine_ms']!r} ms device in {tf['refine_launches']!r} "
+        f"launches, {tf['kept']} boxes kept; two-sweep frame median "
+        f"{ts['two_sweep']['median_ms']!r} ms; frozen train step median "
+        f"{ts['train']['median_ms']!r} ms, peak {ts['train']['peak_gib']!r} "
+        f"GiB; data prep ms a frame {ts['prep_ms']!r}; train CLI 2 steps "
+        f"in {ts['train_cli']['wall_s']!r} s; dist_test middle-third FPS "
+        f"{ts['dist_test']['fps']!r}")
     vf, sm, st = serving["voxel_frame"], kres["scatter_max"], kres["stem"]
     log(f"summary: card {card}, voxel-path frame median "
         f"{vf['median_ms']!r} ms (point path {vf['point_median_ms']!r} ms, "

@@ -99,14 +99,15 @@ class VoxelNetModule(nn.Module):
             dtype=resolve_compute_dtype(
                 set_cfg.get("set_compute_dtype", "float32")))
 
-    def forward(self, example, generator=None):
+    def forward(self, example, generator=None, return_bev=False):
         """example: {"points": (B, P, C) f32, "points_mask": (B, P) bool},
         or voxels: {"features": (B, N, C) f32} or {"voxels": (B, N, K, C)
         f32, "num_points": (B, N)}, each with "coords" (B, N, 3) int32
         (z, az, r) and "voxel_mask" (B, N) bool -> the head's maps
-        (B, n_az/8, n_r/8, .). Voxels win where both are given, as in JAX.
-        ``generator`` feeds the SetBlock's dropout and DropPath in train
-        mode."""
+        (B, n_az/8, n_r/8, .), and with ``return_bev`` also the neck's
+        output map (B, n_az/8, n_r/8, C) beside them: ``(maps, bev)``.
+        Voxels win where both are given, as in JAX. ``generator`` feeds
+        the SetBlock's dropout and DropPath in train mode."""
         if "features" in example or "voxels" in example:
             if "voxels" in example:   # hard voxels (B, N, K, C)
                 features = self.reader(example["voxels"],
@@ -125,7 +126,9 @@ class VoxelNetModule(nn.Module):
             x = self.attns(x, pos[None].expand(x.shape[0], -1, -1, -1),
                            generator)
             bev = x.transpose(1, 2)
-        return self.bbox_head(self.neck(bev))
+        x = self.neck(bev)
+        out = self.bbox_head(x)
+        return (out, x) if return_bev else out
 
 
 class E2EDetector:

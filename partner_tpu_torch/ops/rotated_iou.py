@@ -3,8 +3,9 @@
 
 Two exact algorithms, each where the JAX package uses it, so that results
 round alike: Green's theorem for the NMS (``rect_intersection_area_green_
-pretrig``, ``_green_body``, ``_clip_aa``), and Sutherland-Hodgman clipping
-for the IoU target of ``loss_iou`` (``rect_intersection_area_sh``,
+pretrig``, ``_green_body``, ``_clip_aa``) and the two-stage RoI targets
+(``rect_intersection_area_green``), and Sutherland-Hodgman clipping for the
+IoU target of ``loss_iou`` (``rect_intersection_area_sh``,
 ``boxes_iou3d``).
 
 Green: Area(A n B) = 1/2 of the contour integral of (x dy - y dx) over the
@@ -54,6 +55,16 @@ def _clip_aa(p0, p1, h, eps_par=1e-5, eps_c=1e-4):
     weight = valid.to(t0.dtype) * torch.where(
         on_bound.any(-1), torch.full_like(t0, 0.5), torch.ones_like(t0))
     return t0, t1, weight
+
+
+def rect_intersection_area_green(box_a, box_b):
+    """Intersection area with the trig computed here: the rotation
+    between the boxes from the angle difference (so identical boxes map to
+    exactly coincident rects), B's frame from B's yaw. The RoI targets
+    use this form (``two_stage.proposal_targets``)."""
+    dth = box_a[..., 4] - box_b[..., 4]
+    return _green_body(box_a, box_b, torch.cos(dth), torch.sin(dth),
+                       torch.cos(box_b[..., 4]), torch.sin(box_b[..., 4]))
 
 
 def rect_intersection_area_green_pretrig(box_a, box_b, trig_a, trig_b):

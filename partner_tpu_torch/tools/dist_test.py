@@ -17,7 +17,7 @@ batch voxelized on the device by ``ops.voxelize.dynamic_voxelize`` first).
 ``--static_rpe`` fills the
 static-RPE cache (``E2EDetector.prepare_inference``) on a small all-padding
 example before the loop, as ``bench.py`` does behind its knob; a detector
-without the cache (CenterPoint's ``VoxelNet``) stops with a message. The JAX
+without the cache (the CenterPoint detectors) stops with a message. The JAX
 CLI's ``--mesh`` is not ported (one process, one device; ROADMAP.md queue
 1: DDP and mesh eval).
 """

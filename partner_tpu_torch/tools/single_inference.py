@@ -57,7 +57,10 @@ def build_predictor(cfg, checkpoint=None, max_points=200000, device="cuda",
     def predict(points, pmask):
         return det.predict(voxelize(points[None], pmask[None]))
 
-    meta = dict(n_feat=cfg["model"]["reader"].get("num_input_features", 7),
+    # a two-stage config's reader is its first stage's
+    reader = dict(cfg["model"].get("first_stage_cfg", cfg["model"]))[
+        "reader"]
+    meta = dict(n_feat=reader.get("num_input_features", 7),
                 max_points=max_points, device=torch.device(device),
                 voxel_shape=vg.get("voxel_shape", "cylinder"))
     return det, predict, meta

@@ -16,9 +16,14 @@ one-cycle Adam loop of ``make_train_step`` as the JAX CLI does:
 - resume from ``--resume_from`` or, without it, from ``work_dir/latest``:
   weights, BatchNorm statistics, the Adam count and moments and the step,
   from a port or a JAX checkpoint; else ``--load_from`` loads the
-  parameters only (BatchNorm statistics keep their initial values);
-- any ported detector: PARTNER (``VoxelNetV3``) or CenterPoint
-  (``VoxelNet``), whose per-task loss terms are logged as lists;
+  parameters only (BatchNorm statistics keep their initial values); else,
+  for a two-stage config, the first stage's weights and statistics from
+  the one-stage checkpoint ``first_stage_cfg["pretrained"]`` names (the
+  run stops if it does not exist);
+- any ported detector: PARTNER (``VoxelNetV3``), CenterPoint
+  (``VoxelNet``), whose per-task loss terms are logged as lists, or the
+  two-stage CenterPoint (``TwoStageDetector``; with ``freeze`` the
+  optimizer holds the RoI head alone, and checkpoints its moments alone);
 - metrics stay on the device between log flushes (one copy to the host
   per ``log_config.interval`` steps); the text log carries ``data_time``,
   ``transfer_time``, ``forward_time``, ``time`` and ``sync_time``; a
@@ -110,6 +115,21 @@ def load_parameters(det, payload):
     det.module.load_state_dict({n: sd[n] for n in names}, strict=False)
 
 
+def load_pretrained_first_stage(det, path):
+    """A fresh run of a two-stage config: the one-stage checkpoint its
+    ``first_stage_cfg["pretrained"]`` names (a port checkpoint or a JAX
+    ``state.pkl``) -> the first stage's weights and BatchNorm statistics.
+    A missing path stops the run with a message."""
+    from ..train.checkpoint import load_checkpoint
+
+    if not os.path.exists(path):
+        sys.exit(f"train: the first stage's pretrained checkpoint {path} "
+                 "does not exist; train the one-stage config first, or pass "
+                 "--load_from")
+    det.module.first.load_state_dict(load_checkpoint(path)[0]["state_dict"],
+                                     strict=True)
+
+
 def main(argv=None):
     args = parse_args(argv)
     import torch
@@ -190,6 +210,9 @@ def main(argv=None):
     elif args.load_from:
         load_parameters(det, load_checkpoint(args.load_from)[0])
         logger.info(f"loaded weights from {args.load_from}")
+    elif getattr(det, "pretrained", None):
+        load_pretrained_first_stage(det, det.pretrained)
+        logger.info(f"loaded the first stage from {det.pretrained}")
 
     log_cfg = dict(cfg.get("log_config", {}))
     log_interval = log_cfg.get("interval", 5)

@@ -40,10 +40,14 @@ def _cpu(tensors):
     return {k: v.detach().cpu() for k, v in tensors.items()}
 
 
+def _trainable_names(module):
+    return [n for n, p in module.named_parameters() if p.requires_grad]
+
+
 def optimizer_state(module, opt):
-    """A ``OneCycleAdam`` on ``module.parameters()`` -> {"count", "mu",
-    "nu"}, the moments keyed by parameter name."""
-    names = [n for n, _ in module.named_parameters()]
+    """A ``OneCycleAdam`` on ``module``'s trainable parameters -> {"count",
+    "mu", "nu"}, the moments keyed by parameter name."""
+    names = _trainable_names(module)
     state = opt.state_dict()
     return {"count": state["count"],
             "mu": dict(zip(names, state["mu"])),
@@ -53,15 +57,20 @@ def optimizer_state(module, opt):
 def restore_train_state(det, opt, payload):
     """Load a payload's weights and BatchNorm statistics into ``det`` and
     its optimizer state into ``opt`` (a ``OneCycleAdam`` on
-    ``det.module.parameters()``) -> the payload's step. The counterpart of
-    the JAX package's ``restore_train_state``: every part must be there."""
+    ``det.module``'s trainable parameters) -> the payload's step. The
+    counterpart of the JAX package's ``restore_train_state``: every part
+    must be there. Moments of frozen parameters (a JAX checkpoint of a
+    frozen two-stage holds them) are left out; any other name that
+    differs raises."""
     det.module.load_state_dict(payload["state_dict"], strict=True)
     if "opt_state" not in payload:
         raise KeyError("the checkpoint holds no optimizer state")
     st = payload["opt_state"]
-    names = [n for n, _ in det.module.named_parameters()]
+    names = _trainable_names(det.module)
+    frozen = {n for n, p in det.module.named_parameters()
+              if not p.requires_grad}
     for key in ("mu", "nu"):
-        if sorted(st[key]) != sorted(names):
+        if set(names) - set(st[key]) or set(st[key]) - set(names) - frozen:
             raise KeyError(f"optimizer {key}: names differ from the module's")
     opt.load_state_dict({"count": st["count"],
                          "mu": [st["mu"][n] for n in names],

@@ -107,7 +107,8 @@ class OneCycleAdam:
 
     def state_dict(self):
         """{"count", "mu", "nu"}: the step count and the two moments, lists
-        in the order of ``params`` (``module.parameters()`` order)."""
+        in the order of ``params`` (``module.parameters()`` order, the
+        trainable ones)."""
         return {"count": self.count, "mu": list(self.mu),
                 "nu": list(self.nu)}
 
@@ -127,13 +128,20 @@ class OneCycleAdam:
         self.count = int(state["count"])
 
 
+def trainable_parameters(module):
+    """``module``'s parameters that take gradients, in ``parameters()``
+    order."""
+    return [p for p in module.parameters() if p.requires_grad]
+
+
 def build_one_cycle_optimizer(module, lr_max, total_steps, wd=0.01,
                               moms=(0.95, 0.85), div_factor=10.0,
                               pct_start=0.4, grad_clip=35.0):
-    """The flagship recipe (``optim.py:61-92``) on ``module``'s
-    parameters: one-cycle lr and b1, Adam b2 0.99, weight decay ``wd`` on
-    every parameter, global-norm clip ``grad_clip``."""
-    return OneCycleAdam(module.parameters(),
+    """The flagship recipe (``optim.py:61-92``) on ``module``'s trainable
+    parameters (``requires_grad``; a frozen part is neither updated nor
+    decayed): one-cycle lr and b1, Adam b2 0.99, weight decay ``wd`` on
+    every parameter it holds, global-norm clip ``grad_clip``."""
+    return OneCycleAdam(trainable_parameters(module),
                         one_cycle_lr(lr_max, total_steps, div_factor,
                                      pct_start),
                         one_cycle_momentum(moms, total_steps, pct_start),

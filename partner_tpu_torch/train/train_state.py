@@ -12,8 +12,10 @@ moments and step count, and one step updates both in place:
 
 def make_train_step(det, opt):
     """``step(example, generator) -> metrics`` for a detector
-    (``E2EDetector`` or ``CenterPointDetector``) and a
-    :class:`~partner_tpu_torch.train.optim.OneCycleAdam` on its module.
+    (``E2EDetector``, ``CenterPointDetector`` or ``TwoStageDetector``) and
+    a :class:`~partner_tpu_torch.train.optim.OneCycleAdam` on its module's
+    trainable parameters (a frozen first stage stays in eval mode through
+    ``module.train()`` and takes no gradient).
 
     A step puts the module in train mode, runs the forward (BatchNorm
     batch statistics, dropout and DropPath drawing from ``generator``) and
@@ -22,7 +24,8 @@ def make_train_step(det, opt):
     parameter's ``.grad`` holds that step's gradient afterwards. ``metrics``
     holds the detector's loss dict (every term and ``loss``; the E2E
     detector's ``num_matched``; the CenterPoint detector's per-task lists
-    ``det_loss``, ``hm_loss``, ``loc_loss``) and ``grad_norm``, as tensors
+    ``det_loss``, ``hm_loss``, ``loc_loss``; the two-stage detector's
+    ``roi_cls_loss``, ``roi_reg_loss``) and ``grad_norm``, as tensors
     on the module's device (nothing is copied to the host)."""
 
     def step(example, generator):

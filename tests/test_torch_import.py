@@ -21,7 +21,7 @@ def test_import_leaves_out_jax_and_flax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'partner_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 58, names\n"
+        "assert len(names) >= 61, names\n"
         "for n in ('ops.swin_block', 'ops.scatter_max', 'core.targets',\n"
         "          'losses.centernet', 'losses.matcher', 'losses.set_crit',\n"
         "          'train.optim', 'train.train_state', 'data.pipeline',\n"
@@ -29,12 +29,18 @@ def test_import_leaves_out_jax_and_flax():
         "          'data.augment', 'data.gt_aug', 'data.loader',\n"
         "          'train.hooks', 'tools.train', 'models.center_head',\n"
         "          'native', 'ops.voxelize', 'models.readers',\n"
-        "          'tools.single_inference', 'tools.multi_sweep_inference'):\n"
+        "          'tools.single_inference', 'tools.multi_sweep_inference',\n"
+        "          'data.waymo_decoder', 'models.two_stage',\n"
+        "          'tools.create_data'):\n"
         "    assert 'partner_tpu_torch.' + n in names, n\n"
         "from partner_tpu_torch.models import build_detector\n"
         "from partner_tpu_torch.utils.config import load_config\n"
         "for c in ('waymo_partner_36epoch', 'waymo_centerpoint_voxelnet_36epoch',\n"
-        "          'waymo_centerpoint_voxelnet_two_sweeps_3x_with_velo'):\n"
+        "          'waymo_centerpoint_voxelnet_two_sweeps_3x_with_velo',\n"
+        "          'two_stage/waymo_centerpoint_voxelnet_two_stage_bev_5point_'\n"
+        "          'ft_6epoch_freeze',\n"
+        "          'two_stage/waymo_centerpoint_voxelnet_two_sweep_two_stage_'\n"
+        "          'bev_5point_ft_6epoch_freeze_with_vel'):\n"
         "    cfg = load_config(f'configs/waymo/{c}.py')\n"
         "    build_detector(cfg['model'], cfg['train_cfg'], cfg['test_cfg'],\n"
         "                   device='meta')\n"

@@ -14,6 +14,12 @@ FLAGSHIP = "configs/waymo/waymo_partner_36epoch.py"
 CENTERPOINT = "configs/waymo/waymo_centerpoint_voxelnet_36epoch.py"
 CENTERPOINT_VELO = ("configs/waymo/"
                     "waymo_centerpoint_voxelnet_two_sweeps_3x_with_velo.py")
+TWO_STAGE = ("configs/waymo/two_stage/"
+             "waymo_centerpoint_voxelnet_two_stage_bev_5point_ft_6epoch_"
+             "freeze.py")
+TWO_STAGE_VELO = ("configs/waymo/two_stage/"
+                  "waymo_centerpoint_voxelnet_two_sweep_two_stage_bev_"
+                  "5point_ft_6epoch_freeze_with_vel.py")
 TINY_GRID = (128, 256, 40)  # BEV 32 (az) x 16 (r): exact 8x8 windows
 
 
@@ -60,6 +66,13 @@ def tiny_centerpoint_cfg(config=CENTERPOINT, compute_dtype="float32"):
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cfg = load_config(os.path.join(root, config))
     m = copy.deepcopy(cfg["model"])
+    _cut_centerpoint(m, compute_dtype)
+    return m, _tiny_test_cfg(cfg)
+
+
+def _cut_centerpoint(m, compute_dtype):
+    """A VoxelNet model cfg cut in place to ``TINY_GRID`` and a narrow RPN
+    (64 BEV channels)."""
     bh = m["bbox_head"]
     vg = bh["voxel_generator"]
     pr = vg["range"]
@@ -68,10 +81,32 @@ def tiny_centerpoint_cfg(config=CENTERPOINT, compute_dtype="float32"):
     m["backbone"] = dict(m["backbone"], compute_dtype=compute_dtype)
     m["neck"] = dict(m["neck"], layer_nums=[1, 1], ds_num_filters=[16, 32],
                      us_num_filters=[32, 32], compute_dtype=compute_dtype)
+
+
+def _tiny_test_cfg(cfg):
     tc = copy.deepcopy(cfg["test_cfg"])
     tc["score_threshold"] = 0.0
     tc["nms"] = dict(tc["nms"], nms_pre_max_size=256, nms_post_max_size=64)
-    return m, tc
+    return tc
+
+
+def tiny_two_stage_cfg(config=TWO_STAGE, freeze=None,
+                       compute_dtype="float32"):
+    """(model cfg, test cfg): a two-stage config whose first stage is cut
+    as :func:`tiny_centerpoint_cfg` cuts a CenterPoint config (so the RoI
+    head takes 5 x 64 + 1 inputs at its config's widths), ``freeze`` set
+    where given, the NMS cut likewise."""
+    import os
+
+    from partner_tpu_torch.utils.config import load_config
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(root, config))
+    m = copy.deepcopy(cfg["model"])
+    _cut_centerpoint(m["first_stage_cfg"], compute_dtype)
+    if freeze is not None:
+        m["freeze"] = freeze
+    return m, _tiny_test_cfg(cfg)
 
 
 def synthetic_points(rng, pc_range, n_points, n_pad, c=7):
@@ -222,6 +257,47 @@ model["neck"].update(layer_nums=[1, 1], ds_num_filters=[16, 32],
 test_cfg["score_threshold"] = 0.0
 test_cfg["nms"].update(nms_pre_max_size=256, nms_post_max_size=64)
 train_preprocessor.update(no_augmentation=True, shuffle_points=False)
+data["train"].update(info_path={train_info!r}, root_path={root!r})
+data["val"].update(info_path={val_info!r}, root_path={root!r})
+data["workers_per_gpu"] = 1
+log_config = dict(interval=1, hooks=[dict(type="TextLoggerHook"),
+                                     dict(type="MetricsSinkHook")])
+""")
+    return path
+
+
+def write_tiny_two_stage_config(path, train_info, val_info, root,
+                                config=TWO_STAGE, freeze=True,
+                                pretrained=None):
+    """A two-stage config file for the CLIs: ``config`` exec'd, its first
+    stage cut as :func:`tiny_two_stage_cfg` cuts it (float32), ``freeze``
+    and the first stage's ``pretrained`` set, ``data.train`` at
+    ``train_info`` with no augmentation and the points kept in order,
+    ``data.val`` at ``val_info``, one loader thread, a log flush and a
+    ``metrics.jsonl`` record every step."""
+    import os
+
+    base = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), config)
+    with open(path, "w") as f:
+        f.write(f"""
+__file__ = {base!r}
+exec(open({base!r}).read())
+_fs = model["first_stage_cfg"]
+_vg = _fs["bbox_head"]["voxel_generator"]
+_vg["voxel_size"] = [(_vg["range"][3 + i] - _vg["range"][i]) / g
+                     for i, g in enumerate({TINY_GRID!r})]
+_fs["bbox_head"]["in_channels"] = 64
+_fs["backbone"].update(compute_dtype="float32")
+_fs["neck"].update(layer_nums=[1, 1], ds_num_filters=[16, 32],
+                   us_num_filters=[32, 32], compute_dtype="float32")
+_fs["pretrained"] = {pretrained!r}
+model["freeze"] = {freeze!r}
+test_cfg["score_threshold"] = 0.0
+test_cfg["nms"].update(nms_pre_max_size=256, nms_post_max_size=64)
+for _p in data["train"]["pipeline"]:
+    if _p["type"] == "Preprocess":
+        _p["cfg"].update(no_augmentation=True, shuffle_points=False)
 data["train"].update(info_path={train_info!r}, root_path={root!r})
 data["val"].update(info_path={val_info!r}, root_path={root!r})
 data["workers_per_gpu"] = 1
