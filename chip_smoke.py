@@ -130,7 +130,18 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
 12. native: the port's C++ host library built on the card's host (the
    run fails where it is not available), its three functions bit-equal to
    the numpy bodies at train sizes, and their host ms both ways; the
-   train-CLI phase reads the host data path with and without it.
+   train-CLI phase reads the host data path with and without it;
+13. sparse / reference checkpoint: the flagship with ``model["backbone"]``
+   replaced by the reference's ``SpMiddleResNetFHD``, its weights from a
+   seeded synthetic det3d checkpoint converted by
+   ``tools.convert_checkpoint`` and ``train.torch_convert``, at full width:
+   ``predict`` through ``dynamic_voxelize`` on both head routes (median
+   ms, launches, device busy, the backbone's ms, peak memory, repeats
+   bit-equal); the sparse backbone's maps and BEV on SMALL_GRID against
+   the CPU, and rows permuted; ``dist_test --input voxels`` from a
+   ``modelzoo://`` name, bit-equal to ``predict`` (:func:`sparse_phase`).
+   The kernel phase also runs the whole-block case at BLOCK_DRAWS more
+   draws against the float32 block (:func:`block_draws`).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises before it, so the
@@ -170,6 +181,9 @@ EVAL_ROWS = 216_000          # dist_test --max_points: bench.py's buffer
 # an attention probability or a block intermediate. The scatter-max picks
 # one of its inputs, so it must be exact (bound 0).
 KERNEL_TOL = 2.0 ** -7
+# more draws of the whole-block case (:func:`block_draws`): the seeds of
+# their generators
+BLOCK_DRAWS = (101, 102, 103)
 # Reference phase, card vs CPU (float32, plain twins), stage by stage,
 # each stage fed the CPU's input: relative RMS error ||card - cpu|| /
 # ||cpu|| per output. The bf16 stages (backbone with the stem kernel; RPN
@@ -571,6 +585,47 @@ def block_case(gen, dev, shift):
     return (x, vote, bias, params, swin_block.NH, ws), (pos, mask, params)
 
 
+def block_draws(dev, card):
+    """The whole-block case at BLOCK_DRAWS more seeded draws, each from a
+    generator of its own, both shifts: every output beyond KERNEL_TOL (1 +
+    |twin|) of the twin must lie within KERNEL_TOL (1 + |float32|) of the
+    block computed in float32 with no rounding (the twin on a float32 x);
+    where it does, the twin strayed by a bf16 rounding, not the kernel.
+    -> per draw and shift (outputs beyond the twin's bound, of them beyond
+    the float32 block's, the largest |kernel - twin|)."""
+    from partner_tpu_torch.ops import swin_block
+
+    found = {}
+    for seed in BLOCK_DRAWS:
+        for shift in (4, 0):
+            gen = torch.Generator().manual_seed(seed)
+            args, _ = block_case(gen, dev, shift)
+            x, vote, bias, params, nh, ws = args
+            out = swin_block.swin_vote_block(*args).float()
+            plain = swin_block.swin_vote_block_plain(*args).float()
+            exact = swin_block.swin_vote_block_plain(x.float(), vote, bias,
+                                                     params, nh, ws)
+            torch.cuda.synchronize()
+            if not torch.isfinite(out).all():
+                raise AssertionError("swin_vote_block: non-finite output")
+            off = (out - plain).abs() > KERNEL_TOL * (1 + plain.abs())
+            off_f32 = (out - exact).abs() > KERNEL_TOL * (1 + exact.abs())
+            n_off, n_both = int(off.sum()), int((off & off_f32).sum())
+            worst = float((out - plain).abs().max())
+            log(f"swin_vote_block seed {seed} shift {shift} on {card}: "
+                f"{n_off} of {out.numel()} outputs beyond KERNEL_TOL of the "
+                f"twin, {n_both} of them beyond it of the float32 block; max "
+                f"|kernel - twin| {worst!r}, |kernel - float32| "
+                f"{float((out - exact).abs().max())!r}, |twin - float32| "
+                f"{float((plain - exact).abs().max())!r}")
+            if n_both:
+                raise AssertionError(
+                    f"swin_vote_block seed {seed} shift {shift}: {n_both} "
+                    "outputs beyond the bound of the twin and of float32")
+            found[f"seed{seed}_shift{shift}"] = (n_off, n_both, worst)
+    return found
+
+
 def scatter_case(stem_out, dev, n_points=N_POINTS):
     """Scatter-max inputs at a point-path shape: the stem's (B, 64, rows)
     output and the canvas coords of B synthetic sweeps of ``n_points`` on
@@ -913,7 +968,8 @@ def kernel_phase(gen, dev, card):
     results["swin_block"] = dict(
         max_abs_err=max(errs), **times["shifted"],
         **{f"{k}_unshifted": times["unshifted"][k] for k in (
-            "ms", "device_ms", "plain_ms", "plain_device_ms")})
+            "ms", "device_ms", "plain_ms", "plain_device_ms")},
+        more_draws=block_draws(dev, card))
 
     sm = results["scatter_max"]
     log(f"scatter_max float32: kernel {sm['ms_f32']!r} ms a call "
@@ -3354,6 +3410,344 @@ def native_phase(card):
     return out
 
 
+# ------------------------------------------------- sparse / reference ckpt
+
+SPARSE_EVAL_FRAMES = 9       # dist_test frames (cut first); window 3-5
+SPARSE_BEV = 256             # the sparse backbone's BEV width (nz' 2 x 128)
+# Sparse backbone on SMALL_GRID, card against CPU, both float32 (TF32 off):
+# the same gathers and products summed in another order, through 6 stages
+# of masked BatchNorm with randomized statistics. 2e-7-5e-7 on the CPU
+# between 1 and 8 threads; bound 1e-5.
+SPARSE_REF_TOL = 1e-5
+
+
+def sparse_cfgs():
+    """(model cfg, test cfg) of the flagship with ``model["backbone"]``
+    replaced by the reference's ``SpMiddleResNetFHD`` (the neck takes its
+    256-wide BEV), as :func:`frame_cfgs` otherwise."""
+    m, tc = frame_cfgs()
+    m["backbone"] = dict(type="SpMiddleResNetFHD", num_input_features=m[
+        "backbone"]["num_input_features"])
+    m["neck"]["num_input_features"] = SPARSE_BEV
+    return m, tc
+
+
+def sparse_maps(coords, mask, backbone, shape):
+    """Every integer tensor the sparse backbone builds, with both index
+    methods, stage by stage from sorted rows: the full-resolution
+    submanifold map, then per strided stage the output coords and mask, the
+    strided map and the next submanifold map."""
+    from partner_tpu_torch.models import sparse as sp
+
+    out = {"subm0": sp.build_subm_neighbor_map(coords, mask, shape),
+           "subm0 dense": sp.build_subm_neighbor_map_dense(coords, mask,
+                                                           shape)}
+    for name in ("conv2", "conv3", "conv4", "extra_conv"):
+        st = getattr(backbone, name)
+        geom = (st.kernel, st.stride, st.padding)
+        cap = coords.shape[1]
+        oc, om = sp.downsample_coords(coords, mask, shape, *geom, cap)
+        out_shape = sp.strided_out_shape(shape, *geom)
+        out[f"{name} coords"], out[f"{name} mask"] = oc, om
+        out[f"{name} coords dense"], out[f"{name} mask dense"] = (
+            sp.downsample_coords_dense(coords, mask, shape, *geom, cap))
+        out[f"{name} map"] = sp.build_strided_neighbor_map(
+            oc, om, out_shape, coords, mask, shape, *geom)
+        out[f"{name} map dense"] = sp.build_strided_neighbor_map_dense(
+            oc, om, coords, mask, shape, *geom)
+        if st.num_res:
+            out[f"{name} subm"] = sp.build_subm_neighbor_map(oc, om,
+                                                             out_shape)
+            out[f"{name} subm dense"] = sp.build_subm_neighbor_map_dense(
+                oc, om, out_shape)
+        coords, mask, shape = oc, om, out_shape
+    return out
+
+
+def stage_sites(backbone, coords, mask, input_shape):
+    """Per strided stage of the sparse backbone, (active sites with no
+    capacity, sites kept at the input's N), from sorted rows."""
+    from partner_tpu_torch.models import sparse as sp
+    from partner_tpu_torch.models.backbone import sort_rows
+
+    shape = backbone.sparse_shape(input_shape)
+    _, coords, mask = sort_rows(coords, coords, mask, shape)
+    n, out = coords.shape[1], {}
+    for name in ("conv2", "conv3", "conv4", "extra_conv"):
+        st = getattr(backbone, name)
+        geom = (st.kernel, st.stride, st.padding)
+        _, every = sp.downsample_coords(coords, mask, shape, *geom, 8 * n)
+        coords, mask = sp.downsample_coords(coords, mask, shape, *geom, n)
+        out[name] = (int(every.sum()), int(mask.sum()))
+        shape = sp.strided_out_shape(shape, *geom)
+    return out
+
+
+@torch.no_grad()
+def sparse_reference(dev, card):
+    """The sparse backbone on SMALL_GRID, the card against the CPU, both in
+    float32, on the voxels of a 30,000-point sweep: every neighbour map
+    and out coords of both index methods exactly equal; the BEV within
+    SPARSE_REF_TOL by relative RMS error; a sample's rows permuted giving
+    a bit-equal BEV on the card."""
+    import copy
+
+    from partner_tpu_torch.models.backbone import (SpMiddleResNetFHD,
+                                                   sort_rows)
+    from partner_tpu_torch.models.layers import init_weights
+    from partner_tpu_torch.ops.voxelize import DeviceVoxelizer
+
+    m, _ = frame_cfgs(grid=SMALL_GRID)
+    vg = m["bbox_head"]["voxel_generator"]
+    pts, mask = synthetic_sweep(np.random.RandomState(SEED + 13),
+                                vg["range"], 30_000)
+    vox = DeviceVoxelizer(vg, "cpu", 30_000)(torch.from_numpy(pts),
+                                              torch.from_numpy(mask))
+    gen = torch.Generator().manual_seed(SEED + 13)
+    cpu = SpMiddleResNetFHD(num_input_features=7, input_shape=SMALL_GRID)
+    init_weights(cpu, gen)
+    randomize_norms(cpu, gen)
+    for name, p in cpu.named_parameters():
+        if ".SparseConv_" in name and name.endswith(".bias"):
+            p.copy_(0.2 * torch.randn(p.shape, generator=gen))
+    gpu = copy.deepcopy(cpu).to(dev).eval()
+    cpu.eval()
+    shape = cpu.sparse_shape(SMALL_GRID)
+    maps = {}
+    for d in ("cpu", dev):
+        _, c, mk = sort_rows(vox["features"].to(d), vox["coords"].to(d),
+                             vox["voxel_mask"].to(d), shape)
+        maps[str(d)] = sparse_maps(c, mk, cpu if d == "cpu" else gpu, shape)
+    n_int = 0
+    for k, want in maps["cpu"].items():
+        got = maps[str(dev)][k].cpu()
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"sparse {k}: card != CPU")
+        n_int += want.numel()
+    sites = {k: int(maps["cpu"][k].sum()) for k in maps["cpu"]
+             if k.endswith(" mask")}
+    log(f"sparse maps on {card} against the CPU, SMALL_GRID {shape}: "
+        f"{int(vox['voxel_mask'].sum())} voxels, active sites by stage "
+        f"{sites}; all {len(maps['cpu'])} integer tensors ({n_int} values, "
+        "both index methods) exactly equal")
+    args = (vox["features"], vox["coords"], vox["voxel_mask"])
+    want = cpu(*args, SMALL_GRID)
+    got = gpu(*(a.to(dev) for a in args), SMALL_GRID)
+    rel_rms(f"sparse backbone BEV on {card} (float32 both)", got, want,
+            SPARSE_REF_TOL)
+    perm = torch.randperm(args[0].shape[1], generator=gen)
+    shuffled = gpu(*(a[:, perm].to(dev) for a in args), SMALL_GRID)
+    if not torch.equal(shuffled, got):
+        raise AssertionError("sparse backbone: permuted rows changed the BEV")
+    log("sparse backbone: the rows permuted give a bit-equal BEV on the card")
+
+
+def sparse_phase(dev, card):
+    """The reference-layout PARTNER detector (the flagship with the sparse
+    ``SpMiddleResNetFHD``) served from a det3d checkpoint at full width:
+    - a seeded synthetic det3d checkpoint (``module.`` prefixes, spconv
+      weights (kz, ky, kx, I, O) with the blocks' conv biases, every norm
+      randomized) through ``tools.convert_checkpoint`` (neck and backbone;
+      equal to the library's) and through
+      ``torch_convert.convert_voxelnet_v3_state_dict`` (the whole detector,
+      loaded strictly on the card);
+    - ``predict`` on the 180,000-point sweep through ``dynamic_voxelize``
+      at the config's 150,000 capacity, both head routes taking turns:
+      median ms of FRAMES after a warm-up, launches (the attention kernel
+      twice a frame on the per-block route, the block kernel twice on the
+      whole-block route, stem and scatter-max never), device busy and
+      launches a frame, a repeated frame bit-equal, finite maps, kept
+      boxes; the backbone's ms by CUDA events; the phase's peak memory;
+    - :func:`sparse_reference`;
+    - ``dist_test --input voxels --checkpoint modelzoo://<name>`` (a zoo
+      JSON in a temporary directory) over SPARSE_EVAL_FRAMES synthetic
+      frames: launches, middle-third FPS, each frame bit-equal to a direct
+      ``predict``."""
+    import pickle
+    import tempfile
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import det3d_layout
+
+    from partner_tpu_torch.data import build_dataset
+    from partner_tpu_torch.data.loader import DataLoader
+    from partner_tpu_torch.models import build_detector
+    from partner_tpu_torch.ops.voxelize import DeviceVoxelizer
+    from partner_tpu_torch.tools import convert_checkpoint, dist_test
+    from partner_tpu_torch.train import torch_convert
+    from partner_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                    save_checkpoint)
+    from partner_tpu_torch.utils.config import load_config
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    res = {}
+    m, tc = sparse_cfgs()
+    neck = m["neck"]
+    vg = m["bbox_head"]["voxel_generator"]
+    cap = vg["max_voxel_num"]
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        sd = det3d_layout.partner_state_dict(
+            np.random.RandomState(SEED + 14), m, SPARSE_BEV, "kzyxio")
+        pth = os.path.join(root, "partner_sparse.pth")
+        torch.save({"state_dict": sd, "meta": {"epoch": 36}}, pth)
+        cli_dir = convert_checkpoint.main([
+            pth, os.path.join(root, "cli"), "--layer_nums",
+            *map(str, neck["layer_nums"]), "--us_strides",
+            *map(str, neck["us_layer_strides"])])
+        cli = load_checkpoint(cli_dir)[0]["state_dict"]
+        whole = torch_convert.convert_voxelnet_v3_state_dict(
+            sd, neck["layer_nums"], neck["us_layer_strides"])
+        if not cli or any(not torch.equal(v, whole[k])
+                          for k, v in cli.items()):
+            raise AssertionError("convert_checkpoint: differs from the "
+                                 "library's conversion")
+        ckpt = save_checkpoint(os.path.join(root, "zoo"), 36, whole,
+                               meta={"converted_from": pth})
+        dets = {}
+        for route, block in (("per_block", False), ("whole_block", True)):
+            dets[route] = build_detector(m, None, tc, device=dev,
+                                         use_block_kernel=block)
+            dets[route].module.load_state_dict(whole, strict=True)
+            if dets[route].input_kind != "voxels":
+                raise AssertionError("sparse detector: input_kind")
+        log(f"sparse PARTNER: synthetic det3d checkpoint of {len(sd)} "
+            f"tensors ({sum(v.numel() for v in sd.values())} values), the "
+            f"CLI's {len(cli)} neck and backbone tensors equal to the "
+            f"library's, the whole detector ({len(whole)} tensors) loaded "
+            f"strictly on both routes in {time.perf_counter() - t0:.1f} s")
+
+        pts, mask = synthetic_sweep(np.random.RandomState(SEED), vg["range"],
+                                    N_POINTS)
+        ex = to_device({"points": pts, "points_mask": mask}, dev)
+        vox = DeviceVoxelizer(vg, dev, cap)
+        depth = dets["per_block"].module.bbox_head.layer.depth
+        want = {"per_block": {"stem": 0, "scatter_max": 0,
+                              "swin_attn": depth, "swin_block": 0},
+                "whole_block": {"stem": 0, "scatter_max": 0,
+                                "swin_attn": 0, "swin_block": depth}}
+        runs = {r: (lambda d=d: d.predict(vox(ex["points"],
+                                              ex["points_mask"])))
+                for r, d in dets.items()}
+        times = {r: [] for r in runs}
+        tally = {r: dict.fromkeys(want[r], 0) for r in runs}
+        outs = {}
+        for i in range(FRAMES + 1):   # round 0 warms up; routes take turns
+            for r in (list(runs) if i % 2 == 0 else list(runs)[::-1]):
+                ms, outs[r], counts = counted(runs[r])
+                if counts != want[r]:
+                    raise AssertionError(f"sparse {r} frame {i}: launches "
+                                         f"{counts} != {want[r]}")
+                if i:
+                    times[r].append(ms)
+                    for k in counts:
+                        tally[r][k] += counts[k]
+        for r in runs:
+            if not identical(runs[r](), outs[r]):
+                raise AssertionError(f"sparse {r}: a repeated frame differs")
+            kept = check_detections(outs[r], tc)
+        v = vox(ex["points"], ex["points_mask"])
+        with torch.no_grad():
+            maps = dets["per_block"].module(v)
+            if not all(torch.isfinite(x).all() for x in maps.values()):
+                raise AssertionError("sparse frame: non-finite maps")
+            feats = dets["per_block"].module.reader(v["features"])
+            grid = dets["per_block"].module.grid_size
+            backbone = dets["per_block"].module.backbone
+            bb = call_and_device_ms("ms", lambda: backbone(
+                feats, v["coords"], v["voxel_mask"], grid))
+            bev = backbone(feats, v["coords"], v["voxel_mask"], grid)
+            bb_busy, bb_launches = device_busy(lambda: backbone(
+                feats, v["coords"], v["voxel_mask"], grid))
+            sites = stage_sites(backbone, v["coords"], v["voxel_mask"],
+                                grid)
+        busy, launches = device_busy(runs["per_block"])
+        medians = {r: statistics.median(t) for r, t in times.items()}
+        found = int(v["voxel_mask"].sum())
+        log(f"sparse backbone stages at full width: active sites uncapped / "
+            f"kept at the {cap} capacity {sites}")
+        log(f"sparse PARTNER frame on {card}: {N_POINTS} points -> {found} "
+            f"voxels of {cap}; median ms per block {medians['per_block']!r},"
+            f" whole block {medians['whole_block']!r} over {FRAMES} frames "
+            f"taking turns, all {times!r}; launches over {FRAMES} frames "
+            f"{tally}; {kept} boxes kept; repeats bit-equal; BEV "
+            f"{tuple(bev.shape)}, maps finite")
+        log(f"sparse frame device busy {busy!r} ms and {launches!r} launches "
+            f"a frame (per block); the backbone {bb['ms']!r} ms a call by "
+            f"CUDA events ({bb['device_ms']!r} device ms back to back), "
+            f"{bb_busy!r} ms of kernels in {bb_launches!r} launches")
+        res["frame"] = dict(median_ms=medians, launches=tally,
+                            device_busy_ms=busy, launches_per_frame=launches,
+                            backbone_ms=bb["ms"],
+                            backbone_device_ms=bb["device_ms"],
+                            backbone_busy_ms=bb_busy,
+                            backbone_launches=bb_launches, voxels=found,
+                            kept=kept, sites=sites)
+        del maps, feats, bev, v
+
+        sparse_reference(dev, card)
+
+        info_path = write_val_set(root, np.random.RandomState(SEED + 15),
+                                  vg["range"], SPARSE_EVAL_FRAMES)
+        cfg_path = write_eval_config(root, info_path)
+        with open(cfg_path, "a") as f:
+            f.write(f"model['backbone'] = {m['backbone']!r}\n"
+                    f"model['neck']['num_input_features'] = {SPARSE_BEV}\n")
+        zoo = os.path.join(root, "model_zoo.json")
+        with open(zoo, "w") as f:
+            json.dump({"partner_sparse_synthetic": ckpt}, f)
+        env = {k: os.environ.get(k) for k in ("PARTNER_TPU_MODEL_ZOO",
+                                              "PARTNER_TPU_CACHE")}
+        os.environ["PARTNER_TPU_MODEL_ZOO"] = zoo
+        os.environ["PARTNER_TPU_CACHE"] = os.path.join(root, "cache")
+        work_dir = os.path.join(root, "eval")
+        try:
+            _, ((metrics, _), fps), dist_launches = counted(
+                lambda: dist_test.main([
+                    cfg_path, "--input", "voxels", "--checkpoint",
+                    "modelzoo://partner_sparse_synthetic", "--work_dir",
+                    work_dir, "--max_points", str(EVAL_ROWS), "--device",
+                    torch.device(dev).type]))
+        finally:
+            for k, val in env.items():
+                if val is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = val
+        with open(os.path.join(work_dir, "prediction.pkl"), "rb") as f:
+            preds = pickle.load(f)
+        ds = build_dataset(dict(load_config(cfg_path)["data"]["val"]))
+        direct = {}
+        for b in DataLoader(ds, 1, shuffle=False, max_points=EVAL_ROWS):
+            e = to_device({k: b[k] for k in ("points", "points_mask")}, dev)
+            direct[b["metadata"][0]["token"]] = kept_boxes(
+                dets["per_block"].predict(vox(e["points"],
+                                              e["points_mask"])))
+    want_dist = {"stem": 0, "scatter_max": 0,
+                 "swin_attn": depth * SPARSE_EVAL_FRAMES, "swin_block": 0}
+    if dist_launches != want_dist:
+        raise AssertionError(f"sparse dist_test: launches {dist_launches} "
+                             f"!= {want_dist}")
+    if sorted(preds) != sorted(direct) or not all(
+            np.array_equal(preds[t][k], direct[t][k])
+            for t in direct for k in direct[t]):
+        raise AssertionError("sparse dist_test: a frame differs from a "
+                             "direct predict")
+    if not all(np.isfinite(metrics[k]) for k in ("mAP/L1", "mAPH/L2")):
+        raise AssertionError("sparse dist_test: metrics not finite")
+    res["dist_test"] = dict(fps=fps, launches=dist_launches)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"sparse dist_test --input voxels --checkpoint modelzoo://... on "
+        f"{card}: middle-third FPS {fps!r} over {SPARSE_EVAL_FRAMES} frames,"
+        f" launches {dist_launches}, every frame bit-equal to a direct "
+        f"predict; mAP/L1 {metrics['mAP/L1']!r}")
+    log(f"sparse phase: peak memory {res['peak_gib']!r} GiB, "
+        f"{time.perf_counter() - t_phase:.1f} s in all")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this run needs one NVIDIA card")
@@ -3390,6 +3784,7 @@ def main():
     ts = two_stage_phase(dev, card)
     serving = serving_phase(dev, card)
     nat = native_phase(card)
+    sparse = sparse_phase(dev, card)
 
     meta = {
         "stem": ("partner_tpu_torch/csrc/stem.cu",
@@ -3432,6 +3827,10 @@ def main():
                     single_inference_launches=serving["single_inference"][
                         "launches"][name],
                     multi_sweep_launches=serving["multi_sweep"]["launches"][
+                        name],
+                    sparse_frame_launches=sparse["frame"]["launches"][
+                        meta[name][2]][name],
+                    sparse_dist_test_launches=sparse["dist_test"]["launches"][
                         name],
                     **r)
                for name, r in kres.items()]
@@ -3510,6 +3909,18 @@ def main():
         f"(in turns); "
         f"loader {cli['loader_rate']!r} / {cli['loader_rate_numpy']!r} "
         f"batches a second")
+    sf = sparse["frame"]
+    log(f"summary: card {card}, sparse PARTNER (SpMiddleResNetFHD from a "
+        f"converted det3d checkpoint) frame median per block "
+        f"{sf['median_ms']['per_block']!r} ms, whole block "
+        f"{sf['median_ms']['whole_block']!r} ms, device busy "
+        f"{sf['device_busy_ms']!r} ms and {sf['launches_per_frame']!r} "
+        f"launches a frame, backbone {sf['backbone_ms']!r} ms "
+        f"({sf['backbone_device_ms']!r} device), {sf['voxels']} voxels, "
+        f"{sf['kept']} boxes kept; peak {sparse['peak_gib']!r} GiB; "
+        f"dist_test from modelzoo:// middle-third FPS "
+        f"{sparse['dist_test']['fps']!r}; block kernel at more draws "
+        f"{kres['swin_block']['more_draws']}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

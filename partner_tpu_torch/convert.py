@@ -13,7 +13,10 @@ submodules carry flax's names (``Conv_0``, ``BatchNorm_0``,
 - the ``layers.BatchNorm`` wrapper's nested ``BatchNorm_k/BatchNorm_0``
   collapses to ``BatchNorm_k``;
 - raw parameters keep name and layout: ``stem{i}_kernel/scale/bias``,
-  the ``stem{i}_mean/var`` stats, and ``tau``.
+  the ``stem{i}_mean/var`` stats, and ``tau``;
+- the sparse backbone's leaves keep flax's names and layouts: a
+  ``SparseConv_k``'s flat (K*Cin, Cout) ``kernel`` and its ``bias``, and a
+  ``MaskedBatchNorm_k``'s ``scale``, ``bias``, ``mean`` and ``var``.
 
 Inputs are nested dicts of numpy arrays (``{"params": ..., "batch_stats":
 ...}``), so this module needs neither jax nor flax.
@@ -41,9 +44,16 @@ def _collapse(path):
     return path
 
 
+def _keeps_names(mods):
+    return bool(mods) and mods[-1].startswith(("SparseConv_",
+                                               "MaskedBatchNorm_"))
+
+
 def _param(path, arr):
     *mods, leaf = _collapse(path)
-    if leaf == "kernel":
+    if _keeps_names(mods):
+        pass
+    elif leaf == "kernel":
         if arr.ndim == 4 and mods and mods[-1].startswith("ConvTranspose"):
             arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
         elif arr.ndim == 4:
@@ -62,7 +72,9 @@ def _param(path, arr):
 
 def _stat(path, arr):
     *mods, leaf = _collapse(path)
-    return ".".join(mods + [_STAT_NAMES.get(leaf, leaf)]), arr
+    if not _keeps_names(mods):
+        leaf = _STAT_NAMES.get(leaf, leaf)
+    return ".".join(mods + [leaf]), arr
 
 
 def flax_to_torch(variables):

@@ -2,8 +2,8 @@ from .registry import (  # noqa: F401
     BACKBONES, BBOX_HEADS, DETECTORS, NECKS, READERS, Registry,
     build_from_cfg,
 )
-from . import (backbone_dense, center_head, detectors, e2e_head,  # noqa: F401
-               readers, rpn, two_stage)
+from . import (backbone, backbone_dense, center_head, detectors,  # noqa: F401
+               e2e_head, readers, rpn, two_stage)
 
 
 def build_detector(cfg, train_cfg=None, test_cfg=None, *, device,

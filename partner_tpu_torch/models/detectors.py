@@ -3,7 +3,8 @@
 ``build_voxelnet_v3`` turns the JAX package's VoxelNetV3 config into an
 :class:`E2EDetector` (PARTNER): the backbone (``PolarDenseFHD``: the point
 fast path ``encode_points``, or the reader and the voxel path
-``forward``) -> ``SetBlockStack`` -> ``RPN`` ->
+``forward``; or the reader and the sparse ``SpMiddleResNetFHD``) ->
+``SetBlockStack`` -> ``RPN`` ->
 ``E2ESWVoteHead``, then at inference decode through the configured
 CenterCoder and rotated NMS, and in training the ``SetCriterion`` over the
 auction matcher. ``build_voxelnet`` turns a VoxelNet config into a
@@ -12,9 +13,13 @@ auction matcher. ``build_voxelnet`` turns a VoxelNet config into a
 FastFocal + L1 peak regression loss.
 
 Both take either input contract of the JAX package: ``points`` +
-``points_mask`` (the point fast path, ``input_kind``), or voxels,
+``points_mask`` (the point fast path of ``PolarDenseFHD``), or voxels,
 ``features`` (B, N, C) dynamic means or ``voxels`` (B, N, K, C) +
-``num_points`` hard voxels, with ``coords`` and ``voxel_mask``.
+``num_points`` hard voxels, with ``coords`` and ``voxel_mask``. With the
+sparse backbone ``SpMiddleResNetFHD`` (the reference's spconv layout)
+they take voxels only. ``input_kind`` names the contract the entry points
+feed: ``"points"`` for ``PolarDenseFHD``, ``"voxels"`` for
+``SpMiddleResNetFHD``, as in JAX.
 
     det = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg, device=dev)
     # or the E2E head's whole-block route: build_detector(...,
@@ -40,6 +45,23 @@ from .registry import (BACKBONES, BBOX_HEADS, DETECTORS, NECKS, READERS,
                        build_from_cfg)
 from .set_transformer import SetBlockStack
 from .swin_vote import WindowAttention
+
+
+# the backbones the port builds -> the input contract the entry points feed
+# them (``partner_tpu/models/detectors.py:487-489``, ``:548-550``)
+_INPUT_KINDS = {"PolarDenseFHD": "points", "SpMiddleResNetFHD": "voxels"}
+
+
+def backbone_input_kind(backbone):
+    """A backbone cfg -> its detector's ``input_kind``; a backbone the port
+    does not build raises, naming its ROADMAP item."""
+    kind = _INPUT_KINDS.get(dict(backbone).get("type"))
+    if kind is None:
+        raise NotImplementedError(
+            f"backbone {dict(backbone).get('type')} is not ported (ROADMAP.md "
+            "queue 1, off the main path: pillar.py); the port builds "
+            f"{sorted(_INPUT_KINDS)}")
+    return kind
 
 
 def _grid_spec(cfg):
@@ -116,10 +138,15 @@ class VoxelNetModule(nn.Module):
                 features = self.reader(example["features"])
             bev = self.backbone(features, example["coords"],
                                 example["voxel_mask"], self.grid_size)
-        else:
+        elif hasattr(self.backbone, "encode_points"):
             bev = self.backbone.encode_points(
                 example["points"], example["points_mask"], self.grid_size,
                 self.pc_range)                        # (B, n_az, n_r, C)
+        else:
+            raise ValueError(
+                f"{type(self.backbone).__name__} takes voxel inputs "
+                "(features or voxels, coords, voxel_mask); voxelize the "
+                "points first (ops.voxelize.DeviceVoxelizer)")
         if self.with_set_attention:
             x = bev.transpose(1, 2)                   # (B, n_r, n_az, C)
             pos = constant(self, "bev_pos", x.device, lambda: self.bev_pos)
@@ -317,8 +344,7 @@ def build_voxelnet_v3(reader, backbone, neck, bbox_head, seg_head=None,
     mode. ``use_block_kernel`` puts the head's SwinVoteTransformer on its
     whole-block route at inference. The criterion comes from the head's
     ``SET_CRIT_CONFIG`` and ``MATCHER_CONFIG``, as in the JAX package."""
-    if dict(backbone).get("type") != "PolarDenseFHD":
-        raise ValueError("the port runs the PolarDenseFHD backbone only")
+    kind = backbone_input_kind(backbone)
     grid, pc_range, _ = _grid_spec(bbox_head)
     osf = bbox_head.get("out_size_factor", 8)
     hc = bbox_head["HEAD_CONFIG"]
@@ -363,7 +389,9 @@ def build_voxelnet_v3(reader, backbone, neck, bbox_head, seg_head=None,
         matcher_weights=mc.get("weight_dict"))
     tc = dict(test_cfg or {})
     tc.setdefault("iou_factor", hc.get("iou_factor", 1))
-    return E2EDetector(module, criterion, tc)
+    det = E2EDetector(module, criterion, tc)
+    det.input_kind = kind
+    return det
 
 
 @DETECTORS.register_module(name="VoxelNet")
@@ -383,10 +411,7 @@ def build_voxelnet(reader, backbone, neck, bbox_head, seg_head=None,
     if use_block_kernel:
         raise ValueError("use_block_kernel is an option of the E2E head's "
                          "Swin blocks; VoxelNet's CenterHead has none")
-    if dict(backbone).get("type") != "PolarDenseFHD":
-        raise ValueError("the port runs the PolarDenseFHD backbone only "
-                         "(ROADMAP.md queue 1, off the main path: the "
-                         "sparse backbone and pillar.py)")
+    kind = backbone_input_kind(backbone)
     if seg_head:
         raise NotImplementedError(
             "VoxelNet seg_head is not ported (ROADMAP.md queue 1, off the "
@@ -409,8 +434,10 @@ def build_voxelnet(reader, backbone, neck, bbox_head, seg_head=None,
         reader_cfg=dict(reader), backbone_cfg=dict(backbone),
         neck_cfg=_neck_cfg(neck), head_cfg=head_cfg, grid_size=grid,
         pc_range=pc_range, out_size_factor=osf))
-    return CenterPointDetector(
+    det = CenterPointDetector(
         module, code_weights=bbox_head.get("code_weights", [1.0] * 10),
         weight=bbox_head.get("weight", 0.25), voxel_size=voxel_size,
         test_cfg=test_cfg, voxel_shape=bbox_head.get("voxel_shape",
                                                      "cylinder"))
+    det.input_kind = kind
+    return det

@@ -1,7 +1,8 @@
 """Shared building blocks (counterpart of ``partner_tpu/models/layers.py``).
 
 Conventions carried over from flax so converted weights compute the same
-function:
+function (``MaskedBatchNorm``, the sparse backbone's norm, has its own
+docstring):
 
 - ``Dense``/``Conv2d``/``Conv3d``/``ConvTranspose2d`` keep their
   parameters in float32 and cast input and parameters to their compute
@@ -209,6 +210,49 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (xf - mean) * mul + self.bias
+
+
+class MaskedBatchNorm(nn.Module):
+    """flax ``MaskedBatchNorm`` (``partner_tpu/models/layers.py:24-58``):
+    BatchNorm over the valid rows of a padded (..., N, C) buffer, the
+    output multiplied by the mask.
+
+    In train mode the statistics are taken over the rows where ``mask`` is
+    True only, in the input's dtype and in flax's order (the mean, then the
+    biased variance ``sum((x - mean)^2 m) / max(sum m, 1)``), and the
+    running statistics move to ``momentum * old + (1 - momentum) * batch``
+    (flax momentum 0.99, torch's 0.01). eps is 1e-3. The parameters and
+    statistics keep flax's names, ``scale``/``bias`` and ``mean``/``var``
+    (``convert.flax_to_torch`` keeps them)."""
+
+    def __init__(self, features, eps=BN_EPS, momentum=BN_MOMENTUM):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.scale = _empty(features)
+        self.bias = _empty(features)
+        self.register_buffer("mean", torch.empty(features))
+        self.register_buffer("var", torch.empty(features))
+
+    def forward(self, x, mask):
+        m = mask[..., None].to(x.dtype)
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            n = torch.clamp(m.sum(), min=1.0)
+            mean = (x * m).sum(dims) / n
+            var = ((x - mean) ** 2 * m).sum(dims) / n
+            update_running(self.mean, mean, self.momentum)
+            update_running(self.var, var, self.momentum)
+        else:
+            mean, var = self.mean, self.var
+        y = (x - mean) * torch.rsqrt(var + self.eps) * self.scale + self.bias
+        return y * m
+
+    def init_extra(self, generator):
+        self.scale.fill_(1.0)
+        self.bias.fill_(0.0)
+        self.mean.fill_(0.0)
+        self.var.fill_(1.0)
 
 
 def batch_stats(xf, dims):

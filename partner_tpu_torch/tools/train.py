@@ -49,7 +49,12 @@ the start. Not ported: the JAX CLI's ``--mesh`` (ROADMAP.md queue 1: DDP
 and mesh eval), the ``lr_config`` types other than ``one_cycle`` with the
 config-built optimizer (ROADMAP.md queue 1: the lr schedule family), and
 ``curriculum_weights`` (ROADMAP.md queue 1, off the main path:
-``seg_head``); each stops the run with a message naming its item.
+``seg_head``), and training a detector that takes voxel inputs (the sparse
+backbone; ROADMAP.md queue 1, off the main path: training through voxel
+inputs); each stops the run with a message naming its item.
+``--resume_from`` and ``--load_from`` take what
+``train.checkpoint.load_checkpoint`` takes (``modelzoo://``, ``file://``
+and remote-store paths too).
 """
 
 import argparse
@@ -105,14 +110,21 @@ def dropout_generator(seed, step):
 
 
 def load_parameters(det, payload):
-    """``--load_from``: the payload's parameters only, as the JAX CLI
-    loads ``params`` and leaves ``batch_stats`` at their initial values."""
+    """``--load_from``. A checkpoint of the whole model loads its
+    parameters only, as the JAX CLI loads ``params`` and leaves
+    ``batch_stats`` at their initial values. A checkpoint of some sections
+    (``tools.convert_checkpoint`` writes the neck and the backbone of a
+    reference checkpoint) loads every tensor it names, statistics too, as
+    the reference's ``load_from`` does; the other sections keep their
+    initial values. A name the module lacks raises."""
     names = [n for n, _ in det.module.named_parameters()]
     sd = payload["state_dict"]
-    missing = [n for n in names if n not in sd]
-    if missing:
-        raise KeyError(f"checkpoint lacks parameters {missing[:5]}")
-    det.module.load_state_dict({n: sd[n] for n in names}, strict=False)
+    unknown = sorted(set(sd) - set(det.module.state_dict()))
+    if unknown:
+        raise KeyError(f"the module has no tensors {unknown[:5]}")
+    if all(n in sd for n in names):
+        sd = {n: sd[n] for n in names}
+    det.module.load_state_dict(sd, strict=False)
 
 
 def load_pretrained_first_stage(det, path):
@@ -122,12 +134,13 @@ def load_pretrained_first_stage(det, path):
     A missing path stops the run with a message."""
     from ..train.checkpoint import load_checkpoint
 
-    if not os.path.exists(path):
+    try:
+        payload = load_checkpoint(path)[0]
+    except FileNotFoundError:
         sys.exit(f"train: the first stage's pretrained checkpoint {path} "
                  "does not exist; train the one-stage config first, or pass "
                  "--load_from")
-    det.module.first.load_state_dict(load_checkpoint(path)[0]["state_dict"],
-                                     strict=True)
+    det.module.first.load_state_dict(payload["state_dict"], strict=True)
 
 
 def main(argv=None):
@@ -176,6 +189,11 @@ def main(argv=None):
     det = build_detector(cfg["model"], cfg.get("train_cfg"),
                          cfg.get("test_cfg"), device=device,
                          generator=torch.Generator().manual_seed(args.seed))
+    if det.input_kind != "points":
+        sys.exit(f"train: this {cfg['model']['type']} takes "
+                 f"{det.input_kind} inputs, and training through them is not "
+                 "ported (ROADMAP.md queue 1, off the main path: training "
+                 "through voxel inputs)")
     dataset = build_dataset(dict(cfg["data"]["train"]), dict(
         rng=np.random.RandomState([args.seed, start_step])))
     batch_size = args.batch_size or cfg["data"]["samples_per_gpu"]

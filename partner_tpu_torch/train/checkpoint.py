@@ -7,9 +7,16 @@ naming the newest step directory, rewritten on every save. The payload is
 a ``torch.save`` of ``{"step", "state_dict", "opt_state"}``, tensors on the
 CPU: ``opt_state`` holds the Adam step count and both moments, keyed by
 parameter name (:func:`optimizer_state`). A payload without it (weights
-only, as the port's first checkpoints were) still loads for evaluation.
-Local paths only: the JAX package's remote stores and model zoo are not
-ported.
+only, as the port's first checkpoints and converted reference checkpoints
+are) still loads for evaluation.
+
+Every read and write goes through :mod:`..utils.remote_io`, so a work
+directory or checkpoint may be a local path or a scheme-prefixed path of a
+registered store (``memory://...``). :func:`load_checkpoint` also takes
+the URIs of :func:`resolve_checkpoint_uri`: ``modelzoo://<name>`` (looked
+up in the JSON file ``PARTNER_TPU_MODEL_ZOO`` names, the same file the JAX
+package reads) and ``http(s)://`` or ``file://`` URLs (fetched once into
+the ``PARTNER_TPU_CACHE`` directory).
 
 A JAX checkpoint (``state.pkl``, a pickle of host numpy trees) is how
 weights and optimizer state trained by the JAX package come across. Its
@@ -23,14 +30,19 @@ moments of the ``ScaleByAdamState`` inside the optax chain (they have the
 parameters' layout and names), with its count.
 """
 
+import hashlib
+import io
 import json
 import os
 import pickle
-import shutil
+import urllib.parse
+import urllib.request
 
+import numpy as np
 import torch
 
 from ..convert import flax_to_torch
+from ..utils import remote_io as rio
 
 PORT_PAYLOAD = "state.pt"
 JAX_PAYLOAD = "state.pkl"
@@ -78,85 +90,139 @@ def restore_train_state(det, opt, payload):
     return int(payload["step"])
 
 
+def _join(base, *parts):
+    return "/".join([base.rstrip("/")] + list(parts))
+
+
 def save_checkpoint(work_dir, step, state_dict, meta=None, keep=None,
                     opt_state=None):
     """Write ``work_dir/ckpt_{step:08d}/state.pt`` (and ``meta.json``),
     point ``work_dir/latest`` at it, and keep the newest ``keep`` step
     directories when ``keep`` is given. ``opt_state`` is
-    :func:`optimizer_state`'s dict, kept when given. Returns the step
-    directory."""
+    :func:`optimizer_state`'s dict, kept when given. ``work_dir`` is a
+    local or a remote path. Returns the step directory."""
     name = f"ckpt_{int(step):08d}"
-    path = os.path.join(work_dir, name)
-    os.makedirs(path, exist_ok=True)
+    path = _join(work_dir, name)
+    rio.makedirs(path)
     payload = {"step": int(step), "state_dict": _cpu(state_dict)}
     if opt_state is not None:
         payload["opt_state"] = {"count": int(opt_state["count"]),
                                 "mu": _cpu(opt_state["mu"]),
                                 "nu": _cpu(opt_state["nu"])}
-    torch.save(payload, os.path.join(path, PORT_PAYLOAD))
+    buf = io.BytesIO()
+    torch.save(payload, buf)
+    rio.write_bytes(_join(path, PORT_PAYLOAD), buf.getvalue())
     if meta:
-        with open(os.path.join(path, "meta.json"), "w") as f:
-            json.dump(meta, f)
-    with open(os.path.join(work_dir, "latest"), "w") as f:
-        f.write(name)
+        rio.write_bytes(_join(path, "meta.json"), json.dumps(meta).encode())
+    rio.write_bytes(_join(work_dir, "latest"), name.encode())
     if keep:
-        ckpts = sorted(d for d in os.listdir(work_dir)
+        ckpts = sorted(d for d in rio.listdir(work_dir)
                        if d.startswith("ckpt_"))
         for old in ckpts[:-keep]:
-            shutil.rmtree(os.path.join(work_dir, old))
+            rio.delete_tree(_join(work_dir, old))
     return path
 
 
 def latest_checkpoint(work_dir):
     """The step directory ``work_dir/latest`` names, or None."""
-    latest = os.path.join(work_dir, "latest")
-    if not os.path.exists(latest):
+    latest = _join(work_dir, "latest")
+    if not rio.exists(latest):
         return None
-    with open(latest) as f:
-        path = os.path.join(work_dir, f.read().strip())
+    path = _join(work_dir, rio.read_bytes(latest).decode().strip())
     return path if _payload_file(path) else None
 
 
 def _payload_file(step_dir):
     for name in (PORT_PAYLOAD, JAX_PAYLOAD):
-        p = os.path.join(step_dir, name)
-        if os.path.isfile(p):
+        p = _join(step_dir, name)
+        if rio.exists(p):
             return p
     return None
+
+
+def _model_zoo():
+    """``modelzoo://<name>`` -> URI table: the JSON file (``{name: uri}``)
+    that ``PARTNER_TPU_MODEL_ZOO`` names (default
+    ``~/.cache/partner_tpu/model_zoo.json``), or {} where there is none."""
+    zoo_path = os.environ.get(
+        "PARTNER_TPU_MODEL_ZOO",
+        os.path.expanduser("~/.cache/partner_tpu/model_zoo.json"))
+    if not os.path.exists(zoo_path):
+        return {}
+    with open(zoo_path) as f:
+        return json.load(f)
+
+
+def _download_cached(url):
+    """Fetch a checkpoint URL into the ``PARTNER_TPU_CACHE`` directory
+    (default ``~/.cache/partner_tpu/checkpoints``) once -> the local file.
+    The file is written under a per-process name and renamed into place,
+    so processes sharing the cache never read a partial file."""
+    cache_dir = os.environ.get(
+        "PARTNER_TPU_CACHE",
+        os.path.expanduser("~/.cache/partner_tpu/checkpoints"))
+    os.makedirs(cache_dir, exist_ok=True)
+    base = os.path.basename(urllib.parse.urlparse(url).path) or "ckpt.pkl"
+    dest = os.path.join(
+        cache_dir, hashlib.sha1(url.encode()).hexdigest()[:16] + "_" + base)
+    if not os.path.exists(dest):
+        tmp = f"{dest}.part.{os.getpid()}"
+        try:
+            urllib.request.urlretrieve(url, tmp)
+            os.replace(tmp, dest)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return dest
+
+
+def resolve_checkpoint_uri(path):
+    """``modelzoo://name`` -> its registered URI; ``http(s)://`` and
+    ``file://`` URLs -> the cached local file; any other path as it is."""
+    if path.startswith("modelzoo://"):
+        name = path[len("modelzoo://"):]
+        zoo = _model_zoo()
+        if name not in zoo:
+            raise KeyError(f"model zoo has no entry {name!r} (registry: the "
+                           "PARTNER_TPU_MODEL_ZOO json)")
+        path = zoo[name]
+    if path.startswith(("http://", "https://", "file://")):
+        return _download_cached(path)
+    return path
 
 
 def load_checkpoint(path):
     """Load a port or a JAX checkpoint -> (payload, meta).
 
     ``path`` is a step directory, a ``latest`` pointer file, or a payload
-    file (``state.pt``, or a JAX ``state.pkl``). ``payload`` is
-    ``{"step", "state_dict"}``, the state_dict ready for the port's
-    detector module, plus ``opt_state`` (:func:`optimizer_state`'s layout)
-    where the checkpoint holds the Adam state; ``meta`` the step's
-    ``meta.json`` or None."""
-    if os.path.isfile(path) and os.path.basename(path) == "latest":
-        with open(path) as f:
-            name = f.read().strip()
-        return load_checkpoint(os.path.join(os.path.dirname(path), name))
-    if os.path.isdir(path):
-        payload_path = _payload_file(path)
-        if payload_path is None:
+    file (``state.pt``, or a JAX ``state.pkl``), local or remote, or a URI
+    of :func:`resolve_checkpoint_uri`. ``payload`` is ``{"step",
+    "state_dict"}``, the state_dict ready for the port's detector module,
+    plus ``opt_state`` (:func:`optimizer_state`'s layout) where the
+    checkpoint holds the Adam state; ``meta`` the step's ``meta.json`` or
+    None."""
+    path = resolve_checkpoint_uri(path)
+    if os.path.basename(path) == "latest" and rio.exists(path):
+        name = rio.read_bytes(path).decode().strip()
+        return load_checkpoint(_join(os.path.dirname(path), name))
+    payload_path = _payload_file(path)
+    if payload_path is None:
+        if os.path.isdir(path):
             raise FileNotFoundError(
                 f"{path} holds neither {PORT_PAYLOAD} nor {JAX_PAYLOAD}")
-    elif os.path.isfile(path):
+        if not rio.exists(path):
+            raise FileNotFoundError(path)
         payload_path = path
-    else:
-        raise FileNotFoundError(path)
+    data = rio.read_bytes(payload_path)
     if payload_path.endswith(".pkl"):
-        payload = _read_jax_payload(payload_path)
+        payload = _read_jax_payload(data)
     else:
-        payload = torch.load(payload_path, map_location="cpu",
+        payload = torch.load(io.BytesIO(data), map_location="cpu",
                              weights_only=True)
-    meta_path = os.path.join(os.path.dirname(payload_path), "meta.json")
+    meta_path = _join(os.path.dirname(payload_path), "meta.json")
     meta = None
-    if os.path.exists(meta_path):
-        with open(meta_path) as f:
-            meta = json.load(f)
+    if rio.exists(meta_path):
+        meta = json.loads(rio.read_bytes(meta_path).decode())
     return payload, meta
 
 
@@ -230,12 +296,11 @@ def _jax_opt_state(opt_state):
             "nu": flax_to_torch({"params": nu})}
 
 
-def _read_jax_payload(path):
-    """A JAX ``state.pkl`` -> {"step", "state_dict"[, "opt_state"]}
-    (params and batch_stats converted; the Adam count and moments too
-    where the pickle holds them)."""
-    with open(path, "rb") as f:
-        raw = _NumpyUnpickler(f).load()
+def _read_jax_payload(data):
+    """A JAX ``state.pkl``'s bytes -> {"step", "state_dict"[,
+    "opt_state"]} (params and batch_stats converted; the Adam count and
+    moments too where the pickle holds them)."""
+    raw = _NumpyUnpickler(io.BytesIO(data)).load()
     variables = {"params": raw["params"],
                  "batch_stats": raw.get("batch_stats") or {}}
     payload = {"step": int(raw.get("step", 0)),
@@ -244,3 +309,34 @@ def _read_jax_payload(path):
     if opt_state is not None:
         payload["opt_state"] = opt_state
     return payload
+
+
+# ---------------------------------------------------------------------------
+# reference (torch) weight layouts -> the flax layouts, as
+# ``partner_tpu/train/checkpoint.py:189-209`` has them; numpy in and out
+# ---------------------------------------------------------------------------
+
+
+def convert_torch_conv2d(w):
+    """(O, I, kh, kw) -> flax (kh, kw, I, O)."""
+    return np.transpose(w, (2, 3, 1, 0))
+
+
+def convert_torch_linear(w):
+    """(O, I) -> flax (I, O)."""
+    return np.transpose(w, (1, 0))
+
+
+def convert_torch_subm_conv(w):
+    """spconv SubMConv3d / SparseConv3d weight, (O, kz, ky, kx, I) or
+    (kz, ky, kx, I, O) -> the flat (K*I, O) kernel of
+    ``models.sparse.SparseConv`` (z, y, x kernel-major, then input
+    channel). The layout is told as in JAX: (kz, ky, kx, I, O) when
+    ``shape[0] < shape[-1]``, else (O, kz, ky, kx, I)."""
+    w = np.asarray(w)
+    if w.shape[0] < w.shape[-1]:
+        kzyxio = w
+    else:
+        kzyxio = np.transpose(w, (1, 2, 3, 4, 0))
+    kz, ky, kx, ci, co = kzyxio.shape
+    return kzyxio.reshape(kz * ky * kx * ci, co)

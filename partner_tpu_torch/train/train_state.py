@@ -26,7 +26,16 @@ def make_train_step(det, opt):
     detector's ``num_matched``; the CenterPoint detector's per-task lists
     ``det_loss``, ``hm_loss``, ``loc_loss``; the two-stage detector's
     ``roi_cls_loss``, ``roi_reg_loss``) and ``grad_norm``, as tensors
-    on the module's device (nothing is copied to the host)."""
+    on the module's device (nothing is copied to the host).
+
+    A detector that takes voxel inputs (the sparse backbone) raises here:
+    the loss path takes points only (ROADMAP.md queue 1, off the main
+    path: training through voxel inputs)."""
+    if det.input_kind != "points":
+        raise NotImplementedError(
+            f"a train step of a detector with {det.input_kind} inputs is not "
+            "ported (ROADMAP.md queue 1, off the main path: training through "
+            "voxel inputs)")
 
     def step(example, generator):
         det.module.train()

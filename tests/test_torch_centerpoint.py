@@ -502,9 +502,6 @@ def _model(**changes):
 
 
 REFUSALS = {
-    "sparse-backbone": (dict(backbone=dict(type="SpMiddleResNetFHD",
-                                           num_input_features=5)),
-                        ValueError, "sparse backbone"),
     "seg-head": (dict(seg_head=dict(type="SegHead", num_classes=4)),
                  NotImplementedError, "seg_head.py"),
     "no-bbox-head": (dict(bbox_head=None), NotImplementedError,

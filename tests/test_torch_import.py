@@ -21,7 +21,7 @@ def test_import_leaves_out_jax_and_flax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'partner_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 61, names\n"
+        "assert len(names) >= 66, names\n"
         "for n in ('ops.swin_block', 'ops.scatter_max', 'core.targets',\n"
         "          'losses.centernet', 'losses.matcher', 'losses.set_crit',\n"
         "          'train.optim', 'train.train_state', 'data.pipeline',\n"
@@ -31,7 +31,9 @@ def test_import_leaves_out_jax_and_flax():
         "          'native', 'ops.voxelize', 'models.readers',\n"
         "          'tools.single_inference', 'tools.multi_sweep_inference',\n"
         "          'data.waymo_decoder', 'models.two_stage',\n"
-        "          'tools.create_data'):\n"
+        "          'tools.create_data', 'models.sparse', 'models.backbone',\n"
+        "          'train.torch_convert', 'tools.convert_checkpoint',\n"
+        "          'utils.remote_io'):\n"
         "    assert 'partner_tpu_torch.' + n in names, n\n"
         "from partner_tpu_torch.models import build_detector\n"
         "from partner_tpu_torch.utils.config import load_config\n"
@@ -44,6 +46,16 @@ def test_import_leaves_out_jax_and_flax():
         "    cfg = load_config(f'configs/waymo/{c}.py')\n"
         "    build_detector(cfg['model'], cfg['train_cfg'], cfg['test_cfg'],\n"
         "                   device='meta')\n"
+        "for c in ('waymo_partner_36epoch', 'waymo_centerpoint_voxelnet_36epoch'):\n"
+        "    cfg = load_config(f'configs/waymo/{c}.py')\n"
+        "    m = dict(cfg['model'], backbone=dict(type='SpMiddleResNetFHD',\n"
+        "             num_input_features=cfg['model']['backbone'][\n"
+        "                 'num_input_features']))\n"
+        "    m['neck'] = dict(m['neck'], num_input_features=256)\n"
+        "    det = build_detector(m, cfg['train_cfg'], cfg['test_cfg'],\n"
+        "                         device='meta')\n"
+        "    assert det.input_kind == 'voxels', c\n"
+        "    assert det.module.backbone.out_features == 256, c\n"
         "from partner_tpu_torch import native\n"
         "assert native.available()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -109,6 +109,22 @@ def tiny_two_stage_cfg(config=TWO_STAGE, freeze=None,
     return m, _tiny_test_cfg(cfg)
 
 
+SPARSE_BEV = 256  # SpMiddleResNetFHD's BEV width on a 40-layer grid
+
+
+def with_sparse_backbone(m, index_method="binary"):
+    """A copy of a VoxelNet / VoxelNetV3 model cfg with ``backbone``
+    replaced by the sparse ``SpMiddleResNetFHD`` (its input width kept)
+    and the neck taking its BEV width."""
+    m = copy.deepcopy(m)
+    m["backbone"] = dict(type="SpMiddleResNetFHD",
+                         num_input_features=m["backbone"][
+                             "num_input_features"],
+                         index_method=index_method)
+    m["neck"] = dict(m["neck"], num_input_features=SPARSE_BEV)
+    return m
+
+
 def synthetic_points(rng, pc_range, n_points, n_pad, c=7):
     """(1, n_pad, c) cylinder-layout points [rho, phi, z, x, y, ...] and a
     (1, n_pad) mask; a few points fall outside the grid."""

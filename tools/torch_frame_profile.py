@@ -5,7 +5,7 @@ CUDA card.
     python3 tools/torch_frame_profile.py [--frames 10] [--out DIR]
                                          [--use-block-kernel] [--train]
                                          [--model flagship|centerpoint|
-                                                  centerpoint-velo]
+                                                  centerpoint-velo|sparse]
 
 Builds the flagship detector of ``partner_tpu_torch`` exactly as
 ``chip_smoke.py`` does (full width and grid, bf16, seeded random weights,
@@ -24,7 +24,10 @@ its whole-block route), then:
 ``chip_smoke.py``'s CenterPoint phase instead (the one-sweep config on the
 same sweep; ``centerpoint-velo``: the two-sweep config on 2 x 180,000
 points in 432,000 rows), with the stages backbone, RPN, head and decode +
-NMS.
+NMS. ``--model sparse`` profiles the flagship with the sparse
+``SpMiddleResNetFHD`` backbone (``chip_smoke.sparse_cfgs``) on the sweep's
+``dynamic_voxelize`` example (the voxelizer outside the frame), and also
+traces the backbone alone.
 
 ``--train`` profiles the flagship train step instead, on ``chip_smoke.py``'s
 train batch (4 synthetic 150,000-point sweeps with their boxes and vote
@@ -54,6 +57,16 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402  (its config, weights and sweep builders)
 
 
+def backbone_stage(mod, ex):
+    """The backbone of a frame: the point path, or the reader and the
+    backbone on a voxel example."""
+    if "features" in ex:
+        return mod.backbone(mod.reader(ex["features"]), ex["coords"],
+                            ex["voxel_mask"], mod.grid_size)
+    return mod.backbone.encode_points(ex["points"], ex["points_mask"],
+                                      mod.grid_size, mod.pc_range)
+
+
 def stage_times(det, ex, frames):
     """Median ms per predict stage between CUDA events at the stage
     boundaries, and the median host time of the whole frame."""
@@ -71,8 +84,7 @@ def stage_times(det, ex, frames):
         t0 = time.perf_counter()
         with torch.no_grad():
             ev[0].record()
-            x = mod.backbone.encode_points(
-                ex["points"], ex["points_mask"], mod.grid_size, mod.pc_range)
+            x = backbone_stage(mod, ex)
             ev[1].record()
             if mod.with_set_attention:
                 pos = constant(mod, "bev_pos", x.device,
@@ -169,6 +181,8 @@ def profile_frame(dev, args):
     n_points, c = chip_smoke.N_POINTS, 7
     if args.model == "flagship":
         m, tc = chip_smoke.frame_cfgs()
+    elif args.model == "sparse":
+        m, tc = chip_smoke.sparse_cfgs()
     elif args.model == "centerpoint":
         m, _, tc = chip_smoke.centerpoint_cfgs()
     else:   # the two-sweep velocity config: 8 features, twice the points
@@ -182,15 +196,27 @@ def profile_frame(dev, args):
         np.random.RandomState(chip_smoke.SEED),
         m["bbox_head"]["voxel_generator"]["range"], n_points, c=c)
     ex = chip_smoke.to_device({"points": pts, "points_mask": mask}, dev)
+    if args.model == "sparse":
+        from partner_tpu_torch.ops.voxelize import DeviceVoxelizer
+
+        vg = m["bbox_head"]["voxel_generator"]
+        ex = DeviceVoxelizer(vg, dev, vg["max_voxel_num"])(
+            ex["points"], ex["points_mask"])
     for _ in range(2):
         det.predict(ex)
     torch.cuda.synchronize()
-    return {"card": chip_smoke.gpu_name_and_power_limit(),
-            "torch": torch.__version__, "model": args.model,
-            "use_block_kernel": args.use_block_kernel,
-            "stage_ms": stage_times(det, ex, args.frames),
-            "trace": trace(lambda: det.predict(ex), args.out,
-                           args.model.replace("flagship", "frame"))}
+    out = {"card": chip_smoke.gpu_name_and_power_limit(),
+           "torch": torch.__version__, "model": args.model,
+           "use_block_kernel": args.use_block_kernel,
+           "stage_ms": stage_times(det, ex, args.frames),
+           "trace": trace(lambda: det.predict(ex), args.out,
+                          args.model.replace("flagship", "frame"))}
+    if args.model == "sparse":
+        with torch.no_grad():
+            out["backbone_trace"] = trace(
+                lambda: backbone_stage(det.module, ex), args.out,
+                "sparse_backbone")
+    return out
 
 
 def profile_train(dev, args):
@@ -230,7 +256,8 @@ def main():
     ap.add_argument("--train", action="store_true",
                     help="profile the train step instead of the frame")
     ap.add_argument("--model", default="flagship",
-                    choices=["flagship", "centerpoint", "centerpoint-velo"],
+                    choices=["flagship", "centerpoint", "centerpoint-velo",
+                             "sparse"],
                     help="the frame's model (the train step: flagship)")
     args = ap.parse_args()
     if args.train and args.model != "flagship":
