@@ -142,6 +142,22 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
    ``modelzoo://`` name, bit-equal to ``predict`` (:func:`sparse_phase`).
    The kernel phase also runs the whole-block case at BLOCK_DRAWS more
    draws against the float32 block (:func:`block_draws`).
+14. nuScenes: the three nuScenes CenterPoint configs
+   (``configs/nusc/voxelnet/nusc_centerpoint_voxelnet_{dcn,01voxel,
+   dcn_flip}.py``: six tasks, the DCN heads on the plain deformable conv,
+   the flip config's four copies a sample) at full width, random weights
+   with norms and offset convs randomized, on a synthetic 10-sweep set of
+   ~34,000-point sweeps written as nuScenes files and prepared by the
+   port's ``create_data nuscenes_data_prep``: each config's frame (median
+   ms, device busy and launches, kept boxes, a repeat bit-equal), the DCN
+   config's maps against the CPU on SMALL_GRID, one deformable branch's
+   ms beside its bound, ``dist_test`` of the DCN config (FPS, every frame
+   bit-equal to a direct ``predict``, the nuScenes metrics and results
+   json), its train step at batch 4 (:func:`timed_train_steps`) and two
+   train-CLI steps (:func:`nusc_phase`). The kernel phase holds the stem
+   at C_in 10 and 8 over the 345,000-row buffer, the scatter-max at the
+   three canvases and its float32 entry at the DCN train step's batch of
+   4 (:func:`nusc_kernel_cases`).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises before it, so the
@@ -465,14 +481,15 @@ def not_equal(name, out, ref):
 
 # ------------------------------------------------------------------ kernels
 
-def stem_case(gen, dev, cin=10, n_points=N_POINTS, batch=1):
+def stem_case(gen, dev, cin=10, n_points=N_POINTS, batch=1, rows=None):
     """Stem inputs at a point-path shape, bf16: the flagship's (1, 10,
     216,000) by default; (1, 11, 432,000) for the two-sweep CenterPoint
     config (cin 11, 2 x N_POINTS points); (4, 10, 180,000) for a train
-    step's batch (``batch`` 4 of TRAIN_POINTS); the same 1.2x padding."""
+    step's batch (``batch`` 4 of TRAIN_POINTS); the same 1.2x padding, or
+    ``rows`` rows (the nuScenes buffer, C_in 8)."""
     from partner_tpu_torch.ops import stem
 
-    p = int(n_points * 1.2)
+    p = rows or int(n_points * 1.2)
     bf = torch.bfloat16
     rnd = lambda *s: torch.randn(*s, generator=gen)
     x = rnd(batch, cin, p).to(bf)
@@ -652,6 +669,107 @@ def scatter_case(stem_out, dev, n_points=N_POINTS):
         idx[..., ::-1].transpose(0, 2, 1))                 # (B, 3, P) z, az, r
     return (stem_out, torch.from_numpy(coords).to(dev),
             torch.from_numpy(inb).to(dev), canvas)
+
+
+def nusc_scatter_case(stem_out, dev, config):
+    """Scatter-max inputs at a nuScenes config's canvas (``PolarDenseFHD``
+    pools 4 x 4 cells in the plane and 8 layers in z): the stem's (B, 64,
+    NUSC_ROWS) output and the canvas coords of B synthetic 10-sweep
+    samples (:func:`nusc_sweep_points`, NUSC_SAMPLE_POINTS each, seeds
+    SEED + 30, ...) in the config's layout, rows past a sample masked."""
+    m, _, _ = centerpoint_cfgs(config)
+    vg = m["bbox_head"]["voxel_generator"]
+    pr = vg["range"]
+    grid = [int(round((pr[3 + i] - pr[i]) / vg["voxel_size"][i]))
+            for i in range(3)]
+    canvas = (grid[2] // 8, grid[1] // 4, grid[0] // 4)     # (cz, cy, cx)
+    cell = np.asarray([(pr[3] - pr[0]) / grid[0] * 4,
+                       (pr[4] - pr[1]) / grid[1] * 4,
+                       (pr[5] - pr[2]) / grid[2] * 8], np.float32)
+    b, _, rows = stem_out.shape
+    coords = np.zeros((b, 3, rows), np.int32)
+    inb = np.zeros((b, rows), bool)
+    for i in range(b):
+        xyz = nusc_sweep_points(np.random.RandomState(SEED + 30 + i),
+                                NUSC_SAMPLE_POINTS, np.zeros((0, 9)))[:, :3]
+        if vg["voxel_shape"] == "cylinder":
+            xyz = np.stack([np.hypot(xyz[:, 0], xyz[:, 1]),
+                            np.arctan2(xyz[:, 1], xyz[:, 0]), xyz[:, 2]], 1)
+        idx = np.floor((xyz - np.asarray(pr[:3], np.float32)) / cell)
+        idx = idx.astype(np.int32)                           # r|x, az|y, z
+        n = len(idx)
+        coords[i, :, :n] = idx[:, ::-1].T
+        inb[i, :n] = np.all((idx >= 0) & (idx < np.asarray(canvas[::-1])), 1)
+    return (stem_out, torch.from_numpy(coords).to(dev),
+            torch.from_numpy(inb).to(dev), canvas)
+
+
+def nusc_kernel_cases(results, dev, card):
+    """The nuScenes shapes, over NUSC_ROWS rows (a ragged last m-tile):
+    the stem at C_in 10 (the cylinder configs' 7 point features + 3
+    decorations) at batch 1 and at C_in 8 (the cuboid flip config's 5 + 3)
+    at batch 1 and at the flip batch of 4, under :func:`compare_stem`'s
+    rule; the scatter-max of their outputs into each config's canvas (the
+    DCN and 01voxel cylinders from the C_in 10 output, the flip config's
+    cuboid from the C_in 8 batch of 4), and the float32 entry at the DCN
+    train step's batch of 4 into the DCN canvas, exactly. Drawn from
+    generators of their own; results land in ``results`` under
+    ``*_nusc_b1`` / ``*_nusc_b4`` (stem, C_in 8), ``*_nusc_c10_b1`` (stem,
+    C_in 10), ``*_nusc_<config>`` and ``*_nusc_dcn_train_f32``
+    (scatter-max)."""
+    from partner_tpu_torch.ops import scatter_max, stem
+
+    outs = {}
+    for cin, batch, tag in ((8, 1, "b1"), (8, 4, "b4"), (10, 1, "c10_b1")):
+        args = stem_case(torch.Generator().manual_seed(SEED + 40 + batch
+                                                       + 10 * (cin - 8)),
+                         dev, cin=cin, n_points=NUSC_SAMPLE_POINTS,
+                         batch=batch, rows=NUSC_ROWS)
+        shape = tuple(args[0].shape)
+        out = stem.stem2_channel_major(*args)
+        ref = stem.stem2_channel_major_plain(*args)
+        torch.cuda.synchronize()
+        err = compare_stem(f"stem2_channel_major nuScenes {shape}", out, ref,
+                           args)
+        r = dict(max_abs_err=err, **not_equal(f"stem {shape}", out, ref),
+                 **timed("stem", args,
+                         lambda: stem.stem2_channel_major(*args),
+                         lambda: stem.stem2_channel_major_plain(*args),
+                         label=f"stem nuScenes {shape} on {card}"))
+        results["stem"]["max_abs_err"] = max(results["stem"]["max_abs_err"],
+                                             err)
+        results["stem"].update({f"{k}_nusc_{tag}": v for k, v in r.items()
+                                if not k.startswith("library")})
+        outs[cin, batch] = ref
+        del args, out
+    for name, key, entry in (("dcn", (10, 1), "dcn"),
+                             ("01voxel", (10, 1), "01voxel"),
+                             ("dcn_flip", (8, 4), "dcn_flip"),
+                             ("dcn", (8, 4), "dcn_train_f32")):
+        sargs = nusc_scatter_case(outs[key], dev, NUSC_CONFIGS[name])
+        if entry.endswith("f32"):   # the train step's float32 features
+            sargs = (sargs[0].float(),) + tuple(sargs[1:])
+        out = scatter_max.scatter_max_fold2d(*sargs)
+        ref = scatter_max.scatter_max_fold2d_plain(*sargs)
+        torch.cuda.synchronize()
+        cz, cy, cx = sargs[3]
+        label = (f"scatter_max nuScenes {entry} {tuple(sargs[0].shape)} "
+                 f"{sargs[0].dtype} -> {(key[1], cy, cx, 64 * cz)}")
+        log(f"{label}: {sargs[2].sum(1).tolist()} of {sargs[2].shape[1]} "
+            "rows a sample in the canvas")
+        err = compare(label, out, ref, 0.0)
+        r = dict(max_abs_err=err, **not_equal(label, out, ref),
+                 **timed("scatter_max", sargs,
+                         lambda: scatter_max.scatter_max_fold2d(*sargs),
+                         lambda: scatter_max.scatter_max_fold2d_plain(*sargs),
+                         scatter_library_call(*sargs),
+                         label=f"{label} on {card}"))
+        results["scatter_max"]["max_abs_err"] = max(
+            results["scatter_max"]["max_abs_err"], err)
+        results["scatter_max"].update({f"{k}_nusc_{entry}": v
+                                       for k, v in r.items()})
+        del sargs, out, ref
+    torch.cuda.empty_cache()
 
 
 def scatter_backward_case(gen, sargs):
@@ -875,6 +993,7 @@ def kernel_phase(gen, dev, card):
         results["scatter_max"]["max_abs_err"], err4)
     results["scatter_max"].update({f"{k}_b4": v for k, v in r4.items()})
     del args4, out4, ref4, sargs4, out, ref
+    nusc_kernel_cases(results, dev, card)
     # the wrapper's zero fill of the canvas alone, in each dtype
     b, c, _ = sargs[0].shape
     for tag, dt in (("", torch.bfloat16), ("_f32", torch.float32)):
@@ -1122,8 +1241,8 @@ def frame_phase(dev, card):
     return results
 
 
-def check_detections(out, tc, box_dim=7):
-    post = tc["nms"]["nms_post_max_size"]
+def check_detections(out, tc, box_dim=7, n_tasks=1):
+    post = tc["nms"]["nms_post_max_size"] * n_tasks
     shapes = {"box3d_lidar": (1, post, box_dim), "scores": (1, post),
               "label_preds": (1, post), "mask": (1, post)}
     for k, shape in shapes.items():
@@ -1136,7 +1255,7 @@ def check_detections(out, tc, box_dim=7):
         raise AssertionError("non-finite detections")
     log(f"NMS kept {n_kept} of {tc['nms']['nms_pre_max_size']} candidates "
         f"(post max {post})")
-    if not 0 < n_kept < tc["nms"]["nms_pre_max_size"]:
+    if not 0 < n_kept < tc["nms"]["nms_pre_max_size"] * n_tasks:
         raise AssertionError(f"NMS kept {n_kept} boxes")
     return n_kept
 
@@ -2308,35 +2427,41 @@ def timed_predicts(det, ex, frames, want, run=None):
 
 
 @torch.no_grad()
-def centerpoint_reference(dev, card):
-    """The CenterPoint widths on SMALL_GRID, same weights and points: the
-    backbone BEV and each head map of the card (bf16 backbone with the
-    stem and scatter kernels) against the CPU (float32, plain twins), each
-    stage fed the CPU's input."""
+def centerpoint_reference(dev, card, config=CP_CONFIG, name="CenterPoint",
+                          seed=SEED + 7, head_tol=REF_BF16):
+    """A CenterPoint config's widths on SMALL_GRID, same weights and
+    points: the backbone BEV and each task's head maps of the card (bf16
+    backbone with the stem and scatter kernels; a DCN head's offset convs
+    drawn too) against the CPU (float32, plain twins), each stage fed the
+    CPU's input; the RPN and head within ``head_tol``."""
     from partner_tpu_torch.models import build_detector
 
-    m, _, tc = centerpoint_cfgs(grid=SMALL_GRID)
-    gen = torch.Generator().manual_seed(SEED + 7)
+    m, _, tc = centerpoint_cfgs(config, grid=SMALL_GRID)
+    gen = torch.Generator().manual_seed(seed)
     gpu = build_detector(m, None, tc, device=dev, generator=gen).module
     randomize_norms(gpu, gen)
-    m32, _, _ = centerpoint_cfgs(grid=SMALL_GRID, compute_dtype="float32")
+    randomize_offsets(gpu, gen)
+    m32, _, _ = centerpoint_cfgs(config, grid=SMALL_GRID,
+                                 compute_dtype="float32")
     cpu = build_detector(m32, None, tc, device="cpu").module
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
-    pts, mask = synthetic_sweep(np.random.RandomState(SEED + 7),
+    pts, mask = synthetic_sweep(np.random.RandomState(seed),
                                 m["bbox_head"]["voxel_generator"]["range"],
                                 30_000)
     exc = to_device({"points": pts, "points_mask": mask}, "cpu")
     exg = to_device({"points": pts, "points_mask": mask}, dev)
     bev = cpu.backbone.encode_points(exc["points"], exc["points_mask"],
                                      cpu.grid_size, cpu.pc_range)
-    rel_rms(f"CenterPoint backbone BEV on {card}",
+    rel_rms(f"{name} backbone BEV on {card}",
             gpu.backbone.encode_points(exg["points"], exg["points_mask"],
                                        gpu.grid_size, gpu.pc_range),
             bev, REF_BF16)
-    want = cpu.bbox_head(cpu.neck(bev))["det_preds"][0]
-    got = gpu.bbox_head(gpu.neck(bev.to(dev)))["det_preds"][0]
-    for k in sorted(want):
-        rel_rms(f"CenterPoint RPN + head {k}", got[k], want[k], REF_BF16)
+    want = cpu.bbox_head(cpu.neck(bev))["det_preds"]
+    got = gpu.bbox_head(gpu.neck(bev.to(dev)))["det_preds"]
+    for task, (g, w) in enumerate(zip(got, want)):
+        for k in sorted(w):
+            rel_rms(f"{name} RPN + head task{task} {k}", g[k], w[k],
+                    head_tol)
 
 
 def write_centerpoint_config(root, info_path):
@@ -3748,6 +3873,410 @@ def sparse_phase(dev, card):
     return res
 
 
+# ---------------------------------------------------------------- nuScenes
+
+NUSC_CLASSES = ("car", "truck", "construction_vehicle", "bus", "trailer",
+                "barrier", "motorcycle", "bicycle", "pedestrian",
+                "traffic_cone")
+NUSC_SIZES = ((4.6, 1.9, 1.7), (6.9, 2.5, 2.8), (6.5, 2.8, 3.2),
+              (11.0, 2.9, 3.5), (12.0, 2.9, 3.9), (0.5, 2.5, 1.0),
+              (2.1, 0.8, 1.5), (1.7, 0.6, 1.3), (0.7, 0.7, 1.8),
+              (0.4, 0.4, 1.1))
+LIDAR_BEAMS = 32             # the nuScenes lidar: 32 beams, -30.67..10.67 deg
+LIDAR_HEIGHT = 1.84          # metres above the ground
+NUSC_SWEEP_POINTS = 34_000   # returns a sweep of that lidar
+NUSC_SWEEPS = 10             # the configs' nsweeps
+NUSC_SAMPLE_POINTS = NUSC_SWEEPS * NUSC_SWEEP_POINTS
+NUSC_ROWS = 345_000          # --max_points: every point of a sample
+NUSC_DIR = os.path.join(ROOT, "configs", "nusc", "voxelnet")
+NUSC_CONFIGS = {n: os.path.join(NUSC_DIR, f"nusc_centerpoint_voxelnet_{n}.py")
+                for n in ("dcn", "01voxel", "dcn_flip")}
+
+
+def nusc_sweep_points(rng, n_points, boxes):
+    """One synthetic 32-beam sweep in its own lidar frame: about
+    ``n_points`` float32 rows [x, y, z, intensity, ring] of beams hitting
+    the ground or a wall 8-60 m out, a share of them inside the ``boxes``
+    and 1% off the ego vehicle within a metre of the sensor."""
+    n_az = max(1, n_points // LIDAR_BEAMS)
+    elev = np.deg2rad(np.linspace(-30.67, 10.67, LIDAR_BEAMS))
+    az = rng.uniform(-np.pi, np.pi, (LIDAR_BEAMS, n_az))
+    wall = rng.uniform(8.0, 60.0, (LIDAR_BEAMS, n_az))
+    ground = np.where(elev < 0, LIDAR_HEIGHT / np.tan(-np.minimum(elev,
+                                                                  -1e-3)),
+                      np.inf)[:, None]
+    r = np.minimum(wall, ground) * (1 + 0.01 * rng.randn(LIDAR_BEAMS, n_az))
+    xy = r * np.cos(elev)[:, None]
+    pts = np.stack([xy * np.cos(az), xy * np.sin(az),
+                    r * np.sin(elev)[:, None],
+                    rng.rand(LIDAR_BEAMS, n_az) * 100,
+                    np.broadcast_to(np.arange(LIDAR_BEAMS)[:, None],
+                                    az.shape)], -1).reshape(-1, 5)
+    n_obj = min(len(pts) // 4, 60 * len(boxes))
+    if len(boxes):
+        b = boxes[rng.randint(0, len(boxes), n_obj)]
+        local = (rng.rand(n_obj, 3) - 0.5) * b[:, 3:6]
+        c, sn = np.cos(b[:, -1]), np.sin(b[:, -1])
+        pts[:n_obj, 0] = b[:, 0] + local[:, 0] * c - local[:, 1] * sn
+        pts[:n_obj, 1] = b[:, 1] + local[:, 0] * sn + local[:, 1] * c
+        pts[:n_obj, 2] = b[:, 2] + local[:, 2]
+    # returns off the ego vehicle's roof, within a metre of the sensor
+    n_ego = len(pts) // 100
+    pts[-n_ego:, :2] = rng.uniform(-0.9, 0.9, (n_ego, 2))
+    pts[-n_ego:, 2] = rng.uniform(-0.3, 0.0, n_ego)
+    return pts[:n_points].astype(np.float32)
+
+
+def yaw_quaternion(yaw):
+    return [float(np.cos(yaw / 2)), 0.0, 0.0, float(np.sin(yaw / 2))]
+
+
+def write_nusc_scene(root, rng, n_frames, nsweeps, n_points, n_boxes=40,
+                     version="v1.0-trainval"):
+    """A synthetic nuScenes set under ``root`` in the layout the loader
+    reads, made into infos by the port's ``create_data
+    nuscenes_data_prep``: per frame a key-frame ``.bin`` of ``n_points``
+    rows (:func:`nusc_sweep_points`), ``nsweeps - 1`` earlier sweeps, each
+    its own ``.bin`` with a ``transform_matrix`` (the ego's motion, 0.05 s
+    a sweep) and ``time_lag``, ``n_boxes`` gt boxes (N, 9) of the ten
+    classes with velocities, and the lidar -> ego -> global calibration.
+    -> the infos' path."""
+    import pickle
+
+    from partner_tpu_torch.tools import create_data
+
+    os.makedirs(os.path.join(root, "samples"), exist_ok=True)
+    os.makedirs(os.path.join(root, "sweeps"), exist_ok=True)
+    frames = []
+    for i in range(n_frames):
+        cls = rng.randint(0, len(NUSC_CLASSES), n_boxes)
+        rho, phi = rng.uniform(4, 45, n_boxes), rng.uniform(-np.pi, np.pi,
+                                                            n_boxes)
+        boxes = np.zeros((n_boxes, 9), np.float32)
+        boxes[:, 0], boxes[:, 1] = rho * np.cos(phi), rho * np.sin(phi)
+        boxes[:, 3:6] = np.asarray(NUSC_SIZES)[cls]
+        boxes[:, 2] = boxes[:, 5] / 2 - LIDAR_HEIGHT
+        boxes[:, 6:8] = rng.randn(n_boxes, 2) * 2
+        boxes[:, 8] = rng.uniform(-np.pi, np.pi, n_boxes)
+        key = os.path.join(root, "samples", f"frame{i}.bin")
+        nusc_sweep_points(rng, n_points, boxes).tofile(key)
+        sweeps = []
+        for k in range(1, nsweeps):
+            lag = 0.05 * k
+            yaw = 0.02 * k * rng.randn()
+            t = np.eye(4)
+            t[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw),
+                                                       np.cos(yaw)]]
+            t[:3, 3] = [-8.0 * lag, 0.3 * rng.randn(), 0.0]
+            path = os.path.join(root, "sweeps", f"frame{i}_sweep{k}.bin")
+            nusc_sweep_points(rng, n_points, boxes).tofile(path)
+            sweeps.append({"lidar_path": path, "transform_matrix": t,
+                           "time_lag": lag})
+        frames.append({
+            "token": f"nusc{i:04d}", "lidar_path": key, "sweeps": sweeps,
+            "gt_boxes": boxes,
+            "gt_names": np.asarray(NUSC_CLASSES)[cls],
+            "timestamp": 1_533_000_000_000_000 + 500_000 * i,
+            "lidar2ego_rotation": yaw_quaternion(-np.pi / 2),
+            "lidar2ego_translation": [0.94, 0.0, LIDAR_HEIGHT],
+            "ego2global_rotation": yaw_quaternion(0.3 * i),
+            "ego2global_translation": [400.0 + 5 * i, 1100.0, 0.0]})
+    frames_pkl = os.path.join(root, "frames.pkl")
+    with open(frames_pkl, "wb") as f:
+        pickle.dump(frames, f)
+    return create_data.main(["nuscenes_data_prep", "--root_path", root,
+                             "--version", version, "--nsweeps",
+                             str(nsweeps), "--frames_pkl", frames_pkl])
+
+
+NUSC_FRAMES = 8              # frames on disk, and dist_test's frames
+NUSC_TIMED = 5               # timed frames a config after one warm-up
+NUSC_TRAIN_BATCH = 4         # the configs' samples_per_gpu
+
+
+def nusc_example(name, seed=SEED):
+    """One synthetic 10-sweep nuScenes sample (NUSC_SAMPLE_POINTS points of
+    :func:`nusc_sweep_points`, [x, y, z, intensity, time lag] with the lags
+    of 10 sweeps) in the layout config ``name``'s pipeline gives it, padded
+    to NUSC_ROWS rows; for the flip config its four copies (the
+    ``DoubleFlip`` rows) -> {"points", "points_mask"} numpy."""
+    from partner_tpu_torch.core.box_np_ops import transform_points
+    from partner_tpu_torch.data.pipeline import DoubleFlip
+    from partner_tpu_torch.utils.config import load_config
+
+    rng = np.random.RandomState(seed)
+    pts = nusc_sweep_points(rng, NUSC_SAMPLE_POINTS, np.zeros((0, 9)))
+    pts[:, 4] = 0.05 * rng.randint(0, NUSC_SWEEPS, len(pts))
+    cfg = load_config(NUSC_CONFIGS[name])
+    pts = transform_points(pts, cfg["voxel_generator"]["voxel_shape"])
+    copies = [pts]
+    if cfg["test_cfg"].get("double_flip"):
+        lidar = DoubleFlip()({"lidar": {"points": pts}}, None)[0]["lidar"]
+        copies += [lidar[k] for k in ("yflip_points", "xflip_points",
+                                      "double_flip_points")]
+    out = np.zeros((len(copies), NUSC_ROWS, pts.shape[1]), np.float32)
+    mask = np.zeros(out.shape[:2], bool)
+    for i, c in enumerate(copies):
+        out[i, :len(c)], mask[i, :len(c)] = c, True
+    return {"points": out, "points_mask": mask}
+
+
+def write_nusc_config(root, name, info_path):
+    """The nuScenes config ``name`` with ``score_threshold`` 0 (as
+    :func:`centerpoint_cfgs`), ``data.train`` / ``data.val`` at the
+    synthetic set, and a metrics record every step."""
+    path = os.path.join(root, f"nusc_{name}.py")
+    with open(path, "w") as f:
+        f.write(f"__file__ = {NUSC_CONFIGS[name]!r}\n"
+                f"exec(open({NUSC_CONFIGS[name]!r}).read())\n"
+                "test_cfg['score_threshold'] = 0.0\n"
+                "for _s in ('train', 'val'):\n"
+                f"    data[_s].update(info_path={info_path!r}, "
+                f"root_path={root!r})\n"
+                "log_config = dict(interval=1, hooks=[dict(type="
+                "'TextLoggerHook'), dict(type='MetricsSinkHook')])\n")
+    return path
+
+
+@torch.no_grad()
+def randomize_offsets(module, gen):
+    """Draw each deformable branch's offset conv (zero at init, which makes
+    the branch a plain 3x3 conv) from ``gen``: N(0, 0.05) on 64 channels
+    of features near 1 moves the samples by fractions of a cell."""
+    for name, m in module.named_modules():
+        if name.endswith("conv_offset"):
+            m.weight.copy_(0.05 * torch.randn(m.weight.shape, generator=gen))
+
+
+def nusc_batch(cfg_path, mode, samples, seed=SEED):
+    """The first ``samples`` frames of the config's ``mode`` set through the
+    port's data path (draws from ``RandomState(seed)``), collated to
+    NUSC_ROWS rows."""
+    from partner_tpu_torch.data import build_dataset
+    from partner_tpu_torch.data.collate import collate
+    from partner_tpu_torch.utils.config import load_config
+
+    ds = build_dataset(dict(load_config(cfg_path)["data"][mode]),
+                       dict(rng=np.random.RandomState(seed)))
+    return collate([ds[i] for i in range(samples)], max_points=NUSC_ROWS)
+
+
+def deform_conv_work(x, fa):
+    """FLOPs and bytes of one ``FeatureAdaption`` call on ``x`` (B, H, W, C):
+    its 1x1 offset conv and the deformable product in float32 (the
+    bilinear gather's arithmetic beside them not counted); x and the
+    weights read once, the offsets written and read once, the output
+    written once."""
+    b, h, w, c = x.shape
+    k, _, cout = fa.deform_kernel.shape
+    n_off = fa.conv_offset.weight.shape[0]
+    flops = 2 * b * h * w * (c * n_off + k * c * cout)
+    nbytes = 4 * (x.numel() + 2 * b * h * w * n_off + b * h * w * cout
+                  + fa.deform_kernel.numel() + fa.conv_offset.weight.numel())
+    return {"flops": {"f32": flops}, "bytes": nbytes}
+
+
+def nusc_phase(dev, card):
+    """The three nuScenes CenterPoint configs at full width on a synthetic
+    10-sweep set prepared by the port's ``create_data``: each config's
+    frame through ``predict`` (the flip config on its 4 copies), the DCN
+    head against the CPU on SMALL_GRID, one deformable branch alone,
+    ``dist_test`` of the DCN config bit-equal to direct predicts, its train
+    step at batch 4 and two train-CLI steps."""
+    import pickle
+    import tempfile
+
+    from partner_tpu_torch.data import build_dataset
+    from partner_tpu_torch.data.loader import DataLoader
+    from partner_tpu_torch.models import build_detector
+    from partner_tpu_torch.tools import dist_test, train
+    from partner_tpu_torch.train.checkpoint import save_checkpoint
+    from partner_tpu_torch.train.optim import build_one_cycle_optimizer
+    from partner_tpu_torch.train.train_state import make_train_step
+    from partner_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    res = {}
+    per_frame = {"stem": 1, "scatter_max": 1, "swin_attn": 0, "swin_block": 0}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        info = write_nusc_scene(root, np.random.RandomState(SEED + 20),
+                                NUSC_FRAMES, NUSC_SWEEPS, NUSC_SWEEP_POINTS)
+        log(f"nuScenes set: {NUSC_FRAMES} frames of {NUSC_SWEEPS} sweeps of "
+            f"~{NUSC_SWEEP_POINTS} points written and prepared by "
+            f"create_data nuscenes_data_prep in "
+            f"{time.perf_counter() - t0:.1f} s")
+        cfgs = {n: write_nusc_config(root, n, info) for n in NUSC_CONFIGS}
+        dets = {}
+        for name in NUSC_CONFIGS:
+            cfg = load_config(cfgs[name])
+            tc = dict(cfg["test_cfg"])
+            gen = torch.Generator().manual_seed(SEED + 22)
+            det = build_detector(cfg["model"], cfg["train_cfg"], tc,
+                                 device=dev, generator=gen)
+            randomize_norms(det.module, gen)
+            randomize_offsets(det.module, gen)
+            t0 = time.perf_counter()
+            batch = nusc_batch(cfgs[name], "val", 1)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            rows = batch["points_mask"].sum(1)
+            if name == "dcn":
+                log(f"nuScenes sample: {int(rows[0])} points in "
+                    f"{NUSC_SWEEPS} sweeps (key frame "
+                    f"{batch['metadata'][0]['n_key_points']}); the default "
+                    f"--max_points 200000 would drop "
+                    f"{max(0, int(rows[0]) - 200_000)} of them; buffer "
+                    f"{NUSC_ROWS} rows drops none; one sample through the "
+                    f"val pipeline in {host_ms:.1f} ms on the host")
+            if int(rows.max()) >= NUSC_ROWS:
+                raise AssertionError(f"nuScenes {name}: the buffer is full")
+            ex = to_device({k: batch[k] for k in ("points", "points_mask")},
+                           dev)
+            median, times, out, tally = timed_predicts(det, ex, NUSC_TIMED,
+                                                       per_frame)
+            busy, launches = device_busy(lambda: det.predict(ex))
+            with torch.no_grad():
+                maps = det.module(ex)["det_preds"]
+            if not all(torch.isfinite(v).all() for t in maps for v in
+                       t.values()):
+                raise AssertionError(f"nuScenes {name}: non-finite maps")
+            kept = check_detections(out, tc, box_dim=9, n_tasks=6)
+            if not identical(det.predict(ex), out):
+                raise AssertionError(f"nuScenes {name}: a repeat differs")
+            log(f"nuScenes {name} frame on {card}: {tuple(ex['points'].shape)}"
+                f" point rows, median {median!r} ms over {NUSC_TIMED} frames,"
+                f" all {times!r}; device busy {busy!r} ms and {launches!r} "
+                f"launches a frame; kernel launches {tally}; {kept} boxes "
+                f"kept over 6 tasks; repeat bit-equal")
+            res[name] = dict(median_ms=median, device_busy_ms=busy,
+                             launches_per_frame=launches, launches=tally,
+                             kept=kept, rows=int(rows.max()))
+            if name == "dcn":
+                with torch.no_grad():
+                    mod = det.module
+                    bev = mod.backbone.encode_points(
+                        ex["points"], ex["points_mask"], mod.grid_size,
+                        mod.pc_range)
+                    x = torch.relu(mod.bbox_head.Conv_0(mod.neck(bev)))
+                    fa = mod.bbox_head.task0.feature_adapt_cls
+                    r = call_and_device_ms("ms", lambda: fa(x))
+                b_ms, b_by = bound(deform_conv_work(x, fa))
+                r.update(bound_ms=b_ms, bound_by=b_by, calls_a_frame=12,
+                         shape=tuple(x.shape))
+                log(f"deformable conv (FeatureAdaption, plain torch) at "
+                    f"{tuple(x.shape)} on {card}: {r['ms']!r} ms a call "
+                    f"({r['device_ms']!r} device), bound {b_ms!r} ms by "
+                    f"{b_by}; 12 calls a frame (6 tasks x 2 branches)")
+                res["deform_conv"] = r
+                dets[name] = det
+            else:
+                del det
+            del maps, out, ex
+            torch.cuda.empty_cache()
+
+        # the float32 RPN and heads against the CPU's: summation order
+        centerpoint_reference(dev, card, NUSC_CONFIGS["dcn"], "nuScenes DCN",
+                              SEED + 21, REF_F32)
+
+        # ---- dist_test of the DCN config, bit-equal to direct predicts
+        det = dets.pop("dcn")
+        save_checkpoint(os.path.join(root, "ckpt"), 0,
+                        det.module.state_dict())
+        work_dir = os.path.join(root, "eval")
+        _, ((metrics, seg, pan), fps), dist_launches = counted(
+            lambda: dist_test.main([
+                cfgs["dcn"], "--checkpoint",
+                os.path.join(root, "ckpt", "latest"), "--work_dir",
+                work_dir, "--max_points", str(NUSC_ROWS), "--device",
+                torch.device(dev).type]))
+        with open(os.path.join(work_dir, "prediction.pkl"), "rb") as f:
+            preds = pickle.load(f)
+        ds = build_dataset(dict(load_config(cfgs["dcn"])["data"]["val"]))
+        direct = {}
+        for b in DataLoader(ds, 1, shuffle=False, max_points=NUSC_ROWS):
+            e = to_device({k: b[k] for k in ("points", "points_mask")}, dev)
+            direct[b["metadata"][0]["token"]] = kept_boxes(det.predict(e))
+        want = {k: n * NUSC_FRAMES for k, n in per_frame.items()}
+        if dist_launches != want:
+            raise AssertionError(f"nuScenes dist_test: launches "
+                                 f"{dist_launches} != {want}")
+        if sorted(preds) != sorted(direct) or not all(
+                np.array_equal(preds[t][k], direct[t][k])
+                for t in direct for k in direct[t]):
+            raise AssertionError("nuScenes dist_test: a frame differs from "
+                                 "a direct predict")
+        keys = ["mAP", "NDS", "mATE", "mASE", "mAOE", "mAVE"]
+        if seg is not None or pan is not None or not all(
+                np.isfinite(metrics[k]) for k in keys):
+            raise AssertionError(f"nuScenes dist_test: {metrics}")
+        with open(metrics["results_path"]) as f:
+            results = json.load(f)["results"]
+        if sorted(results) != sorted(preds) or not all(
+                len(results[t]) == len(preds[t]["scores"]) for t in preds):
+            raise AssertionError("nuScenes dist_test: the results json")
+        log(f"nuScenes dist_test (dcn) on {card}: middle-third FPS {fps!r} "
+            f"over {NUSC_FRAMES} frames of {NUSC_SWEEPS} sweeps in "
+            f"{NUSC_ROWS} rows; launches {dist_launches}; every frame "
+            f"bit-equal to a direct predict; " + ", ".join(
+                f"{k} {metrics[k]!r}" for k in keys)
+            + f"; results json with {sum(map(len, results.values()))} boxes")
+        res["dist_test"] = dict(fps=fps, launches=dist_launches)
+
+        # ---- the train step at batch 4 and the train CLI
+        ex = to_device({k: v for k, v in nusc_batch(
+            cfgs["dcn"], "train", NUSC_TRAIN_BATCH).items()
+            if k in det.loss_keys}, dev)
+        cfg = load_config(cfgs["dcn"])
+        step = make_train_step(det, build_one_cycle_optimizer(
+            det.module, lr_max=cfg["lr_config"]["lr_max"], total_steps=1000))
+        want = {"stem": 0, "scatter_max": 1, "swin_attn": 0, "swin_block": 0}
+        launches, median, times, _, peak = timed_train_steps(
+            det, step, ex, None, want, "nuScenes DCN train step")
+        log(f"nuScenes DCN train step, batch {NUSC_TRAIN_BATCH}, on {card}: "
+            f"median {median!r} ms over {TRAIN_STEPS} steps, all {times!r};"
+            f" peak memory {peak!r} GiB; launches over {TRAIN_STEPS + 1} "
+            f"steps {launches}; every gradient finite, every parameter and "
+            "BatchNorm statistic moved")
+        res["train"] = dict(median_ms=median, peak_gib=peak,
+                            launches=launches)
+        del det, step, ex
+        torch.cuda.empty_cache()
+        work_dir = os.path.join(root, "train")
+        wall_ms, steps, cli_launches = counted(lambda: train.main([
+            cfgs["dcn"], "--work_dir", work_dir, "--batch_size",
+            str(NUSC_TRAIN_BATCH), "--total_steps", "2",
+            "--max_steps_per_epoch", "2", "--max_points", str(NUSC_ROWS),
+            "--seed", str(SEED), "--device", torch.device(dev).type]))
+        with open(os.path.join(work_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        ckpts = sorted(d for d in os.listdir(work_dir)
+                       if d.startswith("ckpt_"))
+    if steps != 2 or ckpts[-1:] != ["ckpt_00000002"] or [
+            r["step"] for r in recs] != [0, 1]:
+        raise AssertionError(f"nuScenes train CLI: steps {steps}, "
+                             f"checkpoints {ckpts}, records {recs}")
+    if cli_launches != {"stem": 0, "scatter_max": 2, "swin_attn": 0,
+                        "swin_block": 0}:
+        raise AssertionError(f"nuScenes train CLI: launches {cli_launches}")
+    for r in recs:
+        vals = {k: r[k] for k in ("loss", "hm_loss", "loc_loss", "grad_norm")}
+        flat = [x for v in vals.values()
+                for x in (v if isinstance(v, list) else [v])]
+        if not all(np.isfinite(flat)):
+            raise AssertionError(f"nuScenes train CLI: {vals}")
+        log(f"nuScenes train CLI step {r['step']} on {card}: time "
+            f"{r['time']!r} s, data_time {r['data_time']!r} s, loss "
+            f"{r['loss']!r}, grad_norm {r['grad_norm']!r}")
+    res["train_cli"] = dict(launches=cli_launches, wall_s=wall_ms / 1e3)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"nuScenes train CLI: 2 steps at batch {NUSC_TRAIN_BATCH} and one "
+        f"checkpoint in {wall_ms / 1e3!r} s; phase peak memory "
+        f"{res['peak_gib']!r} GiB, {time.perf_counter() - t_phase:.1f} s in "
+        "all")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this run needs one NVIDIA card")
@@ -3785,6 +4314,7 @@ def main():
     serving = serving_phase(dev, card)
     nat = native_phase(card)
     sparse = sparse_phase(dev, card)
+    nusc = nusc_phase(dev, card)
 
     meta = {
         "stem": ("partner_tpu_torch/csrc/stem.cu",
@@ -3831,6 +4361,13 @@ def main():
                     sparse_frame_launches=sparse["frame"]["launches"][
                         meta[name][2]][name],
                     sparse_dist_test_launches=sparse["dist_test"]["launches"][
+                        name],
+                    **{f"nusc_{c}_frame_launches": nusc[c]["launches"][name]
+                       for c in NUSC_CONFIGS},
+                    nusc_train_launches=nusc["train"]["launches"][name],
+                    nusc_dist_test_launches=nusc["dist_test"]["launches"][
+                        name],
+                    nusc_train_cli_launches=nusc["train_cli"]["launches"][
                         name],
                     **r)
                for name, r in kres.items()]
@@ -3921,6 +4458,27 @@ def main():
         f"dist_test from modelzoo:// middle-third FPS "
         f"{sparse['dist_test']['fps']!r}; block kernel at more draws "
         f"{kres['swin_block']['more_draws']}")
+    st, sm, dc = kres["stem"], kres["scatter_max"], nusc["deform_conv"]
+    log(f"summary: card {card}, nuScenes CenterPoint frame median ms "
+        + ", ".join(f"{c} {nusc[c]['median_ms']!r} (device busy "
+                    f"{nusc[c]['device_busy_ms']!r}, "
+                    f"{nusc[c]['launches_per_frame']!r} launches)"
+                    for c in NUSC_CONFIGS)
+        + f"; deformable conv {dc['ms']!r} ms a call ({dc['device_ms']!r} "
+        f"device, bound {dc['bound_ms']!r}) at {dc['shape']}, 12 a frame; "
+        f"dist_test (dcn) middle-third FPS {nusc['dist_test']['fps']!r}; "
+        f"train step at batch 4 {nusc['train']['median_ms']!r} ms, peak "
+        f"{nusc['train']['peak_gib']!r} GiB; train CLI 2 steps in "
+        f"{nusc['train_cli']['wall_s']!r} s; stem C_in 8 device "
+        f"{st['device_ms_nusc_b1']!r} / {st['device_ms_nusc_b4']!r} ms at "
+        f"batch 1 / 4 (bound {st['bound_ms_nusc_b1']!r} / "
+        f"{st['bound_ms_nusc_b4']!r}), C_in 10 "
+        f"{st['device_ms_nusc_c10_b1']!r} ms (bound "
+        f"{st['bound_ms_nusc_c10_b1']!r}); scatter-max device "
+        + ", ".join(f"{c} {sm['device_ms_nusc_' + c]!r} (bound "
+                    f"{sm['bound_ms_nusc_' + c]!r}, "
+                    f"{sm['not_equal_nusc_' + c]} not equal)"
+                    for c in list(NUSC_CONFIGS) + ["dcn_train_f32"]))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,10 @@ submodules carry flax's names (``Conv_0``, ``BatchNorm_0``,
 - the ``layers.BatchNorm`` wrapper's nested ``BatchNorm_k/BatchNorm_0``
   collapses to ``BatchNorm_k``;
 - raw parameters keep name and layout: ``stem{i}_kernel/scale/bias``,
-  the ``stem{i}_mean/var`` stats, and ``tau``;
+  the ``stem{i}_mean/var`` stats, ``tau``, and a DCN head's
+  ``deform_kernel`` (K, C, Cout) and ``deform_bias`` (its 1x1
+  ``conv_offset``, ``hm_out`` and bare ``BatchNorm_0`` map by the Conv and
+  BatchNorm rules);
 - the sparse backbone's leaves keep flax's names and layouts: a
   ``SparseConv_k``'s flat (K*Cin, Cout) ``kernel`` and its ``bias``, and a
   ``MaskedBatchNorm_k``'s ``scale``, ``bias``, ``mean`` and ``var``.

@@ -5,9 +5,10 @@
 // partner_tpu_torch/ops/stem.py.
 //
 // Computes, per point p of x (B, C_in, P) bf16, channel-major, for the
-// point-path widths of the repo's configs, C_in = 10 (7 point features +
-// 3 decorations) and 11 (the two-sweep configs' 8 + 3), each its own
-// instantiation of the kernel template on CIN:
+// point-path widths of the repo's configs, C_in = 8 (the cuboid nuScenes
+// configs' 5 point features + 3 decorations), 10 (7 + 3) and 11 (the
+// two-sweep configs' 8 + 3), each its own instantiation of the kernel
+// template on CIN:
 //   h   = relu(fl(bf16(W1 x) * m) * a1 + b1)          -> bf16, 32 wide
 //   out = relu(fl(bf16(W2 h) * m) * a2 + b2)          -> bf16, 64 wide
 // with f32 accumulation, m the point mask, and a/b the folded inference
@@ -231,7 +232,7 @@ stem2_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ mask,
     bw1[j][0] = (uint32_t)__ldg(r + 2 * t4) |
                 ((uint32_t)__ldg(r + 2 * t4 + 1) << 16);
     // k 2t + 8 and 2t + 9, zero at and past CIN (the padded K rows): at
-    // C_in 10 only t = 0 reads, at 11 also t = 1 its low half
+    // C_in 8 none reads, at 10 only t = 0, at 11 also t = 1 its low half
     const int k = 2 * t4 + 8;
     bw1[j][1] = (k < CIN ? (uint32_t)__ldg(r + k) : 0u) |
                 ((k + 1 < CIN ? (uint32_t)__ldg(r + k + 1) : 0u) << 16);
@@ -366,7 +367,7 @@ int launch(const bf16* x, const uint8_t* mask, const bf16* w1,
 
 }  // namespace
 
-// cin selects the instantiation: 10 or 11, else cudaErrorInvalidValue.
+// cin selects the instantiation: 8, 10 or 11, else cudaErrorInvalidValue.
 extern "C" int ptt_stem2_bf16(const void* x, const void* mask, const void* w1,
                               const void* a1, const void* b1, const void* w2,
                               const void* a2, const void* b2, void* out,
@@ -388,6 +389,8 @@ extern "C" int ptt_stem2_bf16(const void* x, const void* mask, const void* w1,
 #define PTT_STEM_LAUNCH(C, V) \
   launch<C, V>(x_, m_, w1_, a1_, b1_, w2_, a2_, b2_, o_, B, P, s)
   switch (cin) {
+    case 8:
+      return vec ? PTT_STEM_LAUNCH(8, true) : PTT_STEM_LAUNCH(8, false);
     case 10:
       return vec ? PTT_STEM_LAUNCH(10, true) : PTT_STEM_LAUNCH(10, false);
     case 11:

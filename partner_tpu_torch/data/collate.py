@@ -21,7 +21,7 @@ model step consumes directly:
 
 import numpy as np
 
-_FLIP_KEYS = ("yflip_points", "xflip_points", "double_flip_points")
+FLIP_KEYS = ("yflip_points", "xflip_points", "double_flip_points")
 
 
 def collate(batch_list, max_points=200000, max_voxels=None):
@@ -33,13 +33,13 @@ def collate(batch_list, max_points=200000, max_voxels=None):
     # double-flip TTA: each example contributes 4 consecutive batch rows
     # [orig, yflip, xflip, xyflip] — the grouping double_flip_average
     # de-flips (models/center_head.py:572-…; reference center_head.py:290-348)
-    double_flip = all(k in first for k in _FLIP_KEYS)
+    double_flip = all(k in first for k in FLIP_KEYS)
     group = 4 if double_flip else 1
     c = first["points"].shape[1]
     pts = np.zeros((b * group, max_points, c), np.float32)
     pmask = np.zeros((b * group, max_points), bool)
     for i, ex in enumerate(batch_list):
-        variants = ([ex["points"]] + [ex[k] for k in _FLIP_KEYS]
+        variants = ([ex["points"]] + [ex[k] for k in FLIP_KEYS]
                     if double_flip else [ex["points"]])
         for j, p in enumerate(variants):
             p = p[:max_points]

@@ -1,10 +1,10 @@
 """Dataset classes (counterpart of ``partner_tpu/data/datasets.py``):
 ``PointCloudDataset`` over an info pkl and a pipeline, with its sampler
 group ``flag``; the ``ConcatDataset`` and ``RepeatDataset`` wrappers, whose
-flags keep each source its own group; and ``WaymoDataset`` with its
-``evaluation``. A dataset hands its ``rng`` (an ``np.random.RandomState``)
-to its pipeline, whose train-mode stages draw from it. Not ported:
-``NuScenesDataset`` (ROADMAP.md queue 1: nuScenes).
+flags keep each source its own group; and ``WaymoDataset`` and
+``NuScenesDataset`` with their ``evaluation``. A dataset hands its ``rng``
+(an ``np.random.RandomState``) to its pipeline, whose stages draw from it
+(the nuScenes sweeps in every mode, the augmentations in train mode).
 """
 
 import pickle
@@ -151,3 +151,60 @@ class WaymoDataset(PointCloudDataset):
         legacy = waymo_ap_aph(detections, gts, classes)
         metrics.update({f"greedy/{k}": v for k, v in legacy.items()})
         return metrics, None
+
+
+@DATASETS.register_module(name="NuScenesDataset")
+class NuScenesDataset(PointCloudDataset):
+    """nuScenes infos (``tools/create_data.py nuscenes_data_prep``): a
+    key-frame ``lidar_path``, its ``sweeps`` (each a ``lidar_path``, a
+    ``transform_matrix`` into the key frame and a ``time_lag``), gt boxes
+    (N, 9) [x, y, z, dx, dy, dz, vx, vy, yaw] with ``gt_names``, and the
+    lidar -> ego -> global calibration the results writer uses."""
+
+    NumPointFeatures = 4  # x, y, z, intensity
+    # the loader appends the time-lag channel at every nsweeps
+    ExtraPointChannels = 1
+
+    CLASSES = (
+        "car", "truck", "construction_vehicle", "bus", "trailer", "barrier",
+        "motorcycle", "bicycle", "pedestrian", "traffic_cone",
+    )
+
+    def __init__(self, *args, version="v1.0-trainval", **kwargs):
+        super().__init__(*args, **kwargs)
+        self.version = version
+
+    def base_res(self, info):
+        res = super().base_res(info)
+        res["lidar"]["transform_type"] = "raw"
+        res["painted"] = False
+        return res
+
+    def evaluation(self, detections, output_dir=None, testset=False,
+                   final_seg=None, final_ins=None):
+        """Writes ``results_nusc.json`` (``eval/nuscenes.py``) and, unless
+        ``testset``, computes the devkit-protocol metrics
+        (``eval/nusc_protocol.py``: mAP, NDS, TP errors), the quick greedy
+        ones under ``greedy/`` and the json's path under ``results_path``.
+        Returns (det metrics, seg mIoU, panoptic), the JAX package's
+        3-tuple; the seg and panoptic entries are None, and passing seg or
+        panoptic inputs raises (they wait for ``seg_head``)."""
+        from ..eval.detection_metrics import gts_from_infos, nusc_map_nds
+        from ..eval.nusc_protocol import nusc_official_metrics
+        from ..eval.nuscenes import write_nusc_results
+
+        if final_seg or final_ins:
+            raise NotImplementedError(
+                "nuScenes seg / panoptic evaluation is not ported "
+                "(ROADMAP.md queue 1, off the main path: seg_head)")
+        path = write_nusc_results(detections, self.infos, output_dir,
+                                  self.CLASSES)
+        det_metrics = None
+        if detections and not testset:
+            classes = list(self._class_names) or list(self.CLASSES)
+            gts = gts_from_infos(self.infos, classes)
+            det_metrics = nusc_official_metrics(detections, gts, classes)
+            legacy = nusc_map_nds(detections, gts, classes)
+            det_metrics.update({f"greedy/{k}": v for k, v in legacy.items()})
+            det_metrics["results_path"] = path
+        return det_metrics, None, None

@@ -1,5 +1,5 @@
-"""Data pipeline stages of the flagship ``train_pipeline`` and
-``test_pipeline`` (host side, numpy).
+"""Data pipeline stages of the ``train_pipeline`` and ``test_pipeline``
+configs (host side, numpy).
 
 Counterpart of ``partner_tpu/data/pipeline.py``; the port cannot import
 that module (it imports jax through ``partner_tpu.core`` and
@@ -9,21 +9,22 @@ mode, padded targets), and the voxel grid is built on the device inside
 the model, unless ``Voxelization`` runs in ``hard`` mode (host voxels,
 through the native library where it is built):
 
-  LoadPointCloudFromFile -> LoadPointCloudAnnotations -> Preprocess
+  LoadPointCloudFromFile (Waymo frame pickles, or nuScenes ``.bin`` files
+  with their sweeps) -> LoadPointCloudAnnotations -> Preprocess
   (train: GT-AUG, flips, rotation, scaling, translation; both modes:
   cart -> polar) -> Voxelization (grid metadata; train: the gt range
-  filter) -> AssignLabel (train: center targets, vote map, ``global_box``)
-  -> Reformat (data bundle)
+  filter) -> [DoubleFlip (test-time flips)] -> AssignLabel (train: center
+  targets, vote map, ``global_box``) -> Reformat (data bundle)
 
-Every random draw (GT-AUG, the augmentations, ``shuffle_points``) comes
-from the ``np.random.RandomState`` that ``Preprocess`` is given (the
-dataset passes its own), in the JAX package's order, where the JAX package
-draws from the global ``np.random``: one seed gives the same batches.
+Every random draw (the nuScenes sweeps, GT-AUG, the augmentations,
+``shuffle_points``) comes from the ``np.random.RandomState`` that the
+stage is given (the dataset passes its own to each), in the JAX package's
+order, where the JAX package draws from the global ``np.random``: one
+seed gives the same batches.
 
 Not ported, and raising ``NotImplementedError`` where a config asks for
-them: the nuScenes loader (ROADMAP.md queue 1, nuScenes), sector targets
-(``nsectors > 1``, PolarStream) and the seg labels (``seg_head``; both
-ROADMAP.md queue 1, off the main path).
+them: sector targets (``nsectors > 1``, PolarStream) and the seg labels
+(``seg_head``; both ROADMAP.md queue 1, off the main path).
 """
 
 import pickle
@@ -34,6 +35,7 @@ from ..core import box_np_ops
 from ..core.targets import CenterTargetAssigner, draw_votemap
 from ..ops.voxelize import VoxelGenerator
 from . import augment
+from .collate import FLIP_KEYS
 from .gt_aug import DataBaseSampler
 from .registry import PIPELINES
 
@@ -43,6 +45,33 @@ TRAIN_MODES = ("train", "debug_gt")
 def get_obj(path):
     with open(path, "rb") as f:
         return pickle.load(f)
+
+
+def read_file(path, num_point_feature=4):
+    """A nuScenes ``.bin`` lidar file (float32 rows of 5: x, y, z,
+    intensity, ring index) -> its first ``num_point_feature`` columns."""
+    return np.fromfile(path, dtype=np.float32).reshape(-1, 5)[
+        :, :num_point_feature]
+
+
+def remove_close(points_t, radius=1.0):
+    """points_t (C, N) -> the columns outside the ``radius`` square around
+    the sensor."""
+    close = (np.abs(points_t[0]) < radius) & (np.abs(points_t[1]) < radius)
+    return points_t[:, ~close]
+
+
+def read_sweep(sweep):
+    """One earlier nuScenes sweep -> (points (N, 4) in the key frame's
+    lidar frame, time lag (N, 1)): the points near the sensor dropped, the
+    rest moved by the sweep's ``transform_matrix`` where it has one."""
+    pts = remove_close(read_file(str(sweep["lidar_path"])).T, 1.0)
+    n = pts.shape[1]
+    if sweep.get("transform_matrix") is not None:
+        pts[:3] = sweep["transform_matrix"].dot(
+            np.vstack((pts[:3], np.ones(n))))[:3]
+    times = sweep["time_lag"] * np.ones((1, n))
+    return pts.T, times.T
 
 
 def read_single_waymo(obj):
@@ -64,15 +93,29 @@ def read_single_waymo_sweep(sweep):
 
 @PIPELINES.register_module(name="LoadPointCloudFromFile")
 class LoadPointCloudFromFile:
-    def __init__(self, dataset="WaymoDataset", **kwargs):
-        if dataset != "WaymoDataset":
+    """The frame's points. ``WaymoDataset``: the frame pickle (or the
+    info's own ``points``), then ``nsweeps - 1`` earlier sweeps with a
+    time-lag column. ``NuScenesDataset``: the key frame's ``.bin`` (x, y,
+    z, intensity) and, for ``nsweeps > 1``, ``nsweeps - 1`` of the info's
+    sweeps drawn from ``rng`` (with replacement only when there are fewer),
+    each moved into the key frame; a time-lag column always (0 for the key
+    frame), and ``n_key_points``, the key frame's count."""
+
+    def __init__(self, dataset="WaymoDataset", rng=None, **kwargs):
+        if dataset not in ("WaymoDataset", "NuScenesDataset"):
             raise NotImplementedError(
-                f"{dataset} is not ported to partner_tpu_torch (ROADMAP.md "
-                "queue 1: nuScenes)")
+                f"{dataset} is not ported to partner_tpu_torch")
+        if "seg" in kwargs.get("super_tasks", ["det"]):
+            raise NotImplementedError(
+                "seg labels are not ported to partner_tpu_torch (ROADMAP.md "
+                "queue 1, off the main path: seg_head)")
         self.type = dataset
+        self.rng = rng if rng is not None else np.random.RandomState(0)
 
     def __call__(self, res, info):
         res["type"] = self.type
+        if self.type == "NuScenesDataset":
+            return self._nuscenes(res, info)
         nsweeps = res["lidar"]["nsweeps"]
         if "points" in info:  # pre-materialized (synthetic / test)
             # a copy: the train stages flip, rotate, scale and shuffle the
@@ -92,6 +135,31 @@ class LoadPointCloudFromFile:
             times = np.concatenate(sweep_times, axis=0).astype(points.dtype)
             points = np.hstack([points, times])
         res["lidar"]["points"] = points
+        return res, info
+
+    def _nuscenes(self, res, info):
+        nsweeps = res["lidar"]["nsweeps"]
+        if "points" in info:
+            points = info["points"]
+            times = np.zeros((len(points), 1), points.dtype)
+        else:
+            points = read_file(str(info["lidar_path"]))
+            times = np.zeros((points.shape[0], 1))
+        res["lidar"]["n_key_points"] = len(points)
+        sweeps = info.get("sweeps")
+        if nsweeps > 1 and sweeps:
+            sweep_points, sweep_times = [points], [times]
+            chosen = self.rng.choice(len(sweeps),
+                                     min(nsweeps - 1, len(sweeps)),
+                                     replace=len(sweeps) < nsweeps - 1)
+            for i in chosen:
+                p, t = read_sweep(sweeps[i])
+                sweep_points.append(p)
+                sweep_times.append(t)
+            points = np.concatenate(sweep_points, axis=0)
+            times = np.concatenate(sweep_times, axis=0).astype(points.dtype)
+        res["lidar"]["points"] = np.hstack([points,
+                                            times.astype(points.dtype)])
         return res, info
 
 
@@ -306,14 +374,43 @@ class AssignLabel:
         return res, info
 
 
-@PIPELINES.register_module(name="Reformat")
-class Reformat:
+@PIPELINES.register_module(name="DoubleFlip")
+class DoubleFlip:
+    """Test-time flips of the (cartesian-layout) points for the
+    double-flip average: ``yflip_points`` (y negated), ``xflip_points``
+    (x negated) and ``double_flip_points`` (both)."""
+
     def __init__(self, **kwargs):
         pass
 
     def __call__(self, res, info):
+        pts = res["lidar"]["points"]
+        for key, cols in (("yflip_points", (1,)), ("xflip_points", (0,)),
+                          ("double_flip_points", (0, 1))):
+            flipped = pts.copy()
+            for c in cols:
+                flipped[:, c] = -flipped[:, c]
+            res["lidar"][key] = flipped
+        return res, info
+
+
+@PIPELINES.register_module(name="Reformat")
+class Reformat:
+    """The data bundle: points, the grid's metadata, host voxels in hard
+    mode, the targets in train mode, ``n_key_points`` in the metadata where
+    the loader counted them, and with ``double_flip`` the three flipped
+    copies of the points (``collate`` puts them in the rows after the
+    original)."""
+
+    def __init__(self, double_flip=False, **kwargs):
+        self.double_flip = double_flip
+
+    def __call__(self, res, info):
         voxels = res["lidar"].get("voxels", {})
-        bundle = dict(metadata=res.get("metadata"))
+        meta = res.get("metadata")
+        if isinstance(meta, dict) and "n_key_points" in res["lidar"]:
+            meta = dict(meta, n_key_points=res["lidar"]["n_key_points"])
+        bundle = dict(metadata=meta)
         bundle["points"] = res["lidar"]["points"]
         bundle["grid_size"] = voxels.get("shape")
         bundle["pc_range"] = voxels.get("range")
@@ -325,4 +422,7 @@ class Reformat:
                           num_voxels=voxels["num_voxels"])
         if "targets" in res["lidar"]:
             bundle.update(res["lidar"]["targets"])
+        if self.double_flip:
+            bundle.update({k: res["lidar"][k] for k in FLIP_KEYS
+                           if k in res["lidar"]})
         return bundle, info

@@ -1,1 +1,1 @@
-"""Detection evaluation of the Waymo val path (counterpart of ``partner_tpu/eval``)."""
+"""Detection evaluation of the Waymo and nuScenes val paths (counterpart of ``partner_tpu/eval``)."""

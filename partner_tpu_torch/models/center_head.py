@@ -1,19 +1,20 @@
-"""CenterPoint's multi-task head (counterpart of the Waymo half of
+"""CenterPoint's multi-task head (counterpart of the ``CenterHead`` half of
 ``partner_tpu/models/center_head.py``): ``CenterHead`` with one
-``SepHead`` per task, and the pure functions over its maps, the loss
-(FastFocal heatmap + L1 regression at the peaks), the decode and the
-score / range mask with rotated NMS.
+``SepHead`` per task, or with ``dcn_head=True`` one ``DCNSepHead`` per
+task (two deformable-conv ``FeatureAdaption`` branches, the nuScenes DCN
+configs), and the pure functions over its maps: the loss (FastFocal
+heatmap + L1 regression at the peaks), the double-flip average of the
+test-time flips, the decode and the score / range mask with rotated NMS.
 
 Maps are NHWC (B, H=azimuth, W=range, C), as in JAX. Submodules carry
-flax's names (``Conv_0``, ``task{i}``, ``{head}_conv{j}``, ``{head}_out``),
-so converted weights load by name. Not ported here, each waiting for the
-slice that needs it (ROADMAP.md queue 1, off the main path):
-``CenterHeadSingle`` / ``CenterHeadSinglePos`` with ``RSNorm``,
+flax's names (``Conv_0``, ``task{i}``, ``{head}_conv{j}``, ``{head}_out``,
+``feature_adapt_cls``, ``conv_offset``, ``deform_kernel``, ``hm_out``,
+``task_head``), so converted weights load by name. Not ported here, each
+waiting for the slice that needs it (ROADMAP.md queue 1, off the main
+path): ``CenterHeadSingle`` / ``CenterHeadSinglePos`` with ``RSNorm``,
 ``RangeStratified`` and ``ConvGNStack``, and ``per_class_nms``
-(``batched_rotated_nms``), for nuScenes and PolarStream; ``DCNSepHead``
-(``dcn_head=True``, with ``ops/deform_conv.py``) and ``double_flip``
-for the nuScenes DCN configs; the fused-branch ``SepHead`` option, a TPU
-knob that lost there.
+(``batched_rotated_nms``), for nuScenes and PolarStream; the fused-branch
+``SepHead`` option, a TPU knob that lost there.
 """
 
 import functools
@@ -24,8 +25,9 @@ import torch.nn as nn
 
 from ..core.geometry import bev_cell_centers
 from ..losses.centernet import fast_focal_loss, reg_loss
+from ..ops.deform_conv import deform_conv2d
 from ..ops.nms import rotate_nms_pcdet
-from .layers import Conv2d
+from .layers import BN_EPS, BN_MOMENTUM, BatchNorm, Conv2d
 from .registry import BBOX_HEADS
 
 HEAD_CONV = 64  # SepHead's hidden width (``nn.Conv(64, ...)`` in JAX)
@@ -60,26 +62,90 @@ class SepHead(nn.Module):
         return out
 
 
+class FeatureAdaption(nn.Module):
+    """DCN-v1 feature adaption: a 1x1 ``conv_offset`` (zero at init, so a
+    fresh branch is a plain 3x3 conv) predicts each tap's offsets, a
+    deformable 3x3 conv (``deform_kernel`` (K, C, Cout), ``deform_bias``)
+    resamples the features, then ReLU."""
+
+    def __init__(self, in_features, out_channels, kernel=3,
+                 deformable_groups=4):
+        super().__init__()
+        self.kernel = kernel
+        self.groups = deformable_groups
+        k = kernel * kernel
+        self.conv_offset = Conv2d(in_features, deformable_groups * k * 2, 1,
+                                  zero_init=True)
+        self.deform_kernel = nn.Parameter(torch.empty(k, in_features,
+                                                      out_channels))
+        self.deform_bias = nn.Parameter(torch.empty(out_channels))
+
+    @torch.no_grad()
+    def init_extra(self, generator):
+        """flax's ``variance_scaling(1, "fan_in", "normal")`` kernel (fan
+        in K x C) and a zero bias."""
+        k, c, _ = self.deform_kernel.shape
+        self.deform_kernel.copy_(torch.randn(
+            self.deform_kernel.shape, generator=generator) * (k * c) ** -0.5)
+        self.deform_bias.zero_()
+
+    def forward(self, x):
+        y = deform_conv2d(x, self.conv_offset(x), self.deform_kernel,
+                          bias=self.deform_bias, kernel=self.kernel,
+                          deformable_groups=self.groups)
+        return torch.relu(y)
+
+
+class DCNSepHead(nn.Module):
+    """Separate deformable features for classification and regression: the
+    ``feature_adapt_cls`` branch feeds a 3x3 conv, BatchNorm (eps 1e-3,
+    flax momentum 0.99), ReLU and the 3x3 ``hm_out``; the
+    ``feature_adapt_reg`` branch feeds ``task_head``, a :class:`SepHead`
+    of the other heads. Returns every map, ``hm`` among them, in sorted
+    name order (as a jitted JAX head hands them out)."""
+
+    def __init__(self, in_features, num_cls, heads, head_conv=64,
+                 init_bias=-2.19):
+        super().__init__()
+        self.feature_adapt_cls = FeatureAdaption(in_features, in_features)
+        self.feature_adapt_reg = FeatureAdaption(in_features, in_features)
+        self.Conv_0 = Conv2d(in_features, head_conv, 3, 1, 1)
+        self.BatchNorm_0 = BatchNorm(head_conv, BN_EPS, BN_MOMENTUM)
+        self.hm_out = Conv2d(head_conv, num_cls, 3, 1, 1, init_bias=init_bias)
+        self.task_head = SepHead(in_features, heads, init_bias)
+
+    def forward(self, x):
+        center = self.feature_adapt_cls(x)
+        reg = self.feature_adapt_reg(x)
+        y = torch.relu(self.BatchNorm_0(self.Conv_0(center)))
+        hm = self.hm_out(y)
+        ret = self.task_head(reg)
+        ret["hm"] = hm
+        return dict(sorted(ret.items()))
+
+
 @BBOX_HEADS.register_module(name="CenterHead")
 class CenterHead(nn.Module):
-    """A shared 3x3 conv + ReLU, then one :class:`SepHead` per task.
-    ``forward`` returns ``{"det_preds": [per-task dict of maps]}``."""
+    """A shared 3x3 conv + ReLU, then one :class:`SepHead` per task, or one
+    :class:`DCNSepHead` with ``dcn_head``. ``forward`` returns
+    ``{"det_preds": [per-task dict of maps]}``."""
 
     def __init__(self, in_channels=512, tasks=(), common_heads=None,
                  share_conv_channel=64, num_hm_conv=2, init_bias=-2.19,
                  dcn_head=False, **kwargs):
         super().__init__()
-        if dcn_head:
-            raise NotImplementedError(
-                "CenterHead(dcn_head=True): DCNSepHead is not ported "
-                "(ROADMAP.md queue 1, off the main path: ops/deform_conv.py)")
         self.Conv_0 = Conv2d(in_channels, share_conv_channel, 3, 1, 1)
         self.num_tasks = len(tasks)
         for i, task in enumerate(tasks):
             heads = dict(common_heads or {})
-            heads["hm"] = (len(task["class_names"]), num_hm_conv)
-            self.add_module(f"task{i}", SepHead(share_conv_channel, heads,
-                                                init_bias))
+            ncls = len(task["class_names"])
+            if dcn_head:
+                head = DCNSepHead(share_conv_channel, ncls, heads,
+                                  init_bias=init_bias)
+            else:
+                heads["hm"] = (ncls, num_hm_conv)
+                head = SepHead(share_conv_channel, heads, init_bias)
+            self.add_module(f"task{i}", head)
 
     def forward(self, x):
         """x: (B, n_az, n_r, in_channels) f32 -> {"det_preds": [...]}."""
@@ -152,19 +218,69 @@ def _cell_corners(grid_hw, voxel_size, pc_range, out_size_factor,
     return cart, torch.as_tensor(idx, device=device)
 
 
+def double_flip_average(preds):
+    """One task's maps at batch B x 4, grouped per sample as [original, y
+    flip (H reversed), x flip (W reversed), both], on a cartesian BEV ->
+    the (B, ...) maps of the original frame: each copy flipped back, the
+    flipped ``reg``, ``rot`` and ``vel`` components mirrored, and the four
+    averaged. ``hm`` comes back sigmoided and ``dim`` exponentiated, so
+    :func:`center_head_decode` must be told (``pre_activated``)."""
+    def mean(v):
+        # the copies summed in order, then divided, as XLA reduces them:
+        # two cells whose copies hold the same values tie exactly
+        return (((v[:, 0] + v[:, 1]) + v[:, 2]) + v[:, 3]) / 4
+
+    four = {}
+    for k, v in preds.items():
+        b4, h, w, c = v.shape
+        v = v.reshape(b4 // 4, 4, h, w, c)
+        four[k] = torch.stack([v[:, 0], v[:, 1].flip(1), v[:, 2].flip(2),
+                               v[:, 3].flip(1, 2)], dim=1)
+    out = {"hm": mean(torch.sigmoid(four["hm"])),
+           "dim": mean(torch.exp(four["dim"])),
+           "height": mean(four["height"])}
+    reg = four["reg"].clone()
+    for copy, col in ((1, 1), (2, 0), (3, 0), (3, 1)):
+        reg[:, copy, ..., col] = 1 - reg[:, copy, ..., col]
+    out["reg"] = mean(reg)
+    rots = four["rot"][..., 0:1].clone()
+    rotc = four["rot"][..., 1:2].clone()
+    rotc[:, 1] *= -1   # y flip: theta -> pi - theta
+    rots[:, 2] *= -1   # x flip: theta -> -theta
+    rots[:, 3] *= -1
+    rotc[:, 3] *= -1
+    out["rot"] = torch.cat([mean(rots), mean(rotc)], dim=-1)
+    if "vel" in four:
+        vel = four["vel"].clone()
+        vel[:, 1, ..., 1] *= -1
+        vel[:, 2, ..., 0] *= -1
+        vel[:, 3] *= -1
+        out["vel"] = mean(vel)
+    if "iou" in four:
+        out["iou"] = mean(four["iou"])
+    return out
+
+
 def center_head_decode(preds, grid_hw, voxel_size, pc_range, out_size_factor,
-                       voxel_shape="cylinder", rectify=False):
+                       voxel_shape="cylinder", rectify=False,
+                       pre_activated=False):
     """One task's maps -> (boxes (B, N, 7 or 9), scores (B, N, C)).
 
     ``grid_hw`` = (n_az, n_r) of the feature map. Boxes are [x, y, z, dx,
     dy, dz, (vx, vy,) yaw]: dims ``exp(clip(dim, -8, 8))``, yaw
     ``atan2(sin, cos)``; on a cylinder grid the cartesian ``reg`` offset is
     added to the cell corner, and ``rectify`` turns yaw and velocity by the
-    cell's azimuth."""
+    cell's azimuth. ``pre_activated`` maps (:func:`double_flip_average`'s)
+    carry ``hm`` sigmoided and ``dim`` exponentiated already."""
     b, h, w, ncls = preds["hm"].shape
     n = h * w
-    hm = torch.sigmoid(preds["hm"]).reshape(b, n, ncls)
-    dims = torch.exp(torch.clamp(preds["dim"], -8.0, 8.0)).reshape(b, n, 3)
+    if pre_activated:
+        hm = preds["hm"].reshape(b, n, ncls)
+        dims = preds["dim"].reshape(b, n, 3)
+    else:
+        hm = torch.sigmoid(preds["hm"]).reshape(b, n, ncls)
+        dims = torch.exp(torch.clamp(preds["dim"], -8.0, 8.0)).reshape(
+            b, n, 3)
     rot = torch.atan2(preds["rot"][..., 0], preds["rot"][..., 1]).reshape(b, n)
     hei = preds["height"].reshape(b, n)
     reg = preds["reg"].reshape(b, n, 2)

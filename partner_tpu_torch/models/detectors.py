@@ -9,8 +9,9 @@ fast path ``encode_points``, or the reader and the voxel path
 CenterCoder and rotated NMS, and in training the ``SetCriterion`` over the
 auction matcher. ``build_voxelnet`` turns a VoxelNet config into a
 :class:`CenterPointDetector`: the same point path -> ``RPN`` ->
-``CenterHead``, per-task decode and rotated NMS, and in training the
-FastFocal + L1 peak regression loss.
+``CenterHead`` (``SepHead`` or ``DCNSepHead`` tasks), per-task decode
+(after the double-flip average where ``test_cfg["double_flip"]`` is set)
+and rotated NMS, and in training the FastFocal + L1 peak regression loss.
 
 Both take either input contract of the JAX package: ``points`` +
 ``points_mask`` (the point fast path of ``PolarDenseFHD``), or voxels,
@@ -39,7 +40,7 @@ from ..losses.set_crit import SetCriterion
 from ..utils.dtypes import resolve_compute_dtype
 from . import e2e_head
 from .center_head import (center_head_decode, center_head_loss,
-                          center_head_post_process)
+                          center_head_post_process, double_flip_average)
 from .layers import constant, init_weights
 from .registry import (BACKBONES, BBOX_HEADS, DETECTORS, NECKS, READERS,
                        build_from_cfg)
@@ -292,20 +293,22 @@ class CenterPointDetector:
 
     @torch.no_grad()
     def decode(self, preds):
-        """Head maps -> decoded, score-masked, NMS'd detections."""
-        if self.test_cfg.get("double_flip"):
-            raise NotImplementedError(
-                "test_cfg double_flip: double_flip_average is not ported "
-                "(ROADMAP.md queue 1, off the main path: DCNSepHead, "
-                "deform_conv and double_flip_average)")
+        """Head maps -> decoded, score-masked, NMS'd detections. With
+        ``test_cfg["double_flip"]`` the maps are B x 4 rows, each sample's
+        four flip copies in a row (``DoubleFlip`` and ``collate``); they
+        are averaged back to B rows first (:func:`double_flip_average`)."""
+        double_flip = bool(self.test_cfg.get("double_flip"))
         outs, offset = [], 0
         for task_preds in preds["det_preds"]:
+            if double_flip:
+                task_preds = double_flip_average(task_preds)
             hm = task_preds["hm"]
             boxes, scores = center_head_decode(
                 task_preds, (hm.shape[1], hm.shape[2]), self.voxel_size,
                 self.module.pc_range, self.module.out_size_factor,
                 voxel_shape=self.voxel_shape,
-                rectify=self.test_cfg.get("rectify", False))
+                rectify=self.test_cfg.get("rectify", False),
+                pre_activated=double_flip)
             outs.append(center_head_post_process(boxes, scores,
                                                  self.test_cfg,
                                                  class_offset=offset))
@@ -323,12 +326,14 @@ def _neck_cfg(neck):
 def _materialize(device, generator, module_kwargs):
     """A :class:`VoxelNetModule` built on the meta device, then on
     ``device`` in eval mode with flax's default initializers drawn from
-    ``generator`` (seed 0 when None)."""
+    ``generator`` (seed 0 when None); on the meta device, which holds no
+    values, nothing is drawn."""
     with torch.device("meta"):
         module = VoxelNetModule(**module_kwargs)
     module = module.to_empty(device=device).eval()
-    init_weights(module, generator if generator is not None
-                 else torch.Generator().manual_seed(0))
+    if torch.device(device).type != "meta":
+        init_weights(module, generator if generator is not None
+                     else torch.Generator().manual_seed(0))
     return module
 
 

@@ -97,12 +97,13 @@ class Conv2d(nn.Module):
 
     def __init__(self, in_features, out_features, kernel, stride=1,
                  padding="SAME", use_bias=True, dtype=torch.float32,
-                 init_bias=None):
+                 init_bias=None, zero_init=False):
         super().__init__()
         self.dtype = dtype
         self.stride = stride
         self.padding = padding
         self.init_bias = init_bias
+        self.zero_init = zero_init   # flax kernel_init=zeros
         self.weight = _empty(out_features, in_features, kernel, kernel)
         self.bias = _empty(out_features) if use_bias else None
 
@@ -391,12 +392,16 @@ def init_weights(module, generator):
     """Fill every parameter and buffer of ``module`` with flax's default
     initializers, drawing from ``generator`` (a CPU ``torch.Generator``).
 
-    Kernels are lecun-normal, biases zero (or a layer's ``init_bias``),
+    Kernels are lecun-normal (zero for a conv built with ``zero_init``),
+    biases zero (or a layer's ``init_bias``),
     norm scales one, BN statistics (0, 1); modules with raw parameters
     provide ``init_extra(generator)``."""
     for m in module.modules():
         if isinstance(m, (Dense, Conv2d, Conv3d, ConvTranspose2d)):
-            _lecun_normal_(m.weight, m.fan_in(), generator)
+            if getattr(m, "zero_init", False):
+                m.weight.zero_()
+            else:
+                _lecun_normal_(m.weight, m.fan_in(), generator)
             if getattr(m, "bias", None) is not None:
                 m.bias.fill_(getattr(m, "init_bias", None) or 0.0)
         elif isinstance(m, (BatchNorm, nn.LayerNorm)):

@@ -313,9 +313,9 @@ class TwoStageDetector:
         Puts the module in eval mode first."""
         if self.test_cfg.get("double_flip"):
             raise NotImplementedError(
-                "test_cfg double_flip: double_flip_average is not ported "
-                "(ROADMAP.md queue 1, off the main path: DCNSepHead, "
-                "deform_conv and double_flip_average)")
+                "test_cfg double_flip: the two-stage detector has no "
+                "double-flip branch (the JAX package's has none either); "
+                "CenterPointDetector averages the flips")
         self.module.eval()
         preds, bev = self.module(example)
         boxes, scores = self.decode_proposals(

@@ -16,9 +16,10 @@ import torch
 
 from . import _cuda
 
-# the shapes csrc/stem.cu is compiled for: C_in 10 (7 point features + 3
-# decorations) or 11 (the two-sweep configs' 8 + 3), F1, F2
-CINS, F1, F2 = (10, 11), 32, 64
+# the shapes csrc/stem.cu is compiled for: C_in 8 (the cuboid nuScenes
+# configs' 5 point features + 3 decorations), 10 (7 + 3) or 11 (the
+# two-sweep configs' 8 + 3), F1, F2
+CINS, F1, F2 = (8, 10, 11), 32, 64
 
 
 def stem2_channel_major_plain(x, mask, w1, a1, b1, w2, a2, b2):

@@ -1,14 +1,18 @@
-"""Data preparation CLI of the port (counterpart of the Waymo half of
-``tools/create_data.py``): the TFRecord converter, the info builder and
-the GT-AUG database builder.
+"""Data preparation CLI of the port (counterpart of ``tools/create_data.py``):
+the Waymo TFRecord converter and info builder, the nuScenes info builder,
+and the GT-AUG database builder of either.
 
     python -m partner_tpu_torch.tools.create_data waymo_convert \\
         --record_path 'data/waymo/tfrecord_training/*.tfrecord' \\
         --root_path data/waymo --split train
     python -m partner_tpu_torch.tools.create_data waymo_data_prep \\
         --root_path data/waymo --split train [--nsweeps 1] [--max_sweeps 0]
+    python -m partner_tpu_torch.tools.create_data nuscenes_data_prep \\
+        --root_path data/nuScenes [--version v1.0-trainval] [--nsweeps 10] \\
+        [--frames_pkl <root>/frames.pkl]
     python -m partner_tpu_torch.tools.create_data create_groundtruth_database \\
-        --root_path data/waymo --info_path <infos.pkl> [--used_classes ...]
+        [--dataset WaymoDataset|NuScenesDataset] --root_path data/waymo \\
+        --info_path <infos.pkl> [--used_classes ...]
 
 Layouts, as the JAX tool writes and reads them:
 
@@ -25,16 +29,19 @@ Layouts, as the JAX tool writes and reads them:
   slices them),
   ``gt_boxes`` (N, 9), ``gt_names``, ``difficulty`` and
   ``num_points_in_gt``; a train split drops frames with no box;
+- ``nuscenes_data_prep`` rewrites a pre-extracted frames pkl (a list of
+  dicts with ``token``, ``lidar_path``, ``sweeps``, ``gt_boxes`` (N, 9),
+  ``gt_names``, ``timestamp`` and the lidar -> ego -> global calibration)
+  into ``<root>/infos_{train|val}_{nsweeps:02d}sweeps_withvelo_filter_
+  True.pkl``. As in the JAX tool, an installed ``nuscenes`` devkit is not
+  read: the subcommand then raises;
 - ``create_groundtruth_database`` writes ``<root>/gt_database/
-  {class}_{i}.bin`` (float32 rows, xyz shifted to the box center) and
+  {class}_{i}.bin`` (float32 rows, xyz shifted to the box center; a Waymo
+  frame's five columns, a nuScenes key frame's four) and
   ``<root>/dbinfos_train.pkl`` ({class: [{name, path, box3d_lidar,
   num_points_in_gt, difficulty}]}), the boxes' points found by
   ``core.box_np_ops.points_in_rbbox`` (the native library where it is
   built).
-
-``nuscenes_data_prep`` is not ported: the port has no ``NuScenesDataset``
-to read its output (ROADMAP.md queue 1: nuScenes), and the subcommand
-stops with that message, as a database of another dataset does.
 """
 
 import argparse
@@ -42,16 +49,12 @@ import glob
 import os
 import pickle
 import struct
-import sys
 
 import numpy as np
 
 from ..core import box_np_ops
 from ..data import waymo_decoder
-from ..data.pipeline import get_obj, read_single_waymo
-
-NOT_PORTED = ("create_data: only Waymo frames are read; the port has no "
-              "NuScenesDataset (ROADMAP.md queue 1: nuScenes)")
+from ..data.pipeline import get_obj, read_file, read_single_waymo
 
 
 def _object_name(o):
@@ -161,14 +164,66 @@ def waymo_data_prep(root_path, split="train", nsweeps=1, max_sweeps=0):
     return out
 
 
+def nuscenes_data_prep(root_path, version="v1.0-trainval", nsweeps=10,
+                       frames_pkl=None):
+    """The nuScenes info pkl of the frames pkl ``frames_pkl``
+    (``<root_path>/frames.pkl`` by default) -> its path; the split is
+    ``train`` for a ``version`` naming it, else ``val``."""
+    if frames_pkl is None:
+        frames_pkl = os.path.join(root_path, "frames.pkl")
+    try:
+        from nuscenes import NuScenes  # noqa: F401
+        have_devkit = True
+    except ImportError:
+        have_devkit = False
+    if have_devkit:
+        raise NotImplementedError(
+            "the nuscenes devkit is installed, and reading the raw set "
+            "through it is not wired (as in the JAX tool); infos come from "
+            "a pre-extracted frames pkl")
+    if not os.path.exists(frames_pkl):
+        raise FileNotFoundError("nuscenes devkit unavailable and no "
+                                f"pre-extracted frames pkl at {frames_pkl}")
+    infos = []
+    for fr in get_obj(frames_pkl):
+        info = {
+            "token": fr["token"],
+            "lidar_path": fr["lidar_path"],
+            "sweeps": fr.get("sweeps", []),
+            "gt_boxes": np.asarray(fr.get("gt_boxes", np.zeros((0, 9)))),
+            "gt_names": np.asarray(fr.get("gt_names", [])),
+            "timestamp": fr.get("timestamp", 0),
+        }
+        # the calibration, for the results writer's global frame
+        for k in ("lidar2ego_rotation", "lidar2ego_translation",
+                  "ego2global_rotation", "ego2global_translation"):
+            if k in fr:
+                info[k] = fr[k]
+        infos.append(info)
+    split = "train" if "train" in version else "val"
+    out = os.path.join(
+        root_path,
+        f"infos_{split}_{nsweeps:02d}sweeps_withvelo_filter_True.pkl")
+    with open(out, "wb") as f:
+        pickle.dump(infos, f)
+    print(f"wrote {len(infos)} infos -> {out}")
+    return out
+
+
+def _load_points(info, dataset):
+    if dataset == "WaymoDataset":
+        return read_single_waymo(get_obj(info["path"]))
+    return read_file(str(info["lidar_path"]))
+
+
 def create_groundtruth_database(dataset, root_path, info_path,
                                 used_classes=None, db_path=None,
                                 dbinfo_path=None):
     """Crop every gt box's points of the infos at ``info_path`` into the
-    GT-AUG database under ``root_path`` -> the dbinfos pkl's path. Only
-    ``WaymoDataset`` frames are read; another dataset exits."""
-    if dataset != "WaymoDataset":
-        sys.exit(NOT_PORTED)
+    GT-AUG database under ``root_path`` -> the dbinfos pkl's path. A
+    ``WaymoDataset`` info's points are its frame pickle's, any other
+    dataset's its ``lidar_path`` ``.bin`` (the nuScenes key frame), as in
+    the JAX tool."""
     db_path = db_path or os.path.join(root_path, "gt_database")
     dbinfo_path = dbinfo_path or os.path.join(root_path, "dbinfos_train.pkl")
     os.makedirs(db_path, exist_ok=True)
@@ -179,7 +234,7 @@ def create_groundtruth_database(dataset, root_path, info_path,
         names = np.asarray(info.get("gt_names", []))
         if not len(boxes):
             continue
-        points = read_single_waymo(get_obj(info["path"])).astype(np.float32)
+        points = _load_points(info, dataset).astype(np.float32)
         # box columns [x, y, z, dx, dy, dz, (vx, vy,) yaw]
         b7 = np.concatenate([boxes[:, :6], boxes[:, -1:]], axis=1)
         inside = box_np_ops.points_in_rbbox(points[:, :3], b7)
@@ -211,7 +266,8 @@ def create_groundtruth_database(dataset, root_path, info_path,
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
-        description="Waymo data preparation: converter, infos, GT database")
+        description="Data preparation: the Waymo converter and infos, the "
+                    "nuScenes infos, the GT database")
     sub = p.add_subparsers(dest="cmd", required=True)
     c = sub.add_parser("waymo_convert")
     c.add_argument("--record_path", required=True,
@@ -223,8 +279,13 @@ def parse_args(argv=None):
     w.add_argument("--split", default="train")
     w.add_argument("--nsweeps", type=int, default=1)
     w.add_argument("--max_sweeps", type=int, default=0)
-    sub.add_parser("nuscenes_data_prep", help="not ported")
+    n = sub.add_parser("nuscenes_data_prep")
+    n.add_argument("--root_path", required=True)
+    n.add_argument("--version", default="v1.0-trainval")
+    n.add_argument("--nsweeps", type=int, default=10)
+    n.add_argument("--frames_pkl", default=None)
     g = sub.add_parser("create_groundtruth_database")
+    g.add_argument("--dataset", default="WaymoDataset")
     g.add_argument("--root_path", required=True)
     g.add_argument("--info_path", required=True)
     g.add_argument("--used_classes", nargs="*", default=None)
@@ -240,8 +301,9 @@ def main(argv=None):
         return waymo_data_prep(args.root_path, args.split, args.nsweeps,
                                args.max_sweeps)
     if args.cmd == "nuscenes_data_prep":
-        sys.exit(NOT_PORTED)
-    return create_groundtruth_database("WaymoDataset", args.root_path,
+        return nuscenes_data_prep(args.root_path, args.version, args.nsweeps,
+                                  args.frames_pkl)
+    return create_groundtruth_database(args.dataset, args.root_path,
                                        args.info_path, args.used_classes)
 
 

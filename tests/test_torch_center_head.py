@@ -6,41 +6,17 @@ shapes; ``center_head_post_process``. Every input is made with numpy from
 a seed and handed to both packages.
 """
 
-import copy
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from torch_port_fixtures import (CENTERPOINT, CENTERPOINT_VELO, jax_apply,
+from torch_port_fixtures import (CENTERPOINT, CENTERPOINT_VELO,
+                                 NUSC_01VOXEL as NUSC, head_cfg, jax_apply,
                                  jax_init, load_converted, randomize)
 
 torch.set_num_threads(2)
-
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NUSC = "configs/nusc/voxelnet/nusc_centerpoint_voxelnet_01voxel.py"
-
-
-def _head_cfg(config):
-    """The config's bbox_head rewritten as ``build_voxelnet`` rewrites it
-    in both packages (tasks as tuples, common_heads sorted, detector keys
-    taken out)."""
-    from partner_tpu_torch.utils.config import load_config
-
-    bh = copy.deepcopy(load_config(os.path.join(ROOT, config))["model"][
-        "bbox_head"])
-    for k in ("voxel_shape", "code_weights", "weight", "dataset",
-              "voxel_generator"):
-        bh.pop(k, None)
-    bh["tasks"] = tuple({"class_names": tuple(t["class_names"])}
-                        for t in bh["tasks"])
-    bh["common_heads"] = tuple(sorted((k, tuple(v)) for k, v in
-                                      bh["common_heads"].items()))
-    return bh
-
 
 # one task without vel (Waymo one sweep), one with vel (Waymo two sweeps),
 # the 6-task, 10-class nuScenes head (its 01voxel config sets dcn_head False)
@@ -52,7 +28,7 @@ def test_center_head_maps_match_jax(rng, case):
     from partner_tpu.models import registry as jreg
     from partner_tpu_torch.models import registry as treg
 
-    hc = _head_cfg(HEADS[case])
+    hc = head_cfg(HEADS[case])
     x = rng.randn(2, 16, 12, hc["in_channels"]).astype(np.float32)
     jhead = jreg.build_from_cfg(dict(hc), jreg.BBOX_HEADS)
     v = randomize(jax_init(jhead, x, train=False), rng)
@@ -71,10 +47,20 @@ def test_center_head_maps_match_jax(rng, case):
 
 
 def test_dcn_head_raises_with_its_roadmap_item():
-    from partner_tpu_torch.models.center_head import CenterHead
+    """Once a raise naming its ROADMAP item; now ``dcn_head=True`` builds
+    one ``DCNSepHead`` a task (held against JAX in
+    ``tests/test_torch_nusc_head.py``), with flax's leaf names."""
+    from partner_tpu_torch.models.center_head import CenterHead, DCNSepHead
 
-    with pytest.raises(NotImplementedError, match="deform_conv"):
-        CenterHead(tasks=({"class_names": ("car",)},), dcn_head=True)
+    head = CenterHead(in_channels=16, tasks=({"class_names": ("car",)},),
+                      common_heads={"reg": (2, 2)}, dcn_head=True)
+    assert isinstance(head.task0, DCNSepHead)
+    names = {k for k, _ in head.named_parameters()}
+    assert {"task0.feature_adapt_cls.conv_offset.weight",
+            "task0.feature_adapt_reg.deform_kernel",
+            "task0.feature_adapt_cls.deform_bias", "task0.hm_out.weight",
+            "task0.BatchNorm_0.weight",
+            "task0.task_head.reg_out.weight"} <= names
 
 
 def _targets(rng, b, h, w, ncls, m=12, n_pos=7):

@@ -522,8 +522,10 @@ def test_voxelnet_parts_not_ported_raise(case):
 
 
 def test_voxelnet_options_not_ported_raise():
-    """per_class_nms, double_flip and the E2E head's block route each
-    raise naming their ROADMAP item."""
+    """per_class_nms and the E2E head's block route each raise naming
+    their ROADMAP item. double_flip, once such a raise, now averages a
+    sample's four flip copies (held against JAX in
+    ``tests/test_torch_nusc_frame.py``): a batch of 4 rows gives one."""
     from partner_tpu_torch.models import build_detector
 
     m, tc = tiny_centerpoint_cfg()
@@ -533,8 +535,10 @@ def test_voxelnet_options_not_ported_raise():
         "voxel_generator"]["range"], 100, 128)
     ex = {"points": torch.from_numpy(pts), "points_mask": torch.from_numpy(
         mask)}
-    for key, item in (("per_class_nms", "batched_rotated_nms"),
-                      ("double_flip", "double_flip_average")):
-        det = build_detector(m, None, dict(tc, **{key: True}), device="cpu")
-        with pytest.raises(NotImplementedError, match=item):
-            det.predict(ex)
+    det = build_detector(m, None, dict(tc, per_class_nms=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="batched_rotated_nms"):
+        det.predict(ex)
+    det = build_detector(m, None, dict(tc, double_flip=True), device="cpu")
+    out = det.predict({k: v.repeat(4, *(1,) * (v.dim() - 1))
+                       for k, v in ex.items()})
+    assert out["mask"].shape == (1, 64) and bool(out["mask"].any())

@@ -59,7 +59,8 @@ STEM_POINTS = {"p1": (1, 2, False), "p15": (15, 2, False),
                "p5037": (5037, 2, False), "p216000": (216_000, 1, False),
                "p432000": (432_000, 1, False),
                "p4096-unaligned-x": (4096, 1, True)}
-STEM_CASES = [(cin, case) for cin in (10, 11) for case in STEM_POINTS]
+# C_in 8: the cuboid nuScenes configs (5 point features + 3 decorations)
+STEM_CASES = [(cin, case) for cin in (8, 10, 11) for case in STEM_POINTS]
 
 
 def _stem_f32(x, mask, w1, a1, b1, w2, a2, b2):
@@ -76,8 +77,8 @@ def _stem_f32(x, mask, w1, a1, b1, w2, a2, b2):
 def test_stem_kernel_point_counts(cuda, cin, case):
     """Point counts below, at and past one 16-point m-tile, a ragged tail,
     the flagship buffer (216,000 rows), the two-sweep buffer (432,000), and
-    an x off a 16-byte boundary (the scalar copies of the kernel), at both
-    widths, against the twin within TOL. The tensor cores sum the products
+    an x off a 16-byte boundary (the scalar copies of the kernel), at each
+    width (C_in 8, 10, 11), against the twin within TOL. The tensor cores sum the products
     in another order than the twin's f32 matmul, so a bf16 rounding can
     flip: fewer than 0.1% of the outputs may differ, and an output beyond
     TOL of the twin passes only within TOL of the stem in float32

@@ -4,7 +4,8 @@ Infos made as ``tests/test_data_pipeline.py`` makes them (pre-materialized
 points), and path-based infos with sweeps from ``tools/create_data.py``;
 the flagship ``test_pipeline`` on both sides must give bit-equal collated
 batches. The epoch samplers give the same shards; what is not ported
-(nuScenes, sector targets, seg labels) raises. Host (``hard``)
+(sector targets, seg labels) raises. The nuScenes data path is held in
+``tests/test_torch_nusc_data.py``. Host (``hard``)
 voxelization is held in ``tests/test_torch_voxelize.py``. The train mode
 is held in ``tests/test_torch_train_data.py``.
 """
@@ -115,8 +116,15 @@ def test_what_is_not_ported_raises(tmp_path):
     from partner_tpu_torch.utils.config import load_config
 
     cfg = load_config(os.path.join(ROOT, FLAGSHIP))
-    with pytest.raises(NotImplementedError, match="nuScenes"):
-        pipeline.LoadPointCloudFromFile(dataset="NuScenesDataset")
+    # the nuScenes loader is ported (tests/test_torch_nusc_data.py); its
+    # seg labels and a dataset the port does not know raise
+    assert pipeline.LoadPointCloudFromFile(
+        dataset="NuScenesDataset").type == "NuScenesDataset"
+    with pytest.raises(NotImplementedError, match="seg_head"):
+        pipeline.LoadPointCloudFromFile(dataset="NuScenesDataset",
+                                        super_tasks=["det", "seg"])
+    with pytest.raises(NotImplementedError, match="KittiDataset"):
+        pipeline.LoadPointCloudFromFile(dataset="KittiDataset")
     with pytest.raises(NotImplementedError, match="PolarStream"):
         pipeline.AssignLabel(dict(cfg["assigner"], nsectors=2))
     with pytest.raises(NotImplementedError, match="seg_head"):

@@ -1,6 +1,8 @@
 """partner_tpu_torch stands alone: no jax, flax, optax or partner_tpu at
-import or when it builds its detectors, and the flax converter covers every
-parameter and buffer of the port's detectors."""
+import or when it builds its detectors (the Waymo PARTNER, CenterPoint and
+two-stage configs, the sparse backbone, the three nuScenes CenterPoint
+configs), and the flax converter covers every parameter and buffer of the
+port's detectors."""
 
 import os
 import subprocess
@@ -21,7 +23,7 @@ def test_import_leaves_out_jax_and_flax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'partner_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 66, names\n"
+        "assert len(names) >= 69, names\n"
         "for n in ('ops.swin_block', 'ops.scatter_max', 'core.targets',\n"
         "          'losses.centernet', 'losses.matcher', 'losses.set_crit',\n"
         "          'train.optim', 'train.train_state', 'data.pipeline',\n"
@@ -33,7 +35,8 @@ def test_import_leaves_out_jax_and_flax():
         "          'data.waymo_decoder', 'models.two_stage',\n"
         "          'tools.create_data', 'models.sparse', 'models.backbone',\n"
         "          'train.torch_convert', 'tools.convert_checkpoint',\n"
-        "          'utils.remote_io'):\n"
+        "          'utils.remote_io', 'ops.deform_conv',\n"
+        "          'eval.nusc_protocol', 'eval.nuscenes'):\n"
         "    assert 'partner_tpu_torch.' + n in names, n\n"
         "from partner_tpu_torch.models import build_detector\n"
         "from partner_tpu_torch.utils.config import load_config\n"
@@ -56,6 +59,17 @@ def test_import_leaves_out_jax_and_flax():
         "                         device='meta')\n"
         "    assert det.input_kind == 'voxels', c\n"
         "    assert det.module.backbone.out_features == 256, c\n"
+        "for c in ('01voxel', 'dcn', 'dcn_flip'):\n"
+        "    cfg = load_config(f'configs/nusc/voxelnet/'\n"
+        "                      f'nusc_centerpoint_voxelnet_{c}.py')\n"
+        "    det = build_detector(cfg['model'], cfg['train_cfg'],\n"
+        "                         cfg['test_cfg'], device='meta')\n"
+        "    assert det.module.bbox_head.num_tasks == 6, c\n"
+        "    assert bool(det.test_cfg.get('double_flip')) == (c == 'dcn_flip')\n"
+        "    w = det.module.backbone.stem0_kernel.shape[0]\n"
+        "    assert w == (8 if c == 'dcn_flip' else 10), (c, w)\n"
+        "    assert hasattr(det.module.bbox_head.task5, 'feature_adapt_cls') \\\n"
+        "        == (c != '01voxel'), c\n"
         "from partner_tpu_torch import native\n"
         "assert native.available()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -7,6 +7,7 @@ the SetBlock is rounding noise, and a comparison would mean nothing.
 """
 
 import copy
+import functools
 
 import numpy as np
 
@@ -20,6 +21,12 @@ TWO_STAGE = ("configs/waymo/two_stage/"
 TWO_STAGE_VELO = ("configs/waymo/two_stage/"
                   "waymo_centerpoint_voxelnet_two_sweep_two_stage_bev_"
                   "5point_ft_6epoch_freeze_with_vel.py")
+NUSC_DCN = "configs/nusc/voxelnet/nusc_centerpoint_voxelnet_dcn.py"
+NUSC_01VOXEL = "configs/nusc/voxelnet/nusc_centerpoint_voxelnet_01voxel.py"
+NUSC_FLIP = "configs/nusc/voxelnet/nusc_centerpoint_voxelnet_dcn_flip.py"
+NUSC_CONFIGS = {"dcn": NUSC_DCN, "01voxel": NUSC_01VOXEL,
+                "dcn-flip": NUSC_FLIP}
+NUSC_SWEEPS = 3   # the nuScenes configs' 10 sweeps, cut for the CPU
 TINY_GRID = (128, 256, 40)  # BEV 32 (az) x 16 (r): exact 8x8 windows
 
 
@@ -52,6 +59,27 @@ def tiny_frame_cfg(compute_dtype="float32"):
     tc["score_threshold"] = 0.0
     tc["nms"] = dict(tc["nms"], nms_pre_max_size=256, nms_post_max_size=64)
     return m, tc
+
+
+def head_cfg(config):
+    """A config's bbox_head rewritten as ``build_voxelnet`` rewrites it in
+    both packages (tasks as tuples, common_heads sorted, detector keys
+    taken out)."""
+    import os
+
+    from partner_tpu_torch.utils.config import load_config
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    bh = copy.deepcopy(load_config(os.path.join(root, config))["model"][
+        "bbox_head"])
+    for k in ("voxel_shape", "code_weights", "weight", "dataset",
+              "voxel_generator"):
+        bh.pop(k, None)
+    bh["tasks"] = tuple({"class_names": tuple(t["class_names"])}
+                        for t in bh["tasks"])
+    bh["common_heads"] = tuple(sorted((k, tuple(v)) for k, v in
+                                      bh["common_heads"].items()))
+    return bh
 
 
 def tiny_centerpoint_cfg(config=CENTERPOINT, compute_dtype="float32"):
@@ -125,6 +153,47 @@ def with_sparse_backbone(m, index_method="binary"):
     return m
 
 
+def write_tiny_nusc_set(root, seed=3, n_frames=4, n_points=1500,
+                        n_boxes=12):
+    """A synthetic nuScenes set of ``n_frames`` key frames with
+    ``NUSC_SWEEPS - 1`` earlier sweeps each under ``root``, its infos made
+    by the port's ``create_data nuscenes_data_prep``
+    (``chip_smoke.write_nusc_scene``) -> the infos' path."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    return chip_smoke.write_nusc_scene(root, np.random.RandomState(seed),
+                                       n_frames, NUSC_SWEEPS, n_points,
+                                       n_boxes=n_boxes)
+
+
+def nusc_batch(config, model_cfg, info_path, root, mode, samples, seed=0,
+               max_points=5000):
+    """The first ``samples`` frames of the nuScenes infos at ``info_path``
+    through ``config``'s ``mode`` pipeline in the port (``nsweeps`` cut to
+    ``NUSC_SWEEPS``, ``Voxelization`` on ``model_cfg``'s grid, the draws
+    from ``RandomState(seed)``), collated: the batch the CLIs hand the
+    detector (the double-flip pipeline's 4 rows a sample)."""
+    import os
+
+    import partner_tpu_torch.data as tdata
+    from partner_tpu_torch.data.collate import collate
+    from partner_tpu_torch.utils.config import load_config
+
+    base = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ds = copy.deepcopy(load_config(os.path.join(base, config))["data"][mode])
+    ds.update(info_path=info_path, root_path=root, nsweeps=NUSC_SWEEPS)
+    for p in ds["pipeline"]:
+        if p["type"] == "Voxelization":
+            p["cfg"] = copy.deepcopy(model_cfg["bbox_head"]["voxel_generator"])
+    data = tdata.build_dataset(ds, dict(rng=np.random.RandomState(seed)))
+    return collate([data[i] for i in range(samples)], max_points=max_points)
+
+
 def synthetic_points(rng, pc_range, n_points, n_pad, c=7):
     """(1, n_pad, c) cylinder-layout points [rho, phi, z, x, y, ...] and a
     (1, n_pad) mask; a few points fall outside the grid."""
@@ -187,6 +256,89 @@ def randomize(variables, rng):
         return out
 
     return walk(numpy_tree(variables))
+
+
+def randomize_dcn(variables, rng):
+    """:func:`randomize`, and every zero-initialized ``conv_offset`` kernel
+    of a DCN branch drawn too (N(0, 0.05)), so the learned offsets vary
+    from cell to cell (a fresh branch's are its bias alone)."""
+    v = randomize(variables, rng)
+
+    def walk(tree):
+        for k, sub in tree.items():
+            if not isinstance(sub, dict):
+                continue
+            if k == "conv_offset":
+                sub["kernel"] = rng.normal(0.0, 0.05, sub["kernel"].shape
+                                           ).astype(np.float32)
+            walk(sub)
+
+    walk(v)
+    return v
+
+
+def drawn_init(init, rng, *args, **kwargs):
+    """Numpy variables of the shapes ``init(PRNGKey(0), *args, **kwargs)``
+    makes, traced but not compiled (``jax.eval_shape``; a jitted flax
+    init compiles every initializer's threefry draws, ~15 s for a
+    nuScenes detector on the CPU), every float leaf drawn from ``rng``
+    N(0, 1 / fan_in) (fan_in the product of all but its last axis): the
+    kernels a test keeps, and placeholders of the norms, biases and
+    statistics that :func:`randomize` draws after."""
+    import jax
+
+    shapes = jax.eval_shape(functools.partial(init, **kwargs),
+                            jax.random.PRNGKey(0), *args)
+
+    def walk(tree):
+        out = {}
+        for k, v in tree.items():
+            if hasattr(v, "items"):
+                out[k] = walk(v)
+            elif np.issubdtype(v.dtype, np.floating):
+                fan_in = max(1, int(np.prod(v.shape[:-1])))
+                out[k] = (rng.normal(0.0, fan_in ** -0.5, v.shape)
+                          .astype(v.dtype))
+            else:
+                out[k] = np.zeros(v.shape, v.dtype)
+        return out
+
+    return walk(shapes)
+
+
+def nusc_jax_variables(jdet, rng, c=7, flax_init=False):
+    """A JAX nuScenes detector's variables from a 7-column point example,
+    drawn (:func:`drawn_init`; with ``flax_init`` the kernels of
+    ``jdet.init`` kept instead) and :func:`randomize_dcn`ed."""
+    import jax
+
+    ex = {"points": np.zeros((1, 64, c), np.float32),
+          "points_mask": np.zeros((1, 64), bool)}
+    if flax_init:
+        return randomize_dcn(jdet.init(jax.random.PRNGKey(0), ex), rng)
+    return randomize_dcn(drawn_init(jdet.module.init, rng, ex, train=False),
+                         rng)
+
+
+def assert_same_detections(got, want, box_tol=1e-4, score_tol=1e-5,
+                           tie=1e-6):
+    """One frame's kept detections (``box3d_lidar``, ``scores``,
+    ``label_preds``, in score order) against the reference's: the same
+    count, and each row within ``box_tol`` / ``score_tol`` of the
+    reference's row at its place, or, where the reference's scores tie
+    within ``tie`` (a float32 tie, which another summation order may break
+    the other way), of a row of that tie."""
+    n = len(want["scores"])
+    assert len(got["scores"]) == n
+    ws = np.asarray(want["scores"])
+    for i in range(n):
+        near = np.flatnonzero(np.abs(ws - ws[i]) <= tie)
+        ok = [k for k in near
+              if got["label_preds"][i] == want["label_preds"][k]
+              and np.abs(got["box3d_lidar"][i]
+                         - want["box3d_lidar"][k]).max() <= box_tol
+              and abs(got["scores"][i] - ws[k]) <= score_tol]
+        assert ok, (i, got["box3d_lidar"][i], want["box3d_lidar"][i])
 
 
 def load_converted(module, variables):
@@ -278,6 +430,26 @@ data["val"].update(info_path={val_info!r}, root_path={root!r})
 data["workers_per_gpu"] = 1
 log_config = dict(interval=1, hooks=[dict(type="TextLoggerHook"),
                                      dict(type="MetricsSinkHook")])
+""")
+    return path
+
+
+def write_tiny_nusc_config(path, train_info, val_info, root, config):
+    """A nuScenes CenterPoint config file for the CLIs: ``config`` exec'd
+    and cut as :func:`write_tiny_centerpoint_config` cuts a Waymo one,
+    ``nsweeps`` cut to ``NUSC_SWEEPS``, and every pipeline's
+    ``Voxelization`` pointed at the model's grid. The last matters for the
+    01voxel config, whose pipelines keep the DCN config's 1024 x 1024 grid
+    (ROADMAP.md §3), so the targets would not fit its head's maps."""
+    write_tiny_centerpoint_config(path, train_info, val_info, root,
+                                  config=config)
+    with open(path, "a") as f:
+        f.write(f"""
+for _s in ("train", "val"):
+    data[_s]["nsweeps"] = {NUSC_SWEEPS}
+    for _p in data[_s]["pipeline"]:
+        if _p["type"] == "Voxelization":
+            _p["cfg"] = voxel_generator
 """)
     return path
 

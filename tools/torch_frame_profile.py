@@ -5,7 +5,10 @@ CUDA card.
     python3 tools/torch_frame_profile.py [--frames 10] [--out DIR]
                                          [--use-block-kernel] [--train]
                                          [--model flagship|centerpoint|
-                                                  centerpoint-velo|sparse]
+                                                  centerpoint-velo|sparse|
+                                                  nusc-dcn|nusc-01voxel|
+                                                  nusc-dcn_flip]
+                                         [--part frame|rpn]
 
 Builds the flagship detector of ``partner_tpu_torch`` exactly as
 ``chip_smoke.py`` does (full width and grid, bf16, seeded random weights,
@@ -27,7 +30,16 @@ points in 432,000 rows), with the stages backbone, RPN, head and decode +
 NMS. ``--model sparse`` profiles the flagship with the sparse
 ``SpMiddleResNetFHD`` backbone (``chip_smoke.sparse_cfgs``) on the sweep's
 ``dynamic_voxelize`` example (the voxelizer outside the frame), and also
-traces the backbone alone.
+traces the backbone alone. ``--model nusc-<name>`` profiles a nuScenes
+CenterPoint config of ``chip_smoke.py``'s nuScenes phase (``dcn``,
+``01voxel`` or ``dcn_flip``, its offset convs drawn too) on one synthetic
+10-sweep sample (``chip_smoke.nusc_example``; the flip config's four
+copies), and also traces one deformable branch alone (the DCN configs).
+``--part rpn`` times each conv of the model's RPN alone instead, on the
+input the frame hands it: device ms and the kernels cuDNN picks, as the
+port calls the conv (channels-last strides), NCHW-contiguous,
+channels-last with a channels-last weight, one sample a call, and with
+TF32 allowed.
 
 ``--train`` profiles the flagship train step instead, on ``chip_smoke.py``'s
 train batch (4 synthetic 150,000-point sweeps with their boxes and vote
@@ -175,7 +187,8 @@ def trace(run, out_dir, tag):
                 for n, v in top]}
 
 
-def profile_frame(dev, args):
+def build_frame(dev, args):
+    """The detector of ``--model`` and its frame's example on the card."""
     from partner_tpu_torch.models import build_detector
 
     n_points, c = chip_smoke.N_POINTS, 7
@@ -185,6 +198,9 @@ def profile_frame(dev, args):
         m, tc = chip_smoke.sparse_cfgs()
     elif args.model == "centerpoint":
         m, _, tc = chip_smoke.centerpoint_cfgs()
+    elif args.model.startswith("nusc-"):
+        m, _, tc = chip_smoke.centerpoint_cfgs(
+            chip_smoke.NUSC_CONFIGS[args.model[5:]])
     else:   # the two-sweep velocity config: 8 features, twice the points
         m, _, tc = chip_smoke.centerpoint_cfgs(chip_smoke.CP_VELO_CONFIG)
         n_points, c = 2 * chip_smoke.N_POINTS, 8
@@ -192,16 +208,26 @@ def profile_frame(dev, args):
     det = build_detector(m, None, tc, device=dev, generator=gen,
                          use_block_kernel=args.use_block_kernel)
     chip_smoke.randomize_norms(det.module, gen)
-    pts, mask = chip_smoke.synthetic_sweep(
-        np.random.RandomState(chip_smoke.SEED),
-        m["bbox_head"]["voxel_generator"]["range"], n_points, c=c)
-    ex = chip_smoke.to_device({"points": pts, "points_mask": mask}, dev)
+    if args.model.startswith("nusc-"):
+        chip_smoke.randomize_offsets(det.module, gen)
+        ex = chip_smoke.to_device(chip_smoke.nusc_example(args.model[5:]),
+                                  dev)
+    else:
+        pts, mask = chip_smoke.synthetic_sweep(
+            np.random.RandomState(chip_smoke.SEED),
+            m["bbox_head"]["voxel_generator"]["range"], n_points, c=c)
+        ex = chip_smoke.to_device({"points": pts, "points_mask": mask}, dev)
     if args.model == "sparse":
         from partner_tpu_torch.ops.voxelize import DeviceVoxelizer
 
         vg = m["bbox_head"]["voxel_generator"]
         ex = DeviceVoxelizer(vg, dev, vg["max_voxel_num"])(
             ex["points"], ex["points_mask"])
+    return det, ex
+
+
+def profile_frame(dev, args):
+    det, ex = build_frame(dev, args)
     for _ in range(2):
         det.predict(ex)
     torch.cuda.synchronize()
@@ -216,6 +242,95 @@ def profile_frame(dev, args):
             out["backbone_trace"] = trace(
                 lambda: backbone_stage(det.module, ex), args.out,
                 "sparse_backbone")
+    head = det.module.bbox_head
+    if args.model.startswith("nusc-") and hasattr(head.task0,
+                                                  "feature_adapt_cls"):
+        with torch.no_grad():
+            x = torch.relu(head.Conv_0(det.module.neck(backbone_stage(
+                det.module, ex))))
+            out["deform_conv_shape"] = tuple(x.shape)
+            out["deform_conv_trace"] = trace(
+                lambda: head.task0.feature_adapt_cls(x), args.out,
+                args.model + "_deform_conv")
+    return out
+
+
+def kernel_names(run):
+    """{kernel name: device ms} of one traced call of ``run``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names[e.name[:90]] = names.get(e.name[:90], 0.0) + \
+                e.device_time / 1e3
+    return names
+
+
+def profile_rpn_convs(dev, args):
+    """Each conv of the frame's RPN on the input the frame hands it (the
+    BEV of the model's example), device ms (``chip_smoke.device_ms``) and
+    the kernels cuDNN runs, with ``cudnn.benchmark`` off as in the port:
+    as the port calls it (an NHWC tensor permuted to an NCHW view, so
+    channels-last strides, beside an NCHW-contiguous weight), on the same
+    values copied NCHW-contiguous, channels-last with the weight
+    channels-last too, one sample a call (``per_sample``), and with TF32
+    allowed (``tf32``: another precision, for scale only)."""
+    det, ex = build_frame(dev, args)
+    neck = det.module.neck
+    inputs = {}
+    hooks = [mod.register_forward_pre_hook(
+        lambda mod, a, name=name: inputs.setdefault(name, a[0].detach()))
+        for name, mod in neck.named_children()
+        if name.startswith(("Conv_", "ConvTranspose_"))]
+    with torch.no_grad():
+        neck(backbone_stage(det.module, ex))
+    for h in hooks:
+        h.remove()
+    torch.backends.cudnn.benchmark = False
+    out = {"card": chip_smoke.gpu_name_and_power_limit(),
+           "torch": torch.__version__, "model": args.model,
+           "cudnn": torch.backends.cudnn.version(), "convs": {}}
+    with torch.no_grad():
+        for name, x in inputs.items():
+            mod = getattr(neck, name)
+            cf = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+            w = mod.weight
+            routes = {"port": lambda: mod(x), "nchw": lambda: mod(cf)}
+            if name.startswith("Conv_"):
+                wcl = w.detach().to(memory_format=torch.channels_last)
+
+                def both_cl(mod=mod, x=x, w=w, wcl=wcl):
+                    mod.weight.data = wcl
+                    try:
+                        return mod(x)
+                    finally:
+                        mod.weight.data = w.detach()
+                routes["channels_last"] = both_cl
+
+            def per_sample(mod=mod, x=x):
+                return torch.cat([mod(x[i:i + 1]) for i in range(len(x))])
+
+            def tf32(mod=mod, x=x):
+                torch.backends.cudnn.allow_tf32 = True
+                try:
+                    return mod(x)
+                finally:
+                    torch.backends.cudnn.allow_tf32 = False
+            routes.update(per_sample=per_sample, tf32=tf32)
+            r = {"input": list(x.shape), "weight": list(w.shape),
+                 "stride": getattr(mod, "stride", None)}
+            for route, fn in routes.items():
+                r[f"{route}_ms"] = chip_smoke.device_ms(fn)
+                r[f"{route}_kernels"] = kernel_names(fn)
+            out["convs"][name] = r
+            print(f"{args.model} RPN {name}: " + ", ".join(
+                f"{k} {v!r}" for k, v in r.items() if k.endswith("ms")),
+                flush=True)
     return out
 
 
@@ -255,12 +370,16 @@ def main():
                     help="the head's whole-block route")
     ap.add_argument("--train", action="store_true",
                     help="profile the train step instead of the frame")
+    ap.add_argument("--part", default="frame", choices=["frame", "rpn"],
+                    help="rpn: each RPN conv of the frame alone, by "
+                    "memory layout")
     ap.add_argument("--model", default="flagship",
                     choices=["flagship", "centerpoint", "centerpoint-velo",
-                             "sparse"],
+                             "sparse", "nusc-dcn", "nusc-01voxel",
+                             "nusc-dcn_flip"],
                     help="the frame's model (the train step: flagship)")
     args = ap.parse_args()
-    if args.train and args.model != "flagship":
+    if args.train and (args.model != "flagship" or args.part != "frame"):
         sys.exit("torch_frame_profile: --train profiles the flagship only")
     if not torch.cuda.is_available():
         sys.exit("torch_frame_profile: no CUDA device")
@@ -272,10 +391,13 @@ def main():
     dev = torch.device("cuda", 0)
     if args.train:
         result = profile_train(dev, args)
+    elif args.part == "rpn":
+        result = profile_rpn_convs(dev, args)
     else:
         result = profile_frame(dev, args)
     name = ("train_profile.json" if args.train
-            else f"{args.model.replace('flagship', 'frame')}_profile.json")
+            else f"{args.model.replace('flagship', 'frame')}"
+            f"{'_rpn' if args.part == 'rpn' else ''}_profile.json")
     with open(os.path.join(args.out, name), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result), flush=True)
