@@ -158,6 +158,22 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
    at C_in 10 and 8 over the 345,000-row buffer, the scatter-max at the
    three canvases and its float32 entry at the DCN train step's batch of
    4 (:func:`nusc_kernel_cases`).
+15. PointPillars: the two Waymo PointPillars configs
+   (``configs/waymo/pp/waymo_centerpoint_pp{,_two_cls}_two_pfn_stride1_
+   3x.py``: ``dynamic_voxelize`` on the 468 x 468 pillar grid at the
+   32,768-pillar capacity, the two-layer PFN with its pooled max, the
+   scatter, the float32 ``RPN`` and ``CenterHead`` at stride 1) at full
+   width, random weights with norms and the PFN's norms randomized, on a
+   cuboid 180,000-point sweep in 216,000 rows: each config's frame (median
+   ms, device busy and launches, kept boxes, finite maps, a repeat
+   bit-equal, pillars occupied against the capacity and the points in
+   dropped pillars); the canvas, RPN output and head maps of the card
+   against the CPU on a 128 x 128 pillar grid (float32 both sides) and the
+   kept detections; for the 3-class config the train step at batch 4
+   (150,000 points a sample in 180,000 rows, 32-64 boxes), ``dist_test``
+   from a port checkpoint over 8 frames, each bit-equal to a direct
+   ``predict``, and two train-CLI steps (:func:`pp_phase`). No hand kernel
+   lies on this path; the phase holds every kernel's launches at 0.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises before it, so the
@@ -4277,6 +4293,394 @@ def nusc_phase(dev, card):
     return res
 
 
+# ------------------------------------------------------------ PointPillars
+
+PP_DIR = os.path.join(ROOT, "configs", "waymo", "pp")
+PP_CONFIGS = {
+    "three_class": os.path.join(PP_DIR,
+                                "waymo_centerpoint_pp_two_pfn_stride1_3x.py"),
+    "two_class": os.path.join(
+        PP_DIR, "waymo_centerpoint_pp_two_cls_two_pfn_stride1_3x.py")}
+PP_CLASSES = ("VEHICLE", "PEDESTRIAN", "CYCLIST")   # the configs' names
+PP_EVAL_FRAMES = 8           # dist_test frames on disk (cut first)
+PP_SMALL_GRID = 128          # the reference's pillar grid, 128 x 128
+PP_REF_TOL = 1e-5            # float32 both sides: summation order only
+PP_TIE = 1e-6                # scores closer than this may swap places
+
+
+def pp_cfgs(config=PP_CONFIGS["three_class"], grid=None):
+    """(model cfg, train cfg, test cfg) of a PointPillars config with
+    ``score_threshold`` 0 (as :func:`frame_cfgs`), optionally on a
+    ``grid`` x ``grid`` pillar grid (same widths, the reader's cell too)."""
+    import copy
+
+    from partner_tpu_torch.utils.config import load_config
+
+    cfg = load_config(config)
+    m = copy.deepcopy(cfg["model"])
+    tc = copy.deepcopy(cfg["test_cfg"])
+    tc["score_threshold"] = 0.0
+    if grid is not None:
+        vg = m["bbox_head"]["voxel_generator"]
+        r = vg["range"]
+        vg["voxel_size"] = [(r[3] - r[0]) / grid, (r[4] - r[1]) / grid,
+                            vg["voxel_size"][2]]
+        m["reader"] = dict(m["reader"], voxel_size=tuple(vg["voxel_size"]))
+    return m, copy.deepcopy(cfg["train_cfg"]), tc
+
+
+def polar_extent(pc_range):
+    """A cartesian range as the (rho, phi, z) extent :func:`synthetic_scene`
+    draws from: rho up to the half-width, every azimuth."""
+    return (0.0, -np.pi, pc_range[2], pc_range[3], np.pi, pc_range[5])
+
+
+def cuboid_sweep(rng, pc_range, n_points, rows=None):
+    """bench.py's sweep (:func:`synthetic_sweep`: log-uniform range from 1 m
+    to the grid's half-width, ground-hugging z, every azimuth) in the
+    cuboid layout a PointPillars config's pipeline gives, [x, y, z,
+    intensity, elongation, rho, phi], padded to ``rows`` (1.2x)."""
+    pts, mask = synthetic_sweep(rng, (1.0, -np.pi, pc_range[2],
+                                      pc_range[3], np.pi, pc_range[5]),
+                                n_points)
+    rho, phi, z, x, y, i, e = (pts[0, :n_points, k] for k in range(7))
+    rows = rows or pts.shape[1]
+    out = np.zeros((1, rows, 7), np.float32)
+    out[0, :n_points] = np.stack([x, y, z, i, e, rho, phi], 1)
+    mask = np.zeros((1, rows), bool)
+    mask[0, :n_points] = True
+    return out, mask
+
+
+def pp_train_example(rng, model_cfg, train_cfg, batch, n_points, rows,
+                     max_boxes):
+    """A PointPillars train batch made with numpy and the port's
+    ``CenterTargetAssigner`` (what ``AssignLabel`` gives the CLI): per
+    sample a :func:`synthetic_scene` over the cartesian range whose boxes
+    take the config's classes in turn and a random velocity, in the cuboid
+    layout [x, y, z, intensity, elongation, rho, phi], padded to ``rows``;
+    per task ``hm`` (B, ny, nx, C), ``anno_box``, ``ind``, ``mask`` and
+    ``cat``."""
+    from partner_tpu_torch.core.targets import CenterTargetAssigner
+
+    bh = model_cfg["bbox_head"]
+    vg = bh["voxel_generator"]
+    pr = vg["range"]
+    grid = [int(round((pr[3 + i] - pr[i]) / vg["voxel_size"][i]))
+            for i in range(3)]
+    a = train_cfg["assigner"]
+    assigner = CenterTargetAssigner(
+        bh["tasks"], a["out_size_factor"], a["gaussian_overlap"],
+        a["max_objs"], a["min_radius"], a["voxel_shape"])
+    n_cls = sum(len(t["class_names"]) for t in bh["tasks"])
+    pts = np.zeros((batch, rows, 7), np.float32)
+    mask = np.zeros((batch, rows), bool)
+    targets = []
+    for i in range(batch):
+        boxes, xyz = synthetic_scene(rng, polar_extent(pr), n_points,
+                                     max_boxes)
+        pts[i, :n_points] = np.concatenate(
+            [xyz, rng.rand(n_points, 2), np.hypot(xyz[:, :1], xyz[:, 1:2]),
+             np.arctan2(xyz[:, 1:2], xyz[:, :1])], 1)
+        mask[i, :n_points] = True
+        gt = np.concatenate([boxes[:, :6], rng.randn(len(boxes), 2),
+                             boxes[:, 6:]], 1).astype(np.float32)
+        targets.append(assigner.assign(gt, np.arange(len(gt)) % n_cls + 1,
+                                       grid, vg["voxel_size"], pr))
+    ex = {"points": pts, "points_mask": mask}
+    for k in ("hm", "anno_box", "ind", "mask", "cat"):
+        ex[k] = [np.stack([t[k][j] for t in targets])
+                 for j in range(len(bh["tasks"]))]
+    ex["hm"] = [h.transpose(0, 2, 3, 1) for h in ex["hm"]]   # NHWC
+    return ex
+
+
+@torch.no_grad()
+def randomize_pfn(module, gen):
+    """Draw the pillar encoder's ``MaskedBatchNorm`` scales and biases
+    (:func:`randomize_norms` draws the norms it knows and every
+    statistic)."""
+    for name, t in module.reader.named_parameters():
+        if name.endswith("_bn.scale"):
+            t.copy_(0.5 + torch.rand(t.shape, generator=gen))
+        elif name.endswith("_bn.bias"):
+            t.copy_(0.2 * torch.randn(t.shape, generator=gen))
+
+
+@torch.no_grad()
+def pillar_census(module, ex):
+    """(cells the sweep occupies, pillars kept, valid points in a dropped
+    pillar) of sample 0 on the module's pillar grid, each row's cell taken
+    as ``dynamic_voxelize`` takes it."""
+    vox = module.pillarize(ex["points"][:1], ex["points_mask"][:1])
+    dev = ex["points"].device
+    nx, ny = module.grid_size[:2]
+    pr = module.pc_range
+    size = torch.tensor([module.voxel_size[0], module.voxel_size[1],
+                         pr[5] - pr[2]], dtype=torch.float32, device=dev)
+    lo = torch.tensor(pr[:3], dtype=torch.float32, device=dev)
+    co = torch.floor((ex["points"][0, :, :3] - lo) / size).long()
+    lim = torch.tensor([nx, ny, 1], device=dev)
+    ok = ex["points_mask"][0] & ((co >= 0) & (co < lim)).all(1)
+    occupied = int(torch.unique(co[ok, 1] * nx + co[ok, 0]).numel())
+    dropped = int((ok & (vox["point_voxel"][0] >= module.max_pillars)).sum())
+    return occupied, int(vox["mask"].sum()), dropped
+
+
+def write_pp_config(root, config, info_path):
+    """A PointPillars config file with ``score_threshold`` 0 (as
+    :func:`pp_cfgs`), ``data.train`` / ``data.val`` at ``info_path``, and
+    a metrics record every step; the train pipeline's rotation, scaling
+    and shuffle as the config has them."""
+    path = os.path.join(root, os.path.basename(config))
+    with open(path, "w") as f:
+        f.write(f"__file__ = {config!r}\n"
+                f"exec(open({config!r}).read())\n"
+                "test_cfg['score_threshold'] = 0.0\n"
+                "for _s in ('train', 'val'):\n"
+                f"    data[_s].update(info_path={info_path!r}, "
+                f"root_path={root!r})\n"
+                "log_config = dict(interval=1, hooks=[dict(type="
+                "'TextLoggerHook'), dict(type='MetricsSinkHook')])\n")
+    return path
+
+
+def same_detections(got, want, tie=PP_TIE, box_tol=1e-4):
+    """Sample 0's kept detections of two ``predict`` outputs: the same
+    count and labels, and each row within ``box_tol`` of the other's row
+    at its place or, where scores tie within ``tie``, of a row of that
+    tie -> rows equal at their place."""
+    g, w = kept_boxes(got), kept_boxes(want)
+    n = len(w["scores"])
+    if len(g["scores"]) != n:
+        raise AssertionError(f"kept {len(g['scores'])} != {n}")
+    at_place = 0
+    for i in range(n):
+        near = np.flatnonzero(np.abs(w["scores"] - w["scores"][i]) <= tie)
+        ok = [k for k in near if g["label_preds"][i] == w["label_preds"][k]
+              and np.abs(g["box3d_lidar"][i] - w["box3d_lidar"][k]).max()
+              <= box_tol]
+        if not ok:
+            raise AssertionError(f"kept row {i} matches no row of its tie")
+        at_place += int(i in ok and abs(g["scores"][i] - w["scores"][i])
+                        <= 1e-6)
+    return at_place
+
+
+@torch.no_grad()
+def pp_reference(dev, card):
+    """The 3-class config's widths on a PP_SMALL_GRID pillar grid, same
+    weights and points: the canvas, the RPN output and each head map of
+    the card against the CPU (both float32), each stage fed the CPU's
+    input, then the kept detections of ``predict`` on both."""
+    from partner_tpu_torch.models import build_detector
+
+    m, _, tc = pp_cfgs(grid=PP_SMALL_GRID)
+    gen = torch.Generator().manual_seed(SEED + 31)
+    gpu = build_detector(m, None, tc, device=dev, generator=gen)
+    randomize_norms(gpu.module, gen)
+    randomize_pfn(gpu.module, gen)
+    cpu = build_detector(m, None, tc, device="cpu")
+    cpu.module.load_state_dict({k: v.cpu() for k, v in
+                                gpu.module.state_dict().items()})
+    pts, mask = cuboid_sweep(np.random.RandomState(SEED + 31),
+                             m["bbox_head"]["voxel_generator"]["range"],
+                             30_000)
+    exc = to_device({"points": pts, "points_mask": mask}, "cpu")
+    exg = to_device({"points": pts, "points_mask": mask}, dev)
+    canvas = cpu.module.encode_canvas(exc["points"], exc["points_mask"])
+    rel_rms(f"PointPillars canvas on {card}", gpu.module.encode_canvas(
+        exg["points"], exg["points_mask"]), canvas, PP_REF_TOL)
+    x = cpu.module.neck(canvas)
+    rel_rms("PointPillars RPN", gpu.module.neck(canvas.to(dev)), x,
+            PP_REF_TOL)
+    want = cpu.module.bbox_head(x)["det_preds"][0]
+    got = gpu.module.bbox_head(x.to(dev))["det_preds"][0]
+    for k in sorted(want):
+        rel_rms(f"PointPillars head {k}", got[k], want[k], PP_REF_TOL)
+    at_place = same_detections(gpu.predict(exg), cpu.predict(exc))
+    kept = int(cpu.predict(exc)["mask"].sum())
+    log(f"PointPillars kept detections on {PP_SMALL_GRID} x {PP_SMALL_GRID}"
+        f" pillars, card against CPU: {kept} each, {at_place} equal at "
+        f"their place, the rest within a score tie of {PP_TIE}")
+
+
+def pp_phase(dev, card):
+    """The two Waymo PointPillars configs at full width: each frame on a
+    cuboid 180,000-point sweep (median ms, device busy and launches, kept
+    boxes, finite maps, a repeat bit-equal, pillars against the capacity);
+    the card against the CPU on a small pillar grid; for the 3-class
+    config the batch-4 train step, ``dist_test`` from a port checkpoint
+    bit-equal to direct predicts, and two train-CLI steps. No hand kernel
+    lies on this path: every launch count stays 0."""
+    import pickle
+    import tempfile
+
+    from partner_tpu_torch.data import build_dataset
+    from partner_tpu_torch.data.loader import DataLoader
+    from partner_tpu_torch.models import build_detector
+    from partner_tpu_torch.tools import dist_test, train
+    from partner_tpu_torch.train.checkpoint import save_checkpoint
+    from partner_tpu_torch.train.optim import build_one_cycle_optimizer
+    from partner_tpu_torch.train.train_state import make_train_step
+    from partner_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    res = {}
+    none = dict.fromkeys(kernel_wrappers(), 0)
+    dets = {}
+    for name, config in PP_CONFIGS.items():
+        m, train_cfg, tc = pp_cfgs(config)
+        gen = torch.Generator().manual_seed(SEED + 30)
+        t0 = time.perf_counter()
+        det = build_detector(m, None, tc, device=dev, generator=gen)
+        randomize_norms(det.module, gen)
+        randomize_pfn(det.module, gen)
+        n_params = sum(p.numel() for p in det.module.parameters())
+        log(f"PointPillars {name}: grid {det.module.grid_size}, capacity "
+            f"{det.module.max_pillars} pillars, {n_params} params, built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        pr = m["bbox_head"]["voxel_generator"]["range"]
+        pts, mask = cuboid_sweep(np.random.RandomState(SEED + 30), pr,
+                                 N_POINTS)
+        ex = to_device({"points": pts, "points_mask": mask}, dev)
+        occupied, kept_pillars, dropped = pillar_census(det.module, ex)
+        median, times, out, tally = timed_predicts(det, ex, FRAMES, none)
+        busy, launches = device_busy(lambda: det.predict(ex))
+        with torch.no_grad():
+            maps = det.module(ex)["det_preds"][0]
+        if not all(torch.isfinite(v).all() for v in maps.values()):
+            raise AssertionError(f"PointPillars {name}: non-finite maps")
+        kept = check_detections(out, tc)
+        if not identical(det.predict(ex), out):
+            raise AssertionError(f"PointPillars {name}: a repeat differs")
+        log(f"PointPillars {name} frame on {card}: {N_POINTS} cuboid points "
+            f"in {pts.shape[1]} rows, median {median!r} ms over {FRAMES} "
+            f"frames (host clock around a synchronized predict), all "
+            f"{times!r}; device busy {busy!r} ms and {launches!r} launches "
+            f"a frame; kernel launches {tally}; pillars: {occupied} cells "
+            f"occupied, {kept_pillars} kept of {det.module.max_pillars}, "
+            f"{dropped} points in dropped pillars; {kept} boxes kept; maps "
+            f"{sorted(maps)} finite; repeat bit-equal")
+        res[name] = dict(median_ms=median, device_busy_ms=busy,
+                         launches_per_frame=launches, launches=tally,
+                         kept=kept, occupied=occupied,
+                         pillars=kept_pillars, dropped_points=dropped,
+                         capacity=det.module.max_pillars)
+        dets[name] = (det, m, train_cfg, tc)
+        del maps, out, ex
+        torch.cuda.empty_cache()
+    del dets["two_class"]
+
+    pp_reference(dev, card)
+
+    # ---- the 3-class train step at batch 4
+    det, m, train_cfg, tc = dets.pop("three_class")
+    cfg = load_config(PP_CONFIGS["three_class"])
+    batch = cfg["data"]["samples_per_gpu"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ex = to_device(pp_train_example(
+        np.random.RandomState(SEED + 32), m, train_cfg, batch, TRAIN_POINTS,
+        TRAIN_ROWS, MAX_BOXES), dev)
+    log(f"PointPillars train batch: {batch} samples of {TRAIN_POINTS} "
+        f"points in {TRAIN_ROWS} rows, "
+        f"{[int(t.sum()) for t in ex['mask'][0]]} center targets")
+    stats = {k: v.clone() for k, v in det.module.reader.state_dict().items()
+             if k.endswith(("_bn.mean", "_bn.var"))}
+    step = make_train_step(det, build_one_cycle_optimizer(
+        det.module, lr_max=cfg["lr_config"]["lr_max"], total_steps=1000))
+    launches, median, times, _, peak = timed_train_steps(
+        det, step, ex, None, none, "PointPillars train step")
+    after = det.module.reader.state_dict()
+    still = [k for k, v in stats.items() if torch.equal(v, after[k])]
+    if still:
+        raise AssertionError(f"PointPillars train: PFN statistics {still} "
+                             "unchanged")
+    log(f"PointPillars train step, batch {batch}, on {card}: median "
+        f"{median!r} ms over {TRAIN_STEPS} steps, all {times!r}; peak "
+        f"memory {peak!r} GiB; launches over {TRAIN_STEPS + 1} steps "
+        f"{launches}; every gradient finite, every parameter, BatchNorm "
+        "statistic and PFN statistic moved")
+    res["train"] = dict(median_ms=median, peak_gib=peak, launches=launches)
+    del step, ex
+    torch.cuda.empty_cache()
+
+    # ---- dist_test from a port checkpoint and two train-CLI steps
+    with tempfile.TemporaryDirectory() as root:
+        pr = m["bbox_head"]["voxel_generator"]["range"]
+        info = write_val_set(root, np.random.RandomState(SEED + 33),
+                             polar_extent(pr), PP_EVAL_FRAMES,
+                             names=PP_CLASSES)
+        cfg_path = write_pp_config(root, PP_CONFIGS["three_class"], info)
+        save_checkpoint(os.path.join(root, "ckpt"), 0,
+                        det.module.state_dict())
+        work_dir = os.path.join(root, "eval")
+        _, ((metrics, _), fps), dist_launches = counted(
+            lambda: dist_test.main([
+                cfg_path, "--checkpoint",
+                os.path.join(root, "ckpt", "latest"), "--work_dir", work_dir,
+                "--max_points", str(EVAL_ROWS), "--device",
+                torch.device(dev).type]))
+        with open(os.path.join(work_dir, "prediction.pkl"), "rb") as f:
+            preds = pickle.load(f)
+        direct = {}
+        for b in DataLoader(build_dataset(dict(load_config(cfg_path)[
+                "data"]["val"])), 1, shuffle=False, max_points=EVAL_ROWS):
+            e = to_device({k: b[k] for k in ("points", "points_mask")}, dev)
+            direct[b["metadata"][0]["token"]] = kept_boxes(det.predict(e))
+        if dist_launches != none:
+            raise AssertionError(f"PointPillars dist_test: launches "
+                                 f"{dist_launches}")
+        if sorted(preds) != sorted(direct) or not all(
+                np.array_equal(preds[t][k], direct[t][k])
+                for t in direct for k in direct[t]):
+            raise AssertionError("PointPillars dist_test: a frame differs "
+                                 "from a direct predict")
+        keys = [f"AP/L1/{c}" for c in PP_CLASSES] + ["mAP/L1", "mAPH/L2"]
+        if not all(k in metrics and np.isfinite(metrics[k]) for k in keys):
+            raise AssertionError(f"PointPillars dist_test: {metrics}")
+        log(f"PointPillars dist_test (three_class) on {card}: middle-third "
+            f"FPS {fps!r} over {PP_EVAL_FRAMES} frames of {N_POINTS} points "
+            f"in {EVAL_ROWS} rows; launches {dist_launches}; every frame "
+            "bit-equal to a direct predict; " + ", ".join(
+                f"{k} {metrics[k]!r}" for k in keys))
+        res["dist_test"] = dict(fps=fps, launches=dist_launches)
+        del det
+        torch.cuda.empty_cache()
+
+        work_dir = os.path.join(root, "train")
+        wall_ms, steps, cli_launches = counted(lambda: train.main([
+            cfg_path, "--work_dir", work_dir, "--batch_size", str(batch),
+            "--total_steps", "2", "--max_steps_per_epoch", "2",
+            "--max_points", str(TRAIN_ROWS), "--seed", str(SEED),
+            "--device", torch.device(dev).type]))
+        with open(os.path.join(work_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        ckpts = sorted(d for d in os.listdir(work_dir)
+                       if d.startswith("ckpt_"))
+    if steps != 2 or ckpts[-1:] != ["ckpt_00000002"] or [
+            r["step"] for r in recs] != [0, 1]:
+        raise AssertionError(f"PointPillars train CLI: steps {steps}, "
+                             f"checkpoints {ckpts}, records {recs}")
+    if cli_launches != none:
+        raise AssertionError(f"PointPillars train CLI: launches "
+                             f"{cli_launches}")
+    for r in recs:
+        vals = {k: r[k] for k in ("loss", "hm_loss", "loc_loss", "grad_norm")}
+        flat = [x for v in vals.values()
+                for x in (v if isinstance(v, list) else [v])]
+        if not all(np.isfinite(flat)):
+            raise AssertionError(f"PointPillars train CLI: {vals}")
+        log(f"PointPillars train CLI step {r['step']} on {card}: time "
+            f"{r['time']!r} s, data_time {r['data_time']!r} s, {vals}")
+    res["train_cli"] = dict(launches=cli_launches, wall_s=wall_ms / 1e3)
+    log(f"PointPillars train CLI: 2 steps at batch {batch} and one "
+        f"checkpoint in {wall_ms / 1e3!r} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s in all")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this run needs one NVIDIA card")
@@ -4315,6 +4719,7 @@ def main():
     nat = native_phase(card)
     sparse = sparse_phase(dev, card)
     nusc = nusc_phase(dev, card)
+    pp = pp_phase(dev, card)
 
     meta = {
         "stem": ("partner_tpu_torch/csrc/stem.cu",
@@ -4369,6 +4774,12 @@ def main():
                         name],
                     nusc_train_cli_launches=nusc["train_cli"]["launches"][
                         name],
+                    pp_frame_launches=pp["three_class"]["launches"][name],
+                    pp_two_class_frame_launches=pp["two_class"]["launches"][
+                        name],
+                    pp_train_launches=pp["train"]["launches"][name],
+                    pp_dist_test_launches=pp["dist_test"]["launches"][name],
+                    pp_train_cli_launches=pp["train_cli"]["launches"][name],
                     **r)
                for name, r in kres.items()]
     log("summary: card " + card + ", flagship frame median ms: " + ", ".join(
@@ -4479,6 +4890,18 @@ def main():
                     f"{sm['bound_ms_nusc_' + c]!r}, "
                     f"{sm['not_equal_nusc_' + c]} not equal)"
                     for c in list(NUSC_CONFIGS) + ["dcn_train_f32"]))
+    pt = pp["three_class"]
+    log(f"summary: card {card}, PointPillars frame median "
+        + ", ".join(f"{c} {pp[c]['median_ms']!r} ms (device busy "
+                    f"{pp[c]['device_busy_ms']!r}, "
+                    f"{pp[c]['launches_per_frame']!r} launches)"
+                    for c in PP_CONFIGS)
+        + f"; pillars {pt['occupied']} occupied, {pt['pillars']} kept of "
+        f"{pt['capacity']}, {pt['dropped_points']} points dropped; train "
+        f"step at batch "
+        f"4 {pp['train']['median_ms']!r} ms, peak {pp['train']['peak_gib']!r}"
+        f" GiB; dist_test middle-third FPS {pp['dist_test']['fps']!r}; "
+        f"train CLI 2 steps in {pp['train_cli']['wall_s']!r} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

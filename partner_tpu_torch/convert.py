@@ -19,11 +19,15 @@ submodules carry flax's names (``Conv_0``, ``BatchNorm_0``,
   BatchNorm rules);
 - the sparse backbone's leaves keep flax's names and layouts: a
   ``SparseConv_k``'s flat (K*Cin, Cout) ``kernel`` and its ``bias``, and a
-  ``MaskedBatchNorm_k``'s ``scale``, ``bias``, ``mean`` and ``var``.
+  ``MaskedBatchNorm_k``'s ``scale``, ``bias``, ``mean`` and ``var``; so do
+  a pillar encoder's ``pfn{i}_bn`` (a ``MaskedBatchNorm``), while its
+  ``pfn{i}_dense`` kernel maps by the Dense rule.
 
 Inputs are nested dicts of numpy arrays (``{"params": ..., "batch_stats":
 ...}``), so this module needs neither jax nor flax.
 """
+
+import re
 
 import numpy as np
 import torch
@@ -48,8 +52,9 @@ def _collapse(path):
 
 
 def _keeps_names(mods):
-    return bool(mods) and mods[-1].startswith(("SparseConv_",
-                                               "MaskedBatchNorm_"))
+    return bool(mods) and (
+        mods[-1].startswith(("SparseConv_", "MaskedBatchNorm_"))
+        or re.fullmatch(r"pfn\d+_bn", mods[-1]) is not None)
 
 
 def _param(path, arr):

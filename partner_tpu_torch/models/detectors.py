@@ -12,6 +12,8 @@ auction matcher. ``build_voxelnet`` turns a VoxelNet config into a
 ``CenterHead`` (``SepHead`` or ``DCNSepHead`` tasks), per-task decode
 (after the double-flip average where ``test_cfg["double_flip"]`` is set)
 and rotated NMS, and in training the FastFocal + L1 peak regression loss.
+``models/pillar.py`` builds its ``PointPillars`` configs as the same
+:class:`CenterPointDetector` over a ``PointPillarsModule``.
 
 Both take either input contract of the JAX package: ``points`` +
 ``points_mask`` (the point fast path of ``PolarDenseFHD``), or voxels,
@@ -51,16 +53,25 @@ from .swin_vote import WindowAttention
 # the backbones the port builds -> the input contract the entry points feed
 # them (``partner_tpu/models/detectors.py:487-489``, ``:548-550``)
 _INPUT_KINDS = {"PolarDenseFHD": "points", "SpMiddleResNetFHD": "voxels"}
+# a PointPillars config's backbone: the scatter that ``PointPillarsModule``
+# does itself (``models/pillar.py``), no VoxelNet backbone
+_PILLAR_SCATTERS = ("PointPillarsScatter", "DynamicPPScatter")
+_PFN_READERS = ("PFNLayer", "DynamicPFNet", "PillarFeatureNet")
 
 
 def backbone_input_kind(backbone):
-    """A backbone cfg -> its detector's ``input_kind``; a backbone the port
-    does not build raises, naming its ROADMAP item."""
-    kind = _INPUT_KINDS.get(dict(backbone).get("type"))
+    """A VoxelNet backbone cfg -> its detector's ``input_kind``; a pillar
+    scatter or a backbone the port does not build raises."""
+    name = dict(backbone).get("type")
+    if name in _PILLAR_SCATTERS:
+        raise NotImplementedError(
+            f"backbone {name} is the pillar scatter of the PointPillars "
+            "detector (type='PointPillars', models/pillar.py), not a "
+            "VoxelNet backbone")
+    kind = _INPUT_KINDS.get(name)
     if kind is None:
         raise NotImplementedError(
-            f"backbone {dict(backbone).get('type')} is not ported (ROADMAP.md "
-            "queue 1, off the main path: pillar.py); the port builds "
+            f"backbone {name} is not ported; the port's VoxelNet builds "
             f"{sorted(_INPUT_KINDS)}")
     return kind
 
@@ -90,11 +101,14 @@ class VoxelNetModule(nn.Module):
         self.out_size_factor = out_size_factor
         self.with_set_attention = with_set_attention
         reader_cfg = dict(reader_cfg)
+        if reader_cfg.get("type") in _PFN_READERS:
+            raise NotImplementedError(
+                f"reader {reader_cfg['type']} pools points into pillars; it "
+                "runs in the PointPillars detector (type='PointPillars', "
+                "models/pillar.py), not on VoxelNet's voxels")
         if READERS.get(reader_cfg.get("type")) is None:
             raise NotImplementedError(
-                f"reader {reader_cfg.get('type')} is not ported (ROADMAP.md "
-                "queue 1, off the main path: the PFN readers wait for "
-                "pillar.py)")
+                f"reader {reader_cfg.get('type')} is not ported")
         self.reader = build_from_cfg(reader_cfg, READERS)
         self.backbone = build_from_cfg(dict(backbone_cfg), BACKBONES,
                                        dict(input_shape=self.grid_size))
@@ -255,9 +269,10 @@ class E2EDetector:
 
 
 class CenterPointDetector:
-    """VoxelNet + CenterHead: the FastFocal + L1 peak regression loss, and
-    at inference forward, per-task decode and NMS. Segmentation heads are
-    not ported (``build_voxelnet`` refuses them)."""
+    """VoxelNet or PointPillars (``models/pillar.py``) + CenterHead: the
+    FastFocal + L1 peak regression loss, and at inference forward, per-task
+    decode and NMS. Segmentation heads are not ported (both factories refuse
+    them)."""
 
     input_kind = "points"
     # the batch keys :meth:`loss` reads; all but the points are per-task
@@ -323,13 +338,13 @@ def _neck_cfg(neck):
             if not k.startswith("set_") and k != "logger"}
 
 
-def _materialize(device, generator, module_kwargs):
-    """A :class:`VoxelNetModule` built on the meta device, then on
+def _materialize(device, generator, make):
+    """The module ``make()`` builds, built on the meta device, then on
     ``device`` in eval mode with flax's default initializers drawn from
     ``generator`` (seed 0 when None); on the meta device, which holds no
     values, nothing is drawn."""
     with torch.device("meta"):
-        module = VoxelNetModule(**module_kwargs)
+        module = make()
     module = module.to_empty(device=device).eval()
     if torch.device(device).type != "meta":
         init_weights(module, generator if generator is not None
@@ -372,7 +387,7 @@ def build_voxelnet_v3(reader, backbone, neck, bbox_head, seg_head=None,
         "use_block_kernel": use_block_kernel,
     }
     neck = dict(neck)
-    module = _materialize(device, generator, dict(
+    module = _materialize(device, generator, lambda: VoxelNetModule(
         reader_cfg=dict(reader), backbone_cfg=dict(backbone),
         neck_cfg=_neck_cfg(neck), head_cfg=head_cfg, grid_size=grid,
         pc_range=pc_range, out_size_factor=osf, with_set_attention=True,
@@ -435,7 +450,7 @@ def build_voxelnet(reader, backbone, neck, bbox_head, seg_head=None,
     if "common_heads" in head_cfg:
         head_cfg["common_heads"] = tuple(sorted(
             (k, tuple(v)) for k, v in dict(bbox_head["common_heads"]).items()))
-    module = _materialize(device, generator, dict(
+    module = _materialize(device, generator, lambda: VoxelNetModule(
         reader_cfg=dict(reader), backbone_cfg=dict(backbone),
         neck_cfg=_neck_cfg(neck), head_cfg=head_cfg, grid_size=grid,
         pc_range=pc_range, out_size_factor=osf))

@@ -1,20 +1,22 @@
-"""Voxel feature encoders (readers): counterpart of the parameter-free
-half of ``partner_tpu/models/readers.py``.
+"""Voxel and point feature encoders (readers): counterpart of
+``partner_tpu/models/readers.py``.
 
 - :class:`VoxelFeatureExtractorV3`: the mean of the (<= max_points) rows
   stored per hard voxel; on the dynamic path's (B, N, C) means it only
   slices the channels.
 - :class:`DynamicVoxelEncoderV1`: the identity on
   :func:`ops.voxelize.dynamic_voxelize`'s means, sliced to the channels.
+- :class:`PFNLayer`: Dense (no bias), ``MaskedBatchNorm`` and ReLU over
+  per-point features; the pillar max is its caller's.
 
-Neither has parameters. ``PFNLayer``, ``DynamicPFNet`` and
-``PillarFeatureNet`` wait for ``pillar.py`` (ROADMAP.md queue 1, off the
-main path).
+The first two have no parameters. ``DynamicPFNet`` and
+``PillarFeatureNet``, the pillar encoders, are in ``models/pillar.py``.
 """
 
 import torch
 import torch.nn as nn
 
+from .layers import Dense, MaskedBatchNorm
 from .registry import READERS
 
 
@@ -46,3 +48,20 @@ class DynamicVoxelEncoderV1(nn.Module):
 
     def forward(self, voxel_features):
         return voxel_features[..., : self.num_input_features]
+
+
+@READERS.register_module(name="PFNLayer")
+class PFNLayer(nn.Module):
+    """Dense (no bias) -> ``MaskedBatchNorm`` -> ReLU over per-point
+    features (``partner_tpu/models/readers.py:47-59``); ``last`` is kept
+    for the config's sake, and the layer does the same either way."""
+
+    def __init__(self, in_features, features, last=False):
+        super().__init__()
+        self.last = last
+        self.Dense_0 = Dense(in_features, features, use_bias=False)
+        self.MaskedBatchNorm_0 = MaskedBatchNorm(features)
+
+    def forward(self, x, mask):
+        """x (P, C), mask (P,) bool -> (P, features), 0 on masked rows."""
+        return torch.relu(self.MaskedBatchNorm_0(self.Dense_0(x), mask))

@@ -354,6 +354,10 @@ def build_two_stage(first_stage_cfg, roi_head=None, num_point=5,
     if use_block_kernel:
         raise ValueError("use_block_kernel is an option of the E2E head's "
                          "Swin blocks; the two-stage CenterPoint has none")
+    if dict(first_stage_cfg).get("type") == "PointPillars":
+        raise NotImplementedError(
+            "a two-stage detector over a PointPillars first stage is not "
+            "ported (ROADMAP.md queue 1 item 2: the two-stage pp configs)")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     first = build_detector(dict(first_stage_cfg), train_cfg, test_cfg,

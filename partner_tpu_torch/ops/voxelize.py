@@ -108,7 +108,7 @@ def points_to_voxel(points, voxel_size, pc_range, max_points, max_voxels):
 
 
 def dynamic_voxelize(points, points_mask, voxel_size, pc_range, grid_size,
-                     max_voxels, return_point_voxel=False):
+                     max_voxels, return_point_voxel=False, features=True):
     """Dynamic voxelization with mean pooling, on the points' device.
 
     Args:
@@ -119,9 +119,12 @@ def dynamic_voxelize(points, points_mask, voxel_size, pc_range, grid_size,
         device, or sequences).
       grid_size: (nx, ny, nz) ints.
       max_voxels: capacity V; the V lowest linear cell ids are kept.
+      features: False leaves the means out, and with them the per-slot
+        sum loop and its host read (the pillar encoder pools its own).
 
     Returns a dict of
-      features: (B, V, C) float32 mean of each voxel's rows;
+      features (with ``features``): (B, V, C) float32 mean of each
+        voxel's rows;
       coords: (B, V, 3) int32 (z, y, x), 0 where masked;
       mask: (B, V) bool voxel validity (the occupied slots come first);
       num_points: (B, V) int32 member counts;
@@ -161,27 +164,29 @@ def dynamic_voxelize(points, points_mask, voxel_size, pc_range, grid_size,
     uniq = torch.where(
         vmask, torch.gather(sorted_lin, 1, starts.clamp(max=p - 1)), 0)
 
-    # the rows of each slot summed in stream order, as JAX's segment_sum
-    # adds them: the k-th row of every slot at once, k = 0 .. the most rows
-    # a slot holds (one host read); no atomics, so every run sums alike
-    rows = torch.gather(points.float(), 1, order[..., None].expand(-1, -1, c))
-    sums = torch.zeros((b, v, c), dtype=torch.float32, device=dev)
-    for k in range(int(counts.max()) if counts.numel() else 0):
-        row = torch.gather(rows, 1, (starts + k).clamp(max=p - 1)[
-            ..., None].expand(-1, -1, c))
-        sums += torch.where((k < counts)[..., None], row, 0.0)
-    mean = sums / torch.clamp(counts, min=1)[..., None].float()
-
     z = uniq // (nx * ny)
     rem = uniq - z * (nx * ny)
     y = rem // nx
     x = rem - y * nx
     out = {
-        "features": torch.where(vmask[..., None], mean, 0.0),
         "coords": torch.stack([z, y, x], dim=-1).to(torch.int32),
         "mask": vmask,
         "num_points": counts.to(torch.int32),
     }
+    if features:
+        # the rows of each slot summed in stream order, as JAX's
+        # segment_sum adds them: the k-th row of every slot at once, k = 0
+        # .. the most rows a slot holds (one host read); no atomics, so
+        # every run sums alike
+        rows = torch.gather(points.float(), 1,
+                            order[..., None].expand(-1, -1, c))
+        sums = torch.zeros((b, v, c), dtype=torch.float32, device=dev)
+        for k in range(int(counts.max()) if counts.numel() else 0):
+            row = torch.gather(rows, 1, (starts + k).clamp(max=p - 1)[
+                ..., None].expand(-1, -1, c))
+            sums += torch.where((k < counts)[..., None], row, 0.0)
+        mean = sums / torch.clamp(counts, min=1)[..., None].float()
+        out = {"features": torch.where(vmask[..., None], mean, 0.0), **out}
     if return_point_voxel:
         seg = torch.empty_like(seg_sorted).scatter_(1, order, seg_sorted)
         out["point_voxel"] = seg[:, :n_rows].to(torch.int32)

@@ -1,7 +1,7 @@
 """partner_tpu_torch stands alone: no jax, flax, optax or partner_tpu at
 import or when it builds its detectors (the Waymo PARTNER, CenterPoint and
 two-stage configs, the sparse backbone, the three nuScenes CenterPoint
-configs), and the flax converter covers every parameter and buffer of the
+configs, the two Waymo PointPillars configs), and the flax converter covers every parameter and buffer of the
 port's detectors."""
 
 import os
@@ -36,7 +36,7 @@ def test_import_leaves_out_jax_and_flax():
         "          'tools.create_data', 'models.sparse', 'models.backbone',\n"
         "          'train.torch_convert', 'tools.convert_checkpoint',\n"
         "          'utils.remote_io', 'ops.deform_conv',\n"
-        "          'eval.nusc_protocol', 'eval.nuscenes'):\n"
+        "          'eval.nusc_protocol', 'eval.nuscenes', 'models.pillar'):\n"
         "    assert 'partner_tpu_torch.' + n in names, n\n"
         "from partner_tpu_torch.models import build_detector\n"
         "from partner_tpu_torch.utils.config import load_config\n"
@@ -70,6 +70,13 @@ def test_import_leaves_out_jax_and_flax():
         "    assert w == (8 if c == 'dcn_flip' else 10), (c, w)\n"
         "    assert hasattr(det.module.bbox_head.task5, 'feature_adapt_cls') \\\n"
         "        == (c != '01voxel'), c\n"
+        "for c in ('', '_two_cls'):\n"
+        "    cfg = load_config(f'configs/waymo/pp/waymo_centerpoint_pp'\n"
+        "                      f'{c}_two_pfn_stride1_3x.py')\n"
+        "    det = build_detector(cfg['model'], cfg['train_cfg'],\n"
+        "                         cfg['test_cfg'], device='meta')\n"
+        "    assert det.input_kind == 'points', c\n"
+        "    assert type(det.module.reader).__name__ == 'PillarFeatureNet'\n"
         "from partner_tpu_torch import native\n"
         "assert native.available()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

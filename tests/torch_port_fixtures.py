@@ -28,6 +28,12 @@ NUSC_CONFIGS = {"dcn": NUSC_DCN, "01voxel": NUSC_01VOXEL,
                 "dcn-flip": NUSC_FLIP}
 NUSC_SWEEPS = 3   # the nuScenes configs' 10 sweeps, cut for the CPU
 TINY_GRID = (128, 256, 40)  # BEV 32 (az) x 16 (r): exact 8x8 windows
+PP = "configs/waymo/pp/waymo_centerpoint_pp_two_pfn_stride1_3x.py"
+PP_TWO_CLS = ("configs/waymo/pp/"
+              "waymo_centerpoint_pp_two_cls_two_pfn_stride1_3x.py")
+PP_CONFIGS = {"three-class": PP, "two-class": PP_TWO_CLS}
+PP_GRID = 64        # the pillar grid, cut from 468 x 468 to 64 x 64
+PP_PILLARS = 512    # the tiny configs' pillar capacity: the sweeps overflow it
 
 
 def tiny_frame_cfg(compute_dtype="float32"):
@@ -116,6 +122,59 @@ def _tiny_test_cfg(cfg):
     tc["score_threshold"] = 0.0
     tc["nms"] = dict(tc["nms"], nms_pre_max_size=256, nms_post_max_size=64)
     return tc
+
+
+def _cut_pp(m, max_pillars):
+    """A PointPillars model cfg cut in place to a ``PP_GRID`` square
+    pillar grid (the reader's cell size too), PFN filters [16, 16], a
+    narrow three-scale RPN (48 channels out) and ``max_pillars``."""
+    vg = m["bbox_head"]["voxel_generator"]
+    pr = vg["range"]
+    vg["voxel_size"] = [(pr[3] - pr[0]) / PP_GRID, (pr[4] - pr[1]) / PP_GRID,
+                        vg["voxel_size"][2]]
+    m["reader"] = dict(m["reader"], num_filters=[16, 16],
+                       voxel_size=tuple(vg["voxel_size"]))
+    m["neck"] = dict(m["neck"], layer_nums=[1, 1, 1],
+                     ds_num_filters=[16, 16, 32], us_num_filters=[16, 16, 16],
+                     num_input_features=16)
+    m["bbox_head"]["in_channels"] = 48
+    m["max_pillars"] = max_pillars
+
+
+def tiny_pp_cfg(config=PP, max_pillars=PP_PILLARS):
+    """(model cfg, test cfg): a Waymo PointPillars config cut as
+    :func:`_cut_pp` cuts it (float32, as the configs are), the NMS cut as
+    in :func:`tiny_frame_cfg`."""
+    import os
+
+    from partner_tpu_torch.utils.config import load_config
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(root, config))
+    m = copy.deepcopy(cfg["model"])
+    _cut_pp(m, max_pillars)
+    return m, _tiny_test_cfg(cfg)
+
+
+def pp_points(rng, pc_range, n_points, n_pad, dup=0):
+    """(1, n_pad, 7) cuboid-layout points [x, y, z, intensity, elongation,
+    rho, phi] and a (1, n_pad) mask: log-uniform range as a lidar sees it,
+    a few points beyond the grid, and the last ``dup`` points copies of
+    earlier ones (tied maxima in their pillars)."""
+    rho = np.exp(rng.uniform(np.log(0.5), np.log(pc_range[3] * 1.45),
+                             n_points))
+    phi = rng.uniform(-np.pi, np.pi, n_points)
+    x, y = rho * np.cos(phi), rho * np.sin(phi)
+    z = rng.uniform(pc_range[2] - 0.5, pc_range[5] + 0.5, n_points)
+    pts = np.stack([x, y, z, rng.rand(n_points), rng.rand(n_points),
+                    np.hypot(x, y), np.arctan2(y, x)], 1).astype(np.float32)
+    if dup:
+        pts[-dup:] = pts[rng.randint(0, n_points - dup, dup)]
+    out = np.zeros((1, n_pad, 7), np.float32)
+    out[0, :n_points] = pts
+    mask = np.zeros((1, n_pad), bool)
+    mask[0, :n_points] = True
+    return out, mask
 
 
 def tiny_two_stage_cfg(config=TWO_STAGE, freeze=None,
@@ -434,6 +493,43 @@ log_config = dict(interval=1, hooks=[dict(type="TextLoggerHook"),
     return path
 
 
+def write_tiny_pp_config(path, train_info, val_info, root, config=PP,
+                         max_pillars=PP_PILLARS):
+    """A PointPillars config file for the CLIs: ``config`` exec'd, cut as
+    :func:`_cut_pp` cuts it, ``data.train`` at ``train_info`` with no
+    augmentation and the points kept in order (no random draw),
+    ``data.val`` at ``val_info``, one loader thread, a log flush and a
+    ``metrics.jsonl`` record every step."""
+    import os
+
+    base = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), config)
+    with open(path, "w") as f:
+        f.write(f"""
+__file__ = {base!r}
+exec(open({base!r}).read())
+_vg = model["bbox_head"]["voxel_generator"]
+_r = _vg["range"]
+_vg["voxel_size"] = [(_r[3] - _r[0]) / {PP_GRID}, (_r[4] - _r[1]) / {PP_GRID},
+                     _vg["voxel_size"][2]]
+model["reader"].update(num_filters=[16, 16],
+                       voxel_size=tuple(_vg["voxel_size"]))
+model["neck"].update(layer_nums=[1, 1, 1], ds_num_filters=[16, 16, 32],
+                     us_num_filters=[16, 16, 16], num_input_features=16)
+model["bbox_head"]["in_channels"] = 48
+model["max_pillars"] = {max_pillars!r}
+test_cfg["score_threshold"] = 0.0
+test_cfg["nms"].update(nms_pre_max_size=256, nms_post_max_size=64)
+train_preprocessor.update(no_augmentation=True, shuffle_points=False)
+data["train"].update(info_path={train_info!r}, root_path={root!r})
+data["val"].update(info_path={val_info!r}, root_path={root!r})
+data["workers_per_gpu"] = 1
+log_config = dict(interval=1, hooks=[dict(type="TextLoggerHook"),
+                                     dict(type="MetricsSinkHook")])
+""")
+    return path
+
+
 def write_tiny_nusc_config(path, train_info, val_info, root, config):
     """A nuScenes CenterPoint config file for the CLIs: ``config`` exec'd
     and cut as :func:`write_tiny_centerpoint_config` cuts a Waymo one,
@@ -495,15 +591,19 @@ log_config = dict(interval=1, hooks=[dict(type="TextLoggerHook"),
     return path
 
 
-def write_three_class_infos(path, rng, n=4, n_points=(3000, 5000)):
+def write_three_class_infos(path, rng, n=4, n_points=(3000, 5000),
+                            upper=False):
     """A synthetic Waymo info pkl of ``n`` frames that carry their points:
     [x, y, z, intensity, elongation] rows within 34 m, and 3-8 boxes each
     of Vehicle, Pedestrian and Cyclist sizes (9 columns, the velocity
-    included)."""
+    included), named in upper case with ``upper`` (as the PointPillars
+    configs name their classes)."""
     import pickle
 
     sizes = {"Vehicle": (4.5, 2.0, 1.6), "Pedestrian": (0.8, 0.8, 1.8),
              "Cyclist": (1.8, 0.7, 1.7)}
+    if upper:
+        sizes = {k.upper(): v for k, v in sizes.items()}
     infos = []
     for i in range(n):
         npts = rng.randint(*n_points)

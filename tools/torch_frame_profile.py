@@ -7,8 +7,9 @@ CUDA card.
                                          [--model flagship|centerpoint|
                                                   centerpoint-velo|sparse|
                                                   nusc-dcn|nusc-01voxel|
-                                                  nusc-dcn_flip]
-                                         [--part frame|rpn]
+                                                  nusc-dcn_flip|pp|
+                                                  pp-two_cls]
+                                         [--part frame|rpn] [--batch B]
 
 Builds the flagship detector of ``partner_tpu_torch`` exactly as
 ``chip_smoke.py`` does (full width and grid, bf16, seeded random weights,
@@ -35,11 +36,22 @@ CenterPoint config of ``chip_smoke.py``'s nuScenes phase (``dcn``,
 ``01voxel`` or ``dcn_flip``, its offset convs drawn too) on one synthetic
 10-sweep sample (``chip_smoke.nusc_example``; the flip config's four
 copies), and also traces one deformable branch alone (the DCN configs).
+``--model pp`` profiles a Waymo PointPillars config of ``chip_smoke.py``'s
+PointPillars phase (``pp``: 3 classes, ``pp-two_cls``: 2) on the cuboid
+180,000-point sweep (``chip_smoke.cuboid_sweep``), with the stages
+pillars (``encode_canvas``: ``dynamic_voxelize`` on the pillar grid, the
+PFN and the scatter), RPN, head and decode + NMS, and also traces the
+pillar stage alone and times its parts on the card (``pillar_parts``:
+the pillarizer, the PFN, each PFN layer's pooled max at the frame's
+pillars beside its bound). ``--batch B`` runs B sweeps a frame (the
+PointPillars models; seeds SEED .. SEED + B - 1).
 ``--part rpn`` times each conv of the model's RPN alone instead, on the
 input the frame hands it: device ms and the kernels cuDNN picks, as the
 port calls the conv (channels-last strides), NCHW-contiguous,
 channels-last with a channels-last weight, one sample a call, and with
-TF32 allowed.
+TF32 allowed; for the PointPillars models the head's convs too, each
+beside its float32 bound (``chip_smoke.bound``: its FLOPs at the float32
+peak or its bytes, input, weight and output once, at the memory rate).
 
 ``--train`` profiles the flagship train step instead, on ``chip_smoke.py``'s
 train batch (4 synthetic 150,000-point sweeps with their boxes and vote
@@ -71,7 +83,9 @@ import chip_smoke  # noqa: E402  (its config, weights and sweep builders)
 
 def backbone_stage(mod, ex):
     """The backbone of a frame: the point path, or the reader and the
-    backbone on a voxel example."""
+    backbone on a voxel example, or the pillar canvas."""
+    if hasattr(mod, "encode_canvas"):
+        return mod.encode_canvas(ex["points"], ex["points_mask"])
     if "features" in ex:
         return mod.backbone(mod.reader(ex["features"]), ex["coords"],
                             ex["voxel_mask"], mod.grid_size)
@@ -85,8 +99,9 @@ def stage_times(det, ex, frames):
     from partner_tpu_torch.models.layers import constant
 
     mod = det.module
+    set_attention = getattr(mod, "with_set_attention", False)
     names = ["backbone", "setblock", "rpn", "head", "decode_nms"]
-    if not mod.with_set_attention:
+    if not set_attention:
         names.remove("setblock")
     per = {n: [] for n in names}
     totals = []
@@ -98,7 +113,7 @@ def stage_times(det, ex, frames):
             ev[0].record()
             x = backbone_stage(mod, ex)
             ev[1].record()
-            if mod.with_set_attention:
+            if set_attention:
                 pos = constant(mod, "bev_pos", x.device,
                                lambda: mod.bev_pos)[None]
                 x = mod.attns(x.transpose(1, 2), pos).transpose(1, 2)
@@ -201,6 +216,9 @@ def build_frame(dev, args):
     elif args.model.startswith("nusc-"):
         m, _, tc = chip_smoke.centerpoint_cfgs(
             chip_smoke.NUSC_CONFIGS[args.model[5:]])
+    elif args.model.startswith("pp"):
+        m, _, tc = chip_smoke.pp_cfgs(chip_smoke.PP_CONFIGS[
+            "two_class" if args.model == "pp-two_cls" else "three_class"])
     else:   # the two-sweep velocity config: 8 features, twice the points
         m, _, tc = chip_smoke.centerpoint_cfgs(chip_smoke.CP_VELO_CONFIG)
         n_points, c = 2 * chip_smoke.N_POINTS, 8
@@ -212,6 +230,15 @@ def build_frame(dev, args):
         chip_smoke.randomize_offsets(det.module, gen)
         ex = chip_smoke.to_device(chip_smoke.nusc_example(args.model[5:]),
                                   dev)
+    elif args.model.startswith("pp"):
+        chip_smoke.randomize_pfn(det.module, gen)
+        sweeps = [chip_smoke.cuboid_sweep(
+            np.random.RandomState(chip_smoke.SEED + i),
+            m["bbox_head"]["voxel_generator"]["range"], n_points)
+            for i in range(args.batch)]
+        ex = chip_smoke.to_device(
+            {"points": np.concatenate([p for p, _ in sweeps]),
+             "points_mask": np.concatenate([k for _, k in sweeps])}, dev)
     else:
         pts, mask = chip_smoke.synthetic_sweep(
             np.random.RandomState(chip_smoke.SEED),
@@ -242,6 +269,11 @@ def profile_frame(dev, args):
             out["backbone_trace"] = trace(
                 lambda: backbone_stage(det.module, ex), args.out,
                 "sparse_backbone")
+    if args.model.startswith("pp"):
+        with torch.no_grad():
+            out["pillar_trace"] = trace(lambda: backbone_stage(
+                det.module, ex), args.out, args.model + "_pillars")
+        out["pillar_parts"] = pillar_parts(det.module, ex)
     head = det.module.bbox_head
     if args.model.startswith("nusc-") and hasattr(head.task0,
                                                   "feature_adapt_cls"):
@@ -253,6 +285,70 @@ def profile_frame(dev, args):
                 lambda: head.task0.feature_adapt_cls(x), args.out,
                 args.model + "_deform_conv")
     return out
+
+
+@torch.no_grad()
+def pillar_parts(mod, ex):
+    """The pillar stage's parts on the frame's points, device ms
+    (``chip_smoke.device_ms``): the pillarizer (``dynamic_voxelize`` on
+    the pillar grid), the PFN on its output, the scatter, and each PFN
+    layer's pooled max (``scatter_reduce`` amax into the batch's pillar
+    slots) on that layer's rows, beside the max's bound by bytes (its
+    rows and slot ids read once, the pooled rows written once)."""
+    from partner_tpu_torch.models.pillar import _segment_max, pp_scatter
+
+    pts, mask = ex["points"], ex["points_mask"]
+    b, p, c = pts.shape
+    v = mod.max_pillars
+    vox = mod.pillarize(pts, mask)
+    pv = vox["point_voxel"].long()
+    seg = torch.where(pv < v, pv + torch.arange(b, device=pts.device)[
+        :, None] * v, b * v).reshape(b * p)
+    args = (pts.reshape(b * p, c), mask.reshape(b * p), seg,
+            vox["coords"].reshape(b * v, 3), b * v)
+    rows = {}
+    hooks = [getattr(mod.reader, f"pfn{i}_bn").register_forward_hook(
+        lambda m, a, o, i=i: rows.setdefault(i, torch.relu(o)))
+        for i in range(len(mod.reader.num_filters))]
+    feats = mod.reader(*args)
+    for h in hooks:
+        h.remove()
+    out = {"pillarize_ms": chip_smoke.device_ms(
+               lambda: mod.pillarize(pts, mask)),
+           "pfn_ms": chip_smoke.device_ms(lambda: mod.reader(*args)),
+           "scatter_ms": chip_smoke.device_ms(lambda: pp_scatter(
+               feats.reshape(b, v, -1), vox["coords"], vox["mask"],
+               mod.grid_size)),
+           "pillars": vox["mask"].sum(1).tolist(), "rows": b * p}
+    valid = seg < b * v
+    for i, x in rows.items():
+        xm = torch.where(valid[:, None], x, float("-inf"))
+        nbytes = (xm.numel() * 4 + seg.numel() * 8
+                  + (b * v + 1) * x.shape[1] * 4)
+        out[f"pooled_max{i}_ms"] = chip_smoke.device_ms(
+            lambda xm=xm: _segment_max(xm, seg, b * v + 1))
+        out[f"pooled_max{i}_bound_ms"] = chip_smoke.bound(
+            {"flops": {}, "bytes": nbytes})[0]
+    return out
+
+
+def conv_work(x, mod):
+    """FLOPs and bytes of a ``Conv2d`` or ``ConvTranspose2d`` of the port
+    on its NHWC input ``x``: float32 products, the input, weight and
+    output each once."""
+    from partner_tpu_torch.models.layers import ConvTranspose2d
+
+    w = mod.weight
+    b, h, wd, _ = x.shape
+    if isinstance(mod, ConvTranspose2d):   # (I, O, s, s): a cell -> s x s
+        flops = 2 * b * h * wd * w.numel()
+        out = b * h * wd * mod.stride ** 2 * w.shape[1]
+    else:                                  # (O, I, k, k), stride s
+        ho, wo = -(-h // mod.stride), -(-wd // mod.stride)
+        flops = 2 * b * ho * wo * w.numel()
+        out = b * ho * wo * w.shape[0]
+    return {"flops": {"f32": flops},
+            "bytes": 4 * (x.numel() + w.numel() + out)}
 
 
 def kernel_names(run):
@@ -280,15 +376,25 @@ def profile_rpn_convs(dev, args):
     values copied NCHW-contiguous, channels-last with the weight
     channels-last too, one sample a call (``per_sample``), and with TF32
     allowed (``tf32``: another precision, for scale only)."""
+    from partner_tpu_torch.models.layers import Conv2d, ConvTranspose2d
+
     det, ex = build_frame(dev, args)
-    neck = det.module.neck
+    mod = det.module
+    convs = {f"neck.{n}" if args.model.startswith("pp") else n: m
+             for n, m in mod.neck.named_children()
+             if n.startswith(("Conv_", "ConvTranspose_"))}
+    if args.model.startswith("pp"):
+        convs.update({f"bbox_head.{n}": m for n, m in
+                      mod.bbox_head.named_modules()
+                      if isinstance(m, (Conv2d, ConvTranspose2d))})
     inputs = {}
-    hooks = [mod.register_forward_pre_hook(
-        lambda mod, a, name=name: inputs.setdefault(name, a[0].detach()))
-        for name, mod in neck.named_children()
-        if name.startswith(("Conv_", "ConvTranspose_"))]
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a, name=name: inputs.setdefault(name, a[0].detach()))
+        for name, m in convs.items()]
     with torch.no_grad():
-        neck(backbone_stage(det.module, ex))
+        x = mod.neck(backbone_stage(mod, ex))
+        if args.model.startswith("pp"):
+            mod.bbox_head(x)
     for h in hooks:
         h.remove()
     torch.backends.cudnn.benchmark = False
@@ -297,11 +403,11 @@ def profile_rpn_convs(dev, args):
            "cudnn": torch.backends.cudnn.version(), "convs": {}}
     with torch.no_grad():
         for name, x in inputs.items():
-            mod = getattr(neck, name)
+            mod = convs[name]
             cf = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
             w = mod.weight
             routes = {"port": lambda: mod(x), "nchw": lambda: mod(cf)}
-            if name.startswith("Conv_"):
+            if isinstance(mod, Conv2d):
                 wcl = w.detach().to(memory_format=torch.channels_last)
 
                 def both_cl(mod=mod, x=x, w=w, wcl=wcl):
@@ -324,6 +430,8 @@ def profile_rpn_convs(dev, args):
             routes.update(per_sample=per_sample, tf32=tf32)
             r = {"input": list(x.shape), "weight": list(w.shape),
                  "stride": getattr(mod, "stride", None)}
+            r["bound_ms"], r["bound_by"] = chip_smoke.bound(
+                conv_work(x, mod))
             for route, fn in routes.items():
                 r[f"{route}_ms"] = chip_smoke.device_ms(fn)
                 r[f"{route}_kernels"] = kernel_names(fn)
@@ -376,11 +484,16 @@ def main():
     ap.add_argument("--model", default="flagship",
                     choices=["flagship", "centerpoint", "centerpoint-velo",
                              "sparse", "nusc-dcn", "nusc-01voxel",
-                             "nusc-dcn_flip"],
+                             "nusc-dcn_flip", "pp", "pp-two_cls"],
                     help="the frame's model (the train step: flagship)")
+    ap.add_argument("--batch", type=int, default=1,
+                    help="sweeps a frame (the PointPillars models)")
     args = ap.parse_args()
     if args.train and (args.model != "flagship" or args.part != "frame"):
         sys.exit("torch_frame_profile: --train profiles the flagship only")
+    if args.batch != 1 and not args.model.startswith("pp"):
+        sys.exit("torch_frame_profile: --batch is for the PointPillars "
+                 "models")
     if not torch.cuda.is_available():
         sys.exit("torch_frame_profile: no CUDA device")
     os.makedirs(args.out, exist_ok=True)
@@ -397,7 +510,8 @@ def main():
         result = profile_frame(dev, args)
     name = ("train_profile.json" if args.train
             else f"{args.model.replace('flagship', 'frame')}"
-            f"{'_rpn' if args.part == 'rpn' else ''}_profile.json")
+            f"{'_rpn' if args.part == 'rpn' else ''}"
+            f"{f'_b{args.batch}' if args.batch != 1 else ''}_profile.json")
     with open(os.path.join(args.out, name), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result), flush=True)
