@@ -157,7 +157,17 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
    train-CLI steps (:func:`nusc_phase`). The kernel phase holds the stem
    at C_in 10 and 8 over the 345,000-row buffer, the scatter-max at the
    three canvases and its float32 entry at the DCN train step's batch of
-   4 (:func:`nusc_kernel_cases`).
+   4 (:func:`nusc_kernel_cases`). Then the single-head cylinder config
+   (``voxelnet_det_cylinder_singlehead.py``: ``CenterHeadSinglePos``, one
+   task of 10 classes, rectified decode, the per-class NMS over all
+   16,384 candidates) on the same set (:func:`singlehead_phase`): its
+   frame (median ms, device busy and launches, the stem and scatter-max
+   once a frame at the DCN config's kernel shapes), its decode + NMS
+   alone (ms, fixpoint sweeps, the suppression matrix's device ms), the
+   card against the CPU on SMALL_GRID (maps, and the kept boxes of the
+   CPU's BEV through each side's RPN, head, decode and NMS), the train
+   step at batch 4, ``dist_test`` over 8 frames bit-equal to ``predict``
+   and two train-CLI steps.
 15. PointPillars: the two Waymo PointPillars configs
    (``configs/waymo/pp/waymo_centerpoint_pp{,_two_cls}_two_pfn_stride1_
    3x.py``: ``dynamic_voxelize`` on the 468 x 468 pillar grid at the
@@ -172,8 +182,16 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
    kept detections; for the 3-class config the train step at batch 4
    (150,000 points a sample in 180,000 rows, 32-64 boxes), ``dist_test``
    from a port checkpoint over 8 frames, each bit-equal to a direct
-   ``predict``, and two train-CLI steps (:func:`pp_phase`). No hand kernel
-   lies on this path; the phase holds every kernel's launches at 0.
+   ``predict``, and two train-CLI steps (:func:`pp_phase`). Then the
+   two-stage pair (``configs/waymo/pp/two_stage/*.py``, the frozen
+   PointPillars first stage, RoI head 1921 -> 256 -> 256;
+   :func:`pp_two_stage_phase`): the 3-class frame taking turns with its
+   one-stage frame, the refine stage's device ms and launches, the card
+   against the CPU on 128 x 128 pillars (neck map, refine, kept boxes),
+   the frozen step at batch 4 from a port one-stage checkpoint the phase
+   writes, two train-CLI steps through ``pretrained`` and ``dist_test``,
+   and the 2-class frame. No hand kernel lies on these paths; the phase
+   holds every kernel's launches at 0.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises before it, so the
@@ -1132,6 +1150,7 @@ def randomize_norms(module, gen):
     """Draw every norm scale/bias, BN statistic, stem affine and tau from
     ``gen``: with fresh LayerNorms the keypoint saliency is exactly 0 and
     the keypoint choice is rounding noise."""
+    from partner_tpu_torch.models.center_head import GroupNorm, RSNorm
     from partner_tpu_torch.models.layers import BatchNorm
 
     def draw(t, positive):
@@ -1141,9 +1160,10 @@ def randomize_norms(module, gen):
     for name, t in module.named_parameters():
         owner_name, _, leaf = name.rpartition(".")
         is_norm = isinstance(module.get_submodule(owner_name),
-                             (torch.nn.LayerNorm, BatchNorm))
+                             (torch.nn.LayerNorm, BatchNorm, GroupNorm,
+                              RSNorm))
         if leaf == "tau" or leaf.endswith("_scale") or (
-                is_norm and leaf == "weight"):
+                is_norm and leaf in ("weight", "scale")):
             draw(t, positive=True)
         elif leaf.endswith("_bias") or (is_norm and leaf == "bias"):
             draw(t, positive=False)
@@ -2449,17 +2469,20 @@ def centerpoint_reference(dev, card, config=CP_CONFIG, name="CenterPoint",
     points: the backbone BEV and each task's head maps of the card (bf16
     backbone with the stem and scatter kernels; a DCN head's offset convs
     drawn too) against the CPU (float32, plain twins), each stage fed the
-    CPU's input; the RPN and head within ``head_tol``."""
+    CPU's input; the RPN and head within ``head_tol``. -> (the card's
+    detector, the CPU's, the CPU's backbone BEV)."""
     from partner_tpu_torch.models import build_detector
 
     m, _, tc = centerpoint_cfgs(config, grid=SMALL_GRID)
     gen = torch.Generator().manual_seed(seed)
-    gpu = build_detector(m, None, tc, device=dev, generator=gen).module
+    gdet = build_detector(m, None, tc, device=dev, generator=gen)
+    gpu = gdet.module
     randomize_norms(gpu, gen)
     randomize_offsets(gpu, gen)
     m32, _, _ = centerpoint_cfgs(config, grid=SMALL_GRID,
                                  compute_dtype="float32")
-    cpu = build_detector(m32, None, tc, device="cpu").module
+    cdet = build_detector(m32, None, tc, device="cpu")
+    cpu = cdet.module
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
     pts, mask = synthetic_sweep(np.random.RandomState(seed),
                                 m["bbox_head"]["voxel_generator"]["range"],
@@ -2478,6 +2501,7 @@ def centerpoint_reference(dev, card, config=CP_CONFIG, name="CenterPoint",
         for k in sorted(w):
             rel_rms(f"{name} RPN + head task{task} {k}", g[k], w[k],
                     head_tol)
+    return gdet, cdet, bev
 
 
 def write_centerpoint_config(root, info_path):
@@ -3907,6 +3931,9 @@ NUSC_ROWS = 345_000          # --max_points: every point of a sample
 NUSC_DIR = os.path.join(ROOT, "configs", "nusc", "voxelnet")
 NUSC_CONFIGS = {n: os.path.join(NUSC_DIR, f"nusc_centerpoint_voxelnet_{n}.py")
                 for n in ("dcn", "01voxel", "dcn_flip")}
+# the single-head cylinder baseline: CenterHeadSinglePos, per-class NMS
+NUSC_SINGLEHEAD = os.path.join(NUSC_DIR, "voxelnet_det_cylinder_singlehead.py")
+NUSC_ALL = dict(NUSC_CONFIGS, singlehead=NUSC_SINGLEHEAD)
 
 
 def nusc_sweep_points(rng, n_points, boxes):
@@ -4023,7 +4050,7 @@ def nusc_example(name, seed=SEED):
     rng = np.random.RandomState(seed)
     pts = nusc_sweep_points(rng, NUSC_SAMPLE_POINTS, np.zeros((0, 9)))
     pts[:, 4] = 0.05 * rng.randint(0, NUSC_SWEEPS, len(pts))
-    cfg = load_config(NUSC_CONFIGS[name])
+    cfg = load_config(NUSC_ALL[name])
     pts = transform_points(pts, cfg["voxel_generator"]["voxel_shape"])
     copies = [pts]
     if cfg["test_cfg"].get("double_flip"):
@@ -4038,13 +4065,14 @@ def nusc_example(name, seed=SEED):
 
 
 def write_nusc_config(root, name, info_path):
-    """The nuScenes config ``name`` with ``score_threshold`` 0 (as
-    :func:`centerpoint_cfgs`), ``data.train`` / ``data.val`` at the
-    synthetic set, and a metrics record every step."""
+    """The nuScenes config ``name`` (of ``NUSC_ALL``) with
+    ``score_threshold`` 0 (as :func:`centerpoint_cfgs`), ``data.train`` /
+    ``data.val`` at the synthetic set, and a metrics record every step."""
     path = os.path.join(root, f"nusc_{name}.py")
+    config = NUSC_ALL[name]
     with open(path, "w") as f:
-        f.write(f"__file__ = {NUSC_CONFIGS[name]!r}\n"
-                f"exec(open({NUSC_CONFIGS[name]!r}).read())\n"
+        f.write(f"__file__ = {config!r}\n"
+                f"exec(open({config!r}).read())\n"
                 "test_cfg['score_threshold'] = 0.0\n"
                 "for _s in ('train', 'val'):\n"
                 f"    data[_s].update(info_path={info_path!r}, "
@@ -4098,17 +4126,11 @@ def nusc_phase(dev, card):
     frame through ``predict`` (the flip config on its 4 copies), the DCN
     head against the CPU on SMALL_GRID, one deformable branch alone,
     ``dist_test`` of the DCN config bit-equal to direct predicts, its train
-    step at batch 4 and two train-CLI steps."""
-    import pickle
+    step at batch 4 and two train-CLI steps; then the single-head config
+    on the same set (:func:`singlehead_phase`)."""
     import tempfile
 
-    from partner_tpu_torch.data import build_dataset
-    from partner_tpu_torch.data.loader import DataLoader
     from partner_tpu_torch.models import build_detector
-    from partner_tpu_torch.tools import dist_test, train
-    from partner_tpu_torch.train.checkpoint import save_checkpoint
-    from partner_tpu_torch.train.optim import build_one_cycle_optimizer
-    from partner_tpu_torch.train.train_state import make_train_step
     from partner_tpu_torch.utils.config import load_config
 
     t_phase = time.perf_counter()
@@ -4197,99 +4219,269 @@ def nusc_phase(dev, card):
 
         # ---- dist_test of the DCN config, bit-equal to direct predicts
         det = dets.pop("dcn")
-        save_checkpoint(os.path.join(root, "ckpt"), 0,
-                        det.module.state_dict())
-        work_dir = os.path.join(root, "eval")
-        _, ((metrics, seg, pan), fps), dist_launches = counted(
-            lambda: dist_test.main([
-                cfgs["dcn"], "--checkpoint",
-                os.path.join(root, "ckpt", "latest"), "--work_dir",
-                work_dir, "--max_points", str(NUSC_ROWS), "--device",
-                torch.device(dev).type]))
-        with open(os.path.join(work_dir, "prediction.pkl"), "rb") as f:
-            preds = pickle.load(f)
-        ds = build_dataset(dict(load_config(cfgs["dcn"])["data"]["val"]))
-        direct = {}
-        for b in DataLoader(ds, 1, shuffle=False, max_points=NUSC_ROWS):
-            e = to_device({k: b[k] for k in ("points", "points_mask")}, dev)
-            direct[b["metadata"][0]["token"]] = kept_boxes(det.predict(e))
-        want = {k: n * NUSC_FRAMES for k, n in per_frame.items()}
-        if dist_launches != want:
-            raise AssertionError(f"nuScenes dist_test: launches "
-                                 f"{dist_launches} != {want}")
-        if sorted(preds) != sorted(direct) or not all(
-                np.array_equal(preds[t][k], direct[t][k])
-                for t in direct for k in direct[t]):
-            raise AssertionError("nuScenes dist_test: a frame differs from "
-                                 "a direct predict")
-        keys = ["mAP", "NDS", "mATE", "mASE", "mAOE", "mAVE"]
-        if seg is not None or pan is not None or not all(
-                np.isfinite(metrics[k]) for k in keys):
-            raise AssertionError(f"nuScenes dist_test: {metrics}")
-        with open(metrics["results_path"]) as f:
-            results = json.load(f)["results"]
-        if sorted(results) != sorted(preds) or not all(
-                len(results[t]) == len(preds[t]["scores"]) for t in preds):
-            raise AssertionError("nuScenes dist_test: the results json")
-        log(f"nuScenes dist_test (dcn) on {card}: middle-third FPS {fps!r} "
-            f"over {NUSC_FRAMES} frames of {NUSC_SWEEPS} sweeps in "
-            f"{NUSC_ROWS} rows; launches {dist_launches}; every frame "
-            f"bit-equal to a direct predict; " + ", ".join(
-                f"{k} {metrics[k]!r}" for k in keys)
-            + f"; results json with {sum(map(len, results.values()))} boxes")
-        res["dist_test"] = dict(fps=fps, launches=dist_launches)
-
-        # ---- the train step at batch 4 and the train CLI
-        ex = to_device({k: v for k, v in nusc_batch(
-            cfgs["dcn"], "train", NUSC_TRAIN_BATCH).items()
-            if k in det.loss_keys}, dev)
-        cfg = load_config(cfgs["dcn"])
-        step = make_train_step(det, build_one_cycle_optimizer(
-            det.module, lr_max=cfg["lr_config"]["lr_max"], total_steps=1000))
-        want = {"stem": 0, "scatter_max": 1, "swin_attn": 0, "swin_block": 0}
-        launches, median, times, _, peak = timed_train_steps(
-            det, step, ex, None, want, "nuScenes DCN train step")
-        log(f"nuScenes DCN train step, batch {NUSC_TRAIN_BATCH}, on {card}: "
-            f"median {median!r} ms over {TRAIN_STEPS} steps, all {times!r};"
-            f" peak memory {peak!r} GiB; launches over {TRAIN_STEPS + 1} "
-            f"steps {launches}; every gradient finite, every parameter and "
-            "BatchNorm statistic moved")
-        res["train"] = dict(median_ms=median, peak_gib=peak,
-                            launches=launches)
-        del det, step, ex
+        res["dist_test"] = nusc_dist_test(det, cfgs["dcn"], root, "dcn",
+                                          card, per_frame)
+        res["train"] = nusc_train_step(det, cfgs["dcn"], "DCN", card)
+        del det
         torch.cuda.empty_cache()
-        work_dir = os.path.join(root, "train")
-        wall_ms, steps, cli_launches = counted(lambda: train.main([
-            cfgs["dcn"], "--work_dir", work_dir, "--batch_size",
-            str(NUSC_TRAIN_BATCH), "--total_steps", "2",
-            "--max_steps_per_epoch", "2", "--max_points", str(NUSC_ROWS),
-            "--seed", str(SEED), "--device", torch.device(dev).type]))
-        with open(os.path.join(work_dir, "metrics.jsonl")) as f:
-            recs = [json.loads(line) for line in f]
-        ckpts = sorted(d for d in os.listdir(work_dir)
-                       if d.startswith("ckpt_"))
+        res["train_cli"] = nusc_train_cli(cfgs["dcn"], root, "dcn", card, dev)
+        res["singlehead"] = singlehead_phase(dev, card, root, info)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"nuScenes phase peak memory {res['peak_gib']!r} GiB, "
+        f"{time.perf_counter() - t_phase:.1f} s in all")
+    return res
+
+
+def nusc_dist_test(det, cfg_path, root, name, card, per_frame):
+    """``dist_test`` of a nuScenes config from a checkpoint of ``det``'s
+    weights over the NUSC_FRAMES synthetic frames: the launches
+    ``per_frame`` a frame, every frame bit-equal to a direct ``predict``,
+    finite nuScenes metrics and the results json. -> {fps, launches}."""
+    import pickle
+
+    from partner_tpu_torch.data import build_dataset
+    from partner_tpu_torch.data.loader import DataLoader
+    from partner_tpu_torch.tools import dist_test
+    from partner_tpu_torch.train.checkpoint import save_checkpoint
+    from partner_tpu_torch.utils.config import load_config
+
+    ckpt = os.path.join(root, f"ckpt_{name}")
+    save_checkpoint(ckpt, 0, det.module.state_dict())
+    work_dir = os.path.join(root, f"eval_{name}")
+    dev = next(det.module.parameters()).device
+    _, ((metrics, seg, pan), fps), dist_launches = counted(
+        lambda: dist_test.main([
+            cfg_path, "--checkpoint", os.path.join(ckpt, "latest"),
+            "--work_dir", work_dir, "--max_points", str(NUSC_ROWS),
+            "--device", dev.type]))
+    with open(os.path.join(work_dir, "prediction.pkl"), "rb") as f:
+        preds = pickle.load(f)
+    ds = build_dataset(dict(load_config(cfg_path)["data"]["val"]))
+    direct = {}
+    for b in DataLoader(ds, 1, shuffle=False, max_points=NUSC_ROWS):
+        e = to_device({k: b[k] for k in ("points", "points_mask")}, dev)
+        direct[b["metadata"][0]["token"]] = kept_boxes(det.predict(e))
+    want = {k: n * NUSC_FRAMES for k, n in per_frame.items()}
+    if dist_launches != want:
+        raise AssertionError(f"nuScenes dist_test ({name}): launches "
+                             f"{dist_launches} != {want}")
+    if sorted(preds) != sorted(direct) or not all(
+            np.array_equal(preds[t][k], direct[t][k])
+            for t in direct for k in direct[t]):
+        raise AssertionError(f"nuScenes dist_test ({name}): a frame "
+                             "differs from a direct predict")
+    keys = ["mAP", "NDS", "mATE", "mASE", "mAOE", "mAVE"]
+    if seg is not None or pan is not None or not all(
+            np.isfinite(metrics[k]) for k in keys):
+        raise AssertionError(f"nuScenes dist_test ({name}): {metrics}")
+    with open(metrics["results_path"]) as f:
+        results = json.load(f)["results"]
+    if sorted(results) != sorted(preds) or not all(
+            len(results[t]) == len(preds[t]["scores"]) for t in preds):
+        raise AssertionError(f"nuScenes dist_test ({name}): the results "
+                             "json")
+    log(f"nuScenes dist_test ({name}) on {card}: middle-third FPS {fps!r} "
+        f"over {NUSC_FRAMES} frames of {NUSC_SWEEPS} sweeps in "
+        f"{NUSC_ROWS} rows; launches {dist_launches}; every frame "
+        f"bit-equal to a direct predict; " + ", ".join(
+            f"{k} {metrics[k]!r}" for k in keys)
+        + f"; results json with {sum(map(len, results.values()))} boxes")
+    return dict(fps=fps, launches=dist_launches)
+
+
+def nusc_train_step(det, cfg_path, label, card):
+    """``det``'s train step at NUSC_TRAIN_BATCH on the config's train
+    pipeline (:func:`timed_train_steps`: the scatter-max once a step, the
+    other kernels never). -> {median_ms, peak_gib, launches}."""
+    from partner_tpu_torch.train.optim import build_one_cycle_optimizer
+    from partner_tpu_torch.train.train_state import make_train_step
+    from partner_tpu_torch.utils.config import load_config
+
+    dev = next(det.module.parameters()).device
+    torch.cuda.reset_peak_memory_stats()
+    ex = to_device({k: v for k, v in nusc_batch(
+        cfg_path, "train", NUSC_TRAIN_BATCH).items()
+        if k in det.loss_keys}, dev)
+    cfg = load_config(cfg_path)
+    step = make_train_step(det, build_one_cycle_optimizer(
+        det.module, lr_max=cfg["lr_config"]["lr_max"], total_steps=1000))
+    want = {"stem": 0, "scatter_max": 1, "swin_attn": 0, "swin_block": 0}
+    launches, median, times, _, peak = timed_train_steps(
+        det, step, ex, None, want, f"nuScenes {label} train step")
+    log(f"nuScenes {label} train step, batch {NUSC_TRAIN_BATCH}, on {card}:"
+        f" median {median!r} ms over {TRAIN_STEPS} steps, all {times!r};"
+        f" peak memory {peak!r} GiB; launches over {TRAIN_STEPS + 1} "
+        f"steps {launches}; every gradient finite, every parameter and "
+        "BatchNorm statistic moved")
+    return dict(median_ms=median, peak_gib=peak, launches=launches)
+
+
+def nusc_train_cli(cfg_path, root, name, card, dev):
+    """Two train-CLI steps of a nuScenes config at NUSC_TRAIN_BATCH with a
+    checkpoint: finite loss terms, the scatter-max once a step, the other
+    kernels never. -> {launches, wall_s}."""
+    from partner_tpu_torch.tools import train
+
+    work_dir = os.path.join(root, f"train_{name}")
+    wall_ms, steps, cli_launches = counted(lambda: train.main([
+        cfg_path, "--work_dir", work_dir, "--batch_size",
+        str(NUSC_TRAIN_BATCH), "--total_steps", "2",
+        "--max_steps_per_epoch", "2", "--max_points", str(NUSC_ROWS),
+        "--seed", str(SEED), "--device", torch.device(dev).type]))
+    with open(os.path.join(work_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    ckpts = sorted(d for d in os.listdir(work_dir) if d.startswith("ckpt_"))
     if steps != 2 or ckpts[-1:] != ["ckpt_00000002"] or [
             r["step"] for r in recs] != [0, 1]:
-        raise AssertionError(f"nuScenes train CLI: steps {steps}, "
+        raise AssertionError(f"nuScenes train CLI ({name}): steps {steps}, "
                              f"checkpoints {ckpts}, records {recs}")
     if cli_launches != {"stem": 0, "scatter_max": 2, "swin_attn": 0,
                         "swin_block": 0}:
-        raise AssertionError(f"nuScenes train CLI: launches {cli_launches}")
+        raise AssertionError(f"nuScenes train CLI ({name}): launches "
+                             f"{cli_launches}")
     for r in recs:
         vals = {k: r[k] for k in ("loss", "hm_loss", "loc_loss", "grad_norm")}
         flat = [x for v in vals.values()
                 for x in (v if isinstance(v, list) else [v])]
         if not all(np.isfinite(flat)):
-            raise AssertionError(f"nuScenes train CLI: {vals}")
-        log(f"nuScenes train CLI step {r['step']} on {card}: time "
+            raise AssertionError(f"nuScenes train CLI ({name}): {vals}")
+        log(f"nuScenes train CLI ({name}) step {r['step']} on {card}: time "
             f"{r['time']!r} s, data_time {r['data_time']!r} s, loss "
             f"{r['loss']!r}, grad_norm {r['grad_norm']!r}")
-    res["train_cli"] = dict(launches=cli_launches, wall_s=wall_ms / 1e3)
-    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"nuScenes train CLI: 2 steps at batch {NUSC_TRAIN_BATCH} and one "
-        f"checkpoint in {wall_ms / 1e3!r} s; phase peak memory "
-        f"{res['peak_gib']!r} GiB, {time.perf_counter() - t_phase:.1f} s in "
-        "all")
+    log(f"nuScenes train CLI ({name}): 2 steps at batch {NUSC_TRAIN_BATCH} "
+        f"and one checkpoint in {wall_ms / 1e3!r} s")
+    return dict(launches=cli_launches, wall_s=wall_ms / 1e3)
+
+
+NMS_REPS = 3                 # decode + NMS calls timed alone
+
+
+@torch.no_grad()
+def singlehead_nms_readings(det, maps):
+    """The single-head frame's decode + per-class NMS alone on its maps:
+    host ms a call (median of NMS_REPS) and the fixpoint sweeps a call;
+    then its parts on the card, on the score-sorted, class-shifted boxes
+    the NMS built: the (N, N) suppression matrix's device ms (its rotated
+    IoU in row blocks) and the fixpoint's host ms (a host read a sweep)."""
+    from partner_tpu_torch.ops import nms
+
+    times, sweeps, seen = [], [], {}
+    build = nms.suppression_matrix
+
+    def spy(*args):
+        seen["args"] = args
+        return build(*args)
+
+    nms.suppression_matrix = spy   # rotated_nms looks it up at each call
+    try:
+        for _ in range(NMS_REPS):
+            nms.sweeps = 0
+            ms, _, counts = counted(lambda: det.decode(maps))
+            if any(counts.values()):
+                raise AssertionError(f"decode + NMS launched {counts}")
+            times.append(ms)
+            sweeps.append(nms.sweeps)
+    finally:
+        nms.suppression_matrix = build
+    b, valid, _ = seen["args"]
+    iou_ms = device_ms(lambda: build(*seen["args"]), reps=NMS_REPS,
+                       warmup=1)
+    sup = build(*seen["args"])
+    fix_ms, _, _ = counted(lambda: nms._greedy_keep_upper(sup, valid))
+    return dict(ms=statistics.median(times), all_ms=times,
+                sweeps=sweeps[0], candidates=int(valid.sum()),
+                rows=int(b.shape[0]), iou_device_ms=iou_ms,
+                fixpoint_ms=fix_ms, suppressions=int(sup.sum()))
+
+
+def singlehead_phase(dev, card, root, info):
+    """The nuScenes single-head cylinder config
+    (``voxelnet_det_cylinder_singlehead.py``: ``CenterHeadSinglePos``, one
+    task of 10 classes, rectified decode, per-class NMS over every
+    candidate) at full width on the synthetic 10-sweep set: its frame
+    (median ms, device busy and launches, the stem and scatter-max once a
+    frame, a repeat bit-equal) and its decode + NMS alone
+    (:func:`singlehead_nms_readings`); the card against the CPU on
+    SMALL_GRID (BEV, maps, and the kept boxes of the CPU's BEV through the
+    card's RPN, head, decode and NMS); the batch-4 train step,
+    ``dist_test`` over NUSC_FRAMES frames and two train-CLI steps."""
+    from partner_tpu_torch.models import build_detector
+    from partner_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    res = {}
+    per_frame = {"stem": 1, "scatter_max": 1, "swin_attn": 0, "swin_block": 0}
+    cfg_path = write_nusc_config(root, "singlehead", info)
+    cfg = load_config(cfg_path)
+    dcn = load_config(NUSC_CONFIGS["dcn"])
+    # the kernels see the DCN config's shapes (nusc_kernel_cases holds them)
+    if (cfg["model"]["backbone"] != dcn["model"]["backbone"]
+            or cfg["voxel_generator"]["range"] != dcn["voxel_generator"][
+                "range"]
+            or cfg["voxel_generator"]["voxel_size"] != dcn[
+                "voxel_generator"]["voxel_size"]):
+        raise AssertionError("single-head: another backbone or grid than "
+                             "the DCN config's kernel cases")
+    tc = dict(cfg["test_cfg"])
+    gen = torch.Generator().manual_seed(SEED + 23)
+    det = build_detector(cfg["model"], cfg["train_cfg"], tc, device=dev,
+                         generator=gen)
+    randomize_norms(det.module, gen)
+    ex = to_device({k: v for k, v in nusc_batch(cfg_path, "val", 1).items()
+                    if k in ("points", "points_mask")}, dev)
+    median, times, out, tally = timed_predicts(det, ex, NUSC_TIMED,
+                                               per_frame)
+    busy, launches = device_busy(lambda: det.predict(ex))
+    with torch.no_grad():
+        maps = det.module(ex)
+    task = maps["det_preds"][0]
+    if sorted(task) != ["dim", "height", "hm", "reg", "rot", "vel"] or not \
+            all(torch.isfinite(v).all() for v in task.values()):
+        raise AssertionError(f"single-head maps {sorted(task)}")
+    kept = check_detections(out, tc, box_dim=9)
+    if not identical(det.predict(ex), out):
+        raise AssertionError("single-head: a repeat differs")
+    nms_r = singlehead_nms_readings(det, maps)
+    log(f"nuScenes single-head frame on {card}: {tuple(ex['points'].shape)} "
+        f"point rows, median {median!r} ms over {NUSC_TIMED} frames (host "
+        f"clock around a synchronized predict), all {times!r}; device busy "
+        f"{busy!r} ms and {launches!r} launches a frame; kernel launches "
+        f"{tally}; hm {tuple(task['hm'].shape)}; {kept} boxes kept of "
+        f"{nms_r['candidates']} candidates ({nms_r['rows']} rows) by the "
+        f"per-class NMS; repeat bit-equal; decode + NMS alone "
+        f"{nms_r['ms']!r} ms (all {nms_r['all_ms']!r}), {nms_r['sweeps']} "
+        f"fixpoint sweeps (a host read each); the suppression matrix "
+        f"{nms_r['iou_device_ms']!r} ms device time ({nms_r['rows']}^2 "
+        f"pairs, {nms_r['suppressions']} suppressing), the fixpoint "
+        f"{nms_r['fixpoint_ms']!r} ms host clock")
+    res["frame"] = dict(median_ms=median, device_busy_ms=busy,
+                        launches_per_frame=launches, launches=tally,
+                        kept=kept, nms=nms_r)
+    del maps, out, ex, task
+
+    # ---- card against CPU on SMALL_GRID, kept boxes too
+    gdet, cdet, bev = centerpoint_reference(
+        dev, card, NUSC_SINGLEHEAD, "nuScenes single-head", SEED + 24,
+        REF_F32)
+    with torch.no_grad():
+        got = gdet.decode(gdet.module.bbox_head(gdet.module.neck(
+            bev.to(dev))))
+        want = cdet.decode(cdet.module.bbox_head(cdet.module.neck(bev)))
+    at_place = same_detections(got, want)
+    log(f"nuScenes single-head kept detections on SMALL_GRID {SMALL_GRID}, "
+        f"the CPU's BEV through each side's RPN, head, rectified decode and "
+        f"per-class NMS: {len(kept_boxes(want)['scores'])} each, {at_place} "
+        f"equal at their place, the rest within a score tie of {PP_TIE}")
+    del gdet, cdet, bev, got, want
+
+    res["train"] = nusc_train_step(det, cfg_path, "single-head", card)
+    res["dist_test"] = nusc_dist_test(det, cfg_path, root, "singlehead",
+                                      card, per_frame)
+    del det
+    torch.cuda.empty_cache()
+    res["train_cli"] = nusc_train_cli(cfg_path, root, "singlehead", card,
+                                      dev)
+    log(f"nuScenes single-head: {time.perf_counter() - t0:.1f} s in all")
     return res
 
 
@@ -4301,6 +4493,13 @@ PP_CONFIGS = {
                                 "waymo_centerpoint_pp_two_pfn_stride1_3x.py"),
     "two_class": os.path.join(
         PP_DIR, "waymo_centerpoint_pp_two_cls_two_pfn_stride1_3x.py")}
+PP_TWO_STAGE_CONFIGS = {
+    "three_class": os.path.join(
+        PP_DIR, "two_stage",
+        "waymo_centerpoint_pp_two_pfn_stride1_two_stage_bev_6epoch.py"),
+    "two_class": os.path.join(
+        PP_DIR, "two_stage", "waymo_centerpoint_pp_two_cls_two_pfn_stride1_"
+        "two_stage_bev_6epoch.py")}
 PP_CLASSES = ("VEHICLE", "PEDESTRIAN", "CYCLIST")   # the configs' names
 PP_EVAL_FRAMES = 8           # dist_test frames on disk (cut first)
 PP_SMALL_GRID = 128          # the reference's pillar grid, 128 x 128
@@ -4309,9 +4508,10 @@ PP_TIE = 1e-6                # scores closer than this may swap places
 
 
 def pp_cfgs(config=PP_CONFIGS["three_class"], grid=None):
-    """(model cfg, train cfg, test cfg) of a PointPillars config with
-    ``score_threshold`` 0 (as :func:`frame_cfgs`), optionally on a
-    ``grid`` x ``grid`` pillar grid (same widths, the reader's cell too)."""
+    """(model cfg, train cfg, test cfg) of a PointPillars config (or a
+    two-stage one, its first stage) with ``score_threshold`` 0 (as
+    :func:`frame_cfgs`), optionally on a ``grid`` x ``grid`` pillar grid
+    (same widths, the reader's cell too)."""
     import copy
 
     from partner_tpu_torch.utils.config import load_config
@@ -4321,11 +4521,13 @@ def pp_cfgs(config=PP_CONFIGS["three_class"], grid=None):
     tc = copy.deepcopy(cfg["test_cfg"])
     tc["score_threshold"] = 0.0
     if grid is not None:
-        vg = m["bbox_head"]["voxel_generator"]
+        first = m.get("first_stage_cfg", m)
+        vg = first["bbox_head"]["voxel_generator"]
         r = vg["range"]
         vg["voxel_size"] = [(r[3] - r[0]) / grid, (r[4] - r[1]) / grid,
                             vg["voxel_size"][2]]
-        m["reader"] = dict(m["reader"], voxel_size=tuple(vg["voxel_size"]))
+        first["reader"] = dict(first["reader"],
+                               voxel_size=tuple(vg["voxel_size"]))
     return m, copy.deepcopy(cfg["train_cfg"]), tc
 
 
@@ -4427,16 +4629,19 @@ def pillar_census(module, ex):
     return occupied, int(vox["mask"].sum()), dropped
 
 
-def write_pp_config(root, config, info_path):
+def write_pp_config(root, config, info_path, pretrained=None):
     """A PointPillars config file with ``score_threshold`` 0 (as
     :func:`pp_cfgs`), ``data.train`` / ``data.val`` at ``info_path``, and
     a metrics record every step; the train pipeline's rotation, scaling
-    and shuffle as the config has them."""
+    and shuffle as the config has them; a two-stage config's first stage
+    ``pretrained`` at ``pretrained``."""
     path = os.path.join(root, os.path.basename(config))
     with open(path, "w") as f:
         f.write(f"__file__ = {config!r}\n"
                 f"exec(open({config!r}).read())\n"
-                "test_cfg['score_threshold'] = 0.0\n"
+                + (f"model['first_stage_cfg']['pretrained'] = "
+                   f"{pretrained!r}\n" if pretrained else "")
+                + "test_cfg['score_threshold'] = 0.0\n"
                 "for _s in ('train', 'val'):\n"
                 f"    data[_s].update(info_path={info_path!r}, "
                 f"root_path={root!r})\n"
@@ -4445,18 +4650,21 @@ def write_pp_config(root, config, info_path):
     return path
 
 
-def same_detections(got, want, tie=PP_TIE, box_tol=1e-4):
+def same_detections(got, want, tie=PP_TIE, box_tol=1e-4, tie_scores=None):
     """Sample 0's kept detections of two ``predict`` outputs: the same
     count and labels, and each row within ``box_tol`` of the other's row
     at its place or, where scores tie within ``tie``, of a row of that
-    tie -> rows equal at their place."""
+    tie -> rows equal at their place. ``tie_scores`` are the scores that
+    ordered the kept rows where those are not ``want``'s own (a two-stage
+    detector's first-stage scores)."""
     g, w = kept_boxes(got), kept_boxes(want)
     n = len(w["scores"])
-    if len(g["scores"]) != n:
+    ws = w["scores"] if tie_scores is None else tie_scores
+    if len(g["scores"]) != n or len(ws) != n:
         raise AssertionError(f"kept {len(g['scores'])} != {n}")
     at_place = 0
     for i in range(n):
-        near = np.flatnonzero(np.abs(w["scores"] - w["scores"][i]) <= tie)
+        near = np.flatnonzero(np.abs(ws - ws[i]) <= tie)
         ok = [k for k in near if g["label_preds"][i] == w["label_preds"][k]
               and np.abs(g["box3d_lidar"][i] - w["box3d_lidar"][k]).max()
               <= box_tol]
@@ -4676,8 +4884,325 @@ def pp_phase(dev, card):
             f"{r['time']!r} s, data_time {r['data_time']!r} s, {vals}")
     res["train_cli"] = dict(launches=cli_launches, wall_s=wall_ms / 1e3)
     log(f"PointPillars train CLI: 2 steps at batch {batch} and one "
-        f"checkpoint in {wall_ms / 1e3!r} s; phase "
-        f"{time.perf_counter() - t_phase:.1f} s in all")
+        f"checkpoint in {wall_ms / 1e3!r} s")
+    res["two_stage"] = pp_two_stage_phase(dev, card)
+    log(f"PointPillars phase {time.perf_counter() - t_phase:.1f} s in all")
+    return res
+
+
+@torch.no_grad()
+def pp_two_stage_reference(dev, card):
+    """The 3-class two-stage config's widths on a PP_SMALL_GRID pillar
+    grid, same weights and points: the neck map the RoI head samples, the
+    refine stage's IoU logits and residuals on the CPU's proposals, and
+    the kept detections of ``predict``, the card against the CPU (both
+    float32)."""
+    from partner_tpu_torch.models import build_detector
+
+    m, _, tc = pp_cfgs(PP_TWO_STAGE_CONFIGS["three_class"],
+                       grid=PP_SMALL_GRID)
+    gen = torch.Generator().manual_seed(SEED + 41)
+    gpu = build_detector(m, None, tc, device=dev, generator=gen)
+    randomize_norms(gpu.module, gen)
+    randomize_pfn(gpu.module.first, gen)
+    cpu = build_detector(m, None, tc, device="cpu")
+    cpu.module.load_state_dict({k: v.cpu() for k, v in
+                                gpu.module.state_dict().items()})
+    pr = m["first_stage_cfg"]["bbox_head"]["voxel_generator"]["range"]
+    pts, mask = cuboid_sweep(np.random.RandomState(SEED + 41), pr, 30_000)
+    exc = to_device({"points": pts, "points_mask": mask}, "cpu")
+    exg = to_device({"points": pts, "points_mask": mask}, dev)
+    preds, bev = cpu.module(exc)
+    rel_rms(f"PointPillars two-stage neck map on {card}",
+            gpu.module(exg)[1], bev, PP_REF_TOL)
+    boxes, scores = cpu.decode_proposals(preds["det_preds"][0])
+    from partner_tpu_torch.models.center_head import center_head_post_process
+
+    post = center_head_post_process(boxes, scores, cpu.test_cfg)
+    props = torch.cat([post["box3d_lidar"][..., :6],
+                       post["box3d_lidar"][..., -1:]], -1)
+    want = cpu.module.refine(bev, props, post["scores"])
+    got = gpu.module.refine(bev.to(dev), props.to(dev),
+                            post["scores"].to(dev))
+    for name, g, w in zip(("IoU logits", "residuals"), got, want):
+        rel_rms(f"PointPillars refine {name}", g, w, PP_REF_TOL)
+    # the kept rows follow the first stage's scores, not the refined ones
+    first = kept_boxes(cpu.first_driver.predict(exc))["scores"]
+    at_place = same_detections(gpu.predict(exg), cpu.predict(exc),
+                               tie_scores=first)
+    log(f"PointPillars two-stage kept detections on {PP_SMALL_GRID} x "
+        f"{PP_SMALL_GRID} pillars, card against CPU: {len(first)} each, "
+        f"{at_place} equal at their place, the rest within a first-stage "
+        f"score tie of {PP_TIE}")
+
+
+def pp_two_stage_phase(dev, card):
+    """The Waymo PointPillars two-stage configs at full width (the frozen
+    one-stage PointPillars, 500 proposals a frame, 5 samples each on the
+    468 x 468 x 384 neck map, the RoI head 1921 -> 256 -> 256): the 3-class
+    frame taking turns with its first stage's one-stage frame (median ms,
+    device busy and launches, the refine stage's device ms and launches,
+    kept boxes, a repeat bit-equal); the card against the CPU on a small
+    pillar grid (:func:`pp_two_stage_reference`); the frozen train step at
+    batch 4 with its first stage loaded from a seeded port one-stage
+    checkpoint this phase writes (planted positive proposals; the first
+    stage bit-unchanged, every RoI parameter moved); two train-CLI steps
+    from that checkpoint through ``pretrained`` and ``dist_test`` from the
+    CLI's checkpoint, each frame bit-equal to a direct ``predict``; the
+    2-class frame. No hand kernel lies on this path: every launch count
+    stays 0."""
+    import pickle
+    import tempfile
+
+    from partner_tpu_torch.data import build_dataset
+    from partner_tpu_torch.data.loader import DataLoader
+    from partner_tpu_torch.models import build_detector
+    from partner_tpu_torch.models.center_head import center_head_post_process
+    from partner_tpu_torch.tools import dist_test, train
+    from partner_tpu_torch.tools.train import load_pretrained_first_stage
+    from partner_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                    save_checkpoint)
+    from partner_tpu_torch.train.optim import build_one_cycle_optimizer
+    from partner_tpu_torch.train.train_state import make_train_step
+    from partner_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    res = {}
+    none = dict.fromkeys(kernel_wrappers(), 0)
+    m, train_cfg, tc = pp_cfgs(PP_TWO_STAGE_CONFIGS["three_class"])
+    gen = torch.Generator().manual_seed(SEED + 40)
+    det = build_detector(m, train_cfg, tc, device=dev, generator=gen)
+    randomize_norms(det.module, gen)
+    randomize_pfn(det.module.first, gen)
+    head = det.module.roi_head
+    log(f"PointPillars two-stage detector: first stage grid "
+        f"{det.module.first.grid_size} at stride "
+        f"{det.module.first.out_size_factor}, RoI head "
+        f"{head.Dense_0.weight.shape[1]} -> {head.Dense_0.weight.shape[0]} "
+        f"-> {head.Dense_1.weight.shape[0]}, "
+        f"{sum(p.numel() for p in det.module.parameters())} params, frozen "
+        f"first stage; built in {time.perf_counter() - t0:.1f} s")
+    pr = m["first_stage_cfg"]["bbox_head"]["voxel_generator"]["range"]
+    pts, mask = cuboid_sweep(np.random.RandomState(SEED + 30), pr, N_POINTS)
+    ex = to_device({"points": pts, "points_mask": mask}, dev)
+
+    # ---- the frame, taking turns with the one-stage frame (same weights)
+    runs = {"two-stage": lambda: det.predict(ex),
+            "one-stage": lambda: det.first_driver.predict(ex)}
+    times = {k: [] for k in runs}
+    tally = dict(none)
+    for i in range(TS_FRAMES + 1):
+        for name, run in runs.items():
+            ms, out, counts = counted(run)
+            if counts != none:
+                raise AssertionError(f"PointPillars {name} frame {i}: "
+                                     f"launches {counts}")
+            if i:
+                times[name].append(ms)
+    out = det.predict(ex)
+    if not identical(det.predict(ex), out):
+        raise AssertionError("PointPillars two-stage frame: a repeat differs")
+    kept = check_detections(out, tc)
+    busy = {name: device_busy(run) for name, run in runs.items()}
+    with torch.no_grad():
+        preds, bev = det.module(ex)
+        boxes, scores = det.decode_proposals(preds["det_preds"][0])
+        post = center_head_post_process(boxes, scores, det.test_cfg)
+        props7 = torch.cat([post["box3d_lidar"][..., :6],
+                            post["box3d_lidar"][..., -1:]], -1)
+        refine = lambda: det.module.refine(bev, props7, post["scores"])
+        refine_ms = device_ms(refine)
+        _, _, refine_counts = counted(refine)
+        refine_busy = device_busy(refine)
+    if refine_counts != none:
+        raise AssertionError(f"PointPillars refine: launches {refine_counts}")
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"PointPillars two-stage frame on {card}: median "
+        f"{med['two-stage']!r} ms against the one-stage frame's "
+        f"{med['one-stage']!r} on the same first stage, taking turns over "
+        f"{TS_FRAMES} frames each (host clock around a synchronized "
+        f"predict), all {times!r}; device busy and launches a frame "
+        f"{busy!r} (torch.profiler, 3 frames); the refine stage "
+        f"({tuple(bev.shape)} neck map, {props7.shape[1]} proposals x 5 "
+        f"points) {refine_ms!r} ms device time (CUDA events), "
+        f"{refine_busy!r} (busy ms, launches); kernel launches {tally}; "
+        f"{kept} boxes kept; a repeat bit-equal")
+    res["frame"] = dict(median_ms=med["two-stage"],
+                        one_stage_median_ms=med["one-stage"],
+                        device_busy_ms=busy["two-stage"][0],
+                        launches_per_frame=busy["two-stage"][1],
+                        refine_ms=refine_ms, refine_launches=refine_busy[1],
+                        refine_busy_ms=refine_busy[0], launches=tally,
+                        kept=kept)
+    del det, preds, bev, boxes, scores, post, out, runs, ex
+    torch.cuda.empty_cache()
+
+    pp_two_stage_reference(dev, card)
+
+    with tempfile.TemporaryDirectory() as root:
+        # ---- a seeded one-stage checkpoint, the frozen step from it
+        gen = torch.Generator().manual_seed(SEED + 42)
+        one = build_detector(m["first_stage_cfg"], None, tc, device=dev,
+                             generator=gen)
+        randomize_norms(one.module, gen)
+        randomize_pfn(one.module, gen)
+        pretrained = os.path.join(root, "one_stage", "latest")
+        save_checkpoint(os.path.dirname(pretrained), 0,
+                        one.module.state_dict())
+        del one
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        det = build_detector(m, train_cfg, tc, device=dev,
+                             generator=torch.Generator().manual_seed(SEED))
+        load_pretrained_first_stage(det, pretrained)
+        batch = load_config(PP_TWO_STAGE_CONFIGS["three_class"])["data"][
+            "samples_per_gpu"]
+        ex = pp_train_example(np.random.RandomState(SEED + 43),
+                              m["first_stage_cfg"], train_cfg, batch,
+                              TRAIN_POINTS, TRAIN_ROWS, MAX_BOXES)
+        ex["global_box"] = np.zeros((batch, MAX_BOXES, 10), np.float32)
+        ex = to_device({k: v for k, v in plant_positives(det, ex, dev).items()
+                        if k in det.loss_keys}, dev)
+        opt = build_one_cycle_optimizer(det.module, lr_max=3e-3,
+                                        total_steps=1000)
+        step = make_train_step(det, opt)
+        before = {k: v.detach().clone() for k, v in
+                  det.module.state_dict().items()}
+        times, launches = [], dict(none)
+        for i in range(TRAIN_STEPS + 1):
+            ms, met, counts = counted(lambda: step(ex, None))
+            if counts != none:
+                raise AssertionError(f"PointPillars frozen step {i}: "
+                                     f"launches {counts}")
+            vals = {k: float(v) for k, v in met.items()}
+            log(f"PointPillars two-stage frozen step {i}: {ms!r} ms, {vals}")
+            if not all(np.isfinite(list(vals.values()))) or not (
+                    vals["roi_reg_loss"] > 0):
+                raise AssertionError(f"PointPillars frozen step {i}: {vals}")
+            if i:
+                times.append(ms)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        after = det.module.state_dict()
+        moved_first = [k for k in after if k.startswith("first.")
+                       and not torch.equal(after[k], before[k])]
+        still_roi = [k for k in after if k.startswith("roi_head.")
+                     and torch.equal(after[k], before[k])]
+        if moved_first or still_roi or len(opt.params) != 12:
+            raise AssertionError(f"PointPillars frozen step: first stage "
+                                 f"moved {moved_first[:5]}, RoI unchanged "
+                                 f"{still_roi}")
+        median = statistics.median(times)
+        log(f"PointPillars two-stage frozen train step, batch {batch} "
+            f"({TRAIN_POINTS} points a sample in {TRAIN_ROWS} rows), first "
+            f"stage from a port one-stage checkpoint, on {card}: median "
+            f"{median!r} ms over {TRAIN_STEPS} steps (host clock around a "
+            f"synchronized step), all {times!r}; peak memory {peak!r} GiB; "
+            f"launches over {TRAIN_STEPS + 1} steps {launches}; the first "
+            "stage's parameters and statistics (the PFN's among them) "
+            "bit-unchanged, every RoI parameter moved")
+        res["train"] = dict(median_ms=median, peak_gib=peak,
+                            launches=launches)
+        del det, opt, step, ex, before, after
+        torch.cuda.empty_cache()
+
+        # ---- two train-CLI steps through ``pretrained``, then dist_test
+        info = write_val_set(root, np.random.RandomState(SEED + 44),
+                             polar_extent(pr), PP_EVAL_FRAMES,
+                             names=PP_CLASSES)
+        cfg_path = write_pp_config(root, PP_TWO_STAGE_CONFIGS["three_class"],
+                                   info, pretrained=pretrained)
+        work_dir = os.path.join(root, "train")
+        wall_ms, steps, cli_launches = counted(lambda: train.main([
+            cfg_path, "--work_dir", work_dir, "--batch_size", str(batch),
+            "--total_steps", "2", "--max_steps_per_epoch", "2",
+            "--max_points", str(TRAIN_ROWS), "--seed", str(SEED),
+            "--device", torch.device(dev).type]))
+        with open(os.path.join(work_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        if steps != 2 or [r["step"] for r in recs] != [0, 1] or (
+                cli_launches != none):
+            raise AssertionError(f"PointPillars two-stage train CLI: steps "
+                                 f"{steps}, records {recs}, launches "
+                                 f"{cli_launches}")
+        for r in recs:
+            vals = {k: r[k] for k in ("loss", "roi_cls_loss", "roi_reg_loss",
+                                      "grad_norm")}
+            log(f"PointPillars two-stage train CLI step {r['step']} on "
+                f"{card}: time {r['time']!r} s, data_time "
+                f"{r['data_time']!r} s, {vals}")
+            if not all(np.isfinite(list(vals.values()))):
+                raise AssertionError(f"PointPillars two-stage CLI: {vals}")
+        ckpt = os.path.join(work_dir, "latest")
+        payload = load_checkpoint(ckpt)[0]
+        pre = load_checkpoint(pretrained)[0]["state_dict"]
+        moved = [k for k in pre if not torch.equal(
+            payload["state_dict"]["first." + k], pre[k])]
+        if moved or sorted(payload["opt_state"]["mu"]) != sorted(
+                k for k in payload["state_dict"] if k.startswith("roi_head.")):
+            raise AssertionError(f"PointPillars two-stage CLI: first stage "
+                                 f"moved {moved[:5]} or Adam state not the "
+                                 "RoI head's")
+        log(f"PointPillars two-stage train CLI: 2 steps at batch {batch} from "
+            f"the pretrained one-stage checkpoint in {wall_ms / 1e3!r} s "
+            f"(build, load, data, steps, checkpoints); launches "
+            f"{cli_launches}; the first stage bit-equal to the checkpoint's, "
+            "Adam moments the RoI head's alone")
+        res["train_cli"] = dict(launches=cli_launches, wall_s=wall_ms / 1e3)
+
+        _, ((metrics, _), fps), eval_launches = counted(
+            lambda: dist_test.main([
+                cfg_path, "--checkpoint", ckpt, "--work_dir",
+                os.path.join(root, "eval"), "--max_points", str(EVAL_ROWS),
+                "--device", torch.device(dev).type]))
+        if eval_launches != none:
+            raise AssertionError(f"PointPillars two-stage dist_test: "
+                                 f"launches {eval_launches}")
+        with open(os.path.join(root, "eval", "prediction.pkl"), "rb") as f:
+            preds = pickle.load(f)
+        cfg = load_config(cfg_path)
+        det = build_detector(cfg["model"], None, cfg["test_cfg"], device=dev)
+        det.module.load_state_dict(payload["state_dict"])
+        direct = {}
+        for b in DataLoader(build_dataset(dict(cfg["data"]["val"])), 1,
+                            shuffle=False, max_points=EVAL_ROWS):
+            e = to_device({k: b[k] for k in ("points", "points_mask")}, dev)
+            direct[b["metadata"][0]["token"]] = kept_boxes(det.predict(e))
+        if sorted(preds) != sorted(direct) or not all(
+                np.array_equal(preds[t][k], direct[t][k])
+                for t in direct for k in direct[t]):
+            raise AssertionError("PointPillars two-stage dist_test: a frame "
+                                 "differs from a direct predict")
+        keys = [f"AP/L1/{c}" for c in PP_CLASSES] + ["mAP/L1", "mAPH/L2"]
+        if not all(k in metrics and np.isfinite(metrics[k]) for k in keys):
+            raise AssertionError(f"PointPillars two-stage dist_test: "
+                                 f"{metrics}")
+        log(f"PointPillars two-stage dist_test on {card}: middle-third FPS "
+            f"{fps!r} over {PP_EVAL_FRAMES} frames of {N_POINTS} points in "
+            f"{EVAL_ROWS} rows; launches {eval_launches}; every frame "
+            "bit-equal to a direct predict; " + ", ".join(
+                f"{k} {metrics[k]!r}" for k in keys))
+        res["dist_test"] = dict(fps=fps, launches=eval_launches)
+        del det
+        torch.cuda.empty_cache()
+
+    # ---- the 2-class frame
+    m2, _, tc2 = pp_cfgs(PP_TWO_STAGE_CONFIGS["two_class"])
+    gen = torch.Generator().manual_seed(SEED + 45)
+    det = build_detector(m2, None, tc2, device=dev, generator=gen)
+    randomize_norms(det.module, gen)
+    randomize_pfn(det.module.first, gen)
+    ex = to_device({"points": pts, "points_mask": mask}, dev)
+    median, times, out, tally = timed_predicts(det, ex, TS_FRAMES, none)
+    kept = check_detections(out, tc2)
+    if int(out["label_preds"][0][out["mask"][0]].max()) > 1:
+        raise AssertionError("PointPillars two-stage 2-class: a third label")
+    log(f"PointPillars two-stage 2-class frame on {card}: median {median!r} "
+        f"ms over {TS_FRAMES} frames, all {times!r}; launches {tally}; "
+        f"{kept} boxes kept, labels of 2 classes")
+    res["two_class"] = dict(median_ms=median, launches=tally, kept=kept)
+    del det, ex, out
+    torch.cuda.empty_cache()
+    log(f"PointPillars two-stage: {time.perf_counter() - t0:.1f} s in all")
     return res
 
 
@@ -4733,6 +5258,22 @@ def main():
                        "partner_tpu/ops/swin_block_pallas.py:253",
                        "whole_block"),
     }
+    sh, pts = nusc["singlehead"], pp["two_stage"]
+    # each path's launches of each kernel, as its phase asserted them
+    want_sh = {"stem": NUSC_TIMED, "scatter_max": NUSC_TIMED}
+    for key, tally, want in (
+            ("singlehead frame", sh["frame"]["launches"], want_sh),
+            ("singlehead dist_test", sh["dist_test"]["launches"],
+             {"stem": NUSC_FRAMES, "scatter_max": NUSC_FRAMES}),
+            ("singlehead train", sh["train"]["launches"],
+             {"scatter_max": TRAIN_STEPS + 1}),
+            ("singlehead train CLI", sh["train_cli"]["launches"],
+             {"scatter_max": 2})) + tuple(
+            (f"pp two-stage {k}", pts[k]["launches"], {})
+            for k in ("frame", "two_class", "train", "train_cli",
+                      "dist_test")):
+        if tally != {k: want.get(k, 0) for k in meta}:
+            raise AssertionError(f"{key} launches {tally}")
     kernels = [dict(name=name, route="cuda", source=meta[name][0],
                     replaces=meta[name][1],
                     launches=routes[meta[name][2]][0][name],
@@ -4780,6 +5321,22 @@ def main():
                     pp_train_launches=pp["train"]["launches"][name],
                     pp_dist_test_launches=pp["dist_test"]["launches"][name],
                     pp_train_cli_launches=pp["train_cli"]["launches"][name],
+                    singlehead_frame_launches=sh["frame"]["launches"][name],
+                    singlehead_train_launches=sh["train"]["launches"][name],
+                    singlehead_dist_test_launches=sh["dist_test"][
+                        "launches"][name],
+                    singlehead_train_cli_launches=sh["train_cli"][
+                        "launches"][name],
+                    pp_two_stage_frame_launches=pts["frame"]["launches"][
+                        name],
+                    pp_two_stage_two_class_frame_launches=pts["two_class"][
+                        "launches"][name],
+                    pp_two_stage_frozen_train_launches=pts["train"][
+                        "launches"][name],
+                    pp_two_stage_train_cli_launches=pts["train_cli"][
+                        "launches"][name],
+                    pp_two_stage_dist_test_launches=pts["dist_test"][
+                        "launches"][name],
                     **r)
                for name, r in kres.items()]
     log("summary: card " + card + ", flagship frame median ms: " + ", ".join(
@@ -4902,6 +5459,28 @@ def main():
         f"4 {pp['train']['median_ms']!r} ms, peak {pp['train']['peak_gib']!r}"
         f" GiB; dist_test middle-third FPS {pp['dist_test']['fps']!r}; "
         f"train CLI 2 steps in {pp['train_cli']['wall_s']!r} s")
+    sf, nr = sh["frame"], sh["frame"]["nms"]
+    log(f"summary: card {card}, nuScenes single-head frame median "
+        f"{sf['median_ms']!r} ms (device busy {sf['device_busy_ms']!r}, "
+        f"{sf['launches_per_frame']!r} launches), decode + per-class NMS "
+        f"{nr['ms']!r} ms over {nr['candidates']} candidates in "
+        f"{nr['sweeps']} fixpoint sweeps, suppression matrix "
+        f"{nr['iou_device_ms']!r} ms device; train step at batch 4 "
+        f"{sh['train']['median_ms']!r} ms, peak {sh['train']['peak_gib']!r} "
+        f"GiB; dist_test middle-third FPS {sh['dist_test']['fps']!r}; train "
+        f"CLI 2 steps in {sh['train_cli']['wall_s']!r} s")
+    tf = pts["frame"]
+    log(f"summary: card {card}, PointPillars two-stage frame median "
+        f"{tf['median_ms']!r} ms against the one-stage "
+        f"{tf['one_stage_median_ms']!r} taking turns (device busy "
+        f"{tf['device_busy_ms']!r}, {tf['launches_per_frame']!r} launches), "
+        f"refine {tf['refine_ms']!r} ms device in "
+        f"{tf['refine_launches']!r} launches; 2-class frame "
+        f"{pts['two_class']['median_ms']!r} ms; frozen step at batch 4 "
+        f"{pts['train']['median_ms']!r} ms, peak "
+        f"{pts['train']['peak_gib']!r} GiB; train CLI 2 steps in "
+        f"{pts['train_cli']['wall_s']!r} s; dist_test middle-third FPS "
+        f"{pts['dist_test']['fps']!r}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

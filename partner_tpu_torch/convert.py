@@ -21,7 +21,14 @@ submodules carry flax's names (``Conv_0``, ``BatchNorm_0``,
   ``SparseConv_k``'s flat (K*Cin, Cout) ``kernel`` and its ``bias``, and a
   ``MaskedBatchNorm_k``'s ``scale``, ``bias``, ``mean`` and ``var``; so do
   a pillar encoder's ``pfn{i}_bn`` (a ``MaskedBatchNorm``), while its
-  ``pfn{i}_dense`` kernel maps by the Dense rule.
+  ``pfn{i}_dense`` kernel maps by the Dense rule;
+- a single-group head's raw parameters keep name and layout too:
+  ``shared_norm`` (``RSNorm``: ``scale``, ``bias``, each (g, 1, C)) and
+  each ``{head}_rs`` (``RangeStratified``: ``kernel`` (g, 3, 3, C, F),
+  ``bias``, ``gn_scale``, ``gn_bias``); its ``shared_conv``,
+  ``{head}_out``, ``cal_*`` and each ``*_stack/Conv_k`` (grouped convs
+  too: HWIO (kh, kw, C / groups, F) -> (F, C / groups, kh, kw)) map by
+  the Conv rule, each ``*_stack/GroupNorm_k`` by the ``scale`` rule.
 
 Inputs are nested dicts of numpy arrays (``{"params": ..., "batch_stats":
 ...}``), so this module needs neither jax nor flax.
@@ -54,7 +61,8 @@ def _collapse(path):
 def _keeps_names(mods):
     return bool(mods) and (
         mods[-1].startswith(("SparseConv_", "MaskedBatchNorm_"))
-        or re.fullmatch(r"pfn\d+_bn", mods[-1]) is not None)
+        or re.fullmatch(r"pfn\d+_bn|shared_norm|\w+_rs", mods[-1])
+        is not None)
 
 
 def _param(path, arr):

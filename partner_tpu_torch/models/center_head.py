@@ -6,15 +6,22 @@ configs), and the pure functions over its maps: the loss (FastFocal
 heatmap + L1 regression at the peaks), the double-flip average of the
 test-time flips, the decode and the score / range mask with rotated NMS.
 
+The single-group heads of the cylinder configs (counterpart of the
+``CenterHeadSingle`` half): ``CenterHeadSingle`` (a shared conv with the
+range-stratified ``RSNorm``, ``RangeStratified`` convs for ``reg``,
+``ConvGNStack``s for the other heads, merged heads such as ``rot_vel``
+as grouped convs split by channel) and ``CenterHeadSinglePos`` (its
+heatmap input calibrated by the polar position encoding). With
+``test_cfg["per_class_nms"]`` the post-process runs
+``ops.nms.batched_rotated_nms`` over every candidate.
+
 Maps are NHWC (B, H=azimuth, W=range, C), as in JAX. Submodules carry
 flax's names (``Conv_0``, ``task{i}``, ``{head}_conv{j}``, ``{head}_out``,
 ``feature_adapt_cls``, ``conv_offset``, ``deform_kernel``, ``hm_out``,
-``task_head``), so converted weights load by name. Not ported here, each
-waiting for the slice that needs it (ROADMAP.md queue 1, off the main
-path): ``CenterHeadSingle`` / ``CenterHeadSinglePos`` with ``RSNorm``,
-``RangeStratified`` and ``ConvGNStack``, and ``per_class_nms``
-(``batched_rotated_nms``), for nuScenes and PolarStream; the fused-branch
-``SepHead`` option, a TPU knob that lost there.
+``task_head``, ``shared_conv``, ``shared_norm``, ``{head}_rs``,
+``{head}_stack``, ``GroupNorm_{k}``, ``hm_stack``, ``cal_*``), so
+converted weights load by name. Not ported: the fused-branch ``SepHead``
+option, a TPU knob that lost there.
 """
 
 import functools
@@ -26,8 +33,8 @@ import torch.nn as nn
 from ..core.geometry import bev_cell_centers
 from ..losses.centernet import fast_focal_loss, reg_loss
 from ..ops.deform_conv import deform_conv2d
-from ..ops.nms import rotate_nms_pcdet
-from .layers import BN_EPS, BN_MOMENTUM, BatchNorm, Conv2d
+from ..ops.nms import batched_rotated_nms, rotate_nms_pcdet
+from .layers import BN_EPS, BN_MOMENTUM, BatchNorm, Conv2d, constant
 from .registry import BBOX_HEADS
 
 HEAD_CONV = 64  # SepHead's hidden width (``nn.Conv(64, ...)`` in JAX)
@@ -152,6 +159,281 @@ class CenterHead(nn.Module):
         x = torch.relu(self.Conv_0(x))
         return {"det_preds": [getattr(self, f"task{i}")(x)
                               for i in range(self.num_tasks)]}
+
+
+RS_EPS = 1e-5      # RSNorm's and RangeStratified's own norms (two-pass)
+GN_EPS = 1e-6      # flax nn.GroupNorm's default (ConvGNStack)
+
+
+class RSNorm(nn.Module):
+    """Range-stratified GroupNorm over NHWC (B, az, r, C): the range axis
+    cut into ``num_groups`` strata of ``r // num_groups`` cells, each
+    normalized over (azimuth, its cells, the channels of each of
+    ``num_heads`` channel groups) with a two-pass variance, then its own
+    affine ``scale`` / ``bias`` (g, 1, C). A ragged tail of ``r %
+    num_groups`` cells takes the last stratum's statistics and affine."""
+
+    def __init__(self, num_heads, num_groups, features, eps=RS_EPS):
+        super().__init__()
+        self.num_heads = num_heads
+        self.num_groups = num_groups
+        self.eps = eps
+        self.scale = nn.Parameter(torch.empty(num_groups, 1, features))
+        self.bias = nn.Parameter(torch.empty(num_groups, 1, features))
+
+    @torch.no_grad()
+    def init_extra(self, generator):
+        self.scale.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x):
+        b, h, w, c = x.shape
+        g, nh = self.num_groups, self.num_heads
+        step = w // g
+        xg = x[:, :, : step * g].reshape(b, h, g, step, nh, c // nh)
+        mean = xg.mean(dim=(1, 3, 5), keepdim=True)
+        var = ((xg - mean) ** 2).mean(dim=(1, 3, 5), keepdim=True)
+        xs = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(
+            b, h, g, step, c)
+        out = (xs * self.scale + self.bias).reshape(b, h, step * g, c)
+        if step * g == w:
+            return out
+        tail = x[:, :, step * g:].reshape(b, h, 1, w - step * g, nh, c // nh)
+        tail = ((tail - mean[:, :, -1:]) * torch.rsqrt(var[:, :, -1:]
+                                                       + self.eps))
+        tail = tail.reshape(b, h, w - step * g, c)
+        return torch.cat([out, tail * self.scale[-1] + self.bias[-1]], dim=2)
+
+
+class RangeStratified(nn.Module):
+    """Per-stratum 3x3 conv, per-stratum GroupNorm (one group over the
+    features, two-pass, eps 1e-5) and ReLU. The range axis is cut into
+    ``num_groups`` strata of ``r // num_groups`` cells; each stratum's
+    conv sees one cell of its neighbours on either side in range (zeros
+    beyond the map) and zero-padded azimuth. The strata run as one
+    grouped conv with the strata on the channel axis. ``kernel`` (g, 3, 3,
+    C, F) and ``bias`` (g, F) keep flax's raw layout, as do ``gn_scale``
+    / ``gn_bias`` (g, 1, 1, F). The output is g x (r // g) cells wide, as
+    JAX's is, where ``r % g`` leaves a tail."""
+
+    def __init__(self, in_features, features, num_groups=8):
+        super().__init__()
+        g = num_groups
+        self.num_groups = g
+        self.kernel = nn.Parameter(torch.empty(g, 3, 3, in_features,
+                                               features))
+        self.bias = nn.Parameter(torch.empty(g, features))
+        self.gn_scale = nn.Parameter(torch.empty(g, 1, 1, features))
+        self.gn_bias = nn.Parameter(torch.empty(g, 1, 1, features))
+
+    @torch.no_grad()
+    def init_extra(self, generator):
+        """flax's ``variance_scaling(1, "fan_in", "truncated_normal")`` of
+        the raw (g, 3, 3, C, F) kernel: its fan in is g x 9 x C, the
+        strata counted in (flax's receptive field is every axis but the
+        last two)."""
+        from .layers import _lecun_normal_
+
+        g, kh, kw, c, _ = self.kernel.shape
+        _lecun_normal_(self.kernel, g * kh * kw * c, generator)
+        self.bias.zero_()
+        self.gn_scale.fill_(1.0)
+        self.gn_bias.zero_()
+
+    def forward(self, x):
+        b, h, w, c = x.shape
+        g = self.num_groups
+        f = self.kernel.shape[-1]
+        step = w // g
+        xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+        strata = torch.stack([xp[:, :, i * step: i * step + step + 2]
+                              for i in range(g)], dim=1)  # B,G,H+2,s+2,C
+        strata = strata.permute(0, 1, 4, 2, 3).reshape(b, g * c, h + 2,
+                                                       step + 2)
+        weight = self.kernel.permute(0, 4, 3, 1, 2).reshape(g * f, c, 3, 3)
+        y = torch.nn.functional.conv2d(strata, weight, self.bias.reshape(-1),
+                                       groups=g)
+        y = y.reshape(b, g, f, h, step)
+        mean = y.mean(dim=(2, 3, 4), keepdim=True)
+        var = ((y - mean) ** 2).mean(dim=(2, 3, 4), keepdim=True)
+        y = (y - mean) * torch.rsqrt(var + RS_EPS)
+        y = y.permute(0, 3, 1, 4, 2)                      # B, H, G, s, F
+        y = torch.relu(y * self.gn_scale.reshape(g, 1, f)
+                       + self.gn_bias.reshape(g, 1, f))
+        return y.reshape(b, h, g * step, f)
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm`` over NHWC: statistics per sample and group of
+    channels over (H, W, the group's channels) by flax's fast variance,
+    max(0, E[x^2] - E[x]^2), eps 1e-6, then ``(x - mean) * (rsqrt(var +
+    eps) * weight) + bias`` in flax's order."""
+
+    def __init__(self, num_groups, features, eps=GN_EPS):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
+
+    @torch.no_grad()
+    def init_extra(self, generator):
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x):
+        b, h, w, c = x.shape
+        g = self.num_groups
+        xg = x.reshape(b, h, w, g, c // g)
+        mean = xg.mean(dim=(1, 2, 4), keepdim=True)
+        mean2 = (xg * xg).mean(dim=(1, 2, 4), keepdim=True)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.reshape(g, c // g)
+        return ((xg - mean) * mul + self.bias.reshape(g, c // g)).reshape(
+            b, h, w, c)
+
+
+class ConvGNStack(nn.Module):
+    """``num_conv - 1`` x (3x3 conv to ``hidden`` + ``GroupNorm`` with
+    ``hidden`` groups + ReLU), then a 3x3 conv to ``out`` (bias at
+    ``init_bias`` where given), every conv with ``groups`` groups."""
+
+    def __init__(self, in_features, out, num_conv=2, hidden=64, groups=1,
+                 init_bias=None):
+        super().__init__()
+        self.n_hidden = num_conv - 1
+        cin = in_features
+        for k in range(self.n_hidden):
+            self.add_module(f"Conv_{k}", Conv2d(cin, hidden, 3, 1, 1,
+                                                groups=groups))
+            self.add_module(f"GroupNorm_{k}", GroupNorm(hidden, hidden))
+            cin = hidden
+        self.add_module(f"Conv_{self.n_hidden}", Conv2d(
+            cin, out, 3, 1, 1, groups=groups, init_bias=init_bias))
+
+    def forward(self, x):
+        for k in range(self.n_hidden):
+            x = torch.relu(getattr(self, f"GroupNorm_{k}")(
+                getattr(self, f"Conv_{k}")(x)))
+        return getattr(self, f"Conv_{self.n_hidden}")(x)
+
+
+def _split_merged_heads(head_name, tensor):
+    """'rot_vel' -> {'rot': the first half of the channels, 'vel': the
+    second}."""
+    names = head_name.split("_")
+    dim = tensor.shape[-1] // len(names)
+    return {nm: tensor[..., j * dim: (j + 1) * dim]
+            for j, nm in enumerate(names)}
+
+
+RS_FEATURES = 64   # RangeStratified's width (``RangeStratified(64, ...)``)
+CAL_FEATURES = 64  # the position calibration's width
+
+
+@BBOX_HEADS.register_module(name="CenterHeadSingle")
+class CenterHeadSingle(nn.Module):
+    """One group of heads over every class: ``shared_conv`` (3x3) +
+    ``shared_norm`` (:class:`RSNorm` with 1 channel group and 4 range
+    strata) + ReLU; a head named ``reg`` (or holding it) through
+    ``{name}_rs`` (:class:`RangeStratified`) and a 1x1 ``{name}_out``; a
+    merged head (``rot_vel``) through a :class:`ConvGNStack` with one
+    conv group per sub-head, split by channel; every other head through a
+    plain :class:`ConvGNStack`; ``hm_stack`` on the heatmap input.
+    ``forward`` returns ``{"det_preds": [maps]}``, one task, the maps in
+    sorted name order."""
+
+    def __init__(self, in_channels=512, tasks=(), common_heads=None,
+                 share_conv_channel=64, num_hm_conv=2, init_bias=-2.19,
+                 rs_groups=8, **kwargs):
+        super().__init__()
+        self.heads = tuple(dict(
+            common_heads or {"reg": (2, 2), "height": (1, 2),
+                             "dim": (3, 2), "rot": (2, 2)}).items())
+        num_classes = sum(len(t["class_names"]) for t in tasks)
+        c = share_conv_channel
+        self.shared_conv = Conv2d(in_channels, c, 3, 1, 1)
+        self.shared_norm = RSNorm(1, 4, c)
+        for name, (classes, num_conv) in self.heads:
+            if "reg" in name:
+                self.add_module(f"{name}_rs", RangeStratified(
+                    c, RS_FEATURES, rs_groups))
+                self.add_module(f"{name}_out", Conv2d(RS_FEATURES, classes,
+                                                      1))
+            else:
+                n = len(name.split("_"))
+                self.add_module(f"{name}_stack", ConvGNStack(
+                    c, classes * n, num_conv, groups=n))
+        self.hm_stack = ConvGNStack(c, num_classes, num_hm_conv,
+                                    init_bias=init_bias)
+
+    def forward(self, x):
+        """x: (B, n_az, n_r, in_channels) f32 -> {"det_preds": [maps]}."""
+        x = torch.relu(self.shared_norm(self.shared_conv(x)))
+        ret = {}
+        for name, _ in self.heads:
+            if "reg" in name:
+                y = getattr(self, f"{name}_out")(
+                    getattr(self, f"{name}_rs")(x))
+            else:
+                y = getattr(self, f"{name}_stack")(x)
+            ret.update(_split_merged_heads(name, y) if "_" in name
+                       else {name: y})
+        ret["hm"] = self.hm_stack(self.hm_input(x))
+        return {"det_preds": [dict(sorted(ret.items()))]}
+
+    def hm_input(self, x):
+        return x
+
+
+@BBOX_HEADS.register_module(name="CenterHeadSinglePos")
+class CenterHeadSinglePos(CenterHeadSingle):
+    """:class:`CenterHeadSingle` whose heatmap input is calibrated by the
+    polar position of each cell: the encoding [x, y, r, cos phi, sin phi]
+    of the cell corners (``bev_cell_centers`` with ``center_offset`` 0 on
+    the first of ``nsectors`` sectors of ``voxel_generator``, float32 as
+    JAX builds it) feeds ``cal_w0`` (3x3) -> tanh -> ``cal_w1`` (1x1) ->
+    tanh and ``cal_b0`` (3x3) -> tanh -> ``cal_b1`` (1x1), and the input
+    becomes ``x * w + b``. The encoding is a constant of the grid, so the
+    calibration runs once a forward at batch 1 and is broadcast over the
+    batch."""
+
+    def __init__(self, in_channels=512, tasks=(), common_heads=None,
+                 share_conv_channel=64, num_hm_conv=2, init_bias=-2.19,
+                 rs_groups=8, voxel_generator=None, out_size_factor=8,
+                 **kwargs):
+        super().__init__(in_channels, tasks, common_heads,
+                         share_conv_channel, num_hm_conv, init_bias,
+                         rs_groups)
+        self.voxel_generator = dict(voxel_generator or {})
+        self.out_size_factor = out_size_factor
+        f = CAL_FEATURES
+        self.cal_w0 = Conv2d(5, f, 3, 1, 1)
+        self.cal_w1 = Conv2d(f, f, 1)
+        self.cal_b0 = Conv2d(5, f, 3, 1, 1)
+        self.cal_b1 = Conv2d(f, f, 1)
+
+    def pos_encoding(self, hw):
+        """(n_az, n_r) -> the (n_az, n_r, 5) float32 numpy encoding."""
+        vg = self.voxel_generator
+        pc_range = vg["range"]
+        interval = (pc_range[4] - pc_range[1]) / vg.get("nsectors", 1)
+        ref = list(pc_range)
+        ref[4] = ref[1] + interval
+        cells = bev_cell_centers((hw[1], hw[0]), vg["voxel_size"], ref,
+                                 self.out_size_factor, "cylinder",
+                                 center_offset=0.0)   # (r, az, 4)
+        x, y, r, phi = (cells[..., i] for i in range(4))
+        enc = np.stack([x, y, r, np.cos(phi), np.sin(phi)], -1)
+        return np.ascontiguousarray(enc.transpose(1, 0, 2), np.float32)
+
+    def hm_input(self, x):
+        hw = (x.shape[1], x.shape[2])
+        pos = constant(self, f"pos{hw}", x.device,
+                       lambda: self.pos_encoding(hw))[None]
+        w = torch.tanh(self.cal_w1(torch.tanh(self.cal_w0(pos))))
+        b = self.cal_b1(torch.tanh(self.cal_b0(pos)))
+        return x * w + b
 
 
 # ---------------------------------------------------------------------------
@@ -315,12 +597,11 @@ def center_head_post_process(boxes, scores, test_cfg, class_offset=0):
     """Score / range mask + rotated NMS -> fixed-size detections per
     sample: ``box3d_lidar``, ``scores``, ``label_preds`` (+
     ``class_offset``) and ``mask``, each (B, nms_post_max_size, ...).
-    ``argmax`` ties go to the lower class."""
-    if test_cfg.get("per_class_nms", False):
-        raise NotImplementedError(
-            "test_cfg per_class_nms: batched_rotated_nms is not ported "
-            "(ROADMAP.md queue 1, off the main path: CenterHeadSingle and "
-            "batched_rotated_nms)")
+    ``argmax`` ties go to the lower class. With ``per_class_nms`` every
+    candidate goes to :func:`batched_rotated_nms` (IoU 0.2 and 83 kept by
+    default; the config's ``nms_pre_max_size`` is not read, as in JAX),
+    else the top ``nms_pre_max_size`` to :func:`rotate_nms_pcdet`."""
+    per_class = test_cfg.get("per_class_nms", False)
     nms_cfg = dict(test_cfg.get("nms", {}))
     pcr = test_cfg.get("post_center_limit_range",
                        [-80, -80, -10, 80, 80, 10])
@@ -333,11 +614,17 @@ def center_head_post_process(boxes, scores, test_cfg, class_offset=0):
             m &= (bx[:, i] >= pcr[i]) & (bx[:, i] <= pcr[3 + i])
         masked = torch.where(m, cls_score,
                              torch.full_like(cls_score, -float("inf")))
-        bx7 = torch.cat([bx[:, :6], bx[:, -1:]], dim=-1)
-        keep, kmask = rotate_nms_pcdet(
-            bx7, masked, nms_cfg.get("nms_iou_threshold", 0.7),
-            nms_cfg.get("nms_pre_max_size", 4096),
-            nms_cfg.get("nms_post_max_size", 500))
+        if per_class:
+            keep, kmask = batched_rotated_nms(
+                bx[:, [0, 1, 3, 4, -1]], masked, label,
+                nms_cfg.get("nms_iou_threshold", 0.2),
+                nms_cfg.get("nms_post_max_size", 83))
+        else:
+            keep, kmask = rotate_nms_pcdet(
+                torch.cat([bx[:, :6], bx[:, -1:]], dim=-1), masked,
+                nms_cfg.get("nms_iou_threshold", 0.7),
+                nms_cfg.get("nms_pre_max_size", 4096),
+                nms_cfg.get("nms_post_max_size", 500))
         outs.append({
             "box3d_lidar": bx[keep],
             "scores": cls_score[keep],

@@ -93,18 +93,23 @@ class Conv2d(nn.Module):
     """flax ``nn.Conv`` on NHWC tensors; ``padding`` is "SAME" or an int.
 
     "SAME" follows XLA: for a stride-2 3x3 conv on an even input it pads 0
-    before and 1 after, which torch's symmetric ``padding=1`` does not."""
+    before and 1 after, which torch's symmetric ``padding=1`` does not.
+    ``groups`` is flax's ``feature_group_count``: its HWIO kernel (kh, kw,
+    in / groups, out) is torch's (out, in / groups, kh, kw), the output
+    groups in the same order."""
 
     def __init__(self, in_features, out_features, kernel, stride=1,
                  padding="SAME", use_bias=True, dtype=torch.float32,
-                 init_bias=None, zero_init=False):
+                 init_bias=None, zero_init=False, groups=1):
         super().__init__()
         self.dtype = dtype
         self.stride = stride
         self.padding = padding
         self.init_bias = init_bias
         self.zero_init = zero_init   # flax kernel_init=zeros
-        self.weight = _empty(out_features, in_features, kernel, kernel)
+        self.groups = groups
+        self.weight = _empty(out_features, in_features // groups, kernel,
+                             kernel)
         self.bias = _empty(out_features) if use_bias else None
 
     def fan_in(self):
@@ -125,7 +130,8 @@ class Conv2d(nn.Module):
         else:
             pad = int(self.padding)
         b = None if self.bias is None else self.bias.to(dt)
-        y = F.conv2d(x, self.weight.to(dt), b, self.stride, pad)
+        y = F.conv2d(x, self.weight.to(dt), b, self.stride, pad, 1,
+                     self.groups)
         return y.permute(0, 2, 3, 1)
 
 

@@ -1,25 +1,29 @@
 """Two-stage CenterPoint: RoI refinement on the BEV map (counterpart of
 ``partner_tpu/models/two_stage.py``).
 
-    first stage (a ``CenterPointDetector``'s VoxelNet) -> proposals
+    first stage (a ``CenterPointDetector``: VoxelNet or PointPillars)
+    -> proposals
     -> 5 sample points per box (center + 4 side midpoints)
     -> bilinear BEV features at each point (four-corner gather)
     -> the shared-MLP RoI head -> IoU confidence + box residuals.
 
 Built from the Waymo two-stage configs (``TwoStageDetector`` wrapping a
-``VoxelNet`` first stage). ``TwoStageModule`` holds the first stage as
+``VoxelNet`` first stage, or a ``PointPillars`` one whose 468 x 468 x 384
+neck map is sampled at stride 1 on the cuboid grid). ``TwoStageModule``
+holds the first stage as
 ``first`` and the RoI head as ``roi_head`` (flax's names), so
 ``convert.flax_to_torch`` maps the JAX package's parameter tree as is.
 
 The stage it adds is plain torch, as the JAX package's is plain XLA: the
 sampling, the bilinear gather (``jax.scipy.ndimage.map_coordinates`` of
 order 1 in constant mode, written out), the MLP and the rotated-IoU
-targets. The first stage runs the stem and scatter-max kernels as the
-one-stage detector does.
+targets. A VoxelNet first stage runs the stem and scatter-max kernels
+as the one-stage detector does; a PointPillars one runs no hand kernel.
 
 ``freeze=True`` (the ``*_freeze`` configs) fine-tunes the RoI head alone,
 as the reference det3d does, which is not what the JAX package does
-(ROADMAP.md §3): the first stage stays in eval mode (running statistics),
+(ROADMAP.md §3): the first stage stays in eval mode (running statistics,
+a pillar encoder's ``MaskedBatchNorm`` too),
 runs under ``torch.no_grad()``, and its parameters have
 ``requires_grad=False``, so the optimizer (built over the trainable
 parameters) neither updates nor decays them. ``first_stage_cfg
@@ -43,10 +47,14 @@ from .registry import DETECTORS
 
 def _cell_coord(u, lo, hi, n):
     """Position ``u`` in [lo, hi) -> fractional cell index (centers at
-    integers), (u - lo) / (hi - lo) * n - 0.5 with the constants folded
-    into one float32 scale, as XLA folds the JAX package's expression."""
+    integers), (u - lo) / (hi - lo) * n - 0.5 as XLA compiles the JAX
+    package's expression: the constants folded into one float32 scale,
+    and the scale's product and the - 0.5 rounded once (a fused
+    multiply-add, written here as an exact float64 product and sum). At
+    the stride-1 pillar grid's 468 cells a second rounding moves a
+    coordinate by 3e-5 of a cell."""
     scale = float(torch.tensor(1.0) / torch.tensor(hi - lo) * n)
-    return (u - lo) * scale - 0.5
+    return ((u - lo).double() * scale - 0.5).float()
 
 
 def box_sample_points(boxes):
@@ -130,7 +138,8 @@ class RoIHead(nn.Module):
 
 
 class TwoStageModule(nn.Module):
-    """The first stage's ``VoxelNetModule`` (``first``) and the
+    """The first stage's ``VoxelNetModule`` or ``PointPillarsModule``
+    (``first``) and the
     ``RoIHead`` (``roi_head``). With ``freeze`` the first stage stays in
     eval mode through ``train()`` and runs without autograd."""
 
@@ -151,7 +160,7 @@ class TwoStageModule(nn.Module):
 
     def forward(self, example, generator=None):
         """The first stage's head maps and its neck's BEV map
-        (B, n_az/8, n_r/8, C)."""
+        (B, n_az / s, n_r / s, C), s its ``out_size_factor``."""
         with torch.no_grad() if self.freeze else nullcontext():
             return self.first(example, generator, return_bev=True)
 
@@ -340,8 +349,9 @@ def build_two_stage(first_stage_cfg, roi_head=None, num_point=5,
                     freeze=False, train_cfg=None, test_cfg=None, *, device,
                     generator=None, use_block_kernel=False):
     """Two-stage factory (``TwoStageDetector`` config -> TwoStageDetector
-    on ``device``): the first stage from ``first_stage_cfg`` (a VoxelNet,
-    one task: the JAX package refines task 0 only, so more tasks raise),
+    on ``device``): the first stage from ``first_stage_cfg`` (a VoxelNet
+    or a PointPillars, one task: the JAX package refines task 0 only, so
+    more tasks raise),
     then the RoI head over ``num_point`` x the BEV width + 1 inputs,
     widths from ``roi_head.fc`` or the reference's
     ``roi_head.model_cfg.SHARED_FC``, drawn from the same ``generator``
@@ -354,17 +364,13 @@ def build_two_stage(first_stage_cfg, roi_head=None, num_point=5,
     if use_block_kernel:
         raise ValueError("use_block_kernel is an option of the E2E head's "
                          "Swin blocks; the two-stage CenterPoint has none")
-    if dict(first_stage_cfg).get("type") == "PointPillars":
-        raise NotImplementedError(
-            "a two-stage detector over a PointPillars first stage is not "
-            "ported (ROADMAP.md queue 1 item 2: the two-stage pp configs)")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     first = build_detector(dict(first_stage_cfg), train_cfg, test_cfg,
                            device=device, generator=generator)
     if not isinstance(first, CenterPointDetector):
         raise TypeError("the two-stage detector wraps a CenterPoint-style "
-                        "(VoxelNet) first stage")
+                        "(VoxelNet or PointPillars) first stage")
     if first.module.bbox_head.num_tasks != 1:
         raise NotImplementedError(
             f"two-stage refinement of {first.module.bbox_head.num_tasks} "

@@ -199,8 +199,20 @@ def test_center_head_post_process_matches_jax(rng):
 
 
 def test_post_process_options_not_ported_raise():
+    """``per_class_nms``, once a raise naming its ROADMAP item, now runs
+    the per-class NMS with JAX's defaults (held against JAX in
+    ``tests/test_torch_singlehead.py``): two coincident boxes of one class
+    keep one, of two classes both; min(N, 83) slots, the unkept masked."""
     from partner_tpu_torch.models.center_head import center_head_post_process
 
-    with pytest.raises(NotImplementedError, match="batched_rotated_nms"):
-        center_head_post_process(torch.zeros(1, 4, 7), torch.zeros(1, 4, 1),
-                                 {"per_class_nms": True})
+    boxes = torch.zeros(1, 4, 7)
+    boxes[..., 3:6] = 2.0
+    boxes[0, 2:, 0] = 20.0                  # a second place, two boxes
+    scores = torch.zeros(1, 4, 2)
+    scores[0, :, 0] = torch.tensor([0.9, 0.8, 0.7, 0.0])
+    scores[0, 3, 1] = 0.6                   # the second class's box
+    out = center_head_post_process(boxes, scores, {"per_class_nms": True})
+    assert out["mask"].shape == (1, 4)
+    assert out["mask"][0].tolist() == [True, True, True, False]
+    assert out["scores"][0, :3].tolist() == pytest.approx([0.9, 0.7, 0.6])
+    assert out["label_preds"][0, :3].tolist() == [0, 0, 1]

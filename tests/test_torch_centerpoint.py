@@ -522,10 +522,12 @@ def test_voxelnet_parts_not_ported_raise(case):
 
 
 def test_voxelnet_options_not_ported_raise():
-    """per_class_nms and the E2E head's block route each raise naming
-    their ROADMAP item. double_flip, once such a raise, now averages a
-    sample's four flip copies (held against JAX in
-    ``tests/test_torch_nusc_frame.py``): a batch of 4 rows gives one."""
+    """The E2E head's block route raises. double_flip and per_class_nms,
+    once such raises, now run: the flip average takes a sample's four
+    copies (held against JAX in ``tests/test_torch_nusc_frame.py``), a
+    batch of 4 rows giving one; the per-class NMS (held against JAX in
+    ``tests/test_torch_singlehead.py``) keeps boxes of every class, no
+    two of one class above its IoU threshold."""
     from partner_tpu_torch.models import build_detector
 
     m, tc = tiny_centerpoint_cfg()
@@ -535,9 +537,25 @@ def test_voxelnet_options_not_ported_raise():
         "voxel_generator"]["range"], 100, 128)
     ex = {"points": torch.from_numpy(pts), "points_mask": torch.from_numpy(
         mask)}
+    from partner_tpu_torch.ops.rotated_iou import \
+        rect_intersection_area_green
+
+    thr = tc["nms"]["nms_iou_threshold"]
     det = build_detector(m, None, dict(tc, per_class_nms=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="batched_rotated_nms"):
-        det.predict(ex)
+    out = det.predict(ex)
+    assert out["mask"].shape == (1, 64) and bool(out["mask"].all())
+    keep = out["mask"][0]
+    bx = out["box3d_lidar"][0][keep][:, [0, 1, 3, 4, 6]]
+    lab = out["label_preds"][0][keep]
+    n = len(bx)
+    inter = rect_intersection_area_green(bx[:, None].expand(n, n, 5),
+                                         bx[None].expand(n, n, 5))
+    area = bx[:, 2] * bx[:, 3]
+    iou = inter / (area[:, None] + area[None] - inter)
+    iou.fill_diagonal_(0)
+    same = lab[:, None] == lab[None]
+    assert set(lab.tolist()) == {0, 1, 2}
+    assert float(iou[same].max()) <= thr
     det = build_detector(m, None, dict(tc, double_flip=True), device="cpu")
     out = det.predict({k: v.repeat(4, *(1,) * (v.dim() - 1))
                        for k, v in ex.items()})

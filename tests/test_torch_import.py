@@ -1,8 +1,9 @@
 """partner_tpu_torch stands alone: no jax, flax, optax or partner_tpu at
 import or when it builds its detectors (the Waymo PARTNER, CenterPoint and
 two-stage configs, the sparse backbone, the three nuScenes CenterPoint
-configs, the two Waymo PointPillars configs), and the flax converter covers every parameter and buffer of the
-port's detectors."""
+configs, the two Waymo PointPillars configs, the two PointPillars
+two-stage configs and the nuScenes single-head config), and the flax
+converter covers every parameter and buffer of the port's detectors."""
 
 import os
 import subprocess
@@ -36,7 +37,8 @@ def test_import_leaves_out_jax_and_flax():
         "          'tools.create_data', 'models.sparse', 'models.backbone',\n"
         "          'train.torch_convert', 'tools.convert_checkpoint',\n"
         "          'utils.remote_io', 'ops.deform_conv',\n"
-        "          'eval.nusc_protocol', 'eval.nuscenes', 'models.pillar'):\n"
+        "          'eval.nusc_protocol', 'eval.nuscenes', 'models.pillar',\n"
+        "          'ops.nms', 'models.layers', 'convert'):\n"
         "    assert 'partner_tpu_torch.' + n in names, n\n"
         "from partner_tpu_torch.models import build_detector\n"
         "from partner_tpu_torch.utils.config import load_config\n"
@@ -77,6 +79,18 @@ def test_import_leaves_out_jax_and_flax():
         "                         cfg['test_cfg'], device='meta')\n"
         "    assert det.input_kind == 'points', c\n"
         "    assert type(det.module.reader).__name__ == 'PillarFeatureNet'\n"
+        "    cfg = load_config(f'configs/waymo/pp/two_stage/'\n"
+        "                      f'waymo_centerpoint_pp{c}_two_pfn_stride1_'\n"
+        "                      f'two_stage_bev_6epoch.py')\n"
+        "    det = build_detector(cfg['model'], cfg['train_cfg'],\n"
+        "                         cfg['test_cfg'], device='meta')\n"
+        "    assert type(det.module.first).__name__ == 'PointPillarsModule'\n"
+        "    assert det.module.roi_head.Dense_0.weight.shape[1] == 1921, c\n"
+        "cfg = load_config('configs/nusc/voxelnet/'\n"
+        "                  'voxelnet_det_cylinder_singlehead.py')\n"
+        "det = build_detector(cfg['model'], cfg['train_cfg'], cfg['test_cfg'],\n"
+        "                     device='meta')\n"
+        "assert type(det.module.bbox_head).__name__ == 'CenterHeadSinglePos'\n"
         "from partner_tpu_torch import native\n"
         "assert native.available()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -32,6 +32,13 @@ PP = "configs/waymo/pp/waymo_centerpoint_pp_two_pfn_stride1_3x.py"
 PP_TWO_CLS = ("configs/waymo/pp/"
               "waymo_centerpoint_pp_two_cls_two_pfn_stride1_3x.py")
 PP_CONFIGS = {"three-class": PP, "two-class": PP_TWO_CLS}
+PP_TWO_STAGE = ("configs/waymo/pp/two_stage/waymo_centerpoint_pp_two_pfn_"
+                "stride1_two_stage_bev_6epoch.py")
+PP_TWO_STAGE_TWO_CLS = ("configs/waymo/pp/two_stage/waymo_centerpoint_pp_"
+                        "two_cls_two_pfn_stride1_two_stage_bev_6epoch.py")
+PP_TWO_STAGE_CONFIGS = {"three-class": PP_TWO_STAGE,
+                        "two-class": PP_TWO_STAGE_TWO_CLS}
+SINGLEHEAD = "configs/nusc/voxelnet/voxelnet_det_cylinder_singlehead.py"
 PP_GRID = 64        # the pillar grid, cut from 468 x 468 to 64 x 64
 PP_PILLARS = 512    # the tiny configs' pillar capacity: the sweeps overflow it
 
@@ -193,6 +200,21 @@ def tiny_two_stage_cfg(config=TWO_STAGE, freeze=None,
     _cut_centerpoint(m["first_stage_cfg"], compute_dtype)
     if freeze is not None:
         m["freeze"] = freeze
+    return m, _tiny_test_cfg(cfg)
+
+
+def tiny_pp_two_stage_cfg(config=PP_TWO_STAGE, max_pillars=PP_PILLARS):
+    """(model cfg, test cfg): a PointPillars two-stage config whose first
+    stage is cut as :func:`tiny_pp_cfg` cuts a one-stage one (so the RoI
+    head takes 5 x 48 + 1 inputs), the NMS cut likewise."""
+    import os
+
+    from partner_tpu_torch.utils.config import load_config
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(root, config))
+    m = copy.deepcopy(cfg["model"])
+    _cut_pp(m["first_stage_cfg"], max_pillars)
     return m, _tiny_test_cfg(cfg)
 
 
@@ -518,6 +540,48 @@ model["neck"].update(layer_nums=[1, 1, 1], ds_num_filters=[16, 16, 32],
                      us_num_filters=[16, 16, 16], num_input_features=16)
 model["bbox_head"]["in_channels"] = 48
 model["max_pillars"] = {max_pillars!r}
+test_cfg["score_threshold"] = 0.0
+test_cfg["nms"].update(nms_pre_max_size=256, nms_post_max_size=64)
+train_preprocessor.update(no_augmentation=True, shuffle_points=False)
+data["train"].update(info_path={train_info!r}, root_path={root!r})
+data["val"].update(info_path={val_info!r}, root_path={root!r})
+data["workers_per_gpu"] = 1
+log_config = dict(interval=1, hooks=[dict(type="TextLoggerHook"),
+                                     dict(type="MetricsSinkHook")])
+""")
+    return path
+
+
+def write_tiny_pp_two_stage_config(path, train_info, val_info, root,
+                                   config=PP_TWO_STAGE, pretrained=None,
+                                   max_pillars=PP_PILLARS):
+    """A PointPillars two-stage config file for the CLIs: ``config``
+    exec'd, its first stage cut as :func:`_cut_pp` cuts a one-stage one
+    (the pipelines' grid too), its ``pretrained`` set, ``data.train`` at
+    ``train_info`` with no augmentation and the points kept in order,
+    ``data.val`` at ``val_info``, one loader thread, a log flush and a
+    ``metrics.jsonl`` record every step."""
+    import os
+
+    base = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), config)
+    with open(path, "w") as f:
+        f.write(f"""
+__file__ = {base!r}
+exec(open({base!r}).read())
+_fs = model["first_stage_cfg"]
+_vg = _fs["bbox_head"]["voxel_generator"]
+_r = _vg["range"]
+_vg["voxel_size"] = [(_r[3] - _r[0]) / {PP_GRID}, (_r[4] - _r[1]) / {PP_GRID},
+                     _vg["voxel_size"][2]]
+_fs["reader"] = dict(_fs["reader"], num_filters=[16, 16],
+                     voxel_size=tuple(_vg["voxel_size"]))
+_fs["neck"] = dict(_fs["neck"], layer_nums=[1, 1, 1],
+                   ds_num_filters=[16, 16, 32], us_num_filters=[16, 16, 16],
+                   num_input_features=16)
+_fs["bbox_head"]["in_channels"] = 48
+_fs["max_pillars"] = {max_pillars!r}
+_fs["pretrained"] = {pretrained!r}
 test_cfg["score_threshold"] = 0.0
 test_cfg["nms"].update(nms_pre_max_size=256, nms_post_max_size=64)
 train_preprocessor.update(no_augmentation=True, shuffle_points=False)

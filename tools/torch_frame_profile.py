@@ -7,7 +7,8 @@ CUDA card.
                                          [--model flagship|centerpoint|
                                                   centerpoint-velo|sparse|
                                                   nusc-dcn|nusc-01voxel|
-                                                  nusc-dcn_flip|pp|
+                                                  nusc-dcn_flip|
+                                                  nusc-singlehead|pp|
                                                   pp-two_cls]
                                          [--part frame|rpn] [--batch B]
 
@@ -33,7 +34,8 @@ NMS. ``--model sparse`` profiles the flagship with the sparse
 ``dynamic_voxelize`` example (the voxelizer outside the frame), and also
 traces the backbone alone. ``--model nusc-<name>`` profiles a nuScenes
 CenterPoint config of ``chip_smoke.py``'s nuScenes phase (``dcn``,
-``01voxel`` or ``dcn_flip``, its offset convs drawn too) on one synthetic
+``01voxel``, ``dcn_flip``, its offset convs drawn too, or ``singlehead``,
+the single-head cylinder config with its per-class NMS) on one synthetic
 10-sweep sample (``chip_smoke.nusc_example``; the flip config's four
 copies), and also traces one deformable branch alone (the DCN configs).
 ``--model pp`` profiles a Waymo PointPillars config of ``chip_smoke.py``'s
@@ -44,7 +46,7 @@ PFN and the scatter), RPN, head and decode + NMS, and also traces the
 pillar stage alone and times its parts on the card (``pillar_parts``:
 the pillarizer, the PFN, each PFN layer's pooled max at the frame's
 pillars beside its bound). ``--batch B`` runs B sweeps a frame (the
-PointPillars models; seeds SEED .. SEED + B - 1).
+PointPillars models and ``nusc-singlehead``; seeds SEED .. SEED + B - 1).
 ``--part rpn`` times each conv of the model's RPN alone instead, on the
 input the frame hands it: device ms and the kernels cuDNN picks, as the
 port calls the conv (channels-last strides), NCHW-contiguous,
@@ -215,7 +217,7 @@ def build_frame(dev, args):
         m, _, tc = chip_smoke.centerpoint_cfgs()
     elif args.model.startswith("nusc-"):
         m, _, tc = chip_smoke.centerpoint_cfgs(
-            chip_smoke.NUSC_CONFIGS[args.model[5:]])
+            chip_smoke.NUSC_ALL[args.model[5:]])
     elif args.model.startswith("pp"):
         m, _, tc = chip_smoke.pp_cfgs(chip_smoke.PP_CONFIGS[
             "two_class" if args.model == "pp-two_cls" else "three_class"])
@@ -228,8 +230,11 @@ def build_frame(dev, args):
     chip_smoke.randomize_norms(det.module, gen)
     if args.model.startswith("nusc-"):
         chip_smoke.randomize_offsets(det.module, gen)
-        ex = chip_smoke.to_device(chip_smoke.nusc_example(args.model[5:]),
-                                  dev)
+        samples = [chip_smoke.nusc_example(args.model[5:],
+                                           seed=chip_smoke.SEED + i)
+                   for i in range(args.batch)]
+        ex = chip_smoke.to_device({k: np.concatenate([e[k] for e in samples])
+                                   for k in samples[0]}, dev)
     elif args.model.startswith("pp"):
         chip_smoke.randomize_pfn(det.module, gen)
         sweeps = [chip_smoke.cuboid_sweep(
@@ -275,8 +280,8 @@ def profile_frame(dev, args):
                 det.module, ex), args.out, args.model + "_pillars")
         out["pillar_parts"] = pillar_parts(det.module, ex)
     head = det.module.bbox_head
-    if args.model.startswith("nusc-") and hasattr(head.task0,
-                                                  "feature_adapt_cls"):
+    if args.model.startswith("nusc-") and hasattr(
+            getattr(head, "task0", None), "feature_adapt_cls"):
         with torch.no_grad():
             x = torch.relu(head.Conv_0(det.module.neck(backbone_stage(
                 det.module, ex))))
@@ -484,16 +489,19 @@ def main():
     ap.add_argument("--model", default="flagship",
                     choices=["flagship", "centerpoint", "centerpoint-velo",
                              "sparse", "nusc-dcn", "nusc-01voxel",
-                             "nusc-dcn_flip", "pp", "pp-two_cls"],
+                             "nusc-dcn_flip", "nusc-singlehead", "pp",
+                             "pp-two_cls"],
                     help="the frame's model (the train step: flagship)")
     ap.add_argument("--batch", type=int, default=1,
-                    help="sweeps a frame (the PointPillars models)")
+                    help="sweeps a frame (the PointPillars models and "
+                    "nusc-singlehead)")
     args = ap.parse_args()
     if args.train and (args.model != "flagship" or args.part != "frame"):
         sys.exit("torch_frame_profile: --train profiles the flagship only")
-    if args.batch != 1 and not args.model.startswith("pp"):
+    if args.batch != 1 and not (args.model.startswith("pp")
+                                or args.model == "nusc-singlehead"):
         sys.exit("torch_frame_profile: --batch is for the PointPillars "
-                 "models")
+                 "models and nusc-singlehead")
     if not torch.cuda.is_available():
         sys.exit("torch_frame_profile: no CUDA device")
     os.makedirs(args.out, exist_ok=True)
