@@ -192,6 +192,22 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
    writes, two train-CLI steps through ``pretrained`` and ``dist_test``,
    and the 2-class frame. No hand kernel lies on these paths; the phase
    holds every kernel's launches at 0.
+16. PolarStream: the two nuScenes sector-streaming det configs
+   (``configs/nusc/pp/polarstream_det_{1_sector,4_sector_bidirectional}
+   .py``: the 512 x 512 polar pillar grid in 1 or 4 azimuth sectors,
+   ``DynamicPFNet`` 64 -> 128, ``RPNTECP`` / ``RPNBDCP`` [3, 5, 5],
+   ``CenterHeadSinglePos``, the stateful cross-sector NMS) at full width
+   on a synthetic 11-sweep nuScenes set, every row of a sample in a
+   380,000-row buffer (:func:`polarstream_phase`): each config's frame
+   (median ms, device busy and launches, kept boxes, a repeat bit-equal),
+   its decode + stateful NMS alone (ms, fixpoint sweeps a sector), pillars
+   occupied against the capacity per sector and the points the caps drop,
+   the card against the CPU on a 128 x 128 pillar grid (canvas, neck and
+   its contexts, head maps per sector, kept boxes), the batch-4 train
+   step, ``dist_test`` over 8 frames (as a user runs it, then with one
+   loader thread, every frame bit-equal to a direct ``predict``) and two
+   train-CLI steps. No hand kernel lies on this path: every launch count
+   stays 0.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises before it, so the
@@ -1502,8 +1518,9 @@ def counted(fn):
     return ms, out, {name: w.launches for name, w in wrappers.items()}
 
 
-def timed_train_steps(det, step, ex, drops, want, label):
-    """One warm-up and TRAIN_STEPS timed calls of ``step(ex, drops)``,
+def timed_train_steps(det, step, ex, drops, want, label,
+                      n_steps=TRAIN_STEPS):
+    """One warm-up and ``n_steps`` timed calls of ``step(ex, drops)``,
     each :func:`counted` and launching ``want``, with finite metrics (each
     task's too) and a gradient norm > 0; after them every parameter's
     gradient present and finite, and every parameter and BatchNorm
@@ -1512,7 +1529,7 @@ def timed_train_steps(det, step, ex, drops, want, label):
     as floats, peak memory in GiB since the caller's reset)."""
     before = {k: v.detach().clone() for k, v in det.module.state_dict().items()}
     times, launches, steps = [], dict.fromkeys(want, 0), []
-    for i in range(TRAIN_STEPS + 1):   # step 0 warms up
+    for i in range(n_steps + 1):   # step 0 warms up
         ms, met, counts = counted(lambda: step(ex, drops))
         if counts != want:
             raise AssertionError(f"{label} {i}: launches {counts} != {want}")
@@ -4037,39 +4054,42 @@ NUSC_TIMED = 5               # timed frames a config after one warm-up
 NUSC_TRAIN_BATCH = 4         # the configs' samples_per_gpu
 
 
-def nusc_example(name, seed=SEED):
-    """One synthetic 10-sweep nuScenes sample (NUSC_SAMPLE_POINTS points of
-    :func:`nusc_sweep_points`, [x, y, z, intensity, time lag] with the lags
-    of 10 sweeps) in the layout config ``name``'s pipeline gives it, padded
-    to NUSC_ROWS rows; for the flip config its four copies (the
-    ``DoubleFlip`` rows) -> {"points", "points_mask"} numpy."""
+def nusc_example(name, seed=SEED, config=None, sweeps=NUSC_SWEEPS,
+                 rows=NUSC_ROWS):
+    """One synthetic nuScenes sample of ``sweeps`` sweeps (NUSC_SWEEP_POINTS
+    points a sweep of :func:`nusc_sweep_points`, [x, y, z, intensity, time
+    lag] with the lags of the sweeps) in the layout config ``name``'s (of
+    NUSC_ALL; or the file ``config``) pipeline gives it, padded to ``rows``
+    rows; for the flip config its four copies (the ``DoubleFlip`` rows) ->
+    {"points", "points_mask"} numpy."""
     from partner_tpu_torch.core.box_np_ops import transform_points
     from partner_tpu_torch.data.pipeline import DoubleFlip
     from partner_tpu_torch.utils.config import load_config
 
     rng = np.random.RandomState(seed)
-    pts = nusc_sweep_points(rng, NUSC_SAMPLE_POINTS, np.zeros((0, 9)))
-    pts[:, 4] = 0.05 * rng.randint(0, NUSC_SWEEPS, len(pts))
-    cfg = load_config(NUSC_ALL[name])
+    pts = nusc_sweep_points(rng, sweeps * NUSC_SWEEP_POINTS, np.zeros((0, 9)))
+    pts[:, 4] = 0.05 * rng.randint(0, sweeps, len(pts))
+    cfg = load_config(config or NUSC_ALL[name])
     pts = transform_points(pts, cfg["voxel_generator"]["voxel_shape"])
     copies = [pts]
     if cfg["test_cfg"].get("double_flip"):
         lidar = DoubleFlip()({"lidar": {"points": pts}}, None)[0]["lidar"]
         copies += [lidar[k] for k in ("yflip_points", "xflip_points",
                                       "double_flip_points")]
-    out = np.zeros((len(copies), NUSC_ROWS, pts.shape[1]), np.float32)
+    out = np.zeros((len(copies), rows, pts.shape[1]), np.float32)
     mask = np.zeros(out.shape[:2], bool)
     for i, c in enumerate(copies):
         out[i, :len(c)], mask[i, :len(c)] = c, True
     return {"points": out, "points_mask": mask}
 
 
-def write_nusc_config(root, name, info_path):
-    """The nuScenes config ``name`` (of ``NUSC_ALL``) with
-    ``score_threshold`` 0 (as :func:`centerpoint_cfgs`), ``data.train`` /
-    ``data.val`` at the synthetic set, and a metrics record every step."""
+def write_nusc_config(root, name, info_path, config=None):
+    """The nuScenes config ``name`` (of ``NUSC_ALL``, or the file
+    ``config``) with ``score_threshold`` 0 (as :func:`centerpoint_cfgs`),
+    ``data.train`` / ``data.val`` at the synthetic set, and a metrics
+    record every step."""
     path = os.path.join(root, f"nusc_{name}.py")
-    config = NUSC_ALL[name]
+    config = config or NUSC_ALL[name]
     with open(path, "w") as f:
         f.write(f"__file__ = {config!r}\n"
                 f"exec(open({config!r}).read())\n"
@@ -4092,17 +4112,17 @@ def randomize_offsets(module, gen):
             m.weight.copy_(0.05 * torch.randn(m.weight.shape, generator=gen))
 
 
-def nusc_batch(cfg_path, mode, samples, seed=SEED):
+def nusc_batch(cfg_path, mode, samples, seed=SEED, rows=NUSC_ROWS):
     """The first ``samples`` frames of the config's ``mode`` set through the
     port's data path (draws from ``RandomState(seed)``), collated to
-    NUSC_ROWS rows."""
+    ``rows`` rows."""
     from partner_tpu_torch.data import build_dataset
     from partner_tpu_torch.data.collate import collate
     from partner_tpu_torch.utils.config import load_config
 
     ds = build_dataset(dict(load_config(cfg_path)["data"][mode]),
                        dict(rng=np.random.RandomState(seed)))
-    return collate([ds[i] for i in range(samples)], max_points=NUSC_ROWS)
+    return collate([ds[i] for i in range(samples)], max_points=rows)
 
 
 def deform_conv_work(x, fa):
@@ -5206,6 +5226,399 @@ def pp_two_stage_phase(dev, card):
     return res
 
 
+# ------------------------------------------------------------ PolarStream
+
+POLAR_DIR = os.path.join(ROOT, "configs", "nusc", "pp")
+POLAR_CONFIGS = {
+    "1_sector": os.path.join(POLAR_DIR, "polarstream_det_1_sector.py"),
+    "4_sector": os.path.join(POLAR_DIR,
+                             "polarstream_det_4_sector_bidirectional.py")}
+POLAR_SWEEPS = 11            # the configs' nsweeps
+POLAR_ROWS = 380_000         # --max_points: every point of an 11-sweep sample
+POLAR_TIMED = 5              # timed frames a config after one warm-up
+POLAR_TRAIN_STEPS = 3        # timed train steps after one warm-up
+POLAR_SMALL_GRID = 128       # the reference's pillar grid, 128 x 128
+POLAR_REF_POINTS = 60_000    # the reference sample's first rows
+POLAR_TIE = 1e-6             # scores closer than this may swap places
+
+
+@torch.no_grad()
+def polar_census(mod, ex):
+    """Sample 0's capacity readings per sector: rows in the sector,
+    rows the sector buffer's cap dropped (more than one sector), cells
+    occupied on the sector grid, pillars kept of ``max_pillars``, and
+    points in dropped pillars; with the share of the sample's in-grid
+    points lost to either cap."""
+    pts, mask = ex["points"][:1], ex["points_mask"][:1]
+    n_sec = mod.n_sectors
+    span = mod.angle_span()
+    phi = pts[0, :, 1]
+    sec = torch.clamp(torch.floor((phi - mod.pc_range[1]) / span), 0,
+                      n_sec - 1).long()
+    rows = [int((mask[0] & (sec == s)).sum()) for s in range(n_sec)]
+    cap = mod.sector_point_cap(pts.shape[1]) if n_sec > 1 else None
+    g = mod.sector_grid()
+    sr = mod.sector_range()
+    size = torch.tensor([mod.voxel_size[0], mod.voxel_size[1],
+                         sr[5] - sr[2]], device=pts.device)
+    lo = torch.tensor(sr[:3], device=pts.device)
+    lim = torch.tensor([g[0], g[1], 1], device=pts.device)
+    out, in_grid, lost = [], 0, 0
+    for s, (p, v) in enumerate(mod.sector_inputs(pts, mask)):
+        co = torch.floor((p[0, :, :3] - lo) / size).long()
+        ok = v[0] & ((co >= 0) & (co < lim)).all(1)
+        vox = mod.pillarize(p, v)
+        dropped = int((ok & (vox["point_voxel"][0] >= mod.max_pillars))
+                      .sum())
+        cut = max(0, rows[s] - cap) if cap else 0
+        out.append(dict(rows=rows[s], cap_dropped=cut,
+                        occupied=int(torch.unique(co[ok, 1] * g[0]
+                                                  + co[ok, 0]).numel()),
+                        pillars=int(vox["mask"][0].sum()),
+                        pillar_dropped=dropped))
+        in_grid += int(ok.sum()) + cut
+        lost += dropped + cut
+    return dict(sectors=out, capacity=mod.max_pillars, cap=cap,
+                lost_share=lost / max(in_grid, 1))
+
+
+def polar_nms_readings(det, preds):
+    """The decode + stateful NMS of one frame alone on its maps: host ms
+    (median of NMS_REPS calls) and the fixpoint sweeps a sector."""
+    from partner_tpu_torch.ops import nms
+
+    times, sweeps = [], []
+    for _ in range(NMS_REPS):
+        nms.sweeps = 0
+        ms, _, counts = counted(lambda: det.decode(preds))
+        if any(counts.values()):
+            raise AssertionError(f"decode + NMS launched {counts}")
+        times.append(ms)
+        sweeps.append(nms.sweeps / det.module.n_sectors)
+    return dict(ms=statistics.median(times), all_ms=times,
+                sweeps_per_sector=sweeps[0])
+
+
+@torch.no_grad()
+def polar_reference(dev, card, name, ex):
+    """A PolarStream config's widths on a POLAR_SMALL_GRID x
+    POLAR_SMALL_GRID pillar grid (the sectors cut from it), same weights
+    and points (the first POLAR_REF_POINTS rows of ``ex``'s sample): per
+    sector the canvas, the neck's output and contexts (each fed the CPU's
+    canvas and contexts) and each head map (fed the CPU's neck output) of
+    the card against the CPU, both float32, then the kept detections of
+    ``predict`` on both."""
+    import copy
+
+    from partner_tpu_torch.models import build_detector
+    from partner_tpu_torch.utils.config import load_config
+
+    cfg = load_config(POLAR_CONFIGS[name])
+    m = copy.deepcopy(cfg["model"])
+    tc = dict(cfg["test_cfg"], score_threshold=0.0)
+    vg = m["bbox_head"]["voxel_generator"]
+    r = vg["range"]
+    vg["voxel_size"] = [(r[3] - r[0]) / POLAR_SMALL_GRID,
+                        (r[4] - r[1]) / POLAR_SMALL_GRID,
+                        vg["voxel_size"][2]]
+    gen = torch.Generator().manual_seed(SEED + 51)
+    gpu = build_detector(m, None, tc, device=dev, generator=gen)
+    randomize_norms(gpu.module, gen)
+    randomize_pfn(gpu.module, gen)
+    cpu = build_detector(m, None, tc, device="cpu")
+    cpu.module.load_state_dict({k: v.cpu() for k, v in
+                                gpu.module.state_dict().items()})
+    exc = {k: v[:1, :POLAR_REF_POINTS].cpu() for k, v in ex.items()}
+    exg = {k: v.to(dev) for k, v in exc.items()}
+    cm, gm = cpu.module, gpu.module
+    ctx = None
+    for s, (p, v) in enumerate(cm.sector_inputs(exc["points"],
+                                                exc["points_mask"])):
+        canvas = cm.encode_sector(p, v)
+        rel_rms(f"PolarStream {name} sector {s} canvas on {card}",
+                gm.encode_sector(p.to(dev), v.to(dev)), canvas, PP_REF_TOL)
+        x, new_ctx = cm.neck(canvas, ctx)
+        gx, gctx = gm.neck(canvas.to(dev), None if ctx is None
+                           else [c.to(dev) for c in ctx])
+        rel_rms(f"PolarStream {name} sector {s} neck", gx, x, PP_REF_TOL)
+        for i, (gc, c) in enumerate(zip(gctx, new_ctx)):
+            r_i, _ = rel_rms_of(f"context {i}", gc, c)
+            if not r_i <= PP_REF_TOL:
+                raise AssertionError(f"PolarStream {name} sector {s} "
+                                     f"context {i}: {r_i}")
+        want = cm.bbox_head(x)["det_preds"][0]
+        got = gm.bbox_head(x.to(dev))["det_preds"][0]
+        for k in sorted(want):
+            rel_rms(f"PolarStream {name} sector {s} head {k}", got[k],
+                    want[k], PP_REF_TOL)
+        ctx = new_ctx
+    want = cpu.predict(exc)
+    at_place = same_detections(gpu.predict(exg), want, tie=POLAR_TIE)
+    log(f"PolarStream {name} kept detections on {POLAR_SMALL_GRID} x "
+        f"{POLAR_SMALL_GRID} pillars, card against CPU: "
+        f"{int(want['mask'].sum())} each, {at_place} equal at their place, "
+        f"the rest within a score tie of {POLAR_TIE}")
+    return at_place
+
+
+def one_loader_thread():
+    """A context in which the evaluator's loader runs one thread, so each
+    nuScenes frame draws its sweep order from the dataset's random state
+    in frame order, as a direct loop over the dataset does."""
+    import contextlib
+
+    from partner_tpu_torch.eval import evaluator
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = evaluator.build_dataloader
+        evaluator.build_dataloader = lambda dataset, batch_size, **kw: orig(
+            dataset, batch_size, **dict(kw, workers_per_gpu=1))
+        try:
+            yield
+        finally:
+            evaluator.build_dataloader = orig
+
+    return ctx()
+
+
+def polar_dist_test(det, cfg_path, root, name, card):
+    """``dist_test`` of a PolarStream config from a checkpoint of ``det``'s
+    weights over the NUSC_FRAMES synthetic frames, as a user runs it (the
+    evaluator's 4 loader threads): no kernel launched, the middle-third
+    FPS, finite nuScenes metrics and the results json, velocities 0. Then
+    once more with the loader at one thread (:func:`one_loader_thread`):
+    every frame's kept boxes bit-equal to a direct ``predict`` of the
+    frame. With 4 threads a frame's sweeps come in the order the threads
+    reach the dataset's random state, the PFN sums a pillar's points in
+    their order, and the NMS turns the rounding into other kept boxes
+    (ROADMAP.md §3). -> {fps, launches, bit_equal, frames}."""
+    import pickle
+
+    from partner_tpu_torch.data import build_dataset
+    from partner_tpu_torch.data.loader import DataLoader
+    from partner_tpu_torch.tools import dist_test
+    from partner_tpu_torch.train.checkpoint import save_checkpoint
+    from partner_tpu_torch.utils.config import load_config
+
+    ckpt = os.path.join(root, f"ckpt_{name}")
+    save_checkpoint(ckpt, 0, det.module.state_dict())
+    dev = next(det.module.parameters()).device
+
+    def run(work_dir):
+        return counted(lambda: dist_test.main([
+            cfg_path, "--checkpoint", os.path.join(ckpt, "latest"),
+            "--work_dir", work_dir, "--max_points", str(POLAR_ROWS),
+            "--device", dev.type]))
+
+    work_dir = os.path.join(root, f"eval_{name}")
+    _, ((metrics, seg, pan), fps), launches = run(work_dir)
+    with one_loader_thread():
+        _, _, launches_1 = run(work_dir + "_1")
+    with open(os.path.join(work_dir + "_1", "prediction.pkl"), "rb") as f:
+        preds = pickle.load(f)
+    ds = build_dataset(dict(load_config(cfg_path)["data"]["val"]))
+    bit_equal = 0
+    for b in DataLoader(ds, 1, shuffle=False, num_workers=1,
+                        max_points=POLAR_ROWS):
+        e = to_device({k: b[k] for k in ("points", "points_mask")}, dev)
+        want = kept_boxes(det.predict(e))
+        bit_equal += all(np.array_equal(preds[b["metadata"][0]["token"]][k],
+                                        want[k]) for k in want)
+    if bit_equal != len(preds) or len(preds) != NUSC_FRAMES:
+        raise AssertionError(f"PolarStream dist_test ({name}): {bit_equal} "
+                             f"of {len(preds)} frames bit-equal to predict")
+    none = dict.fromkeys(kernel_wrappers(), 0)
+    if launches != none or launches_1 != none:
+        raise AssertionError(f"PolarStream dist_test ({name}): launches "
+                             f"{launches}, {launches_1}")
+    keys = ["mAP", "NDS", "mATE", "mASE", "mAOE", "mAVE"]
+    if seg is not None or pan is not None or not all(
+            np.isfinite(metrics[k]) for k in keys):
+        raise AssertionError(f"PolarStream dist_test ({name}): {metrics}")
+    with open(metrics["results_path"]) as f:
+        results = json.load(f)["results"]
+    with open(os.path.join(work_dir, "prediction.pkl"), "rb") as f:
+        preds = pickle.load(f)
+    if sorted(results) != sorted(preds) or not all(
+            len(results[t]) == len(preds[t]["scores"]) for t in preds):
+        raise AssertionError(f"PolarStream dist_test ({name}): the results "
+                             "json")
+    if any(d["velocity"] != [0.0, 0.0] for ds_ in results.values()
+           for d in ds_):
+        raise AssertionError(f"PolarStream dist_test ({name}): a velocity "
+                             "in the results (predict keeps 7 columns)")
+    log(f"PolarStream dist_test ({name}) on {card}: middle-third FPS "
+        f"{fps!r} over {len(preds)} frames of {POLAR_SWEEPS} sweeps in "
+        f"{POLAR_ROWS} rows; launches {launches}; " + ", ".join(
+            f"{k} {metrics[k]!r}" for k in keys)
+        + f"; results json with {sum(map(len, results.values()))} boxes, "
+        f"velocities 0; with one loader thread every frame bit-equal to a "
+        f"direct predict ({bit_equal} of {len(preds)})")
+    return dict(fps=fps, launches=launches, bit_equal=bit_equal,
+                frames=len(preds))
+
+
+def polar_train_cli(cfg_path, root, name, card, dev):
+    """Two train-CLI steps of a PolarStream config at NUSC_TRAIN_BATCH with
+    a checkpoint: finite per-sector losses, no kernel launched.
+    -> {launches, wall_s}."""
+    from partner_tpu_torch.tools import train
+
+    work_dir = os.path.join(root, f"train_{name}")
+    wall_ms, steps, launches = counted(lambda: train.main([
+        cfg_path, "--work_dir", work_dir, "--batch_size",
+        str(NUSC_TRAIN_BATCH), "--total_steps", "2",
+        "--max_steps_per_epoch", "2", "--max_points", str(POLAR_ROWS),
+        "--seed", str(SEED), "--device", torch.device(dev).type]))
+    with open(os.path.join(work_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    ckpts = sorted(d for d in os.listdir(work_dir) if d.startswith("ckpt_"))
+    if steps != 2 or ckpts[-1:] != ["ckpt_00000002"] or [
+            r["step"] for r in recs] != [0, 1]:
+        raise AssertionError(f"PolarStream train CLI ({name}): steps "
+                             f"{steps}, checkpoints {ckpts}, records {recs}")
+    if launches != dict.fromkeys(kernel_wrappers(), 0):
+        raise AssertionError(f"PolarStream train CLI ({name}): launches "
+                             f"{launches}")
+    for r in recs:
+        vals = {k: r[k] for k in r if k in ("loss", "grad_norm")
+                or k.startswith("sector")}
+        if not all(np.isfinite(list(vals.values()))):
+            raise AssertionError(f"PolarStream train CLI ({name}): {vals}")
+        log(f"PolarStream train CLI ({name}) step {r['step']} on {card}: "
+            f"time {r['time']!r} s, data_time {r['data_time']!r} s, {vals}")
+    log(f"PolarStream train CLI ({name}): 2 steps at batch "
+        f"{NUSC_TRAIN_BATCH} and one checkpoint in {wall_ms / 1e3!r} s")
+    return dict(launches=launches, wall_s=wall_ms / 1e3)
+
+
+def polarstream_phase(dev, card):
+    """The two PolarStream det configs (``configs/nusc/pp/polarstream_det_
+    {1_sector,4_sector_bidirectional}.py``: the 512 x 512 polar pillar
+    grid cut into 1 or 4 azimuth sectors, ``DynamicPFNet`` 64 -> 128, the
+    stream neck ``RPNTECP`` / ``RPNBDCP`` with layer_nums [3, 5, 5],
+    ``CenterHeadSinglePos``, the stateful cross-sector NMS) at full width,
+    random weights with every norm randomized, on a synthetic 11-sweep
+    nuScenes set prepared by the port's ``create_data``, every row of a
+    sample kept: each config's frame (median ms of POLAR_TIMED after a
+    warm-up, device busy and launches, kept boxes, a repeat bit-equal),
+    its decode + stateful NMS alone (ms, fixpoint sweeps a sector), its
+    capacity readings (:func:`polar_census`), the card against the CPU on
+    a small grid (:func:`polar_reference`), the batch-4 train step (median
+    of POLAR_TRAIN_STEPS, peak memory), ``dist_test`` over NUSC_FRAMES
+    frames (:func:`polar_dist_test`) and two train-CLI steps. No hand
+    kernel lies on this path: every launch count stays 0."""
+    import tempfile
+
+    from partner_tpu_torch.models import build_detector
+    from partner_tpu_torch.train.optim import build_one_cycle_optimizer
+    from partner_tpu_torch.train.train_state import make_train_step
+    from partner_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    none = dict.fromkeys(kernel_wrappers(), 0)
+    res = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        info = write_nusc_scene(root, np.random.RandomState(SEED + 50),
+                                NUSC_FRAMES, POLAR_SWEEPS, NUSC_SWEEP_POINTS)
+        log(f"PolarStream set: {NUSC_FRAMES} frames of {POLAR_SWEEPS} "
+            f"sweeps of ~{NUSC_SWEEP_POINTS} points written and prepared by "
+            f"create_data nuscenes_data_prep in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for name in POLAR_CONFIGS:
+            t_cfg = time.perf_counter()
+            cfg_path = write_nusc_config(root, f"polarstream_{name}", info,
+                                         POLAR_CONFIGS[name])
+            cfg = load_config(cfg_path)
+            tc = dict(cfg["test_cfg"])
+            gen = torch.Generator().manual_seed(SEED + 52)
+            det = build_detector(cfg["model"], cfg["train_cfg"], tc,
+                                 device=dev, generator=gen)
+            randomize_norms(det.module, gen)
+            randomize_pfn(det.module, gen)
+            mod = det.module
+            t0 = time.perf_counter()
+            batch = nusc_batch(cfg_path, "val", 1, rows=POLAR_ROWS)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            rows = int(batch["points_mask"].sum())
+            log(f"PolarStream {name} sample: {rows} points in "
+                f"{POLAR_SWEEPS} sweeps; the default --max_points 200000 "
+                f"would drop {max(0, rows - 200_000)}; buffer {POLAR_ROWS} "
+                f"rows drops none; one sample through the val pipeline in "
+                f"{host_ms:.1f} ms on the host; {mod.n_sectors} sectors of "
+                f"{mod.sector_grid()[:2]} pillars, capacity "
+                f"{mod.max_pillars} a sector, neck "
+                f"{type(mod.neck).__name__}")
+            if rows >= POLAR_ROWS:
+                raise AssertionError(f"PolarStream {name}: the buffer is "
+                                     "full")
+            ex = to_device({k: batch[k] for k in ("points", "points_mask")},
+                           dev)
+            median, times, out, tally = timed_predicts(det, ex, POLAR_TIMED,
+                                                       none)
+            busy, launches = device_busy(lambda: det.predict(ex))
+            with torch.no_grad():
+                preds = mod(ex)
+            sec = preds["sector_preds"]
+            if len(sec) != mod.n_sectors or not all(
+                    torch.isfinite(v).all() for p in sec
+                    for v in p["det_preds"][0].values()):
+                raise AssertionError(f"PolarStream {name}: sector maps")
+            kept = check_detections(out, tc, n_tasks=mod.n_sectors)
+            if not identical(det.predict(ex), out):
+                raise AssertionError(f"PolarStream {name}: a repeat differs")
+            nms_r = polar_nms_readings(det, preds)
+            census = polar_census(mod, ex)
+            log(f"PolarStream {name} frame on {card}: "
+                f"{tuple(ex['points'].shape)} point rows, median {median!r} "
+                f"ms over {POLAR_TIMED} frames (host clock around a "
+                f"synchronized predict), all {times!r}; device busy "
+                f"{busy!r} ms and {launches!r} launches a frame; kernel "
+                f"launches {tally}; hm {tuple(sec[0]['det_preds'][0]['hm'].shape)}"
+                f" a sector; {kept} boxes kept; repeat bit-equal; decode + "
+                f"stateful NMS alone {nms_r['ms']!r} ms (all "
+                f"{nms_r['all_ms']!r}), {nms_r['sweeps_per_sector']!r} "
+                f"fixpoint sweeps a sector; capacity {census}")
+            r = dict(median_ms=median, device_busy_ms=busy,
+                     launches_per_frame=launches, launches=tally, kept=kept,
+                     nms=nms_r, census=census, rows=rows)
+            del preds, out, sec
+            r["reference_at_place"] = polar_reference(dev, card, name, ex)
+            del ex
+            torch.cuda.empty_cache()
+
+            # ---- the train step at batch 4
+            torch.cuda.reset_peak_memory_stats()
+            tex = to_device({k: v for k, v in nusc_batch(
+                cfg_path, "train", NUSC_TRAIN_BATCH, rows=POLAR_ROWS).items()
+                if k in det.loss_keys}, dev)
+            step = make_train_step(det, build_one_cycle_optimizer(
+                mod, lr_max=cfg["lr_config"]["lr_max"], total_steps=1000))
+            tl, t_med, t_times, _, peak = timed_train_steps(
+                det, step, tex, None, none, f"PolarStream {name} train step",
+                n_steps=POLAR_TRAIN_STEPS)
+            log(f"PolarStream {name} train step, batch {NUSC_TRAIN_BATCH}, "
+                f"on {card}: median {t_med!r} ms over {POLAR_TRAIN_STEPS} "
+                f"steps, all {t_times!r}; peak memory {peak!r} GiB; "
+                f"targets {tuple(tex['hm'][0].shape)}; launches {tl}; every "
+                "gradient finite, every parameter and BatchNorm statistic "
+                "moved")
+            r["train"] = dict(median_ms=t_med, peak_gib=peak, launches=tl)
+            del step, tex
+            torch.cuda.empty_cache()
+            r["dist_test"] = polar_dist_test(det, cfg_path, root, name, card)
+            del det, mod
+            torch.cuda.empty_cache()
+            r["train_cli"] = polar_train_cli(cfg_path, root, name, card, dev)
+            log(f"PolarStream {name}: {time.perf_counter() - t_cfg:.1f} s")
+            res[name] = r
+    log(f"PolarStream phase {time.perf_counter() - t_phase:.1f} s in all")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this run needs one NVIDIA card")
@@ -5245,6 +5658,7 @@ def main():
     sparse = sparse_phase(dev, card)
     nusc = nusc_phase(dev, card)
     pp = pp_phase(dev, card)
+    polar = polarstream_phase(dev, card)
 
     meta = {
         "stem": ("partner_tpu_torch/csrc/stem.cu",
@@ -5271,7 +5685,11 @@ def main():
              {"scatter_max": 2})) + tuple(
             (f"pp two-stage {k}", pts[k]["launches"], {})
             for k in ("frame", "two_class", "train", "train_cli",
-                      "dist_test")):
+                      "dist_test")) + tuple(
+            (f"polarstream {c} {k}", polar[c][k]["launches"] if k != "frame"
+             else polar[c]["launches"], {})
+            for c in POLAR_CONFIGS
+            for k in ("frame", "train", "dist_test", "train_cli")):
         if tally != {k: want.get(k, 0) for k in meta}:
             raise AssertionError(f"{key} launches {tally}")
     kernels = [dict(name=name, route="cuda", source=meta[name][0],
@@ -5337,6 +5755,12 @@ def main():
                         "launches"][name],
                     pp_two_stage_dist_test_launches=pts["dist_test"][
                         "launches"][name],
+                    **{f"polarstream_{c}_{k}_launches": (
+                        polar[c]["launches"] if k == "frame"
+                        else polar[c][k]["launches"])[name]
+                       for c in POLAR_CONFIGS
+                       for k in ("frame", "train", "dist_test",
+                                 "train_cli")},
                     **r)
                for name, r in kres.items()]
     log("summary: card " + card + ", flagship frame median ms: " + ", ".join(
@@ -5481,6 +5905,20 @@ def main():
         f"{pts['train']['peak_gib']!r} GiB; train CLI 2 steps in "
         f"{pts['train_cli']['wall_s']!r} s; dist_test middle-third FPS "
         f"{pts['dist_test']['fps']!r}")
+    log(f"summary: card {card}, PolarStream " + "; ".join(
+        f"{c}: frame median {polar[c]['median_ms']!r} ms (device busy "
+        f"{polar[c]['device_busy_ms']!r}, {polar[c]['launches_per_frame']!r}"
+        f" launches), decode + stateful NMS {polar[c]['nms']['ms']!r} ms, "
+        f"{polar[c]['nms']['sweeps_per_sector']!r} fixpoint sweeps a sector, "
+        f"{polar[c]['kept']} boxes kept, points lost to the caps "
+        f"{polar[c]['census']['lost_share']!r}; train step at batch 4 "
+        f"{polar[c]['train']['median_ms']!r} ms, peak "
+        f"{polar[c]['train']['peak_gib']!r} GiB; dist_test middle-third FPS "
+        f"{polar[c]['dist_test']['fps']!r} (with one loader thread "
+        f"{polar[c]['dist_test']['bit_equal']} of "
+        f"{polar[c]['dist_test']['frames']} frames bit-equal to predict);"
+        f" train CLI 2 steps in {polar[c]['train_cli']['wall_s']!r} s"
+        for c in POLAR_CONFIGS))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

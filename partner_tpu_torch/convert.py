@@ -11,7 +11,10 @@ submodules carry flax's names (``Conv_0``, ``BatchNorm_0``,
 - ``scale`` -> ``weight``; batch stats ``mean``/``var`` ->
   ``running_mean``/``running_var``;
 - the ``layers.BatchNorm`` wrapper's nested ``BatchNorm_k/BatchNorm_0``
-  collapses to ``BatchNorm_k``;
+  collapses to ``BatchNorm_k``, and a stream neck's
+  ``deblock{j}_bn/BatchNorm_0`` to ``deblock{j}_bn`` (its
+  ``deblock{j}_conv`` maps by the Conv rule, a transposed one too:
+  ``models.rpn_stream.DeblockTranspose`` keeps that layout);
 - raw parameters keep name and layout: ``stem{i}_kernel/scale/bias``,
   the ``stem{i}_mean/var`` stats, ``tau``, and a DCN head's
   ``deform_kernel`` (K, C, Cout) and ``deform_bias`` (its 1x1
@@ -53,7 +56,8 @@ def _flatten(tree, prefix=()):
 def _collapse(path):
     path = list(path)
     if (len(path) >= 3 and path[-2] == "BatchNorm_0"
-            and path[-3].startswith("BatchNorm_")):
+            and (path[-3].startswith("BatchNorm_")
+                 or re.fullmatch(r"deblock\d+_bn", path[-3]))):
         del path[-2]
     return path
 

@@ -14,6 +14,8 @@ model step consumes directly:
   voxels      (B, V, K, C) + coords/num_points/voxel_mask  [hard mode only]
   hm          list per task of (B, n_az, n_r, C)  (NHWC)
   anno_box/ind/mask/cat   list per task of (B, M, ...)
+              sector targets (AssignLabel with nsectors > 1): each
+              (B, S, ...), hm (B, S, n_az / S, n_r, C)
   global_box  (B, M, 8|10+1) + global_box_mask
   votemap_flat (B, n_az*n_r, 4+ncls)
   metadata    python list (host side only)
@@ -96,8 +98,8 @@ def collate(batch_list, max_points=200000, max_voxels=None):
                 np.stack([ex[key][t] for ex in batch_list])
                 for t in range(n_tasks)
             ]
-            if key == "hm":  # (B, C, az, r) -> NHWC
-                stacked = [h.transpose(0, 2, 3, 1) for h in stacked]
+            if key == "hm":  # (B, [S,] C, az, r) -> NHWC per sector
+                stacked = [np.moveaxis(h, -3, -1) for h in stacked]
             ret[key] = stacked
 
     if "global_box" in first:

@@ -22,9 +22,11 @@ stage is given (the dataset passes its own to each), in the JAX package's
 order, where the JAX package draws from the global ``np.random``: one
 seed gives the same batches.
 
-Not ported, and raising ``NotImplementedError`` where a config asks for
-them: sector targets (``nsectors > 1``, PolarStream) and the seg labels
-(``seg_head``; both ROADMAP.md queue 1, off the main path).
+With ``nsectors > 1`` (PolarStream) ``AssignLabel`` assigns the center
+targets per cylinder sector, each gaining a leading sector axis. Not
+ported, and raising ``NotImplementedError`` where a config asks for them:
+the cuboid sector targets (ROADMAP.md queue 1 item 7) and the seg labels
+(``seg_head``; item 5).
 """
 
 import pickle
@@ -318,11 +320,32 @@ class Voxelization:
         return res, info
 
 
+def _rotate_boxes(boxes, angle):
+    """Cartesian boxes [x, y, z, dims..., (vx, vy,) yaw] turned by +angle
+    radians about the origin (``partner_tpu/data/pipeline.py:329-341``)."""
+    if not len(boxes):
+        return boxes
+    out = boxes.copy()
+    c, s = np.cos(angle), np.sin(angle)
+    out[:, 0] = boxes[:, 0] * c - boxes[:, 1] * s
+    out[:, 1] = boxes[:, 0] * s + boxes[:, 1] * c
+    if boxes.shape[1] >= 9:  # the velocity columns precede yaw
+        out[:, -3] = boxes[:, -3] * c - boxes[:, -2] * s
+        out[:, -2] = boxes[:, -3] * s + boxes[:, -2] * c
+    out[:, -1] = boxes[:, -1] + angle
+    return out
+
+
 @PIPELINES.register_module(name="AssignLabel")
 class AssignLabel:
     """Train mode: the center targets of ``CenterTargetAssigner``, the
     padded ``global_box`` [box..., class] (``max_objs`` rows) and the
-    vote map. Val mode passes through: no targets at evaluation."""
+    vote map. Val mode passes through: no targets at evaluation.
+
+    With ``nsectors > 1`` the center targets are assigned per azimuth
+    sector (:meth:`_assign_sectors`), each target gaining a leading sector
+    axis (``collate`` makes it (B, S, ...)); ``global_box`` and the vote
+    map stay whole-sweep."""
 
     def __init__(self, cfg=None, rectify=False, with_votemap=True,
                  with_global_box=True, nsectors=1, **kwargs):
@@ -340,11 +363,42 @@ class AssignLabel:
         self.max_objs = cfg.get("max_objs", 500)
         self.with_votemap = with_votemap
         self.with_global_box = with_global_box
-        if cfg.get("nsectors", nsectors) > 1:
+        self.nsectors = cfg.get("nsectors", nsectors)
+        if self.nsectors > 1 and self.assigner.voxel_shape == "cuboid":
             raise NotImplementedError(
-                "sector targets (nsectors > 1) are not ported to "
-                "partner_tpu_torch (ROADMAP.md queue 1, off the main path: "
-                "PolarStream)")
+                "cuboid sector targets (cartesian azimuth wedges) are not "
+                "ported to partner_tpu_torch (ROADMAP.md queue 1 item 7: "
+                "STROBE and HAN)")
+
+    def _assign_sectors(self, boxes, classes, meta):
+        """Per cylinder sector s (``pipeline.py:365-406``): the boxes whose
+        center azimuth lies in [lo, lo + span), lo = range[1] + s x span,
+        turned by -s x span into sector 0's frame and assigned on the
+        sector grid (n_r, n_az / S, nz) over the sector range; each target
+        stacked over the sectors (a per-task list of (S, ...) arrays)."""
+        full_range = np.asarray(meta["range"], np.float32)
+        span = (full_range[4] - full_range[1]) / self.nsectors
+        sec_range = full_range.copy()
+        sec_range[4] = sec_range[1] + span
+        sec_shape = np.asarray(meta["shape"]).copy()
+        sec_shape[1] = sec_shape[1] // self.nsectors
+        az = (np.arctan2(boxes[:, 1], boxes[:, 0])
+              if len(boxes) else np.zeros((0,)))
+        per_sector = []
+        for s in range(self.nsectors):
+            lo = full_range[1] + s * span
+            m = (az >= lo) & (az < lo + span)
+            per_sector.append(self.assigner.assign(
+                _rotate_boxes(boxes[m], -s * span), classes[m], sec_shape,
+                meta["size"], sec_range))
+
+        def stack(vals):
+            if isinstance(vals[0], (list, tuple)):
+                return [stack([v[i] for v in vals])
+                        for i in range(len(vals[0]))]
+            return np.stack(vals)
+
+        return {k: stack([p[k] for p in per_sector]) for k in per_sector[0]}
 
     def __call__(self, res, info):
         if res.get("mode") not in TRAIN_MODES:
@@ -353,8 +407,11 @@ class AssignLabel:
         anno = res["lidar"]["annotations"]
         boxes = anno["gt_boxes"]
         classes = anno["gt_classes"]
-        targets = self.assigner.assign(boxes, classes, meta["shape"],
-                                       meta["size"], meta["range"])
+        if self.nsectors > 1:
+            targets = self._assign_sectors(boxes, classes, meta)
+        else:
+            targets = self.assigner.assign(boxes, classes, meta["shape"],
+                                           meta["size"], meta["range"])
         if self.with_global_box:
             ncol = boxes.shape[1] if len(boxes) else 7
             gb = np.zeros((self.max_objs, ncol + 1), np.float32)

@@ -3,15 +3,17 @@ from .registry import (  # noqa: F401
     build_from_cfg,
 )
 from . import (backbone, backbone_dense, center_head, detectors,  # noqa: F401
-               e2e_head, pillar, readers, rpn, two_stage)
+               e2e_head, pillar, polarstream, readers, rpn, rpn_stream,
+               two_stage)
 
 
 def build_detector(cfg, train_cfg=None, test_cfg=None, *, device,
                    generator=None, use_block_kernel=False):
     """Counterpart of ``partner_tpu.models.build_detector``: a
     ``VoxelNetV3`` (PARTNER), ``VoxelNet`` (CenterPoint), ``PointPillars``
-    (CenterPoint on pillars) or ``TwoStageDetector`` (two-stage
-    CenterPoint) config.
+    (CenterPoint on pillars), ``TwoStageDetector`` (two-stage
+    CenterPoint) or ``PolarStream`` / ``PolarStreamBDCP`` (sector
+    streaming) config.
 
     Builds the detector's module on ``device``; its weights are drawn from
     ``generator`` (a CPU ``torch.Generator``; seed 0 when None) and are

@@ -125,8 +125,40 @@ def test_what_is_not_ported_raises(tmp_path):
                                         super_tasks=["det", "seg"])
     with pytest.raises(NotImplementedError, match="KittiDataset"):
         pipeline.LoadPointCloudFromFile(dataset="KittiDataset")
-    with pytest.raises(NotImplementedError, match="PolarStream"):
-        pipeline.AssignLabel(dict(cfg["assigner"], nsectors=2))
+    # cylinder sector targets are ported (PolarStream): two sectors of
+    # the flagship's grid, every target equal to JAX's
+    from partner_tpu.data.pipeline import AssignLabel as JaxAssignLabel
+
+    vg = cfg["voxel_generator"]
+    pr = np.asarray(vg["range"], np.float32)
+    size = np.asarray(vg["voxel_size"], np.float32)
+    shape = np.round((pr[3:] - pr[:3]) / size).astype(np.int64)
+    rng = np.random.RandomState(2)
+    rho, phi = rng.uniform(5, 60, 8), rng.uniform(-3, 3, 8)
+    phi[0] = 0.0                       # on the edge of the two sectors
+    boxes = np.stack([rho * np.cos(phi), rho * np.sin(phi),
+                      rng.uniform(-1, 1, 8), rng.uniform(1, 5, 8),
+                      rng.uniform(1, 3, 8), rng.uniform(1, 2, 8),
+                      rng.uniform(-3, 3, 8)], 1).astype(np.float32)
+    outs = []
+    for cls in (pipeline.AssignLabel, JaxAssignLabel):
+        res = {"mode": "train", "lidar": {
+            "voxels": dict(shape=shape, range=pr, size=size),
+            "annotations": {"gt_boxes": boxes.copy(),
+                            "gt_classes": np.ones(8, np.int64)}}}
+        outs.append(cls(dict(cfg["assigner"], nsectors=2))(res, {})[0][
+            "lidar"]["targets"])
+    got, want = outs
+    assert sorted(got) == sorted(want)
+    assert got["hm"][0].shape[0] == 2 and int(got["mask"][0].sum()) == 8
+    for k in want:
+        for g, w in (zip(got[k], want[k]) if isinstance(want[k], list)
+                     else [(got[k], want[k])]):
+            np.testing.assert_array_equal(g, w, err_msg=k)
+    # the cuboid sectors (cartesian wedges) wait for queue 1 item 7
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        pipeline.AssignLabel(dict(cfg["assigner"], nsectors=2,
+                                  voxel_shape="cuboid"))
     with pytest.raises(NotImplementedError, match="seg_head"):
         pipeline.Preprocess(cfg["train_preprocessor"],
                             super_tasks=["det", "seg"])

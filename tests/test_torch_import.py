@@ -2,7 +2,8 @@
 import or when it builds its detectors (the Waymo PARTNER, CenterPoint and
 two-stage configs, the sparse backbone, the three nuScenes CenterPoint
 configs, the two Waymo PointPillars configs, the two PointPillars
-two-stage configs and the nuScenes single-head config), and the flax
+two-stage configs, the nuScenes single-head config and the two PolarStream
+det configs), and the flax
 converter covers every parameter and buffer of the port's detectors."""
 
 import os
@@ -24,7 +25,7 @@ def test_import_leaves_out_jax_and_flax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'partner_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 69, names\n"
+        "assert len(names) >= 71, names\n"
         "for n in ('ops.swin_block', 'ops.scatter_max', 'core.targets',\n"
         "          'losses.centernet', 'losses.matcher', 'losses.set_crit',\n"
         "          'train.optim', 'train.train_state', 'data.pipeline',\n"
@@ -38,7 +39,8 @@ def test_import_leaves_out_jax_and_flax():
         "          'train.torch_convert', 'tools.convert_checkpoint',\n"
         "          'utils.remote_io', 'ops.deform_conv',\n"
         "          'eval.nusc_protocol', 'eval.nuscenes', 'models.pillar',\n"
-        "          'ops.nms', 'models.layers', 'convert'):\n"
+        "          'ops.nms', 'models.layers', 'convert',\n"
+        "          'models.rpn_stream', 'models.polarstream'):\n"
         "    assert 'partner_tpu_torch.' + n in names, n\n"
         "from partner_tpu_torch.models import build_detector\n"
         "from partner_tpu_torch.utils.config import load_config\n"
@@ -91,6 +93,13 @@ def test_import_leaves_out_jax_and_flax():
         "det = build_detector(cfg['model'], cfg['train_cfg'], cfg['test_cfg'],\n"
         "                     device='meta')\n"
         "assert type(det.module.bbox_head).__name__ == 'CenterHeadSinglePos'\n"
+        "for c, neck in (('1_sector', 'RPNTECP'),\n"
+        "                ('4_sector_bidirectional', 'RPNBDCP')):\n"
+        "    cfg = load_config(f'configs/nusc/pp/polarstream_det_{c}.py')\n"
+        "    det = build_detector(cfg['model'], cfg['train_cfg'],\n"
+        "                         cfg['test_cfg'], device='meta')\n"
+        "    assert type(det).__name__ == 'PolarStreamDetector', c\n"
+        "    assert type(det.module.neck).__name__ == neck, c\n"
         "from partner_tpu_torch import native\n"
         "assert native.available()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -39,6 +39,10 @@ PP_TWO_STAGE_TWO_CLS = ("configs/waymo/pp/two_stage/waymo_centerpoint_pp_"
 PP_TWO_STAGE_CONFIGS = {"three-class": PP_TWO_STAGE,
                         "two-class": PP_TWO_STAGE_TWO_CLS}
 SINGLEHEAD = "configs/nusc/voxelnet/voxelnet_det_cylinder_singlehead.py"
+POLARSTREAM_1 = "configs/nusc/pp/polarstream_det_1_sector.py"
+POLARSTREAM_4 = "configs/nusc/pp/polarstream_det_4_sector_bidirectional.py"
+POLARSTREAM_CONFIGS = {1: POLARSTREAM_1, 4: POLARSTREAM_4}
+POLAR_GRID = (64, 128)   # (n_r, n_az) pillars, cut from 512 x 512
 PP_GRID = 64        # the pillar grid, cut from 468 x 468 to 64 x 64
 PP_PILLARS = 512    # the tiny configs' pillar capacity: the sweeps overflow it
 
@@ -161,6 +165,82 @@ def tiny_pp_cfg(config=PP, max_pillars=PP_PILLARS):
     m = copy.deepcopy(cfg["model"])
     _cut_pp(m, max_pillars)
     return m, _tiny_test_cfg(cfg)
+
+
+_POLAR_CUT = f"""
+_vg = model["bbox_head"]["voxel_generator"]
+_r = _vg["range"]
+_vg["voxel_size"] = [(_r[3] - _r[0]) / {POLAR_GRID[0]},
+                     (_r[4] - _r[1]) / {POLAR_GRID[1]}, _vg["voxel_size"][2]]
+model["reader"].update(num_filters=[16, 16])
+model["neck"].update(layer_nums=[1, 1, 1], ds_num_filters=[16, 16, 32],
+                     us_num_filters=[16, 16, 16], num_input_features=16)
+model["bbox_head"]["in_channels"] = 48
+"""
+
+
+def _cut_polarstream(m, max_pillars):
+    """A PolarStream model cfg cut in place to the ``POLAR_GRID`` pillar
+    grid (the configs' range), PFN filters [16, 16], a narrow three-scale
+    stream neck (48 channels out, every ``us_layer_strides`` kept) and,
+    where given, ``max_pillars`` a sector."""
+    scope = {"model": m}
+    exec(_POLAR_CUT, scope)
+    if max_pillars is not None:
+        m["max_pillars"] = max_pillars
+
+
+def tiny_polarstream_cfg(config=POLARSTREAM_4, max_pillars=None):
+    """(model cfg, test cfg): a PolarStream config cut as
+    :func:`_cut_polarstream` cuts it (float32, as the configs are), the
+    NMS cut as in :func:`tiny_frame_cfg` but its 83 kept boxes a sector."""
+    import os
+
+    from partner_tpu_torch.utils.config import load_config
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(root, config))
+    m = copy.deepcopy(cfg["model"])
+    _cut_polarstream(m, max_pillars)
+    tc = copy.deepcopy(cfg["test_cfg"])
+    tc["score_threshold"] = 0.0
+    tc["nms"] = dict(tc["nms"], nms_pre_max_size=256)
+    return m, tc
+
+
+def write_tiny_polarstream_config(path, train_info, val_info, root,
+                                  config=POLARSTREAM_4, max_pillars=None):
+    """A PolarStream config file for the CLIs: ``config`` exec'd, cut as
+    :func:`tiny_polarstream_cfg` cuts it, ``nsweeps`` cut to
+    ``NUSC_SWEEPS``, ``data.train`` at ``train_info`` with no augmentation
+    and the points kept in order (no random draw), ``data.val`` at
+    ``val_info``, one loader thread, a log flush and a ``metrics.jsonl``
+    record every step."""
+    import os
+
+    base = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), config)
+    with open(path, "w") as f:
+        f.write(f"""
+__file__ = {base!r}
+exec(open({base!r}).read())
+{_POLAR_CUT}
+if {max_pillars!r} is not None:
+    model["max_pillars"] = {max_pillars!r}
+test_cfg["score_threshold"] = 0.0
+test_cfg["nms"].update(nms_pre_max_size=256)
+train_preprocessor.update(no_augmentation=True, shuffle_points=False)
+for _s, _info in (("train", {train_info!r}), ("val", {val_info!r})):
+    data[_s].update(info_path=_info, root_path={root!r},
+                    nsweeps={NUSC_SWEEPS})
+    for _p in data[_s]["pipeline"]:
+        if _p["type"] == "Voxelization":
+            _p["cfg"] = _vg
+data["workers_per_gpu"] = 1
+log_config = dict(interval=1, hooks=[dict(type="TextLoggerHook"),
+                                     dict(type="MetricsSinkHook")])
+""")
+    return path
 
 
 def pp_points(rng, pc_range, n_points, n_pad, dup=0):

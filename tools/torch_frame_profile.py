@@ -9,7 +9,9 @@ CUDA card.
                                                   nusc-dcn|nusc-01voxel|
                                                   nusc-dcn_flip|
                                                   nusc-singlehead|pp|
-                                                  pp-two_cls]
+                                                  pp-two_cls|
+                                                  nusc-polarstream-1|
+                                                  nusc-polarstream-4]
                                          [--part frame|rpn] [--batch B]
 
 Builds the flagship detector of ``partner_tpu_torch`` exactly as
@@ -46,7 +48,15 @@ PFN and the scatter), RPN, head and decode + NMS, and also traces the
 pillar stage alone and times its parts on the card (``pillar_parts``:
 the pillarizer, the PFN, each PFN layer's pooled max at the frame's
 pillars beside its bound). ``--batch B`` runs B sweeps a frame (the
-PointPillars models and ``nusc-singlehead``; seeds SEED .. SEED + B - 1).
+PointPillars models, ``nusc-singlehead`` and the PolarStream models;
+seeds SEED .. SEED + B - 1). ``--model nusc-polarstream-1`` /
+``nusc-polarstream-4`` profiles a PolarStream det config of
+``chip_smoke.py``'s PolarStream phase (1 sector, ``RPNTECP``; 4 sectors,
+``RPNBDCP``) on a synthetic 11-sweep sample in POLAR_ROWS rows, with the
+stages, each summed over the sectors: sector inputs (the sector buffers
+and their rotation), pillars (``encode_sector``), neck, head, and decode +
+stateful NMS; ``--part rpn`` times each conv of its stream neck on the
+input sector 0 hands it.
 ``--part rpn`` times each conv of the model's RPN alone instead, on the
 input the frame hands it: device ms and the kernels cuDNN picks, as the
 port calls the conv (channels-last strides), NCHW-contiguous,
@@ -81,6 +91,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402  (its config, weights and sweep builders)
+
+POLAR_MODELS = {"nusc-polarstream-1": "1_sector",
+                "nusc-polarstream-4": "4_sector"}
 
 
 def backbone_stage(mod, ex):
@@ -130,6 +143,49 @@ def stage_times(det, ex, frames):
         totals.append((time.perf_counter() - t0) * 1e3)
         for i, n in enumerate(names):
             per[n].append(ev[i].elapsed_time(ev[i + 1]))
+    out = {n: statistics.median(v) for n, v in per.items()}
+    out["frame_host"] = statistics.median(totals)
+    return out
+
+
+def polar_stage_times(det, ex, frames):
+    """A PolarStream frame's median ms per stage between CUDA events, each
+    stage summed over the sectors, and the median host time of the
+    frame."""
+    mod = det.module
+    names = ["sector_inputs", "pillars", "neck", "head", "decode_nms"]
+    per = {n: [] for n in names}
+    totals = []
+    for _ in range(frames):
+        spans = dict.fromkeys(names, 0.0)
+        marks = []
+        t0 = time.perf_counter()
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+
+        with torch.no_grad():
+            mark(None)
+            inputs = mod.sector_inputs(ex["points"], ex["points_mask"])
+            mark("sector_inputs")
+            preds, ctx = [], None
+            for p, v in inputs:
+                canvas = mod.encode_sector(p, v)
+                mark("pillars")
+                x, ctx = mod.neck(canvas, ctx)
+                mark("neck")
+                preds.append(mod.bbox_head(x))
+                mark("head")
+            det.decode({"sector_preds": preds})
+            mark("decode_nms")
+        torch.cuda.synchronize()
+        totals.append((time.perf_counter() - t0) * 1e3)
+        for (_, a), (name, b) in zip(marks, marks[1:]):
+            spans[name] += a.elapsed_time(b)
+        for n in names:
+            per[n].append(spans[n])
     out = {n: statistics.median(v) for n, v in per.items()}
     out["frame_host"] = statistics.median(totals)
     return out
@@ -215,6 +271,9 @@ def build_frame(dev, args):
         m, tc = chip_smoke.sparse_cfgs()
     elif args.model == "centerpoint":
         m, _, tc = chip_smoke.centerpoint_cfgs()
+    elif args.model in POLAR_MODELS:
+        m, _, tc = chip_smoke.centerpoint_cfgs(chip_smoke.POLAR_CONFIGS[
+            POLAR_MODELS[args.model]])
     elif args.model.startswith("nusc-"):
         m, _, tc = chip_smoke.centerpoint_cfgs(
             chip_smoke.NUSC_ALL[args.model[5:]])
@@ -228,7 +287,16 @@ def build_frame(dev, args):
     det = build_detector(m, None, tc, device=dev, generator=gen,
                          use_block_kernel=args.use_block_kernel)
     chip_smoke.randomize_norms(det.module, gen)
-    if args.model.startswith("nusc-"):
+    if args.model in POLAR_MODELS:
+        chip_smoke.randomize_pfn(det.module, gen)
+        samples = [chip_smoke.nusc_example(
+            None, seed=chip_smoke.SEED + i,
+            config=chip_smoke.POLAR_CONFIGS[POLAR_MODELS[args.model]],
+            sweeps=chip_smoke.POLAR_SWEEPS, rows=chip_smoke.POLAR_ROWS)
+            for i in range(args.batch)]
+        ex = chip_smoke.to_device({k: np.concatenate([e[k] for e in samples])
+                                   for k in samples[0]}, dev)
+    elif args.model.startswith("nusc-"):
         chip_smoke.randomize_offsets(det.module, gen)
         samples = [chip_smoke.nusc_example(args.model[5:],
                                            seed=chip_smoke.SEED + i)
@@ -263,10 +331,12 @@ def profile_frame(dev, args):
     for _ in range(2):
         det.predict(ex)
     torch.cuda.synchronize()
+    stages = (polar_stage_times if args.model in POLAR_MODELS
+              else stage_times)
     out = {"card": chip_smoke.gpu_name_and_power_limit(),
            "torch": torch.__version__, "model": args.model,
            "use_block_kernel": args.use_block_kernel,
-           "stage_ms": stage_times(det, ex, args.frames),
+           "stage_ms": stages(det, ex, args.frames),
            "trace": trace(lambda: det.predict(ex), args.out,
                           args.model.replace("flagship", "frame"))}
     if args.model == "sparse":
@@ -343,11 +413,20 @@ def conv_work(x, mod):
     output each once."""
     from partner_tpu_torch.models.layers import ConvTranspose2d
 
+    from partner_tpu_torch.models.rpn_stream import DeblockTranspose
+
     w = mod.weight
     b, h, wd, _ = x.shape
-    if isinstance(mod, ConvTranspose2d):   # (I, O, s, s): a cell -> s x s
+    if isinstance(mod, ConvTranspose2d):   # a cell -> s x s
+        # (I, O, s, s); a stream neck's deblock keeps (O, I, s, s)
+        cout = w.shape[0 if isinstance(mod, DeblockTranspose) else 1]
         flops = 2 * b * h * wd * w.numel()
-        out = b * h * wd * mod.stride ** 2 * w.shape[1]
+        out = b * h * wd * mod.stride ** 2 * cout
+    elif mod.padding == 0:                 # VALID, on a padded input
+        k = w.shape[-1]
+        ho, wo = (h - k) // mod.stride + 1, (wd - k) // mod.stride + 1
+        flops = 2 * b * ho * wo * w.numel()
+        out = b * ho * wo * w.shape[0]
     else:                                  # (O, I, k, k), stride s
         ho, wo = -(-h // mod.stride), -(-wd // mod.stride)
         flops = 2 * b * ho * wo * w.numel()
@@ -388,6 +467,9 @@ def profile_rpn_convs(dev, args):
     convs = {f"neck.{n}" if args.model.startswith("pp") else n: m
              for n, m in mod.neck.named_children()
              if n.startswith(("Conv_", "ConvTranspose_"))}
+    if args.model in POLAR_MODELS:   # the stream neck's convs, sector 0
+        convs = {n: m for n, m in mod.neck.named_modules()
+                 if isinstance(m, (Conv2d, ConvTranspose2d))}
     if args.model.startswith("pp"):
         convs.update({f"bbox_head.{n}": m for n, m in
                       mod.bbox_head.named_modules()
@@ -397,7 +479,11 @@ def profile_rpn_convs(dev, args):
         lambda m, a, name=name: inputs.setdefault(name, a[0].detach()))
         for name, m in convs.items()]
     with torch.no_grad():
-        x = mod.neck(backbone_stage(mod, ex))
+        if args.model in POLAR_MODELS:
+            p, v = mod.sector_inputs(ex["points"], ex["points_mask"])[0]
+            mod.neck(mod.encode_sector(p, v), None)
+        else:
+            x = mod.neck(backbone_stage(mod, ex))
         if args.model.startswith("pp"):
             mod.bbox_head(x)
     for h in hooks:
@@ -490,7 +576,7 @@ def main():
                     choices=["flagship", "centerpoint", "centerpoint-velo",
                              "sparse", "nusc-dcn", "nusc-01voxel",
                              "nusc-dcn_flip", "nusc-singlehead", "pp",
-                             "pp-two_cls"],
+                             "pp-two_cls"] + list(POLAR_MODELS),
                     help="the frame's model (the train step: flagship)")
     ap.add_argument("--batch", type=int, default=1,
                     help="sweeps a frame (the PointPillars models and "
@@ -499,9 +585,10 @@ def main():
     if args.train and (args.model != "flagship" or args.part != "frame"):
         sys.exit("torch_frame_profile: --train profiles the flagship only")
     if args.batch != 1 and not (args.model.startswith("pp")
-                                or args.model == "nusc-singlehead"):
+                                or args.model == "nusc-singlehead"
+                                or args.model in POLAR_MODELS):
         sys.exit("torch_frame_profile: --batch is for the PointPillars "
-                 "models and nusc-singlehead")
+                 "models, nusc-singlehead and the PolarStream models")
     if not torch.cuda.is_available():
         sys.exit("torch_frame_profile: no CUDA device")
     os.makedirs(args.out, exist_ok=True)
