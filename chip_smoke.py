@@ -3991,8 +3991,33 @@ def yaw_quaternion(yaw):
     return [float(np.cos(yaw / 2)), 0.0, 0.0, float(np.sin(yaw / 2))]
 
 
+# a lidarseg raw id of each detection class (NUSC_CLASSES order), and of
+# stuff: driveable surface, sidewalk, terrain, manmade, vegetation
+LIDARSEG_THING_IDS = (17, 23, 18, 15, 22, 9, 21, 14, 2, 12)
+LIDARSEG_STUFF_IDS = (24, 26, 27, 28, 30)
+
+
+def lidarseg_ids(rng, points, boxes, names):
+    """Raw lidarseg ids (uint8) of a key frame's points: the id of a box's
+    class inside it, a ground id on the ground (z within 0.3 m of the
+    sensor's height below), another stuff id elsewhere, and 2% noise (id
+    0, ignored)."""
+    ids = np.asarray(LIDARSEG_STUFF_IDS)[rng.randint(
+        1, len(LIDARSEG_STUFF_IDS), len(points))]
+    ids[points[:, 2] < -LIDAR_HEIGHT + 0.3] = LIDARSEG_STUFF_IDS[0]
+    for box, name in zip(boxes, names):
+        c, s = np.cos(-box[-1]), np.sin(-box[-1])
+        dx, dy = points[:, 0] - box[0], points[:, 1] - box[1]
+        inside = ((np.abs(dx * c - dy * s) <= box[3] / 2)
+                  & (np.abs(dx * s + dy * c) <= box[4] / 2)
+                  & (np.abs(points[:, 2] - box[2]) <= box[5] / 2))
+        ids[inside] = LIDARSEG_THING_IDS[NUSC_CLASSES.index(name)]
+    ids[rng.rand(len(points)) < 0.02] = 0
+    return ids.astype(np.uint8)
+
+
 def write_nusc_scene(root, rng, n_frames, nsweeps, n_points, n_boxes=40,
-                     version="v1.0-trainval"):
+                     version="v1.0-trainval", lidarseg=False):
     """A synthetic nuScenes set under ``root`` in the layout the loader
     reads, made into infos by the port's ``create_data
     nuscenes_data_prep``: per frame a key-frame ``.bin`` of ``n_points``
@@ -4000,6 +4025,9 @@ def write_nusc_scene(root, rng, n_frames, nsweeps, n_points, n_boxes=40,
     its own ``.bin`` with a ``transform_matrix`` (the ego's motion, 0.05 s
     a sweep) and ``time_lag``, ``n_boxes`` gt boxes (N, 9) of the ten
     classes with velocities, and the lidar -> ego -> global calibration.
+    With ``lidarseg`` each key frame also gets a lidarseg ``.bin``
+    (:func:`lidarseg_ids`, drawn from ``rng`` after everything else) and
+    its info a ``lidarseg_path``, which no ``create_data`` writes.
     -> the infos' path."""
     import pickle
 
@@ -4044,9 +4072,22 @@ def write_nusc_scene(root, rng, n_frames, nsweeps, n_points, n_boxes=40,
     frames_pkl = os.path.join(root, "frames.pkl")
     with open(frames_pkl, "wb") as f:
         pickle.dump(frames, f)
-    return create_data.main(["nuscenes_data_prep", "--root_path", root,
-                             "--version", version, "--nsweeps",
-                             str(nsweeps), "--frames_pkl", frames_pkl])
+    info_path = create_data.main(["nuscenes_data_prep", "--root_path", root,
+                                  "--version", version, "--nsweeps",
+                                  str(nsweeps), "--frames_pkl", frames_pkl])
+    if lidarseg:
+        os.makedirs(os.path.join(root, "lidarseg"), exist_ok=True)
+        with open(info_path, "rb") as f:
+            infos = pickle.load(f)
+        for i, (info, frame) in enumerate(zip(infos, frames)):
+            pts = np.fromfile(frame["lidar_path"], np.float32).reshape(-1, 5)
+            path = os.path.join(root, "lidarseg", f"frame{i}_lidarseg.bin")
+            lidarseg_ids(rng, pts, frame["gt_boxes"],
+                         frame["gt_names"]).tofile(path)
+            info["lidarseg_path"] = path
+        with open(info_path, "wb") as f:
+            pickle.dump(infos, f)
+    return info_path
 
 
 NUSC_FRAMES = 8              # frames on disk, and dist_test's frames
@@ -5235,8 +5276,8 @@ POLAR_CONFIGS = {
                              "polarstream_det_4_sector_bidirectional.py")}
 POLAR_SWEEPS = 11            # the configs' nsweeps
 POLAR_ROWS = 380_000         # --max_points: every point of an 11-sweep sample
-POLAR_TIMED = 5              # timed frames a config after one warm-up
-POLAR_TRAIN_STEPS = 3        # timed train steps after one warm-up
+POLAR_TIMED = 3              # timed frames a config after one warm-up
+POLAR_TRAIN_STEPS = 2        # timed train steps after one warm-up
 POLAR_SMALL_GRID = 128       # the reference's pillar grid, 128 x 128
 POLAR_REF_POINTS = 60_000    # the reference sample's first rows
 POLAR_TIE = 1e-6             # scores closer than this may swap places
@@ -5460,15 +5501,15 @@ def polar_dist_test(det, cfg_path, root, name, card):
 
 
 def polar_train_cli(cfg_path, root, name, card, dev):
-    """Two train-CLI steps of a PolarStream config at NUSC_TRAIN_BATCH with
-    a checkpoint: finite per-sector losses, no kernel launched.
+    """Two train-CLI steps of a PolarStream config at batch 2 with a
+    checkpoint: finite per-sector losses, no kernel launched.
     -> {launches, wall_s}."""
     from partner_tpu_torch.tools import train
 
     work_dir = os.path.join(root, f"train_{name}")
     wall_ms, steps, launches = counted(lambda: train.main([
-        cfg_path, "--work_dir", work_dir, "--batch_size",
-        str(NUSC_TRAIN_BATCH), "--total_steps", "2",
+        cfg_path, "--work_dir", work_dir, "--batch_size", "2",
+        "--total_steps", "2",
         "--max_steps_per_epoch", "2", "--max_points", str(POLAR_ROWS),
         "--seed", str(SEED), "--device", torch.device(dev).type]))
     with open(os.path.join(work_dir, "metrics.jsonl")) as f:
@@ -5488,8 +5529,8 @@ def polar_train_cli(cfg_path, root, name, card, dev):
             raise AssertionError(f"PolarStream train CLI ({name}): {vals}")
         log(f"PolarStream train CLI ({name}) step {r['step']} on {card}: "
             f"time {r['time']!r} s, data_time {r['data_time']!r} s, {vals}")
-    log(f"PolarStream train CLI ({name}): 2 steps at batch "
-        f"{NUSC_TRAIN_BATCH} and one checkpoint in {wall_ms / 1e3!r} s")
+    log(f"PolarStream train CLI ({name}): 2 steps at batch 2 and one "
+        f"checkpoint in {wall_ms / 1e3!r} s")
     return dict(launches=launches, wall_s=wall_ms / 1e3)
 
 
@@ -5619,6 +5660,365 @@ def polarstream_phase(dev, card):
     return res
 
 
+# ----------------------------------------------------------- segmentation
+
+SEG_CONFIGS = {
+    "polarstream_1": os.path.join(POLAR_DIR,
+                                  "polarstream_det_n_seg_1_sector.py"),
+    "polarstream_4": os.path.join(
+        POLAR_DIR, "polarstream_det_n_seg_4_sector_bidirectional.py"),
+    "polarstream_4te": os.path.join(
+        POLAR_DIR, "polarstream_det_n_seg_4_sector_trailing_edge.py"),
+    "voxelnet_10sweep": os.path.join(NUSC_DIR, "voxelnet_seg_10sweep.py"),
+    "voxelnet_cylinder": os.path.join(NUSC_DIR, "voxelnet_seg_cylinder.py")}
+SEG_FRAMES = 6               # frames on disk, and dist_test's frames
+SEG_TIMED = 3                # timed frames a config after one warm-up
+SEG_TRAIN_STEPS = 2          # timed train steps after one warm-up
+SEG_REF_TOL = 1e-5           # seg logits, card against CPU, float32
+SEG_TIE = 1e-4               # top-two logits closer than this: a near-tie
+SEG_REF_POINTS = 60_000      # the reference sample's first rows
+SEG_SMALL = {"polarstream": (128, 128), "voxelnet": (128, 128, 40)}
+SEG_CURRICULUM = 0.5         # the train CLI's curriculum_weights entry
+
+
+def randomize_masked_norms(module, gen):
+    """Draw every ``MaskedBatchNorm``'s scale and bias (the sparse
+    backbone's, the pillar encoder's) from ``gen``;
+    :func:`randomize_norms` draws their statistics."""
+    from partner_tpu_torch.models.layers import MaskedBatchNorm
+
+    for m in module.modules():
+        if isinstance(m, MaskedBatchNorm):
+            m.scale.copy_(0.5 + torch.rand(m.scale.shape, generator=gen))
+            m.bias.copy_(0.2 * torch.randn(m.bias.shape, generator=gen))
+
+
+def seg_detector(cfg, dev, gen):
+    """A seg config's detector on ``dev`` from ``gen``, every norm drawn,
+    and its voxelizers where it takes voxels (predict: the second
+    ``max_voxel_num``, train: the first, as the CLIs use them) ->
+    (det, predict voxelizer or None, train voxelizer or None)."""
+    from partner_tpu_torch.models import build_detector
+    from partner_tpu_torch.ops.voxelize import DeviceVoxelizer
+
+    det = build_detector(cfg["model"], cfg["train_cfg"],
+                         dict(cfg["test_cfg"]), device=dev, generator=gen)
+    with torch.no_grad():
+        randomize_norms(det.module, gen)
+        randomize_masked_norms(det.module, gen)
+    if det.input_kind != "voxels":
+        return det, None, None
+    vg = cfg["voxel_generator"]
+    mv = vg["max_voxel_num"]
+    return (det, DeviceVoxelizer(vg, dev, mv[1]),
+            DeviceVoxelizer(vg, dev, mv[0]))
+
+
+def with_voxels(ex, voxelize):
+    """The example with the voxel inputs of ``voxelize`` beside its points
+    (the seg loss and labels read the points), or as it is."""
+    if voxelize is None:
+        return ex
+    return dict(ex, **voxelize(ex["points"], ex["points_mask"]))
+
+
+def seg_label_check(name, out, ex, seg_classes=16):
+    """``point_seg_labels`` of a frame: (B, P) int, 0 on padding, every
+    label in 0..classes, most valid points labelled -> their share."""
+    lab = out["point_seg_labels"]
+    mask = ex["points_mask"]
+    if tuple(lab.shape) != tuple(mask.shape) or lab[~mask].any() or (
+            lab.min() < 0 or lab.max() > seg_classes):
+        raise AssertionError(f"{name}: point_seg_labels")
+    share = float((lab[mask] > 0).float().mean())
+    if not share > 0.5:
+        raise AssertionError(f"{name}: {share} of the points labelled")
+    return share
+
+
+@torch.no_grad()
+def seg_reference(dev, card, name, cfg_path, ex):
+    """A seg config's widths on a reduced grid (PolarStream: 128 x 128
+    pillars; VoxelNet: 128 x 128 x 40), same weights, the first
+    SEG_REF_POINTS rows of ``ex``'s sample, the voxels (VoxelNet) made on
+    the CPU and copied: each seg map of the card against the CPU within
+    SEG_REF_TOL relative RMS, and ``predict``'s ``point_seg_labels`` equal
+    but where the CPU's two top logits at the point's cell lie within
+    SEG_TIE (a near-tie) -> (points, near-tie disagreements)."""
+    import copy
+
+    from partner_tpu_torch.models import build_detector
+    from partner_tpu_torch.ops.voxelize import DeviceVoxelizer
+    from partner_tpu_torch.utils.config import load_config
+
+    cfg = load_config(cfg_path)
+    m = copy.deepcopy(cfg["model"])
+    polar = name.startswith("polarstream")
+    grid = SEG_SMALL["polarstream" if polar else "voxelnet"]
+    vg = (m["bbox_head"] if polar else m["seg_head"])["voxel_generator"]
+    r = vg["range"]
+    vg["voxel_size"] = [(r[3 + i] - r[i]) / g for i, g in enumerate(grid)] \
+        + list(vg["voxel_size"][len(grid):])
+    tc = dict(cfg["test_cfg"], score_threshold=0.0)
+    gen = torch.Generator().manual_seed(SEED + 61)
+    gpu = build_detector(m, None, tc, device=dev, generator=gen)
+    randomize_norms(gpu.module, gen)
+    randomize_masked_norms(gpu.module, gen)
+    cpu = build_detector(m, None, tc, device="cpu")
+    cpu.module.load_state_dict({k: v.cpu() for k, v in
+                                gpu.module.state_dict().items()})
+    exc = {k: ex[k][:1, :SEG_REF_POINTS].cpu()
+           for k in ("points", "points_mask")}
+    if not polar:
+        mv = vg["max_voxel_num"]
+        exc.update(DeviceVoxelizer(vg, "cpu", mv[1])(exc["points"],
+                                                     exc["points_mask"]))
+    exg = {k: v.to(dev) for k, v in exc.items()}
+    cpu.module.eval()
+    want, got = cpu.module(exc), gpu.module(exg)
+    wsp, gsp = want["seg_preds"], got["seg_preds"]
+    if not polar:
+        wsp, gsp = [wsp], [gsp]
+    for s, (w, g) in enumerate(zip(wsp, gsp)):
+        rel_rms(f"{name} seg map {s} on {grid} on {card}", g, w, SEG_REF_TOL)
+    # the CPU's labels from its maps, as its predict computes them
+    if polar:
+        wl = cpu.point_seg_labels(wsp, exc)[0]
+    else:
+        from partner_tpu_torch.models.seg_head import (point_labels_from_grid,
+                                                       points_to_grid_cells)
+
+        gi, ok = points_to_grid_cells(exc["points"], exc["points_mask"],
+                                      wsp[0].shape[1:3], cpu.module.pc_range,
+                                      cpu.voxel_shape)
+        wl = torch.where(ok, point_labels_from_grid(wsp[0], gi), 0)[0]
+    gl = gpu.predict(exg)["point_seg_labels"][0].cpu()
+    differ = torch.nonzero(wl != gl)[:, 0]
+    if len(differ):
+        # the CPU's two top logits at each differing point's cell
+        top2 = []
+        pts, mask = exc["points"], exc["points_mask"]
+        for s, w in enumerate(wsp):
+            if polar:
+                a, rr, ok = cpu.module.point_cells(pts, mask, s)
+                cells = w[0][a[0].clamp(0, w.shape[1] - 1),
+                             rr[0].clamp(0, w.shape[2] - 1)]
+            else:
+                from partner_tpu_torch.models.seg_head import \
+                    points_to_grid_cells
+
+                gi, ok = points_to_grid_cells(pts, mask, w.shape[1:3],
+                                              cpu.module.pc_range,
+                                              cpu.voxel_shape)
+                cells = w[0][gi[0, :, 1].clamp(0, w.shape[1] - 1),
+                             gi[0, :, 2].clamp(0, w.shape[2] - 1)]
+            v = torch.topk(cells[differ], 2, dim=-1).values
+            top2.append(torch.where(ok[0][differ], v[:, 0] - v[:, 1],
+                                    torch.full_like(v[:, 0], np.inf)))
+        gap = torch.stack(top2).min(0).values
+        if not (gap <= SEG_TIE).all():
+            raise AssertionError(f"{name}: {len(differ)} point labels "
+                                 f"differ, gaps {gap.tolist()[:8]}")
+    n = int(exc["points_mask"].sum())
+    log(f"{name} point_seg_labels on {grid}, card against CPU: "
+        f"{n - len(differ)} of {n} equal, {len(differ)} at near-ties "
+        f"(top-two logits within {SEG_TIE})")
+    return n, len(differ)
+
+
+def seg_dist_test(det, cfg_path, root, name, card):
+    """``dist_test`` of a seg config from a checkpoint of ``det``'s
+    weights over the SEG_FRAMES frames of the lidarseg set, as a user runs
+    it: no kernel launched, the middle-third FPS, the seg mIoU and the
+    panoptic PQ / SQ / RQ finite (and the det metrics for det + seg);
+    a seg-only config's ``prediction.pkl`` empty -> {fps, miou, pq,
+    launches}."""
+    import pickle
+
+    from partner_tpu_torch.tools import dist_test
+    from partner_tpu_torch.train.checkpoint import save_checkpoint
+
+    ckpt = os.path.join(root, f"ckpt_{name}")
+    save_checkpoint(ckpt, 0, det.module.state_dict())
+    dev = next(det.module.parameters()).device
+    work_dir = os.path.join(root, f"eval_{name}")
+    _, ((metrics, miou, pan), fps), launches = counted(
+        lambda: dist_test.main([
+            cfg_path, "--checkpoint", os.path.join(ckpt, "latest"),
+            "--work_dir", work_dir, "--max_points", str(POLAR_ROWS),
+            "--device", dev.type]))
+    if launches != dict.fromkeys(kernel_wrappers(), 0):
+        raise AssertionError(f"{name} dist_test: launches {launches}")
+    if miou is None or pan is None or not (
+            0 <= miou <= 1 and all(np.isfinite(list(pan.values())))):
+        raise AssertionError(f"{name} dist_test: mIoU {miou}, {pan}")
+    with open(os.path.join(work_dir, "prediction.pkl"), "rb") as f:
+        preds = pickle.load(f)
+    det_cfg = det.module.bbox_head is not None
+    if det_cfg != (len(preds) == SEG_FRAMES) or (
+            det_cfg and not np.isfinite(metrics["NDS"])):
+        raise AssertionError(f"{name} dist_test: {len(preds)} frames of "
+                             f"boxes, metrics {metrics}")
+    log(f"{name} dist_test on {card}: middle-third FPS {fps!r} over "
+        f"{SEG_FRAMES} frames; seg mIoU {miou!r}; panoptic {pan}; "
+        + (f"NDS {metrics['NDS']!r}, mAP {metrics['mAP']!r}" if det_cfg
+           else "no boxes (prediction.pkl empty)")
+        + f"; launches {launches}")
+    return dict(fps=fps, miou=miou, pq=pan["PQ"], launches=launches)
+
+
+def seg_train_cli(cfg_path, root, name, card, dev):
+    """Two train-CLI steps of a seg config at batch 2, one an epoch, with ``curriculum_weights = [SEG_CURRICULUM]``: step 0's loss
+    takes the seg loss at that weight, step 1's (past the list) at 1.0;
+    finite, no kernel launched -> {launches, wall_s}."""
+    from partner_tpu_torch.tools import train
+
+    path = os.path.join(root, f"{name}_curriculum.py")
+    with open(cfg_path) as f:
+        text = f.read()
+    with open(path, "w") as f:
+        f.write(text + f"curriculum_weights = [{SEG_CURRICULUM}]\n")
+    work_dir = os.path.join(root, f"train_{name}")
+    wall_ms, steps, launches = counted(lambda: train.main([
+        path, "--work_dir", work_dir, "--batch_size", "2", "--total_steps",
+        "2", "--max_steps_per_epoch", "1", "--max_points", str(POLAR_ROWS),
+        "--seed", str(SEED), "--device", torch.device(dev).type]))
+    with open(os.path.join(work_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    if steps != 2 or [r["step"] for r in recs] != [0, 1]:
+        raise AssertionError(f"{name} train CLI: steps {steps}, {recs}")
+    if launches != dict.fromkeys(kernel_wrappers(), 0):
+        raise AssertionError(f"{name} train CLI: launches {launches}")
+    for r, w in zip(recs, (SEG_CURRICULUM, 1.0)):
+        sectors = [r[k] for k in r if k.startswith("sector")]
+        det = float(np.mean(sectors)) if sectors else 0.0
+        want = det + w * r["seg_loss"]
+        if not (np.isfinite(r["grad_norm"]) and abs(r["loss"] - want)
+                <= 1e-4 * abs(want)):
+            raise AssertionError(f"{name} train CLI step {r['step']}: {r}")
+        log(f"{name} train CLI step {r['step']} on {card}: time "
+            f"{r['time']!r} s, loss {r['loss']!r} = det {det!r} + {w} x "
+            f"seg {r['seg_loss']!r}")
+    return dict(launches=launches, wall_s=wall_ms / 1e3)
+
+
+def seg_phase(dev, card):
+    """The five segmentation configs at full width: the det + seg
+    PolarStream configs (``configs/nusc/pp/polarstream_det_n_seg_
+    {1_sector,4_sector_bidirectional,4_sector_trailing_edge}.py``: 512 x
+    512 polar pillars in 1 or 4 sectors, ``SingleConvHead`` over the
+    128-channel canvas and the 384-channel neck map) and the seg-only
+    VoxelNet configs (``configs/nusc/voxelnet/voxelnet_seg_{10sweep,
+    cylinder}.py``: 512 x 512 x 40 / 640 x 640 x 40 voxels through
+    ``SpMiddleResNetFHD``, ``RPN`` to 512 channels, ``DeconvConvHead``
+    height 40, up_scale 8), random weights with every norm drawn, on a
+    synthetic 11-sweep nuScenes set with lidarseg files (the VoxelNet
+    configs draw 10 of its sweeps). For each: its frame (median of
+    SEG_TIMED after a warm-up, the voxelizer inside the VoxelNet frame;
+    device busy and launches, every kernel count 0; the point labels
+    checked; a repeat bit-equal), the card against the CPU on a reduced
+    grid (:func:`seg_reference`), the train step at batch 4 with the
+    points' labels (median of SEG_TRAIN_STEPS, peak memory; the VoxelNet
+    step through voxel inputs), ``dist_test`` with the mIoU and PQ
+    (:func:`seg_dist_test`) and two train-CLI steps with
+    ``curriculum_weights`` (:func:`seg_train_cli`). No hand kernel lies on
+    this path."""
+    import tempfile
+
+    from partner_tpu_torch.train.optim import build_one_cycle_optimizer
+    from partner_tpu_torch.train.train_state import make_train_step
+    from partner_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    none = dict.fromkeys(kernel_wrappers(), 0)
+    res = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        info = write_nusc_scene(root, np.random.RandomState(SEED + 60),
+                                SEG_FRAMES, POLAR_SWEEPS, NUSC_SWEEP_POINTS,
+                                lidarseg=True)
+        log(f"seg set: {SEG_FRAMES} frames of {POLAR_SWEEPS} sweeps of "
+            f"~{NUSC_SWEEP_POINTS} points with lidarseg files, written and "
+            f"prepared in {time.perf_counter() - t0:.1f} s")
+        for name, config in SEG_CONFIGS.items():
+            t_cfg = time.perf_counter()
+            cfg_path = write_nusc_config(root, f"seg_{name}", info, config)
+            cfg = load_config(cfg_path)
+            gen = torch.Generator().manual_seed(SEED + 62)
+            det, vox_eval, vox_train = seg_detector(cfg, dev, gen)
+            mod = det.module
+            batch = nusc_batch(cfg_path, "val", 1, rows=POLAR_ROWS)
+            rows = int(batch["points_mask"].sum())
+            if rows >= POLAR_ROWS:
+                raise AssertionError(f"{name}: the buffer is full")
+            ex = to_device({k: batch[k] for k in ("points", "points_mask")},
+                           dev)
+
+            def run():
+                return det.predict(with_voxels(ex, vox_eval))
+
+            median, times, out, tally = timed_predicts(det, ex, SEG_TIMED,
+                                                       none, run)
+            busy, launches = device_busy(run)
+            share = seg_label_check(name, out, ex)
+            kept = (check_detections(out, cfg["test_cfg"],
+                                     n_tasks=mod.n_sectors)
+                    if mod.bbox_head is not None else 0)
+            if not identical(run(), out):
+                raise AssertionError(f"{name}: a repeat differs")
+            with torch.no_grad():
+                maps = mod(with_voxels(ex, vox_eval))["seg_preds"]
+            shapes = [tuple(m.shape) for m in (
+                maps if isinstance(maps, list) else [maps])]
+            del maps
+            log(f"{name} frame on {card}: {rows} points, median {median!r} "
+                f"ms over {SEG_TIMED} frames (host clock around a "
+                f"synchronized predict"
+                + (", the voxelizer inside" if vox_eval else "")
+                + f"), all {times!r}; device busy {busy!r} ms and "
+                f"{launches!r} launches a frame; kernel launches {tally}; "
+                f"seg maps {shapes}; {share!r} of the points labelled; "
+                f"{kept} boxes kept; repeat bit-equal")
+            r = dict(median_ms=median, device_busy_ms=busy,
+                     launches_per_frame=launches, launches=tally,
+                     labelled=share, kept=kept, rows=rows)
+            del out
+            r["reference"] = seg_reference(dev, card, name, cfg_path, ex)
+            del ex
+            torch.cuda.empty_cache()
+
+            # ---- the train step at batch 4, with the points' labels
+            torch.cuda.reset_peak_memory_stats()
+            tb = nusc_batch(cfg_path, "train", NUSC_TRAIN_BATCH,
+                            rows=POLAR_ROWS)
+            tex = with_voxels(to_device(
+                {k: v for k, v in tb.items() if k in det.loss_keys}, dev),
+                vox_train)
+            step = make_train_step(det, build_one_cycle_optimizer(
+                mod, lr_max=cfg["lr_config"]["lr_max"], total_steps=1000))
+            tl, t_med, t_times, steps, peak = timed_train_steps(
+                det, step, tex, None, none, f"{name} train step",
+                n_steps=SEG_TRAIN_STEPS)
+            if not all("seg_loss" in st for st in steps):
+                raise AssertionError(f"{name} train step: no seg_loss")
+            log(f"{name} train step, batch {NUSC_TRAIN_BATCH}, on {card}: "
+                f"median {t_med!r} ms over {SEG_TRAIN_STEPS} steps, all "
+                f"{t_times!r}; peak memory {peak!r} GiB; labelled points "
+                f"{int((tex['points_label'] > 0).sum())}; launches {tl}; "
+                "every gradient finite, every parameter and statistic moved")
+            r["train"] = dict(median_ms=t_med, peak_gib=peak, launches=tl)
+            del step, tex, tb
+            torch.cuda.empty_cache()
+            r["dist_test"] = seg_dist_test(det, cfg_path, root, name, card)
+            del det, mod
+            torch.cuda.empty_cache()
+            r["train_cli"] = seg_train_cli(cfg_path, root, name, card, dev)
+            log(f"{name}: {time.perf_counter() - t_cfg:.1f} s")
+            res[name] = r
+    log(f"seg phase {time.perf_counter() - t_phase:.1f} s in all")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this run needs one NVIDIA card")
@@ -5659,6 +6059,7 @@ def main():
     nusc = nusc_phase(dev, card)
     pp = pp_phase(dev, card)
     polar = polarstream_phase(dev, card)
+    seg = seg_phase(dev, card)
 
     meta = {
         "stem": ("partner_tpu_torch/csrc/stem.cu",
@@ -5689,6 +6090,10 @@ def main():
             (f"polarstream {c} {k}", polar[c][k]["launches"] if k != "frame"
              else polar[c]["launches"], {})
             for c in POLAR_CONFIGS
+            for k in ("frame", "train", "dist_test", "train_cli")) + tuple(
+            (f"seg {c} {k}", seg[c][k]["launches"] if k != "frame"
+             else seg[c]["launches"], {})
+            for c in SEG_CONFIGS
             for k in ("frame", "train", "dist_test", "train_cli")):
         if tally != {k: want.get(k, 0) for k in meta}:
             raise AssertionError(f"{key} launches {tally}")
@@ -5759,6 +6164,12 @@ def main():
                         polar[c]["launches"] if k == "frame"
                         else polar[c][k]["launches"])[name]
                        for c in POLAR_CONFIGS
+                       for k in ("frame", "train", "dist_test",
+                                 "train_cli")},
+                    **{f"seg_{c}_{k}_launches": (
+                        seg[c]["launches"] if k == "frame"
+                        else seg[c][k]["launches"])[name]
+                       for c in SEG_CONFIGS
                        for k in ("frame", "train", "dist_test",
                                  "train_cli")},
                     **r)
@@ -5919,6 +6330,18 @@ def main():
         f"{polar[c]['dist_test']['frames']} frames bit-equal to predict);"
         f" train CLI 2 steps in {polar[c]['train_cli']['wall_s']!r} s"
         for c in POLAR_CONFIGS))
+    log(f"summary: card {card}, segmentation " + "; ".join(
+        f"{c}: frame median {seg[c]['median_ms']!r} ms (device busy "
+        f"{seg[c]['device_busy_ms']!r}, {seg[c]['launches_per_frame']!r} "
+        f"launches), {seg[c]['labelled']!r} of the points labelled; card "
+        f"against CPU {seg[c]['reference'][1]} near-tie labels of "
+        f"{seg[c]['reference'][0]}; train step at batch 4 "
+        f"{seg[c]['train']['median_ms']!r} ms, peak "
+        f"{seg[c]['train']['peak_gib']!r} GiB; dist_test middle-third FPS "
+        f"{seg[c]['dist_test']['fps']!r}, mIoU "
+        f"{seg[c]['dist_test']['miou']!r}, PQ {seg[c]['dist_test']['pq']!r};"
+        f" train CLI 2 steps in {seg[c]['train_cli']['wall_s']!r} s"
+        for c in SEG_CONFIGS))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -169,6 +169,7 @@ class NuScenesDataset(PointCloudDataset):
         "car", "truck", "construction_vehicle", "bus", "trailer", "barrier",
         "motorcycle", "bicycle", "pedestrian", "traffic_cone",
     )
+    SEG_CLASSES = 17  # lidarseg's 32 ids merged to 17 classes (0 = ignore)
 
     def __init__(self, *args, version="v1.0-trainval", **kwargs):
         super().__init__(*args, **kwargs)
@@ -186,17 +187,18 @@ class NuScenesDataset(PointCloudDataset):
         ``testset``, computes the devkit-protocol metrics
         (``eval/nusc_protocol.py``: mAP, NDS, TP errors), the quick greedy
         ones under ``greedy/`` and the json's path under ``results_path``.
+        With ``final_seg`` ({token: {"pred", "gt"}} per-point classes) the
+        seg mIoU: one confusion matrix over every frame's points, the mean
+        IoU of classes 1-16 (NaN classes left out); with ``final_ins``
+        ({token: {"pred_sem", "pred_inst", "gt_sem", "gt_inst"}}) the
+        panoptic {"PQ", "SQ", "RQ"}, class 0 ignored.
         Returns (det metrics, seg mIoU, panoptic), the JAX package's
-        3-tuple; the seg and panoptic entries are None, and passing seg or
-        panoptic inputs raises (they wait for ``seg_head``)."""
+        3-tuple, each None where it has no input."""
         from ..eval.detection_metrics import gts_from_infos, nusc_map_nds
         from ..eval.nusc_protocol import nusc_official_metrics
         from ..eval.nuscenes import write_nusc_results
+        from ..eval.seg_metrics import PanopticEval, fast_hist, per_class_iou
 
-        if final_seg or final_ins:
-            raise NotImplementedError(
-                "nuScenes seg / panoptic evaluation is not ported "
-                "(ROADMAP.md queue 1, off the main path: seg_head)")
         path = write_nusc_results(detections, self.infos, output_dir,
                                   self.CLASSES)
         det_metrics = None
@@ -207,4 +209,24 @@ class NuScenesDataset(PointCloudDataset):
             legacy = nusc_map_nds(detections, gts, classes)
             det_metrics.update({f"greedy/{k}": v for k, v in legacy.items()})
             det_metrics["results_path"] = path
-        return det_metrics, None, None
+
+        seg_miou = None
+        if final_seg:
+            n = self.SEG_CLASSES
+            hist = np.zeros((n, n), np.int64)
+            for s in final_seg.values():
+                hist += fast_hist(np.asarray(s["pred"]).ravel(),
+                                  np.asarray(s["gt"]).ravel(), n)
+            seg_miou = float(np.nanmean(per_class_iou(hist)[1:]))
+
+        panoptic = None
+        if final_ins:
+            pe = PanopticEval(self.SEG_CLASSES, ignore=[0])
+            for s in final_ins.values():
+                pe.addBatch(np.asarray(s["pred_sem"]),
+                            np.asarray(s["pred_inst"]),
+                            np.asarray(s["gt_sem"]),
+                            np.asarray(s["gt_inst"]))
+            pq, sq, rq = pe.getPQ()[:3]
+            panoptic = {"PQ": float(pq), "SQ": float(sq), "RQ": float(rq)}
+        return det_metrics, seg_miou, panoptic

@@ -23,10 +23,16 @@ order, where the JAX package draws from the global ``np.random``: one
 seed gives the same batches.
 
 With ``nsectors > 1`` (PolarStream) ``AssignLabel`` assigns the center
-targets per cylinder sector, each gaining a leading sector axis. Not
-ported, and raising ``NotImplementedError`` where a config asks for them:
-the cuboid sector targets (ROADMAP.md queue 1 item 7) and the seg labels
-(``seg_head``; item 5).
+targets per cylinder sector, each gaining a leading sector axis. With
+``super_tasks`` holding ``"seg"`` (the seg configs) the nuScenes loader
+reads the key frame's lidarseg labels in train and ``debug_gt`` mode only,
+where the info has a ``lidarseg_path`` (no ``create_data`` writes one):
+the raw ids merged to the 17 classes by ``NUSCENES_SEMANTIC_MAPPING`` (0
+= ignore), -1 for the sweeps' rows, as a last column that ``Preprocess``
+splits off after the shuffle into ``pc_label`` and ``Reformat`` passes
+on (``collate`` makes it ``points_label``). Not ported, and raising
+``NotImplementedError`` where a config asks for them: the cuboid sector
+targets (ROADMAP.md queue 1 item 7).
 """
 
 import pickle
@@ -42,6 +48,22 @@ from .gt_aug import DataBaseSampler
 from .registry import PIPELINES
 
 TRAIN_MODES = ("train", "debug_gt")
+
+# nuScenes lidarseg's 32 raw ids -> the 17 merged classes (0 = ignore)
+NUSCENES_SEMANTIC_MAPPING = {
+    1: 0, 5: 0, 7: 0, 8: 0, 10: 0, 11: 0, 13: 0, 19: 0, 20: 0, 0: 0, 29: 0,
+    31: 0, 9: 1, 14: 2, 15: 3, 16: 3, 17: 4, 18: 5, 21: 6, 2: 7, 3: 7, 4: 7,
+    6: 7, 12: 8, 22: 9, 23: 10, 24: 11, 25: 12, 26: 13, 27: 14, 28: 15,
+    30: 16,
+}
+_SEMANTIC_LUT = np.array([NUSCENES_SEMANTIC_MAPPING[i] for i in range(32)],
+                         np.int64)
+
+
+def read_lidarseg(path):
+    """A nuScenes lidarseg ``.bin`` (one uint8 raw id a key-frame point) ->
+    the merged classes (N,) int64."""
+    return _SEMANTIC_LUT[np.fromfile(path, dtype=np.uint8)]
 
 
 def get_obj(path):
@@ -101,16 +123,16 @@ class LoadPointCloudFromFile:
     z, intensity) and, for ``nsweeps > 1``, ``nsweeps - 1`` of the info's
     sweeps drawn from ``rng`` (with replacement only when there are fewer),
     each moved into the key frame; a time-lag column always (0 for the key
-    frame), and ``n_key_points``, the key frame's count."""
+    frame), and ``n_key_points``, the key frame's count. With ``"seg"`` in
+    ``super_tasks``, in train and ``debug_gt`` mode, and a
+    ``lidarseg_path`` in the info: a label column last (the key frame's
+    merged classes, -1 on the sweeps' rows) and ``seg_labeled``."""
 
     def __init__(self, dataset="WaymoDataset", rng=None, **kwargs):
         if dataset not in ("WaymoDataset", "NuScenesDataset"):
             raise NotImplementedError(
                 f"{dataset} is not ported to partner_tpu_torch")
-        if "seg" in kwargs.get("super_tasks", ["det"]):
-            raise NotImplementedError(
-                "seg labels are not ported to partner_tpu_torch (ROADMAP.md "
-                "queue 1, off the main path: seg_head)")
+        self.super_tasks = kwargs.get("super_tasks", ["det"])
         self.type = dataset
         self.rng = rng if rng is not None else np.random.RandomState(0)
 
@@ -162,6 +184,14 @@ class LoadPointCloudFromFile:
             times = np.concatenate(sweep_times, axis=0).astype(points.dtype)
         res["lidar"]["points"] = np.hstack([points,
                                             times.astype(points.dtype)])
+        if ("seg" in self.super_tasks and res["mode"] in TRAIN_MODES
+                and "lidarseg_path" in info):
+            labels = read_lidarseg(info["lidarseg_path"])
+            pad = np.full((len(points), 1), -1, points.dtype)
+            pad[: len(labels), 0] = labels
+            res["lidar"]["points"] = np.hstack([res["lidar"]["points"], pad])
+            # the last column is a label column: Preprocess splits it off
+            res["lidar"]["seg_labeled"] = True
         return res, info
 
 
@@ -186,8 +216,10 @@ class Preprocess:
     """Train mode: the names filtered, GT-AUG, the class filter and
     ``gt_classes`` (1-based), then flips, rotation, scaling and translation
     (``no_augmentation`` keeps only the class filter, as ``debug_gt``
-    mode does); every mode: the points shuffled if asked, then to the
-    framework's layout."""
+    mode does); every mode: the points shuffled if asked, then (with
+    ``"seg"`` in ``super_tasks``, in train and ``debug_gt`` mode, on
+    labelled points) the label column split off into ``pc_label``, then
+    the points to the framework's layout."""
 
     def __init__(self, cfg=None, rng=None, **kwargs):
         cfg = dict(cfg or {})
@@ -195,10 +227,7 @@ class Preprocess:
         self.shuffle_points = cfg.get("shuffle_points", False)
         self.voxel_shape = cfg.get("voxel_shape", "cuboid")
         self.class_names = list(cfg.get("class_names", []))
-        if "seg" in kwargs.get("super_tasks", ["det"]):
-            raise NotImplementedError(
-                "seg labels are not ported to partner_tpu_torch (ROADMAP.md "
-                "queue 1, off the main path: seg_head)")
+        self.super_tasks = kwargs.get("super_tasks", ["det"])
         self.no_augmentation = cfg.get("no_augmentation", False)
         self.rng = rng if rng is not None else np.random.RandomState(0)
         if self.mode == "train":
@@ -270,6 +299,10 @@ class Preprocess:
             self.rng.shuffle(points)
         if self.mode in TRAIN_MODES:
             res["lidar"]["annotations"] = gt_dict
+        if ("seg" in self.super_tasks and res["mode"] in TRAIN_MODES
+                and res["lidar"].get("seg_labeled")):
+            res["lidar"]["pc_label"] = points[:, -1:].copy()
+            points = points[:, :-1]
         res["lidar"]["points"] = box_np_ops.transform_points(
             points, self.voxel_shape)
         res["voxel_shape"] = self.voxel_shape
@@ -455,7 +488,8 @@ class DoubleFlip:
 class Reformat:
     """The data bundle: points, the grid's metadata, host voxels in hard
     mode, the targets in train mode, ``n_key_points`` in the metadata where
-    the loader counted them, and with ``double_flip`` the three flipped
+    the loader counted them, the points' seg labels (``pc_label``) where
+    ``Preprocess`` split them off, and with ``double_flip`` the three flipped
     copies of the points (``collate`` puts them in the rows after the
     original)."""
 
@@ -479,6 +513,8 @@ class Reformat:
                           num_voxels=voxels["num_voxels"])
         if "targets" in res["lidar"]:
             bundle.update(res["lidar"]["targets"])
+        if "pc_label" in res["lidar"]:
+            bundle["pc_label"] = res["lidar"]["pc_label"]
         if self.double_flip:
             bundle.update({k: res["lidar"][k] for k in FLIP_KEYS
                            if k in res["lidar"]})

@@ -14,19 +14,44 @@ each timed window a batch goes host -> device, through the voxelizer and
 ``predict`` and back to the host; the copy back waits for the device, as
 JAX's ``np.asarray`` of the outputs does there.
 
+A detector with a seg head also gives ``point_seg_labels``: each frame's
+first ``n_key_points`` labels (the key frame's points, which its lidarseg
+file labels) and their cartesian xy columns are kept; after the loop each
+frame with a lidarseg file (:func:`load_seg_gt`) gets its mIoU inputs and,
+with ``models.seg_head.panoptic_fuse`` over its kept boxes (no instance
+where it has none), its panoptic inputs (``evaluator.py:150-240``). A
+segmentation-only detector's frames have no boxes: ``prediction.pkl`` is
+then empty, as in JAX.
+
 Not ported: the mesh-sharded eval and the per-host gather (ROADMAP.md
-queue 1: DDP and mesh eval), and seg / panoptic evaluation (they wait for
-``seg_head``).
+queue 1: DDP and mesh eval).
 """
 
 import os
 import pickle
 import time
 
+import numpy as np
 import torch
 
 from ..data import build_dataloader
+from ..data.pipeline import read_lidarseg
 from ..ops.voxelize import DeviceVoxelizer
+
+# the lidarseg classes (after the 32 -> 17 merge) of the ten detection
+# classes, and each one's label in NuScenesDataset.CLASSES
+NUSC_THING_CLASSES = tuple(range(1, 11))
+NUSC_SEMANTIC2BOX = {1: 5, 2: 7, 3: 3, 4: 0, 5: 2,
+                     6: 6, 7: 8, 8: 9, 9: 4, 10: 1}
+
+
+def load_seg_gt(info):
+    """A frame's gt classes (int64, one a key-frame point) from its info's
+    ``lidarseg_path``; None without one."""
+    path = info.get("lidarseg_path")
+    if not path or not os.path.exists(path):
+        return None
+    return read_lidarseg(path)
 
 
 def build_predict_fn(det, device, cfg=None, kind="points"):
@@ -80,21 +105,35 @@ def evaluate(det, dataset, work_dir, logger, device, batch_size=1,
                                input_kind or det.input_kind)
     loader = build_dataloader(dataset, batch_size, workers_per_gpu=4,
                               shuffle=False, max_points=max_points)
-    detections, times = {}, []
+    vshape = dict((cfg or {}).get("voxel_generator", {})).get(
+        "voxel_shape", getattr(det, "voxel_shape", "cylinder"))
+    # the cartesian xy columns (transform_points: cylinder rows are
+    # [rho, phi, z, x, y, ...]) for the panoptic fusion
+    xy_cols = slice(3, 5) if vshape == "cylinder" else slice(0, 2)
+    detections, seg_preds, times = {}, {}, []
     n_frames = 0
     for batch in loader:
         t0 = time.perf_counter()
         out = predict(batch["points"], batch["points_mask"])
         times.append(time.perf_counter() - t0)
+        # a double-flip batch holds 4 point rows a sample: the original first
+        group = len(batch["points"]) // max(1, len(batch["metadata"]))
         for i, meta in enumerate(batch["metadata"]):
             token = meta["token"] if meta else str(n_frames)
-            m = out["mask"][i]
-            detections[token] = {
-                "box3d_lidar": out["box3d_lidar"][i][m],
-                "scores": out["scores"][i][m],
-                "label_preds": out["label_preds"][i][m],
-                "metadata": meta,
-            }
+            if "box3d_lidar" in out:
+                m = out["mask"][i]
+                detections[token] = {
+                    "box3d_lidar": out["box3d_lidar"][i][m],
+                    "scores": out["scores"][i][m],
+                    "label_preds": out["label_preds"][i][m],
+                    "metadata": meta,
+                }
+            if "point_seg_labels" in out:
+                pm = batch["points_mask"][i * group]
+                n_key = (meta or {}).get("n_key_points", int(pm.sum()))
+                seg_preds[token] = {
+                    "labels": out["point_seg_labels"][i][:n_key],
+                    "xy": batch["points"][i * group][:n_key, xy_cols]}
             n_frames += 1
         if max_frames and n_frames >= max_frames:
             break
@@ -106,7 +145,46 @@ def evaluate(det, dataset, work_dir, logger, device, batch_size=1,
 
     with open(os.path.join(work_dir, "prediction.pkl"), "wb") as f:
         pickle.dump(detections, f)
+    kwargs = seg_inputs(dataset, detections, seg_preds)
     result = dataset.evaluation(detections, output_dir=work_dir,
-                                testset=testset)
+                                testset=testset, **kwargs)
     logger.info(f"evaluation: {result}")
     return result, fps
+
+
+def seg_inputs(dataset, detections, seg_preds):
+    """Each frame's predicted point labels -> {"final_seg", "final_ins"}
+    for ``dataset.evaluation`` ({} where no frame has a lidarseg file):
+    per frame with one, the first min(gt, predicted) points' predicted and
+    gt classes, and the panoptic pairs (the predicted instances of
+    ``panoptic_fuse`` over the frame's kept boxes; the gt instances the
+    info's ``instance_ids``, else 0)."""
+    from ..models.seg_head import panoptic_fuse
+
+    infos = {info.get("token", str(i)): info
+             for i, info in enumerate(dataset.infos)}
+    final_seg, final_ins = {}, {}
+    for token, sp in seg_preds.items():
+        gt = load_seg_gt(infos.get(token, {}))
+        if gt is None:
+            continue
+        n = min(len(gt), len(sp["labels"]))
+        pred = np.asarray(sp["labels"][:n], np.int64)
+        final_seg[token] = {"pred": pred, "gt": gt[:n]}
+        det_out = detections.get(token)
+        if det_out is not None and len(det_out["box3d_lidar"]):
+            inst = panoptic_fuse(
+                pred, sp["xy"][:n], det_out["box3d_lidar"],
+                det_out["label_preds"], det_out["scores"],
+                np.ones(len(det_out["scores"]), bool), NUSC_THING_CLASSES,
+                NUSC_SEMANTIC2BOX)
+        else:
+            inst = np.zeros(n, np.int64)
+        gt_inst = infos.get(token, {}).get("instance_ids")
+        final_ins[token] = {
+            "pred_sem": pred, "pred_inst": inst, "gt_sem": gt[:n],
+            "gt_inst": (np.asarray(gt_inst[:n], np.int64)
+                        if gt_inst is not None else np.zeros(n, np.int64))}
+    if not final_seg:
+        return {}
+    return dict(final_seg=final_seg, final_ins=final_ins)

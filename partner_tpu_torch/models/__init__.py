@@ -1,10 +1,10 @@
 from .registry import (  # noqa: F401
-    BACKBONES, BBOX_HEADS, DETECTORS, NECKS, READERS, Registry,
+    BACKBONES, BBOX_HEADS, DETECTORS, NECKS, READERS, SEG_HEADS, Registry,
     build_from_cfg,
 )
 from . import (backbone, backbone_dense, center_head, detectors,  # noqa: F401
                e2e_head, pillar, polarstream, readers, rpn, rpn_stream,
-               two_stage)
+               seg_head, two_stage)
 
 
 def build_detector(cfg, train_cfg=None, test_cfg=None, *, device,

@@ -23,7 +23,9 @@ first-come rows its ``"binary"`` method builds wrong neighbour maps (its
 ``"dense"`` method does not depend on the order); the port gives there
 what JAX's ``"dense"`` method gives (ROADMAP.md §3). The BEV does not
 depend on the row order. The JAX backbone's per-stage ``multi_scale``
-grids feed only the segmentation heads, which are not ported.
+grids hold no ``"canvas"``, so its seg heads take the BEV map, as the
+port's do (``models/seg_head.py``); the grids themselves are not
+returned.
 """
 
 import torch

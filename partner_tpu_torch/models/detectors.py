@@ -46,6 +46,9 @@ from .center_head import (center_head_decode, center_head_loss,
 from .layers import constant, init_weights
 from .registry import (BACKBONES, BBOX_HEADS, DETECTORS, NECKS, READERS,
                        build_from_cfg)
+from .seg_head import (build_seg_head, majority_grid_labels,
+                       neck_out_features, point_labels_from_grid,
+                       points_to_grid_cells, seg_loss, seg_points)
 from .set_transformer import SetBlockStack
 from .swin_vote import WindowAttention
 
@@ -86,15 +89,19 @@ def _grid_spec(cfg):
 
 
 class VoxelNetModule(nn.Module):
-    """Reader + backbone + (optional SetBlock stack) + neck + head, NHWC.
+    """Reader + backbone + (optional SetBlock stack) + neck + head(s), NHWC.
 
     The reader (no parameters) serves the voxel inputs only. The SetBlock
     stack (``attns``) and its cell positions exist only with
-    ``with_set_attention`` (VoxelNetV3)."""
+    ``with_set_attention`` (VoxelNetV3). ``head_cfg`` is None for a
+    segmentation-only model; ``seg_head_cfg`` adds a seg head over the
+    backbone's BEV map (its canvas) and the neck's map. The neck takes the
+    backbone's BEV width where the backbone knows it (flax infers it; the
+    seg configs' ``num_input_features`` of 128 is not read in JAX)."""
 
     def __init__(self, reader_cfg, backbone_cfg, neck_cfg, head_cfg,
                  grid_size, pc_range, out_size_factor=8,
-                 with_set_attention=False, set_cfg=None):
+                 with_set_attention=False, set_cfg=None, seg_head_cfg=None):
         super().__init__()
         self.grid_size = tuple(grid_size)
         self.pc_range = tuple(pc_range)
@@ -112,8 +119,18 @@ class VoxelNetModule(nn.Module):
         self.reader = build_from_cfg(reader_cfg, READERS)
         self.backbone = build_from_cfg(dict(backbone_cfg), BACKBONES,
                                        dict(input_shape=self.grid_size))
-        self.neck = build_from_cfg(dict(neck_cfg), NECKS)
-        self.bbox_head = build_from_cfg(dict(head_cfg), BBOX_HEADS)
+        neck_cfg = dict(neck_cfg)
+        if getattr(self.backbone, "out_features", None):
+            neck_cfg["num_input_features"] = self.backbone.out_features
+        self.neck = build_from_cfg(neck_cfg, NECKS)
+        self.bbox_head = (None if head_cfg is None
+                          else build_from_cfg(dict(head_cfg), BBOX_HEADS))
+        self.seg_head = None
+        if seg_head_cfg:
+            self.seg_head = build_seg_head(
+                seg_head_cfg, ("type", "num_classes", "kernel",
+                               "in_channels", "up_scale", "height", "weight"),
+                self.backbone.out_features, neck_out_features(self.neck))
         if not with_set_attention:
             return
         voxel_size = tuple((pc_range[3 + i] - pc_range[i]) / grid_size[i]
@@ -143,6 +160,8 @@ class VoxelNetModule(nn.Module):
         (z, az, r) and "voxel_mask" (B, N) bool -> the head's maps
         (B, n_az/8, n_r/8, .), and with ``return_bev`` also the neck's
         output map (B, n_az/8, n_r/8, C) beside them: ``(maps, bev)``.
+        With a seg head the maps hold ``seg_preds`` (B, n_az/8, n_r/8,
+        classes) too; a segmentation-only module gives that alone.
         Voxels win where both are given, as in JAX. ``generator`` feeds
         the SetBlock's dropout and DropPath in train mode."""
         if "features" in example or "voxels" in example:
@@ -169,7 +188,9 @@ class VoxelNetModule(nn.Module):
                            generator)
             bev = x.transpose(1, 2)
         x = self.neck(bev)
-        out = self.bbox_head(x)
+        out = {} if self.bbox_head is None else self.bbox_head(x)
+        if self.seg_head is not None:
+            out = dict(out, seg_preds=self.seg_head(bev, x)["seg_preds"])
         return (out, x) if return_bev else out
 
 
@@ -268,53 +289,116 @@ class E2EDetector:
             nms_cfg.get("nms_post_max_size", 500))
 
 
+def apply_seg_decay(det_total, seg, example):
+    """The total of a det + seg loss (``detectors.py:294-306``): ``det +
+    seg x decay``, the decay ``example["seg_loss_decay"]`` (the train CLI's
+    ``curriculum_weights`` entry of the epoch), ``det + seg`` without one;
+    a negative decay balances seg against det: ``det / (seg + 1e-6)``,
+    detached."""
+    decay = example.get("seg_loss_decay")
+    if decay is None:
+        return det_total + seg
+    decay = torch.as_tensor(decay, dtype=torch.float32, device=seg.device)
+    dyn = (det_total / (seg + 1e-6)).detach()
+    return det_total + seg * torch.where(decay < 0, dyn, decay)
+
+
 class CenterPointDetector:
     """VoxelNet or PointPillars (``models/pillar.py``) + CenterHead: the
     FastFocal + L1 peak regression loss, and at inference forward, per-task
-    decode and NMS. Segmentation heads are not ported (both factories refuse
-    them)."""
+    decode and NMS; with a seg head (VoxelNet) its per-cell loss and
+    per-point labels too. A segmentation-only VoxelNet has no CenterHead:
+    its loss is the seg loss alone and ``predict`` gives the point labels
+    alone."""
 
     input_kind = "points"
-    # the batch keys :meth:`loss` reads; all but the points are per-task
-    # lists
-    loss_keys = ("points", "points_mask", "hm", "anno_box", "ind", "mask",
-                 "cat")
 
     def __init__(self, module, code_weights, weight, voxel_size=None,
-                 test_cfg=None, voxel_shape="cylinder"):
+                 test_cfg=None, voxel_shape="cylinder", seg_weight=1.0):
         self.module = module
         self.code_weights = tuple(code_weights)
         self.weight = weight
         self.voxel_size = voxel_size
         self.voxel_shape = voxel_shape
+        self.seg_weight = seg_weight
         self.test_cfg = dict(test_cfg or {})
 
+    @property
+    def loss_keys(self):
+        """The batch keys :meth:`loss` reads: the points, the per-task
+        lists of the center targets with a CenterHead, and the points'
+        labels with a seg head (its loss reads the points where the
+        backbone reads voxels)."""
+        keys = ("points", "points_mask")
+        if getattr(self.module, "bbox_head", True) is not None:
+            keys += ("hm", "anno_box", "ind", "mask", "cat")
+        if getattr(self.module, "seg_head", None) is not None:
+            keys += ("points_label",)
+        return keys
+
     def loss(self, example, generator=None):
-        """The head's losses of one forward in the module's current mode.
+        """The losses of one forward in the module's current mode.
 
         example: "points", "points_mask" as for :meth:`predict`, plus the
         per-task lists "hm", "anno_box", "ind", "mask", "cat" of the
-        center target assigner. Returns :func:`center_head_loss`'s dict."""
-        return center_head_loss(self.module(example, generator), example,
-                                self.code_weights, self.weight)
+        center target assigner, and with a seg head "points_label" (B, P)
+        1-based. Returns :func:`center_head_loss`'s dict (``{"loss": 0}``
+        without a CenterHead), with a seg head ``seg_loss`` beside it and
+        ``loss`` through :func:`apply_seg_decay`."""
+        preds = self.module(example, generator)
+        if preds.get("det_preds"):
+            ld = dict(center_head_loss(preds, example, self.code_weights,
+                                       self.weight))
+        else:
+            ld = {"loss": 0.0}
+        if "seg_preds" in preds and "points_label" in example:
+            sl = self._seg_loss(preds["seg_preds"], example)
+            ld["seg_loss"] = sl
+            ld["loss"] = apply_seg_decay(ld["loss"], sl, example)
+        return ld
+
+    def _seg_loss(self, sp, example):
+        """The seg loss against each cell's majority label of the
+        points."""
+        out_shape = tuple(sp.shape[1:-1])
+        pts, mask = seg_points(example)
+        gi, ok = points_to_grid_cells(pts, mask, out_shape,
+                                      self.module.pc_range, self.voxel_shape)
+        labels = majority_grid_labels(gi, ok, example["points_label"],
+                                      out_shape, sp.shape[-1])
+        return seg_loss(sp, labels, weight=self.seg_weight)
 
     @torch.no_grad()
     def predict(self, example):
         """-> dict of (B, tasks x nms_post, ...) detections + validity
         mask, the tasks concatenated in order with their labels offset by
-        the classes before them. Puts the module in eval mode first."""
+        the classes before them; with a seg head ``point_seg_labels`` (B,
+        P), each point's class (1-based) at its cell, 0 off the grid. Puts
+        the module in eval mode first."""
         self.module.eval()
-        return self.decode(self.module(example))
+        preds = self.module(example)
+        out = self.decode(preds)
+        if "seg_preds" in preds:
+            sp = preds["seg_preds"]
+            pts, mask = seg_points(example)
+            gi, ok = points_to_grid_cells(pts, mask, tuple(sp.shape[1:-1]),
+                                          self.module.pc_range,
+                                          self.voxel_shape)
+            lab = point_labels_from_grid(sp, gi)
+            out = dict(out, point_seg_labels=torch.where(
+                ok, lab, torch.zeros_like(lab)))
+        return out
 
     @torch.no_grad()
     def decode(self, preds):
-        """Head maps -> decoded, score-masked, NMS'd detections. With
+        """Head maps -> decoded, score-masked, NMS'd detections ({} without
+        a CenterHead). With
         ``test_cfg["double_flip"]`` the maps are B x 4 rows, each sample's
         four flip copies in a row (``DoubleFlip`` and ``collate``); they
         are averaged back to B rows first (:func:`double_flip_average`)."""
         double_flip = bool(self.test_cfg.get("double_flip"))
         outs, offset = [], 0
-        for task_preds in preds["det_preds"]:
+        for task_preds in preds.get("det_preds") or []:
             if double_flip:
                 task_preds = double_flip_average(task_preds)
             hm = task_preds["hm"]
@@ -328,8 +412,8 @@ class CenterPointDetector:
                                                  self.test_cfg,
                                                  class_offset=offset))
             offset += hm.shape[-1]
-        if len(outs) == 1:
-            return outs[0]
+        if len(outs) <= 1:
+            return outs[0] if outs else {}
         return {k: torch.cat([o[k] for o in outs], dim=1) for k in outs[0]}
 
 
@@ -426,38 +510,44 @@ def build_voxelnet(reader, backbone, neck, bbox_head, seg_head=None,
     ``dataset`` taken out for the detector (``dataset`` names the data
     set only; the loss is the same for each).
 
-    The module is built as :func:`build_voxelnet_v3` builds its own. ``use_block_kernel`` belongs to the E2E head and must
-    stay False here."""
+    The module is built as :func:`build_voxelnet_v3` builds its own.
+    ``use_block_kernel`` belongs to the E2E head and must stay False here.
+    ``bbox_head`` may be None (segmentation only): the grid then comes
+    from ``seg_head["voxel_generator"]``, as in JAX. A ``seg_head`` adds
+    its head (``models/seg_head.py``) over the backbone's BEV map, its
+    ``weight`` the seg loss's."""
     if use_block_kernel:
         raise ValueError("use_block_kernel is an option of the E2E head's "
                          "Swin blocks; VoxelNet's CenterHead has none")
     kind = backbone_input_kind(backbone)
-    if seg_head:
-        raise NotImplementedError(
-            "VoxelNet seg_head is not ported (ROADMAP.md queue 1, off the "
-            "main path: seg_head.py)")
-    if bbox_head is None:
-        raise NotImplementedError(
-            "VoxelNet with bbox_head=None (segmentation only) is not ported "
-            "(ROADMAP.md queue 1, off the main path: seg_head.py)")
-    grid, pc_range, voxel_size = _grid_spec(bbox_head)
-    osf = bbox_head.get("out_size_factor", 8)
-    head_cfg = dict(bbox_head)
-    for k in ("voxel_shape", "code_weights", "weight", "dataset"):
-        head_cfg.pop(k, None)
-    head_cfg["tasks"] = tuple({"class_names": tuple(t["class_names"])}
-                              for t in bbox_head["tasks"])
-    if "common_heads" in head_cfg:
-        head_cfg["common_heads"] = tuple(sorted(
-            (k, tuple(v)) for k, v in dict(bbox_head["common_heads"]).items()))
+    spec_src = bbox_head if bbox_head is not None else seg_head
+    if not spec_src:
+        raise ValueError("a VoxelNet config needs a bbox_head or a seg_head "
+                         "(whose voxel_generator gives the grid)")
+    grid, pc_range, voxel_size = _grid_spec(spec_src)
+    osf = spec_src.get("out_size_factor", 8)
+    head_cfg = None
+    if bbox_head is not None:
+        head_cfg = dict(bbox_head)
+        for k in ("voxel_shape", "code_weights", "weight", "dataset"):
+            head_cfg.pop(k, None)
+        head_cfg["tasks"] = tuple({"class_names": tuple(t["class_names"])}
+                                  for t in bbox_head["tasks"])
+        if "common_heads" in head_cfg:
+            head_cfg["common_heads"] = tuple(sorted(
+                (k, tuple(v))
+                for k, v in dict(bbox_head["common_heads"]).items()))
     module = _materialize(device, generator, lambda: VoxelNetModule(
         reader_cfg=dict(reader), backbone_cfg=dict(backbone),
         neck_cfg=_neck_cfg(neck), head_cfg=head_cfg, grid_size=grid,
-        pc_range=pc_range, out_size_factor=osf))
+        pc_range=pc_range, out_size_factor=osf,
+        seg_head_cfg=dict(seg_head) if seg_head else None))
+    src = bbox_head if bbox_head is not None else {}
     det = CenterPointDetector(
-        module, code_weights=bbox_head.get("code_weights", [1.0] * 10),
-        weight=bbox_head.get("weight", 0.25), voxel_size=voxel_size,
-        test_cfg=test_cfg, voxel_shape=bbox_head.get("voxel_shape",
-                                                     "cylinder"))
+        module, code_weights=src.get("code_weights", [1.0] * 10),
+        weight=src.get("weight", 0.25), voxel_size=voxel_size,
+        test_cfg=test_cfg, voxel_shape=spec_src.get("voxel_shape",
+                                                    "cylinder"),
+        seg_weight=(seg_head or {}).get("weight", 1.0))
     det.input_kind = kind
     return det

@@ -166,16 +166,26 @@ class Conv3d(nn.Module):
 
 
 class ConvTranspose2d(nn.Module):
-    """flax ``nn.ConvTranspose`` (padding "SAME") with kernel == stride, on
+    """flax ``nn.ConvTranspose`` (``transpose_kernel=False``), no bias, on
     NHWC tensors; weight in torch's (I, O, kh, kw) layout, i.e. the flax
-    kernel flipped spatially (see convert.py)."""
+    kernel flipped spatially (see convert.py).
+
+    By default kernel == stride with padding "SAME" (out = in x stride).
+    With ``kernel`` and an int ``padding`` p it is flax's explicit
+    padding: the stride-dilated input padded by p on each side, then a
+    valid conv, out = (in - 1) x stride + 2 + 2p - kernel; torch's
+    ``conv_transpose2d`` pads that input by ``kernel - 1 - padding``."""
 
     def __init__(self, in_features, out_features, stride,
-                 dtype=torch.float32):
+                 dtype=torch.float32, kernel=None, padding=None):
         super().__init__()
         self.dtype = dtype
         self.stride = stride
-        self.weight = _empty(in_features, out_features, stride, stride)
+        kernel = stride if kernel is None else kernel
+        self.pad = 0 if padding is None else kernel - 1 - padding
+        if self.pad < 0:
+            raise ValueError(f"flax padding {padding} > kernel - 1")
+        self.weight = _empty(in_features, out_features, kernel, kernel)
 
     def fan_in(self):
         w = self.weight
@@ -184,7 +194,8 @@ class ConvTranspose2d(nn.Module):
     def forward(self, x):
         dt = self.dtype
         y = F.conv_transpose2d(x.permute(0, 3, 1, 2).to(dt),
-                               self.weight.to(dt), None, self.stride)
+                               self.weight.to(dt), None, self.stride,
+                               self.pad)
         return y.permute(0, 2, 3, 1)
 
 

@@ -265,7 +265,8 @@ def build_point_pillars(reader, neck, bbox_head, backbone=None,
     if seg_head:
         raise NotImplementedError(
             "PointPillars seg_head is not ported (ROADMAP.md queue 1 item "
-            "5: segmentation)")
+            "7: HAN's seg head; its SingleConvHead, of item 5, is in "
+            "models/seg_head.py)")
     grid, pc_range, voxel_size = _grid_spec(bbox_head)
     osf = bbox_head.get("out_size_factor", 8)
     head_cfg = dict(bbox_head)

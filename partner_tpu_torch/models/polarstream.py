@@ -14,15 +14,18 @@ their shared edge are prepended as kept suppressors.
   sector]}. With more than one sector the points are split into compact
   per-sector buffers by one stable sort (:meth:`_sector_buffers`); with
   one, the sweep is selected by an azimuth mask.
+  With a ``seg_head`` (the det+seg configs' ``SingleConvHead``) each
+  sector's canvas and neck map also give that sector's seg map.
 - :class:`PolarStreamDetector`: ``loss`` (one ``center_head_loss`` per
-  sector on that sector's targets, their mean) and ``predict``.
+  sector on that sector's targets, their mean; with a seg head each
+  sector's seg loss against :func:`majority_cell_labels`) and
+  ``predict`` (with a seg head ``point_seg_labels`` too).
 - ``build_polarstream``, registered as ``PolarStream`` and
   ``PolarStreamBDCP``.
 
-The cuboid sectors (cartesian wedges, HAN and STROBE) and the
-segmentation head raise, naming ROADMAP.md queue 1 items 7 and 5. No hand
-kernel lies on this path: JAX wrote it in plain XLA, the port in plain
-torch.
+The cuboid sectors (cartesian wedges, HAN and STROBE) raise, naming
+ROADMAP.md queue 1 item 7. No hand kernel lies on this path: JAX wrote it
+in plain XLA, the port in plain torch.
 """
 
 import math
@@ -37,6 +40,9 @@ from .center_head import center_head_decode, center_head_loss
 from .layers import constant
 from .pillar import pp_scatter
 from .registry import BBOX_HEADS, DETECTORS, NECKS, READERS, build_from_cfg
+from .seg_head import (build_seg_head, majority_grid_labels,
+                       neck_out_features, point_labels_from_grid, seg_loss,
+                       seg_points)
 
 STREAM_NECKS = ("RPNTECP", "RPNBDCP")
 
@@ -54,7 +60,7 @@ class PolarStreamModule(nn.Module):
 
     def __init__(self, reader_cfg, neck_cfg, head_cfg, grid_size, pc_range,
                  voxel_size, n_sectors=1, max_pillars=32768,
-                 out_size_factor=8):
+                 out_size_factor=8, seg_head_cfg=None):
         super().__init__()
         self.grid_size = tuple(grid_size)    # the full sweep (n_r, n_az, nz)
         self.pc_range = tuple(pc_range)      # the full sweep
@@ -71,6 +77,12 @@ class PolarStreamModule(nn.Module):
         hc.setdefault("pc_range", self.sector_range())
         hc.setdefault("out_size_factor", out_size_factor)
         self.bbox_head = build_from_cfg(hc, BBOX_HEADS)
+        self.seg_head = None
+        if seg_head_cfg:
+            self.seg_head = build_seg_head(
+                seg_head_cfg, ("num_classes", "kernel", "weight", "type"),
+                tuple(rc.get("num_filters", (64,)))[-1],
+                neck_out_features(self.neck))
 
     def angle_span(self):
         """The azimuth extent of one sector, radians (a python float)."""
@@ -186,16 +198,51 @@ class PolarStreamModule(nn.Module):
 
     def forward(self, example, generator=None):
         """example {"points": (B, P, C), "points_mask": (B, P)} ->
-        {"sector_preds": [the head's maps of each sector]}. The neck's
+        {"sector_preds": [the head's maps of each sector]}, with a seg head
+        also {"seg_preds": [each sector's (B, n_az / S, n_r, classes)]}
+        over the sector's canvas and neck map. The neck's
         contexts pass from each sector to the next; in train mode every
         BatchNorm updates its running statistics once a sector, in sector
         order. ``generator`` is unused (no dropout)."""
-        preds, ctx = [], None
+        preds, segs, ctx = [], [], None
         for pts_s, sel in self.sector_inputs(example["points"],
                                              example["points_mask"]):
-            x, ctx = self.neck(self.encode_sector(pts_s, sel), ctx)
+            canvas = self.encode_sector(pts_s, sel)
+            x, ctx = self.neck(canvas, ctx)
             preds.append(self.bbox_head(x))
-        return {"sector_preds": preds}
+            if self.seg_head is not None:
+                segs.append(self.seg_head(canvas, x)["seg_preds"])
+        out = {"sector_preds": preds}
+        if segs:
+            out["seg_preds"] = segs
+        return out
+
+    def point_cells(self, points, mask, s):
+        """Each point's cell of sector s's grid (``polarstream.py:
+        289-300``): the whole buffer selected and turned as
+        :meth:`_rotate_to_sector` does, the cell sizes the python float
+        ``(hi - lo) / n`` rounded to float32, as JAX's weakly typed
+        scalars are -> (az_idx, r_idx) int32 (B, P) and ok (B, P)."""
+        g = self.sector_grid()
+        sr = self.sector_range()
+        pts_s, sel = self._rotate_to_sector(points, mask, s)
+        r_idx = torch.floor((pts_s[..., 0] - sr[0])
+                            / ((sr[3] - sr[0]) / g[0])).to(torch.int32)
+        a_idx = torch.floor((pts_s[..., 1] - sr[1])
+                            / ((sr[4] - sr[1]) / g[1])).to(torch.int32)
+        ok = (sel & (r_idx >= 0) & (r_idx < g[0]) & (a_idx >= 0)
+              & (a_idx < g[1]))
+        return a_idx, r_idx, ok
+
+
+def majority_cell_labels(a_idx, r_idx, ok, point_labels, grid, n_classes):
+    """Each cell's majority label of a (n_az, n_r) sector grid
+    (``polarstream.py:303-323``): :func:`majority_grid_labels` on cells
+    (0, az, r), ``grid`` the sector grid (n_r, n_az, ...) -> (B, n_az,
+    n_r) int32."""
+    gi = torch.stack([torch.zeros_like(a_idx), a_idx, r_idx], -1)
+    return majority_grid_labels(gi, ok, point_labels, (grid[1], grid[0]),
+                                n_classes)
 
 
 def rotate_boxes_to_global(boxes, shift):
@@ -219,14 +266,12 @@ class PolarStreamDetector:
     (``polarstream.py:346-485``)."""
 
     input_kind = "points"
-    # the batch keys :meth:`loss` reads; the targets are per-task lists,
-    # each (B, S, ...) with more than one sector
-    loss_keys = ("points", "points_mask", "hm", "anno_box", "ind", "mask",
-                 "cat")
 
     def __init__(self, module, code_weights, weight, voxel_size=None,
-                 test_cfg=None, carry_size=64, carry_margin=0.2):
+                 test_cfg=None, carry_size=64, carry_margin=0.2,
+                 seg_weight=2.0):
         self.module = module
+        self.seg_weight = seg_weight
         self.code_weights = tuple(code_weights)
         self.weight = weight
         self.voxel_size = voxel_size
@@ -234,11 +279,27 @@ class PolarStreamDetector:
         self.carry_size = carry_size      # boxes carried to the next NMS
         self.carry_margin = carry_margin  # radians from the shared edge
 
+    @property
+    def loss_keys(self):
+        """The batch keys :meth:`loss` reads: the targets are per-task
+        lists, each (B, S, ...) with more than one sector; with a seg head
+        the points' labels too."""
+        keys = ("points", "points_mask", "hm", "anno_box", "ind", "mask",
+                "cat")
+        if self.module.seg_head is not None:
+            keys += ("points_label",)
+        return keys
+
     def loss(self, example, generator=None):
         """One forward in the module's current mode and a
         ``center_head_loss`` per sector on ``t[:, s]`` of each target (the
         targets as they are with one sector) -> ``sector{s}_loss`` each and
-        ``loss``, their sum divided by S."""
+        ``loss``, their sum divided by S. With a seg head and
+        "points_label" (B, P) in the example, each sector's seg loss
+        against its cells' majority labels: ``seg_loss`` is their sum
+        divided by S, and ``loss`` takes the undivided sum through
+        ``apply_seg_decay`` before the division (``polarstream.py:
+        380-403``)."""
         preds = self.module(example, generator)
         n_sec = self.module.n_sectors
         total = 0.0
@@ -253,8 +314,35 @@ class PolarStreamDetector:
                                   self.weight)
             total = total + ld["loss"]
             logs[f"sector{s}_loss"] = ld["loss"]
+        if "seg_preds" in preds and "points_label" in example:
+            from .detectors import apply_seg_decay
+
+            pts, pmask = seg_points(example)
+            seg_total = 0.0
+            for s, sp in enumerate(preds["seg_preds"]):
+                a_idx, r_idx, ok = self.module.point_cells(pts, pmask, s)
+                labels = majority_cell_labels(
+                    a_idx, r_idx, ok, example["points_label"],
+                    self.module.sector_grid(), sp.shape[-1])
+                seg_total = seg_total + seg_loss(sp, labels,
+                                                 weight=self.seg_weight)
+            logs["seg_loss"] = seg_total / n_sec
+            total = apply_seg_decay(total, seg_total, example)
         logs["loss"] = total / n_sec
         return logs
+
+    def point_seg_labels(self, seg_preds, example):
+        """Each point's class (1-based) at its cell of its sector's seg map,
+        0 where it lies in no sector's grid, summed over the sectors (a
+        point lies in one) -> (B, P) int64."""
+        pts, pmask = seg_points(example)
+        total = 0
+        for s, sp in enumerate(seg_preds):
+            a_idx, r_idx, ok = self.module.point_cells(pts, pmask, s)
+            gi = torch.stack([torch.zeros_like(a_idx), a_idx, r_idx], -1)
+            lab = point_labels_from_grid(sp, gi)
+            total = total + torch.where(ok, lab, torch.zeros_like(lab))
+        return total
 
     @torch.no_grad()
     def predict(self, example):
@@ -262,9 +350,15 @@ class PolarStreamDetector:
         sector's kept boxes (7 columns: the decoded velocity is dropped,
         as in JAX), scores (0 where not kept), labels (-1 where not kept)
         and mask, the sectors in order. Puts the module in eval mode
-        first."""
+        first. With a seg head ``point_seg_labels`` (B, P) too
+        (:meth:`point_seg_labels`)."""
         self.module.eval()
-        return self.decode(self.module(example))
+        preds = self.module(example)
+        out = self.decode(preds)
+        if "seg_preds" in preds:
+            out["point_seg_labels"] = self.point_seg_labels(
+                preds["seg_preds"], example)
+        return out
 
     @torch.no_grad()
     def decode(self, preds):
@@ -375,10 +469,6 @@ def build_polarstream(reader, neck, bbox_head, backbone=None, seg_head=None,
     if use_block_kernel:
         raise ValueError("use_block_kernel is an option of the E2E head's "
                          "Swin blocks; PolarStream's head has none")
-    if seg_head:
-        raise NotImplementedError(
-            "PolarStream seg_head is not ported (ROADMAP.md queue 1 item 5: "
-            "segmentation)")
     if bbox_head.get("voxel_shape", "cylinder") != "cylinder":
         raise NotImplementedError(
             "PolarStream's cuboid sectors (cartesian azimuth wedges) are not "
@@ -409,8 +499,9 @@ def build_polarstream(reader, neck, bbox_head, backbone=None, seg_head=None,
     module = _materialize(device, generator, lambda: PolarStreamModule(
         reader_cfg=dict(reader), neck_cfg=neck_cfg, head_cfg=head_cfg,
         grid_size=grid, pc_range=pc_range, voxel_size=voxel_size,
-        n_sectors=n_sectors, max_pillars=max_pillars, out_size_factor=osf))
+        n_sectors=n_sectors, max_pillars=max_pillars, out_size_factor=osf,
+        seg_head_cfg=dict(seg_head) if seg_head else None))
     return PolarStreamDetector(
         module, code_weights=bbox_head.get("code_weights", [1.0] * 10),
         weight=bbox_head.get("weight", 0.25), voxel_size=voxel_size,
-        test_cfg=test_cfg)
+        test_cfg=test_cfg, seg_weight=(seg_head or {}).get("weight", 2.0))

@@ -59,3 +59,4 @@ BACKBONES = Registry("backbone")
 NECKS = Registry("neck")
 BBOX_HEADS = Registry("bbox_head")
 DETECTORS = Registry("detector")
+SEG_HEADS = Registry("seg_head")

@@ -11,7 +11,10 @@ an error rather than run on the CPU), loads the weights of a port or JAX
 checkpoint (a step directory, a ``latest`` pointer, ``state.pt`` or
 ``state.pkl``; without one the weights are random, seed 0), and runs
 :func:`eval.evaluator.evaluate` over ``data.val``: middle-third FPS,
-``prediction.pkl`` and the Waymo metrics. ``--input`` picks the input
+``prediction.pkl`` and the dataset's metrics (nuScenes: the 3-tuple of
+det metrics, seg mIoU and panoptic PQ / SQ / RQ, the last two filled in
+for a seg config whose val infos carry ``lidarseg_path``, and printed).
+``--input`` picks the input
 contract (``auto``: the detector's own, ``points``; ``voxels``: each
 batch voxelized on the device by ``ops.voxelize.dynamic_voxelize`` first).
 ``--static_rpe`` fills the
@@ -91,10 +94,13 @@ def main(argv=None):
 
     # --speed_test forces batch 1, as the reference's dist_test does
     batch_size = 1 if args.speed_test else args.batch_size
-    return evaluate(det, dataset, args.work_dir, logger, device,
-                    batch_size=batch_size, max_points=args.max_points,
-                    max_frames=args.max_frames, testset=args.testset,
-                    cfg=cfg, input_kind=kind)
+    result, fps = evaluate(det, dataset, args.work_dir, logger, device,
+                           batch_size=batch_size, max_points=args.max_points,
+                           max_frames=args.max_frames, testset=args.testset,
+                           cfg=cfg, input_kind=kind)
+    if isinstance(result, tuple) and len(result) == 3:
+        logger.info(f"seg mIoU: {result[1]}, panoptic: {result[2]}")
+    return result, fps
 
 
 if __name__ == "__main__":

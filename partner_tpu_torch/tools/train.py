@@ -24,6 +24,16 @@ one-cycle Adam loop of ``make_train_step`` as the JAX CLI does:
   (``VoxelNet``), whose per-task loss terms are logged as lists, or the
   two-stage CenterPoint (``TwoStageDetector``; with ``freeze`` the
   optimizer holds the RoI head alone, and checkpoints its moments alone);
+  a detector that takes voxel inputs (the sparse backbone, the
+  segmentation-only VoxelNet) trains through them: each batch's points are
+  voxelized on the device by ``ops.voxelize.DeviceVoxelizer`` at the
+  config's ``voxel_generator``, up to its first ``max_voxel_num``, and
+  stay in the example beside the voxels (the seg loss reads them), as in
+  JAX (``tools/train.py:194-220``);
+- ``curriculum_weights``: the epoch's entry (1.0 past the list's end) is
+  each batch's ``seg_loss_decay``, the seg loss's weight in ``loss``
+  (a negative entry balances it against the det loss;
+  ``models.detectors.apply_seg_decay``);
 - metrics stay on the device between log flushes (one copy to the host
   per ``log_config.interval`` steps); the text log carries ``data_time``,
   ``transfer_time``, ``forward_time``, ``time`` and ``sync_time``; a
@@ -46,12 +56,9 @@ initial weights come from ``--seed``.
 ``--debug_nans`` turns on ``torch.autograd.set_detect_anomaly``;
 ``--profile_dir`` writes a ``torch.profiler`` trace of steps 10-15 after
 the start. Not ported: the JAX CLI's ``--mesh`` (ROADMAP.md queue 1: DDP
-and mesh eval), the ``lr_config`` types other than ``one_cycle`` with the
-config-built optimizer (ROADMAP.md queue 1: the lr schedule family), and
-``curriculum_weights`` (ROADMAP.md queue 1, off the main path:
-``seg_head``), and training a detector that takes voxel inputs (the sparse
-backbone; ROADMAP.md queue 1, off the main path: training through voxel
-inputs); each stops the run with a message naming its item.
+and mesh eval), and the ``lr_config`` types other than ``one_cycle`` with
+the config-built optimizer (ROADMAP.md queue 1: the lr schedule family);
+each stops the run with a message naming its item.
 ``--resume_from`` and ``--load_from`` take what
 ``train.checkpoint.load_checkpoint`` takes (``modelzoo://``, ``file://``
 and remote-store paths too).
@@ -171,9 +178,6 @@ def main(argv=None):
         sys.exit(f"train: lr_config type {lr_cfg['type']!r} is not ported; "
                  "only one_cycle is (ROADMAP.md queue 1: the lr schedule "
                  "family)")
-    if cfg.get("curriculum_weights") is not None:
-        sys.exit("train: curriculum_weights (the seg loss) is not ported "
-                 "(ROADMAP.md queue 1, off the main path: seg_head)")
     device = torch.device(args.device)
     work_dir = args.work_dir or cfg.get("work_dir", "./work_dir")
     if args.debug_nans:
@@ -189,11 +193,6 @@ def main(argv=None):
     det = build_detector(cfg["model"], cfg.get("train_cfg"),
                          cfg.get("test_cfg"), device=device,
                          generator=torch.Generator().manual_seed(args.seed))
-    if det.input_kind != "points":
-        sys.exit(f"train: this {cfg['model']['type']} takes "
-                 f"{det.input_kind} inputs, and training through them is not "
-                 "ported (ROADMAP.md queue 1, off the main path: training "
-                 "through voxel inputs)")
     dataset = build_dataset(dict(cfg["data"]["train"]), dict(
         rng=np.random.RandomState([args.seed, start_step])))
     batch_size = args.batch_size or cfg["data"]["samples_per_gpu"]
@@ -298,6 +297,16 @@ def main(argv=None):
         config_text = f.read()
 
     step = make_train_step(det, opt)
+    voxelize = None
+    if det.input_kind == "voxels":
+        from ..ops.voxelize import DeviceVoxelizer
+
+        voxelize = DeviceVoxelizer(cfg["voxel_generator"], device,
+                                   vg_mv if isinstance(vg_mv, int)
+                                   else vg_mv[0])
+    # the seg loss's per-epoch weight (the reference's curriculum); 1.0
+    # past the list's end
+    curriculum = cfg.get("curriculum_weights")
     profiler = None
     step_i = start_step
     epoch = step_i // max(steps_per_epoch, 1)
@@ -321,7 +330,12 @@ def main(argv=None):
                 logger.info(f"profiler trace written to {path}")
             data_time = timer.lap()
             ex = example_to_device(batch, device, det.loss_keys)
+            if curriculum is not None:
+                ex["seg_loss_decay"] = float(
+                    curriculum[epoch] if epoch < len(curriculum) else 1.0)
             transfer_time = timer.lap()
+            if voxelize is not None:
+                ex.update(voxelize(ex["points"], ex["points_mask"]))
             metrics = step(ex, dropout_generator(args.seed, step_i))
             # no host read here: the next step's data work overlaps the
             # card's; the window is read at the flush
@@ -349,7 +363,7 @@ def main(argv=None):
                 val_dataset = build_dataset(dict(cfg["data"]["val"]))
             result, _ = evaluate(det, val_dataset, work_dir, logger, device,
                                  max_points=args.max_points,
-                                 max_frames=args.eval_max_frames)
+                                 max_frames=args.eval_max_frames, cfg=cfg)
             if result is not None:
                 det_metrics = (result[0] if isinstance(result, tuple)
                                else result)

@@ -25,17 +25,15 @@ def make_train_step(det, opt):
     holds the detector's loss dict (every term and ``loss``; the E2E
     detector's ``num_matched``; the CenterPoint detector's per-task lists
     ``det_loss``, ``hm_loss``, ``loc_loss``; the two-stage detector's
-    ``roi_cls_loss``, ``roi_reg_loss``) and ``grad_norm``, as tensors
-    on the module's device (nothing is copied to the host).
+    ``roi_cls_loss``, ``roi_reg_loss``; a seg head's ``seg_loss``) and
+    ``grad_norm``, as tensors on the module's device (nothing is copied
+    to the host).
 
-    A detector that takes voxel inputs (the sparse backbone) raises here:
-    the loss path takes points only (ROADMAP.md queue 1, off the main
-    path: training through voxel inputs)."""
-    if det.input_kind != "points":
-        raise NotImplementedError(
-            f"a train step of a detector with {det.input_kind} inputs is not "
-            "ported (ROADMAP.md queue 1, off the main path: training through "
-            "voxel inputs)")
+    ``example`` is whatever the detector's loss reads, as in JAX: a
+    detector that takes voxel inputs (the sparse backbone) takes the
+    ``features``, ``coords`` and ``voxel_mask`` of
+    ``ops.voxelize.DeviceVoxelizer`` beside its targets (and, with a seg
+    head, the points and their labels)."""
 
     def step(example, generator):
         det.module.train()

@@ -504,8 +504,8 @@ def _model(**changes):
 REFUSALS = {
     "seg-head": (dict(seg_head=dict(type="SegHead", num_classes=4)),
                  NotImplementedError, "seg_head.py"),
-    "no-bbox-head": (dict(bbox_head=None), NotImplementedError,
-                     "seg_head.py"),
+    "no-bbox-head": (dict(bbox_head=None), ValueError,
+                     "a bbox_head or a seg_head"),
     "pfn-reader": (dict(reader=dict(type="PillarFeatureNet",
                                     num_input_features=7)),
                    NotImplementedError, "pillar.py"),

@@ -116,13 +116,14 @@ def test_what_is_not_ported_raises(tmp_path):
     from partner_tpu_torch.utils.config import load_config
 
     cfg = load_config(os.path.join(ROOT, FLAGSHIP))
-    # the nuScenes loader is ported (tests/test_torch_nusc_data.py); its
-    # seg labels and a dataset the port does not know raise
+    # the nuScenes loader is ported (tests/test_torch_nusc_data.py), its
+    # seg labels too (tests/test_torch_seg.py): a seg loader keeps its
+    # super_tasks; a dataset the port does not know raises
     assert pipeline.LoadPointCloudFromFile(
         dataset="NuScenesDataset").type == "NuScenesDataset"
-    with pytest.raises(NotImplementedError, match="seg_head"):
-        pipeline.LoadPointCloudFromFile(dataset="NuScenesDataset",
-                                        super_tasks=["det", "seg"])
+    assert pipeline.LoadPointCloudFromFile(
+        dataset="NuScenesDataset",
+        super_tasks=["det", "seg"]).super_tasks == ["det", "seg"]
     with pytest.raises(NotImplementedError, match="KittiDataset"):
         pipeline.LoadPointCloudFromFile(dataset="KittiDataset")
     # cylinder sector targets are ported (PolarStream): two sectors of
@@ -159,9 +160,31 @@ def test_what_is_not_ported_raises(tmp_path):
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         pipeline.AssignLabel(dict(cfg["assigner"], nsectors=2,
                                   voxel_shape="cuboid"))
-    with pytest.raises(NotImplementedError, match="seg_head"):
-        pipeline.Preprocess(cfg["train_preprocessor"],
-                            super_tasks=["det", "seg"])
+    # a seg Preprocess splits the label column off after the shuffle, as
+    # JAX's does; without the loader's seg_labeled mark it keeps every
+    # column
+    from partner_tpu.data.pipeline import Preprocess as JaxPreprocess
+
+    pts = rng.uniform(-20, 20, (50, 6)).astype(np.float32)
+    pts[:, -1] = rng.randint(-1, 17, 50)
+    pre_cfg = dict(cfg["train_preprocessor"], shuffle_points=True,
+                   no_augmentation=True, db_sampler=None)
+    outs = []
+    for labelled in (True, False):
+        for pre in (pipeline.Preprocess(pre_cfg,
+                                        rng=np.random.RandomState(4),
+                                        super_tasks=["det", "seg"]),
+                    JaxPreprocess(pre_cfg, super_tasks=["det", "seg"])):
+            np.random.seed(4)
+            res = {"mode": "train", "metadata": {}, "lidar": {
+                "points": pts.copy(), "seg_labeled": labelled,
+                "annotations": {"boxes": boxes[:0], "names": np.array([])}}}
+            outs.append(pre(res, {})[0]["lidar"])
+    for got, want in (outs[:2], outs[2:]):
+        assert ("pc_label" in got) == ("pc_label" in want)
+        np.testing.assert_array_equal(got["points"], want["points"])
+    np.testing.assert_array_equal(outs[0]["pc_label"], outs[1]["pc_label"])
+    assert outs[0]["points"].shape[1] == outs[2]["points"].shape[1] - 1
 
 
 @pytest.mark.parametrize("voxel_shape", ["cylinder", "cuboid"])

@@ -2,8 +2,8 @@
 import or when it builds its detectors (the Waymo PARTNER, CenterPoint and
 two-stage configs, the sparse backbone, the three nuScenes CenterPoint
 configs, the two Waymo PointPillars configs, the two PointPillars
-two-stage configs, the nuScenes single-head config and the two PolarStream
-det configs), and the flax
+two-stage configs, the nuScenes single-head config, the two PolarStream
+det configs and the five seg configs), and the flax
 converter covers every parameter and buffer of the port's detectors."""
 
 import os
@@ -40,7 +40,8 @@ def test_import_leaves_out_jax_and_flax():
         "          'utils.remote_io', 'ops.deform_conv',\n"
         "          'eval.nusc_protocol', 'eval.nuscenes', 'models.pillar',\n"
         "          'ops.nms', 'models.layers', 'convert',\n"
-        "          'models.rpn_stream', 'models.polarstream'):\n"
+        "          'models.rpn_stream', 'models.polarstream',\n"
+        "          'models.seg_head', 'eval.seg_metrics'):\n"
         "    assert 'partner_tpu_torch.' + n in names, n\n"
         "from partner_tpu_torch.models import build_detector\n"
         "from partner_tpu_torch.utils.config import load_config\n"
@@ -100,6 +101,16 @@ def test_import_leaves_out_jax_and_flax():
         "                         cfg['test_cfg'], device='meta')\n"
         "    assert type(det).__name__ == 'PolarStreamDetector', c\n"
         "    assert type(det.module.neck).__name__ == neck, c\n"
+        "for c in ('pp/polarstream_det_n_seg_1_sector',\n"
+        "          'pp/polarstream_det_n_seg_4_sector_bidirectional',\n"
+        "          'pp/polarstream_det_n_seg_4_sector_trailing_edge',\n"
+        "          'voxelnet/voxelnet_seg_10sweep',\n"
+        "          'voxelnet/voxelnet_seg_cylinder'):\n"
+        "    cfg = load_config(f'configs/nusc/{c}.py')\n"
+        "    det = build_detector(cfg['model'], cfg['train_cfg'],\n"
+        "                         cfg['test_cfg'], device='meta')\n"
+        "    assert det.module.seg_head is not None, c\n"
+        "    assert 'points_label' in det.loss_keys, c\n"
         "from partner_tpu_torch import native\n"
         "assert native.available()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

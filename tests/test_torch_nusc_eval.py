@@ -168,7 +168,8 @@ def _datasets(tmp_path, infos):
 def test_dataset_evaluation_equal_jax(tmp_path):
     """The 3-tuple (det metrics, seg mIoU, panoptic) with the json's path
     among the det metrics; a test set writes the json and computes
-    nothing; seg inputs raise in the port."""
+    nothing; seg and panoptic inputs (once a raise in the port) give
+    JAX's mIoU and PQ / SQ / RQ exactly."""
     rng = np.random.RandomState(6)
     infos = _infos(rng)
     dets = _detections(rng, infos)
@@ -184,8 +185,21 @@ def test_dataset_evaluation_equal_jax(tmp_path):
     assert tds.evaluation(dets, str(tmp_path / "ts"), testset=True) == (
         None, None, None)
     assert os.path.exists(tmp_path / "ts" / "results_nusc.json")
-    with pytest.raises(NotImplementedError, match="seg_head"):
-        tds.evaluation(dets, str(tmp_path / "s"), final_seg={"s0": {}})
+    final_seg, final_ins = {}, {}
+    for i, token in enumerate(sorted(dets)[:3]):
+        gt = rng.randint(0, 17, 3000)
+        pred = np.where(rng.rand(3000) < 0.6, gt, rng.randint(0, 17, 3000))
+        final_seg[token] = {"pred": pred, "gt": gt}
+        inst = rng.randint(0, 3, 3000)
+        final_ins[token] = {"pred_sem": pred, "gt_sem": gt, "gt_inst": inst,
+                            "pred_inst": np.where(rng.rand(3000) < 0.8, inst,
+                                                  rng.randint(0, 4, 3000))}
+    got = tds.evaluation(dets, str(tmp_path / "s"), final_seg=final_seg,
+                         final_ins=final_ins)
+    want = jds.evaluation(dets, str(tmp_path / "js"), final_seg=final_seg,
+                          final_ins=final_ins)
+    assert got[1:] == want[1:] and 0 < got[1] < 1
+    assert sorted(got[2]) == ["PQ", "RQ", "SQ"] and 0 < got[2]["PQ"] < 1
 
 
 class _FlipDetector:

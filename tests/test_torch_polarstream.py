@@ -690,17 +690,19 @@ def test_full_width_builds_with_jax_parameter_count(n_sec):
 
 
 def test_what_is_not_ported_raises():
-    """The seg configs name queue 1 item 5; cuboid sectors and the other
-    stream necks item 7."""
+    """The seg configs, once a raise naming queue 1 item 5, build with
+    their seg head (held against JAX in ``tests/test_torch_seg.py``);
+    cuboid sectors and the other stream necks name item 7."""
     from partner_tpu_torch.models import build_detector
     from partner_tpu_torch.utils.config import load_config
 
     for c in ("1_sector", "4_sector_bidirectional", "4_sector_trailing_edge"):
         cfg = load_config(os.path.join(
             ROOT, f"configs/nusc/pp/polarstream_det_n_seg_{c}.py"))
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            build_detector(cfg["model"], cfg["train_cfg"], cfg["test_cfg"],
-                           device="meta")
+        det = build_detector(cfg["model"], cfg["train_cfg"],
+                             cfg["test_cfg"], device="meta")
+        assert type(det.module.seg_head).__name__ == "SingleConvHead"
+        assert "points_label" in det.loss_keys
     m, tc = tiny_polarstream_cfg()
     cuboid = copy.deepcopy(m)
     cuboid["bbox_head"]["voxel_shape"] = "cuboid"

@@ -299,12 +299,42 @@ def test_cuboid_waymo_batches_bit_equal(tmp_path, mode):
 
 # ---------------------------------------------------------- entry points
 
+# the port's dist_test with the evaluator's loader at one thread
+_PORT_DIST_TEST_ONE_THREAD = r"""
+from partner_tpu_torch.eval import evaluator
+_orig = evaluator.build_dataloader
+evaluator.build_dataloader = lambda ds, bs, **kw: _orig(
+    ds, bs, **dict(kw, workers_per_gpu=1))
+""" + _PORT_DIST_TEST
+
+
+def _jax_dist_test_one_thread(argv):
+    """The JAX ``dist_test`` CLI in this process with its evaluator's
+    loader at one thread."""
+    import partner_tpu.data as jdata
+
+    orig = jdata.build_dataloader
+    jdata.build_dataloader = lambda ds, bs, **kw: orig(
+        ds, bs, **dict(kw, workers_per_gpu=1))
+    try:
+        return run_jax("dist_test", argv)
+    finally:
+        jdata.build_dataloader = orig
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Each CLI of both packages from one JAX checkpoint of the tiny
     3-class config (the port's in fresh processes, started first), and
     the 2-class ``dist_test`` of each; then the port's train CLI resumed
-    from the JAX run's checkpoint for a third step."""
+    from the JAX run's checkpoint for a third step. Both packages'
+    ``dist_test`` of the JAX checkpoint run their loader at one thread,
+    so no loader thread computes beside the model while the frames that
+    are compared are predicted, and the frames come in order (a loaded
+    whole run once moved a box of the 3-class run by 2.5e-4 against the
+    1e-4 bound; alone, and twice under ten busy processes, the two
+    packages' boxes stay within 1.24e-5, and the port's are bit-equal at
+    1, 2 and 4 intra-op threads)."""
     from partner_tpu.models import build_detector as jax_build
     from partner_tpu.train.checkpoint import save_checkpoint
 
@@ -330,7 +360,8 @@ def runs(tmp_path_factory):
         ckpts[name] = str(tmp / f"init_{name}" / "latest")
     common = ["--max_points", str(MAX_POINTS)]
     procs = {
-        f"dist_test_{name}": port(["-c", _PORT_DIST_TEST, cfgs[name],
+        f"dist_test_{name}": port(["-c", _PORT_DIST_TEST_ONE_THREAD,
+                                   cfgs[name],
                                    "--device", "cpu", "--checkpoint",
                                    ckpts[name], "--work_dir",
                                    str(tmp / f"port_eval_{name}")] + common)
@@ -340,7 +371,7 @@ def runs(tmp_path_factory):
                            "--device", "cpu", "--work_dir",
                            str(tmp / "port_train"), "--total_steps", "2",
                            "--load_from", ckpts["three-class"]] + train3)
-    jax_metrics = {name: run_jax("dist_test", [
+    jax_metrics = {name: _jax_dist_test_one_thread([
         cfgs[name], "--checkpoint", ckpts[name], "--work_dir",
         str(tmp / f"jax_eval_{name}")] + common)[0] for name in PP_CONFIGS}
     run_jax("train", [cfgs["three-class"], "--work_dir",

@@ -30,7 +30,8 @@ from torch_port_fixtures import (CENTERPOINT, SPARSE_BEV, TWO_STAGE,
                                  load_converted, randomize, synthetic_points,
                                  tiny_centerpoint_cfg, tiny_frame_cfg,
                                  tiny_two_stage_cfg, with_sparse_backbone,
-                                 write_tiny_eval_config)
+                                 write_tiny_eval_config,
+                                 write_tiny_train_config)
 
 torch.set_num_threads(2)
 
@@ -202,9 +203,14 @@ def test_two_stage_over_sparse_first_stage_matches_jax():
 
 
 def test_input_kinds_and_refusals(tmp_path):
-    """``input_kind`` follows the backbone; a points-only example, a train
-    step and a ``tools.train`` run of a sparse config each stop with a
-    message; other backbones still raise naming their ROADMAP item."""
+    """``input_kind`` follows the backbone; a points-only example stops
+    with a message; other backbones still raise naming their ROADMAP
+    item. Training through voxel inputs, once a refusal here, is ported:
+    a step of the sparse CenterPoint detector takes the voxels beside its
+    targets (finite loss, every parameter given a gradient), and a
+    ``tools.train`` run of a sparse PARTNER config voxelizes each batch on
+    the device and checkpoints (held against JAX in
+    ``tests/test_torch_seg.py``)."""
     from partner_tpu_torch.models import build_detector
     from partner_tpu_torch.tools import train as train_cli
     from partner_tpu_torch.train.optim import build_one_cycle_optimizer
@@ -222,21 +228,31 @@ def test_input_kinds_and_refusals(tmp_path):
     with pytest.raises(ValueError, match="takes voxel inputs"):
         det.predict({"points": torch.from_numpy(pts),
                      "points_mask": torch.from_numpy(mask)})
-    with pytest.raises(NotImplementedError,
-                       match="training through voxel inputs"):
-        make_train_step(det, build_one_cycle_optimizer(det.module, 1e-3, 4))
+    step = make_train_step(det, build_one_cycle_optimizer(det.module, 1e-3,
+                                                          4))
+    ex = {k: torch.from_numpy(np.asarray(v)) for k, v in _voxel_inputs(
+        pts, mask, m, MAX_VOXELS, "features").items()}
+    hm_shape = det.module(ex)["det_preds"][0]["hm"].shape
+    ex.update(hm=[torch.zeros(hm_shape)], anno_box=[torch.zeros(1, 4, 10)],
+              ind=[torch.zeros(1, 4, dtype=torch.int64)],
+              mask=[torch.zeros(1, 4, dtype=torch.bool)],
+              cat=[torch.zeros(1, 4, dtype=torch.int64)])
+    ex["mask"][0][0, 0] = True
+    met = step(ex, torch.Generator().manual_seed(0))
+    assert np.isfinite(float(met["loss"]))
+    assert all(p.grad is not None for p in det.module.parameters())
     for bb in ("PointPillarsScatter", "DynamicPPScatter"):
         with pytest.raises(NotImplementedError, match="pillar.py"):
             build_detector(dict(m, backbone=dict(type=bb)), None, tc,
                            device="meta")
     info = make_waymo_infos(tmp_path, n=2, seed=3)
-    cfg_path = write_tiny_eval_config(str(tmp_path / "cfg.py"), info,
-                                      str(tmp_path))
+    cfg_path = write_tiny_train_config(str(tmp_path / "cfg.py"), info,
+                                       str(tmp_path))
     _sparse_config_file(cfg_path)
-    with pytest.raises(SystemExit, match="training through voxel inputs"):
-        train_cli.main([cfg_path, "--work_dir", str(tmp_path / "wd"),
-                        "--device", "cpu"])
-    assert not os.path.exists(tmp_path / "wd" / "latest")
+    assert train_cli.main([cfg_path, "--work_dir", str(tmp_path / "wd"),
+                           "--device", "cpu", "--batch_size", "1",
+                           "--total_steps", "1"]) == 1
+    assert os.path.exists(tmp_path / "wd" / "latest")
 
 
 def _sparse_config_file(path):

@@ -42,6 +42,14 @@ SINGLEHEAD = "configs/nusc/voxelnet/voxelnet_det_cylinder_singlehead.py"
 POLARSTREAM_1 = "configs/nusc/pp/polarstream_det_1_sector.py"
 POLARSTREAM_4 = "configs/nusc/pp/polarstream_det_4_sector_bidirectional.py"
 POLARSTREAM_CONFIGS = {1: POLARSTREAM_1, 4: POLARSTREAM_4}
+# the det + seg PolarStream configs and the seg-only VoxelNet configs
+POLARSTREAM_SEG_CONFIGS = {
+    n: f"configs/nusc/pp/polarstream_det_n_seg_{n}.py"
+    for n in ("1_sector", "4_sector_bidirectional",
+              "4_sector_trailing_edge")}
+VOXELNET_SEG_CONFIGS = {
+    n: f"configs/nusc/voxelnet/voxelnet_seg_{n}.py"
+    for n in ("10sweep", "cylinder")}
 POLAR_GRID = (64, 128)   # (n_r, n_az) pillars, cut from 512 x 512
 PP_GRID = 64        # the pillar grid, cut from 468 x 468 to 64 x 64
 PP_PILLARS = 512    # the tiny configs' pillar capacity: the sweeps overflow it
@@ -315,11 +323,12 @@ def with_sparse_backbone(m, index_method="binary"):
 
 
 def write_tiny_nusc_set(root, seed=3, n_frames=4, n_points=1500,
-                        n_boxes=12):
+                        n_boxes=12, lidarseg=False):
     """A synthetic nuScenes set of ``n_frames`` key frames with
     ``NUSC_SWEEPS - 1`` earlier sweeps each under ``root``, its infos made
     by the port's ``create_data nuscenes_data_prep``
-    (``chip_smoke.write_nusc_scene``) -> the infos' path."""
+    (``chip_smoke.write_nusc_scene``; with ``lidarseg`` a lidarseg file a
+    key frame and its ``lidarseg_path``) -> the infos' path."""
     import os
     import sys
 
@@ -329,14 +338,15 @@ def write_tiny_nusc_set(root, seed=3, n_frames=4, n_points=1500,
 
     return chip_smoke.write_nusc_scene(root, np.random.RandomState(seed),
                                        n_frames, NUSC_SWEEPS, n_points,
-                                       n_boxes=n_boxes)
+                                       n_boxes=n_boxes, lidarseg=lidarseg)
 
 
 def nusc_batch(config, model_cfg, info_path, root, mode, samples, seed=0,
                max_points=5000):
     """The first ``samples`` frames of the nuScenes infos at ``info_path``
     through ``config``'s ``mode`` pipeline in the port (``nsweeps`` cut to
-    ``NUSC_SWEEPS``, ``Voxelization`` on ``model_cfg``'s grid, the draws
+    ``NUSC_SWEEPS``, ``Voxelization`` on ``model_cfg``'s grid (its
+    ``bbox_head``'s, or a seg-only model's ``seg_head``'s), the draws
     from ``RandomState(seed)``), collated: the batch the CLIs hand the
     detector (the double-flip pipeline's 4 rows a sample)."""
     import os
@@ -348,9 +358,10 @@ def nusc_batch(config, model_cfg, info_path, root, mode, samples, seed=0,
     base = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ds = copy.deepcopy(load_config(os.path.join(base, config))["data"][mode])
     ds.update(info_path=info_path, root_path=root, nsweeps=NUSC_SWEEPS)
+    spec = model_cfg.get("bbox_head") or model_cfg["seg_head"]
     for p in ds["pipeline"]:
         if p["type"] == "Voxelization":
-            p["cfg"] = copy.deepcopy(model_cfg["bbox_head"]["voxel_generator"])
+            p["cfg"] = copy.deepcopy(spec["voxel_generator"])
     data = tdata.build_dataset(ds, dict(rng=np.random.RandomState(seed)))
     return collate([data[i] for i in range(samples)], max_points=max_points)
 
@@ -667,6 +678,64 @@ test_cfg["nms"].update(nms_pre_max_size=256, nms_post_max_size=64)
 train_preprocessor.update(no_augmentation=True, shuffle_points=False)
 data["train"].update(info_path={train_info!r}, root_path={root!r})
 data["val"].update(info_path={val_info!r}, root_path={root!r})
+data["workers_per_gpu"] = 1
+log_config = dict(interval=1, hooks=[dict(type="TextLoggerHook"),
+                                     dict(type="MetricsSinkHook")])
+""")
+    return path
+
+
+VOXSEG_GRID = (64, 128, 40)  # (n_r|x, n_az|y, z): BEV 16 (rows) x 8 (cols)
+_VOXSEG_CUT = f"""
+_vg = model["seg_head"]["voxel_generator"]
+_r = _vg["range"]
+_vg["voxel_size"] = [(_r[3 + _i] - _r[_i]) / {VOXSEG_GRID}[_i]
+                     for _i in range(3)]
+_vg["max_voxel_num"] = [4000, 4000]
+model["neck"].update(layer_nums=[1, 1], ds_num_filters=[16, 32],
+                     us_num_filters=[32, 32])
+"""
+
+
+def tiny_voxelnet_seg_cfg(config):
+    """(model cfg, test cfg): a seg-only VoxelNet config
+    (``VOXELNET_SEG_CONFIGS``) cut to ``VOXSEG_GRID`` (the sparse backbone
+    at full width, 40 layers), a narrow RPN (64 channels out) and 4,000
+    voxels; its ``DeconvConvHead`` as it is (height 40, up_scale 8)."""
+    import os
+
+    from partner_tpu_torch.utils.config import load_config
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(root, config))
+    m = copy.deepcopy(cfg["model"])
+    exec(_VOXSEG_CUT, {"model": m})
+    return m, copy.deepcopy(cfg["test_cfg"])
+
+
+def write_tiny_voxelnet_seg_config(path, train_info, val_info, root,
+                                   config):
+    """A seg-only VoxelNet config file for the CLIs: ``config`` exec'd, cut
+    as :func:`tiny_voxelnet_seg_cfg` cuts it (the config's
+    ``voxel_generator``, which its pipelines and seg head share),
+    ``nsweeps`` cut to ``NUSC_SWEEPS``, ``data.train`` at ``train_info``
+    with no augmentation and the points kept in order, ``data.val`` at
+    ``val_info``, one loader thread, a log flush and a ``metrics.jsonl``
+    record every step."""
+    import os
+
+    base = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), config)
+    with open(path, "w") as f:
+        f.write(f"""
+__file__ = {base!r}
+exec(open({base!r}).read())
+{_VOXSEG_CUT}
+assert voxel_generator is _vg
+train_preprocessor.update(no_augmentation=True, shuffle_points=False)
+for _s, _info in (("train", {train_info!r}), ("val", {val_info!r})):
+    data[_s].update(info_path=_info, root_path={root!r},
+                    nsweeps={NUSC_SWEEPS})
 data["workers_per_gpu"] = 1
 log_config = dict(interval=1, hooks=[dict(type="TextLoggerHook"),
                                      dict(type="MetricsSinkHook")])

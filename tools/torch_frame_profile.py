@@ -11,7 +11,12 @@ CUDA card.
                                                   nusc-singlehead|pp|
                                                   pp-two_cls|
                                                   nusc-polarstream-1|
-                                                  nusc-polarstream-4]
+                                                  nusc-polarstream-4|
+                                                  nusc-seg-10sweep|
+                                                  nusc-seg-cylinder|
+                                                  nusc-polarstream-seg-1|
+                                                  nusc-polarstream-seg-4|
+                                                  nusc-polarstream-seg-4te]
                                          [--part frame|rpn] [--batch B]
 
 Builds the flagship detector of ``partner_tpu_torch`` exactly as
@@ -56,7 +61,17 @@ seeds SEED .. SEED + B - 1). ``--model nusc-polarstream-1`` /
 stages, each summed over the sectors: sector inputs (the sector buffers
 and their rotation), pillars (``encode_sector``), neck, head, and decode +
 stateful NMS; ``--part rpn`` times each conv of its stream neck on the
-input sector 0 hands it.
+input sector 0 hands it. ``--model nusc-polarstream-seg-1|4|4te``
+profiles a det + seg PolarStream config of ``chip_smoke.py``'s seg phase
+(1 sector; 4 sectors, ``RPNBDCP``; 4 sectors, ``RPNTECP``) the same way,
+with two more stages: the seg head (summed over the sectors) and the
+point labels (``point_seg_labels`` from the sector maps).
+``--model nusc-seg-10sweep|nusc-seg-cylinder`` profiles a seg-only
+VoxelNet config (``SpMiddleResNetFHD`` through voxel inputs,
+``DeconvConvHead``) on one synthetic 10-sweep sample in NUSC_ROWS rows,
+voxelized on the card outside the frame (the second ``max_voxel_num``),
+with the stages backbone (reader and sparse backbone), RPN, seg head and
+point labels.
 ``--part rpn`` times each conv of the model's RPN alone instead, on the
 input the frame hands it: device ms and the kernels cuDNN picks, as the
 port calls the conv (channels-last strides), NCHW-contiguous,
@@ -94,6 +109,11 @@ import chip_smoke  # noqa: E402  (its config, weights and sweep builders)
 
 POLAR_MODELS = {"nusc-polarstream-1": "1_sector",
                 "nusc-polarstream-4": "4_sector"}
+SEG_MODELS = {"nusc-seg-10sweep": "voxelnet_10sweep",
+              "nusc-seg-cylinder": "voxelnet_cylinder",
+              "nusc-polarstream-seg-1": "polarstream_1",
+              "nusc-polarstream-seg-4": "polarstream_4",
+              "nusc-polarstream-seg-4te": "polarstream_4te"}
 
 
 def backbone_stage(mod, ex):
@@ -154,6 +174,9 @@ def polar_stage_times(det, ex, frames):
     frame."""
     mod = det.module
     names = ["sector_inputs", "pillars", "neck", "head", "decode_nms"]
+    if mod.seg_head is not None:
+        names[4:4] = ["seg_head"]
+        names.append("point_labels")
     per = {n: [] for n in names}
     totals = []
     for _ in range(frames):
@@ -170,7 +193,7 @@ def polar_stage_times(det, ex, frames):
             mark(None)
             inputs = mod.sector_inputs(ex["points"], ex["points_mask"])
             mark("sector_inputs")
-            preds, ctx = [], None
+            preds, segs, ctx = [], [], None
             for p, v in inputs:
                 canvas = mod.encode_sector(p, v)
                 mark("pillars")
@@ -178,14 +201,56 @@ def polar_stage_times(det, ex, frames):
                 mark("neck")
                 preds.append(mod.bbox_head(x))
                 mark("head")
+                if mod.seg_head is not None:
+                    segs.append(mod.seg_head(canvas, x)["seg_preds"])
+                    mark("seg_head")
             det.decode({"sector_preds": preds})
             mark("decode_nms")
+            if segs:
+                det.point_seg_labels(segs, ex)
+                mark("point_labels")
         torch.cuda.synchronize()
         totals.append((time.perf_counter() - t0) * 1e3)
         for (_, a), (name, b) in zip(marks, marks[1:]):
             spans[name] += a.elapsed_time(b)
         for n in names:
             per[n].append(spans[n])
+    out = {n: statistics.median(v) for n, v in per.items()}
+    out["frame_host"] = statistics.median(totals)
+    return out
+
+
+def seg_stage_times(det, ex, frames):
+    """A seg-only VoxelNet frame's median ms per stage (backbone, RPN, seg
+    head, point labels) between CUDA events, and the median host time of
+    the frame."""
+    from partner_tpu_torch.models.seg_head import (point_labels_from_grid,
+                                                   points_to_grid_cells)
+
+    mod = det.module
+    names = ["backbone", "rpn", "seg_head", "point_labels"]
+    per = {n: [] for n in names}
+    totals = []
+    for _ in range(frames):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ev[0].record()
+            bev = backbone_stage(mod, ex)
+            ev[1].record()
+            x = mod.neck(bev)
+            ev[2].record()
+            sp = mod.seg_head(bev, x)["seg_preds"]
+            ev[3].record()
+            gi, ok = points_to_grid_cells(ex["points"], ex["points_mask"],
+                                          sp.shape[1:3], mod.pc_range,
+                                          det.voxel_shape)
+            torch.where(ok, point_labels_from_grid(sp, gi), 0)
+            ev[4].record()
+        torch.cuda.synchronize()
+        totals.append((time.perf_counter() - t0) * 1e3)
+        for i, n in enumerate(names):
+            per[n].append(ev[i].elapsed_time(ev[i + 1]))
     out = {n: statistics.median(v) for n, v in per.items()}
     out["frame_host"] = statistics.median(totals)
     return out
@@ -265,6 +330,8 @@ def build_frame(dev, args):
     from partner_tpu_torch.models import build_detector
 
     n_points, c = chip_smoke.N_POINTS, 7
+    if args.model in SEG_MODELS:
+        return build_seg_frame(dev, args)
     if args.model == "flagship":
         m, tc = chip_smoke.frame_cfgs()
     elif args.model == "sparse":
@@ -326,12 +393,37 @@ def build_frame(dev, args):
     return det, ex
 
 
+def build_seg_frame(dev, args):
+    """A seg config of ``chip_smoke.py``'s seg phase at full width (its
+    norms drawn as there) and ``--batch`` synthetic samples (11 sweeps in
+    POLAR_ROWS rows for PolarStream, 10 in NUSC_ROWS for VoxelNet), the
+    VoxelNet ones voxelized on the card beside their points."""
+    from partner_tpu_torch.utils.config import load_config
+
+    config = chip_smoke.SEG_CONFIGS[SEG_MODELS[args.model]]
+    cfg = load_config(config)
+    cfg["test_cfg"]["score_threshold"] = 0.0
+    gen = torch.Generator().manual_seed(chip_smoke.SEED)
+    det, vox, _ = chip_smoke.seg_detector(cfg, dev, gen)
+    polar = args.model.startswith("nusc-polarstream")
+    samples = [chip_smoke.nusc_example(
+        None, seed=chip_smoke.SEED + i, config=config,
+        sweeps=chip_smoke.POLAR_SWEEPS if polar else chip_smoke.NUSC_SWEEPS,
+        rows=chip_smoke.POLAR_ROWS if polar else chip_smoke.NUSC_ROWS)
+        for i in range(args.batch)]
+    ex = chip_smoke.to_device({k: np.concatenate([e[k] for e in samples])
+                               for k in samples[0]}, dev)
+    return det, chip_smoke.with_voxels(ex, vox)
+
+
 def profile_frame(dev, args):
     det, ex = build_frame(dev, args)
     for _ in range(2):
         det.predict(ex)
     torch.cuda.synchronize()
     stages = (polar_stage_times if args.model in POLAR_MODELS
+              or args.model.startswith("nusc-polarstream-seg")
+              else seg_stage_times if args.model in SEG_MODELS
               else stage_times)
     out = {"card": chip_smoke.gpu_name_and_power_limit(),
            "torch": torch.__version__, "model": args.model,
@@ -350,7 +442,7 @@ def profile_frame(dev, args):
                 det.module, ex), args.out, args.model + "_pillars")
         out["pillar_parts"] = pillar_parts(det.module, ex)
     head = det.module.bbox_head
-    if args.model.startswith("nusc-") and hasattr(
+    if args.model.startswith("nusc-") and head is not None and hasattr(
             getattr(head, "task0", None), "feature_adapt_cls"):
         with torch.no_grad():
             x = torch.relu(head.Conv_0(det.module.neck(backbone_stage(
@@ -576,7 +668,8 @@ def main():
                     choices=["flagship", "centerpoint", "centerpoint-velo",
                              "sparse", "nusc-dcn", "nusc-01voxel",
                              "nusc-dcn_flip", "nusc-singlehead", "pp",
-                             "pp-two_cls"] + list(POLAR_MODELS),
+                             "pp-two_cls"] + list(POLAR_MODELS)
+                    + list(SEG_MODELS),
                     help="the frame's model (the train step: flagship)")
     ap.add_argument("--batch", type=int, default=1,
                     help="sweeps a frame (the PointPillars models and "
@@ -586,9 +679,14 @@ def main():
         sys.exit("torch_frame_profile: --train profiles the flagship only")
     if args.batch != 1 and not (args.model.startswith("pp")
                                 or args.model == "nusc-singlehead"
-                                or args.model in POLAR_MODELS):
+                                or args.model in POLAR_MODELS
+                                or args.model in SEG_MODELS):
         sys.exit("torch_frame_profile: --batch is for the PointPillars "
-                 "models, nusc-singlehead and the PolarStream models")
+                 "models, nusc-singlehead, the PolarStream and the seg "
+                 "models")
+    if args.part == "rpn" and args.model in SEG_MODELS:
+        sys.exit("torch_frame_profile: --part rpn is not wired for the "
+                 "seg models")
     if not torch.cuda.is_available():
         sys.exit("torch_frame_profile: no CUDA device")
     os.makedirs(args.out, exist_ok=True)
