@@ -1894,7 +1894,7 @@ def eval_phase(dev, card):
     return launches, fps, beyond, thirds, quiet
 
 
-def device_busy(run, calls=3):
+def device_busy(run, calls=1):
     """torch.profiler over ``calls`` calls of ``run``: (summed device time
     of the kernels, kernels) per call."""
     from torch.profiler import ProfilerActivity, profile
@@ -2041,7 +2041,7 @@ def static_rpe_phase(dev, card):
         log(f"static RPE, {mode} frames on {card}: median {median!r} ms over "
             f"{FRAMES} (host clock, modes interleaved), all {times[mode]!r}; "
             f"device busy {busy!r} ms and {kernels!r} kernels a frame "
-            f"(torch.profiler, 3 frames); launches over {frames} frames "
+            f"(torch.profiler, 1 frame); launches over {frames} frames "
             f"{tally[mode]}")
         check_detections(outs[mode], tc)
         res[mode] = {"median_ms": median, "device_busy_ms": busy,
@@ -2578,7 +2578,7 @@ def centerpoint_phase(dev, card):
     log(f"CenterPoint frame on {card}: median {median!r} ms over {FRAMES} "
         f"frames (host clock around a synchronized predict), all {times!r}; "
         f"device busy {busy!r} ms and {kernels!r} launches a frame "
-        f"(torch.profiler, 3 frames); kernel launches over {FRAMES} frames "
+        f"(torch.profiler, 1 frame); kernel launches over {FRAMES} frames "
         f"{tally}; {kept} boxes kept; maps {sorted(maps)} finite")
     res["frame"] = dict(median_ms=median, device_busy_ms=busy,
                         launches_per_frame=kernels, launches=tally,
@@ -3045,7 +3045,7 @@ def two_stage_phase(dev, card):
         f"the one-stage frame's {med['one-stage']!r} on the same first stage, "
         f"taking turns over {TS_FRAMES} frames each (host clock around a "
         f"synchronized predict), all {times!r}; device busy and launches a "
-        f"frame {busy!r} (torch.profiler, 3 frames); the refine stage "
+        f"frame {busy!r} (torch.profiler, 1 frame); the refine stage "
         f"({tuple(bev.shape)} BEV, {props7.shape[1]} proposals x 5 points) "
         f"{refine_ms!r} ms device time (CUDA events), {refine_busy!r} "
         f"(busy ms, launches); kernel launches over {TS_FRAMES} frames "
@@ -4091,7 +4091,7 @@ def write_nusc_scene(root, rng, n_frames, nsweeps, n_points, n_boxes=40,
 
 
 NUSC_FRAMES = 8              # frames on disk, and dist_test's frames
-NUSC_TIMED = 5               # timed frames a config after one warm-up
+NUSC_TIMED = 3               # timed frames a config after one warm-up
 NUSC_TRAIN_BATCH = 4         # the configs' samples_per_gpu
 
 
@@ -4153,16 +4153,26 @@ def randomize_offsets(module, gen):
             m.weight.copy_(0.05 * torch.randn(m.weight.shape, generator=gen))
 
 
-def nusc_batch(cfg_path, mode, samples, seed=SEED, rows=NUSC_ROWS):
+def nusc_batch(cfg_path, mode, samples, seed=SEED, rows=NUSC_ROWS,
+               n_sectors=None):
     """The first ``samples`` frames of the config's ``mode`` set through the
     port's data path (draws from ``RandomState(seed)``), collated to
-    ``rows`` rows."""
+    ``rows`` rows. ``n_sectors`` sets each ``AssignLabel`` to the model's
+    sector count, as the train CLI does (``tools.train.sector_targets``:
+    the HAN and STROBE 4-sector configs' pipelines keep the 1-sector
+    assigner, ROADMAP.md §3)."""
+    import logging
+
     from partner_tpu_torch.data import build_dataset
     from partner_tpu_torch.data.collate import collate
+    from partner_tpu_torch.tools.train import sector_targets
     from partner_tpu_torch.utils.config import load_config
 
-    ds = build_dataset(dict(load_config(cfg_path)["data"][mode]),
-                       dict(rng=np.random.RandomState(seed)))
+    data = dict(load_config(cfg_path)["data"][mode])
+    if n_sectors is not None:
+        data = sector_targets(data, n_sectors, logging.getLogger(__name__),
+                              cfg_path)
+    ds = build_dataset(data, dict(rng=np.random.RandomState(seed)))
     return collate([ds[i] for i in range(samples)], max_points=rows)
 
 
@@ -5083,7 +5093,7 @@ def pp_two_stage_phase(dev, card):
         f"{med['one-stage']!r} on the same first stage, taking turns over "
         f"{TS_FRAMES} frames each (host clock around a synchronized "
         f"predict), all {times!r}; device busy and launches a frame "
-        f"{busy!r} (torch.profiler, 3 frames); the refine stage "
+        f"{busy!r} (torch.profiler, 1 frame); the refine stage "
         f"({tuple(bev.shape)} neck map, {props7.shape[1]} proposals x 5 "
         f"points) {refine_ms!r} ms device time (CUDA events), "
         f"{refine_busy!r} (busy ms, launches); kernel launches {tally}; "
@@ -5277,7 +5287,7 @@ POLAR_CONFIGS = {
 POLAR_SWEEPS = 11            # the configs' nsweeps
 POLAR_ROWS = 380_000         # --max_points: every point of an 11-sweep sample
 POLAR_TIMED = 3              # timed frames a config after one warm-up
-POLAR_TRAIN_STEPS = 2        # timed train steps after one warm-up
+POLAR_TRAIN_STEPS = 1        # timed train steps after one warm-up
 POLAR_SMALL_GRID = 128       # the reference's pillar grid, 128 x 128
 POLAR_REF_POINTS = 60_000    # the reference sample's first rows
 POLAR_TIE = 1e-6             # scores closer than this may swap places
@@ -5293,8 +5303,8 @@ def polar_census(mod, ex):
     pts, mask = ex["points"][:1], ex["points_mask"][:1]
     n_sec = mod.n_sectors
     span = mod.angle_span()
-    phi = pts[0, :, 1]
-    sec = torch.clamp(torch.floor((phi - mod.pc_range[1]) / span), 0,
+    phi = mod.point_azimuth(pts[0])
+    sec = torch.clamp(torch.floor((phi - mod.azimuth_origin()) / span), 0,
                       n_sec - 1).long()
     rows = [int((mask[0] & (sec == s)).sum()) for s in range(n_sec)]
     cap = mod.sector_point_cap(pts.shape[1]) if n_sec > 1 else None
@@ -5335,7 +5345,7 @@ def polar_nms_readings(det, preds):
         if any(counts.values()):
             raise AssertionError(f"decode + NMS launched {counts}")
         times.append(ms)
-        sweeps.append(nms.sweeps / det.module.n_sectors)
+        sweeps.append(nms.sweeps / getattr(det.module, "n_sectors", 1))
     return dict(ms=statistics.median(times), all_ms=times,
                 sweeps_per_sector=sweeps[0])
 
@@ -5673,7 +5683,7 @@ SEG_CONFIGS = {
     "voxelnet_cylinder": os.path.join(NUSC_DIR, "voxelnet_seg_cylinder.py")}
 SEG_FRAMES = 6               # frames on disk, and dist_test's frames
 SEG_TIMED = 3                # timed frames a config after one warm-up
-SEG_TRAIN_STEPS = 2          # timed train steps after one warm-up
+SEG_TRAIN_STEPS = 1          # timed train steps after one warm-up
 SEG_REF_TOL = 1e-5           # seg logits, card against CPU, float32
 SEG_TIE = 1e-4               # top-two logits closer than this: a near-tie
 SEG_REF_POINTS = 60_000      # the reference sample's first rows
@@ -5736,6 +5746,41 @@ def seg_label_check(name, out, ex, seg_classes=16):
     return share
 
 
+def near_tie_labels(name, cpu, wsp, ex, wl, gl):
+    """Sample 0's point labels ``gl`` (the card's) against ``wl`` (the
+    CPU's, from its seg maps ``wsp``, a list a sector): each differing
+    point's cell must hold the CPU's two top logits within SEG_TIE (a
+    near-tie) -> the differing points."""
+    from partner_tpu_torch.models.seg_head import points_to_grid_cells
+
+    differ = torch.nonzero(wl != gl)[:, 0]
+    if not len(differ):
+        return differ
+    top2 = []
+    pts, mask = ex["points"], ex["points_mask"]
+    if pts.dim() == 4:    # STROBE: the last sweep's points
+        pts, mask = pts[:, -1], mask[:, -1]
+    for s, w in enumerate(wsp):
+        if hasattr(cpu.module, "point_cells"):
+            a, rr, ok = cpu.module.point_cells(pts, mask, s)
+            cells = w[0][a[0].clamp(0, w.shape[1] - 1),
+                         rr[0].clamp(0, w.shape[2] - 1)]
+        else:
+            gi, ok = points_to_grid_cells(pts, mask, w.shape[1:3],
+                                          cpu.module.pc_range,
+                                          cpu.voxel_shape)
+            cells = w[0][gi[0, :, 1].clamp(0, w.shape[1] - 1),
+                         gi[0, :, 2].clamp(0, w.shape[2] - 1)]
+        v = torch.topk(cells[differ], 2, dim=-1).values
+        top2.append(torch.where(ok[0][differ], v[:, 0] - v[:, 1],
+                                torch.full_like(v[:, 0], np.inf)))
+    gap = torch.stack(top2).min(0).values
+    if not (gap <= SEG_TIE).all():
+        raise AssertionError(f"{name}: {len(differ)} point labels differ, "
+                             f"gaps {gap.tolist()[:8]}")
+    return differ
+
+
 @torch.no_grad()
 def seg_reference(dev, card, name, cfg_path, ex):
     """A seg config's widths on a reduced grid (PolarStream: 128 x 128
@@ -5793,32 +5838,7 @@ def seg_reference(dev, card, name, cfg_path, ex):
                                       cpu.voxel_shape)
         wl = torch.where(ok, point_labels_from_grid(wsp[0], gi), 0)[0]
     gl = gpu.predict(exg)["point_seg_labels"][0].cpu()
-    differ = torch.nonzero(wl != gl)[:, 0]
-    if len(differ):
-        # the CPU's two top logits at each differing point's cell
-        top2 = []
-        pts, mask = exc["points"], exc["points_mask"]
-        for s, w in enumerate(wsp):
-            if polar:
-                a, rr, ok = cpu.module.point_cells(pts, mask, s)
-                cells = w[0][a[0].clamp(0, w.shape[1] - 1),
-                             rr[0].clamp(0, w.shape[2] - 1)]
-            else:
-                from partner_tpu_torch.models.seg_head import \
-                    points_to_grid_cells
-
-                gi, ok = points_to_grid_cells(pts, mask, w.shape[1:3],
-                                              cpu.module.pc_range,
-                                              cpu.voxel_shape)
-                cells = w[0][gi[0, :, 1].clamp(0, w.shape[1] - 1),
-                             gi[0, :, 2].clamp(0, w.shape[2] - 1)]
-            v = torch.topk(cells[differ], 2, dim=-1).values
-            top2.append(torch.where(ok[0][differ], v[:, 0] - v[:, 1],
-                                    torch.full_like(v[:, 0], np.inf)))
-        gap = torch.stack(top2).min(0).values
-        if not (gap <= SEG_TIE).all():
-            raise AssertionError(f"{name}: {len(differ)} point labels "
-                                 f"differ, gaps {gap.tolist()[:8]}")
+    differ = near_tie_labels(name, cpu, wsp, exc, wl, gl)
     n = int(exc["points_mask"].sum())
     log(f"{name} point_seg_labels on {grid}, card against CPU: "
         f"{n - len(differ)} of {n} equal, {len(differ)} at near-ties "
@@ -6019,6 +6039,412 @@ def seg_phase(dev, card):
     return res
 
 
+
+# -------------------------------------------------------- STROBE and HAN
+
+STROBE_HAN_CONFIGS = {
+    "han_1": os.path.join(POLAR_DIR, "han_1_sector.py"),
+    "han_4": os.path.join(POLAR_DIR, "han_4_sectors.py"),
+    "strobe_1": os.path.join(POLAR_DIR, "strobe_1_sector.py"),
+    "strobe_4": os.path.join(POLAR_DIR, "strobe_4_sector.py")}
+SH_SLOTS = 10                # STROBE's sweep slots a frame: the nsweeps
+SH_TRAIN_SLOTS = 2           # STROBE's sweep slots in a train step
+SH_TIMED = 3                 # timed frames a config after one warm-up
+SH_TRAIN_STEPS = 1           # timed train steps after one warm-up
+SH_SMALL_GRID = 128          # the reference's pillar grid, 128 x 128
+SH_REF_POINTS = 30_000       # the reference: rows a sweep slot (or sample)
+SH_EDGE_M = 1e-3             # reference points kept this far off the edges
+WARP_SHAPE = (1, 512, 512, 128)   # a 512 x 512 polar map of 128 channels
+# the paths each family runs: STROBE has no loader, so no CLI (ROADMAP §3)
+SH_PATHS = {"han": ("frame", "train", "dist_test", "train_cli"),
+            "strobe": ("frame", "train")}
+WARP_RANGE = (0.0, -np.pi, -5.0, 51.2, np.pi, 3.0)
+WARP_REF_TOL = 1e-4          # card against CPU, relative RMS (warp_reading)
+WARP_EDGE_M = 1e-4           # a one-sided zero's source from the range end
+
+
+def sweep_split(batch, slots):
+    """A collated multi-sweep nuScenes batch (points [x, y, z, intensity,
+    time lag, ...] (B, P, C)) -> the (B, S, P_s, C) batch STROBE takes:
+    each sample's sweeps by their time lag, oldest first, the last
+    ``slots`` of them (S = ``slots``; a sample with fewer leaves its first
+    slots empty), each slot padded to the largest sweep's rows rounded up
+    to 128; ``points_label`` (B, P_s) of the last slot, the key frame's,
+    where the batch has labels; every other key kept. No loader of either
+    package builds this batch (ROADMAP.md §3): this harness does."""
+    pts, mask = batch["points"], batch["points_mask"]
+    labels = batch.get("points_label")
+    per = []
+    for b in range(len(pts)):
+        rows = np.flatnonzero(mask[b])
+        lag = pts[b, rows, 4]
+        order = np.unique(lag)[::-1][-slots:]     # oldest first
+        per.append([rows[lag == t] for t in order])
+    n = -(-max(len(r) for sample in per for r in sample) // 128) * 128
+    out = np.zeros((len(pts), slots, n, pts.shape[-1]), np.float32)
+    m = np.zeros(out.shape[:3], bool)
+    lab = np.zeros((len(pts), n), np.int64) if labels is not None else None
+    for b, sample in enumerate(per):
+        off = slots - len(sample)
+        for i, r in enumerate(sample):
+            out[b, off + i, :len(r)] = pts[b, r]
+            m[b, off + i, :len(r)] = True
+        if lab is not None:
+            lab[b, :len(sample[-1])] = labels[b, sample[-1]]
+    res = dict(batch, points=out, points_mask=m)
+    if lab is not None:
+        res["points_label"] = lab.astype(labels.dtype)
+    return res
+
+
+def last_sweep(ex):
+    """A (B, S, P, C) example's last sweep slot as a (B, P, C) one."""
+    if ex["points"].dim() == 3:
+        return ex
+    return {"points": ex["points"][:, -1],
+            "points_mask": ex["points_mask"][:, -1]}
+
+
+@torch.no_grad()
+def warp_reading(dev, card):
+    """``ego_motion_warp_polar`` at WARP_SHAPE (a 512 x 512 polar map of
+    128 float32 channels over WARP_RANGE, a transform of 1.5 m, -0.8 m and
+    0.05 rad, so samples cross the seam and leave the radial range) on the
+    card against the CPU, its device ms beside its bound (the map read
+    once, the output written once) -> readings. A sample's azimuth
+    coordinate near 512 cells resolves 2^-14 of a cell in float32, and the
+    card's cos / sin / atan2 / hypot round apart from the CPU's, so a unit
+    normal map (steps of ~1.4 a cell) is held within WARP_REF_TOL relative
+    RMS; a cell zeroed on one side only must have its source within
+    WARP_EDGE_M of the radial range's ends."""
+    from partner_tpu_torch.ops.warp import (ego_motion_warp_polar,
+                                            make_bev_transform,
+                                            polar_cell_centers)
+
+    gen = torch.Generator().manual_seed(SEED + 71)
+    f = torch.randn(WARP_SHAPE, generator=gen)
+    tf = make_bev_transform(torch.tensor([1.5]), torch.tensor([-0.8]),
+                            torch.tensor([0.05]))
+    want = ego_motion_warp_polar(f, tf, WARP_RANGE)
+    fg, tg = f.to(dev), tf.to(dev)
+    got = ego_motion_warp_polar(fg, tg, WARP_RANGE)
+    r, max_err = rel_rms_of("warp", got, want)
+    wz, gz = (want == 0).all(-1)[0], (got.cpu() == 0).all(-1)[0]
+    rho, phi = polar_cell_centers(WARP_SHAPE[1], WARP_SHAPE[2], WARP_RANGE)
+    m = tf[0]
+    x, y = rho * torch.cos(phi), rho * torch.sin(phi)
+    src = torch.hypot(m[0, 0] * x + m[0, 1] * y + m[0, 2],
+                      m[1, 0] * x + m[1, 1] * y + m[1, 2])
+    edge = torch.minimum((src - WARP_RANGE[0]).abs(),
+                         (src - WARP_RANGE[3]).abs())
+    one_side = wz != gz
+    if not r <= WARP_REF_TOL or not bool((edge[one_side]
+                                          <= WARP_EDGE_M).all()):
+        raise AssertionError(f"warp on {card}: relative RMS {r}, "
+                             f"{int(one_side.sum())} cells zeroed on one "
+                             "side only")
+    ms = device_ms(lambda: ego_motion_warp_polar(fg, tg, WARP_RANGE))
+    b_ms, by = bound({"bytes": 2 * f.numel() * 4, "flops": {"f32": 0}})
+    log(f"ego_motion_warp_polar {WARP_SHAPE} on {card}: against the CPU "
+        f"relative RMS {r!r} (bound {WARP_REF_TOL}), max abs err "
+        f"{max_err!r}, {int(wz.sum())} cells zeroed on the CPU (sources "
+        f"outside the radial range), {int(one_side.sum())} of them or "
+        f"others on one side only (each within {WARP_EDGE_M} m of an end); "
+        f"device {ms!r} ms, bound {b_ms!r} ms ({by})")
+    return dict(rel_rms=r, max_abs_err=max_err, device_ms=ms, bound_ms=b_ms,
+                one_side=int(one_side.sum()))
+
+
+def edge_clear(ex, cell):
+    """The example with every valid point's x and y moved SH_EDGE_M off
+    the multiples of ``cell`` (the pillar edges, the axes among them) and
+    its rho and phi columns recomputed: the card's and the CPU's float32
+    ``cos`` / ``sin`` differ by an ulp, so a cuboid sector's turned point
+    within an ulp of an edge can change pillar or sector between them."""
+    pts = ex["points"].clone()
+    xy = pts[..., :2].double()
+    k = torch.round(xy / cell)
+    near = (xy - k * cell).abs() < SH_EDGE_M
+    xy = torch.where(near, k * cell + torch.where(xy >= k * cell, 1.0, -1.0)
+                     * 2 * SH_EDGE_M, xy)
+    pts[..., :2] = xy.float()
+    pts[..., -2] = torch.hypot(pts[..., 0], pts[..., 1])
+    pts[..., -1] = torch.atan2(pts[..., 1], pts[..., 0])
+    return dict(ex, points=pts)
+
+
+@torch.no_grad()
+def moved_points(cpu_mod, gpu_mod, ex):
+    """Sector modules: the valid points whose sector pillar the card's
+    turned coordinates put elsewhere than the CPU's, and the most their x
+    and y differ (m), over every sector of ``ex``'s last sweep."""
+    e = last_sweep(ex)
+    g = cpu_mod.sector_grid()
+    sr = cpu_mod.sector_range()
+    size = torch.tensor(cpu_mod.voxel_size[:2])
+    lo = torch.tensor(sr[:2])
+    moved, diff = 0, 0.0
+    cpu_in = cpu_mod.sector_inputs(e["points"], e["points_mask"])
+    dev = next(gpu_mod.parameters()).device
+    gpu_in = gpu_mod.sector_inputs(e["points"].to(dev),
+                                   e["points_mask"].to(dev))
+    for (cp, cv), (gp, gv) in zip(cpu_in, gpu_in):
+        gp, gv = gp.cpu(), gv.cpu()
+        ok = cv | gv
+        cc = torch.floor((cp[..., :2] - lo) / size)
+        gc = torch.floor((gp[..., :2] - lo) / size)
+        moved += int((ok & ((cc != gc).any(-1) | (cv != gv))).sum())
+        diff = max(diff, float((cp[..., :2] - gp[..., :2])[ok].abs().max()))
+    return moved, diff, g
+
+
+@torch.no_grad()
+def sh_reference(dev, card, name, ex):
+    """A HAN or STROBE config's widths on a SH_SMALL_GRID x SH_SMALL_GRID
+    pillar grid (the sectors cut from it), same weights, on the first
+    SH_REF_POINTS rows of each of ``ex``'s last two sweep slots (STROBE)
+    or of its sample (HAN): for the sector configs, the points whose
+    pillar the card's turned coordinates move against the CPU's (counted,
+    and stated); then on the sample with every x and y SH_EDGE_M off the
+    grid's pillar edges (:func:`edge_clear`), every head and seg map of the
+    card against the CPU within PP_REF_TOL relative RMS, both float32, and
+    the kept detections and point labels of ``predict``."""
+    import copy
+
+    from partner_tpu_torch.models import build_detector
+    from partner_tpu_torch.utils.config import load_config
+
+    cfg = load_config(STROBE_HAN_CONFIGS[name])
+    m = copy.deepcopy(cfg["model"])
+    tc = dict(cfg["test_cfg"], score_threshold=0.0)
+    vg = m["bbox_head"]["voxel_generator"]
+    r = vg["range"]
+    vg["voxel_size"] = [(r[3] - r[0]) / SH_SMALL_GRID,
+                        (r[4] - r[1]) / SH_SMALL_GRID, vg["voxel_size"][2]]
+    gen = torch.Generator().manual_seed(SEED + 73)
+    gpu = build_detector(m, None, tc, device=dev, generator=gen)
+    randomize_norms(gpu.module, gen)
+    randomize_pfn(gpu.module, gen)
+    cpu = build_detector(m, None, tc, device="cpu")
+    cpu.module.load_state_dict({k: v.cpu() for k, v in
+                                gpu.module.state_dict().items()})
+    if ex["points"].dim() == 4:
+        exc = {k: v[:1, -2:, :SH_REF_POINTS].cpu() for k, v in ex.items()
+               if k in ("points", "points_mask")}
+    else:
+        exc = {k: v[:1, :SH_REF_POINTS].cpu() for k, v in ex.items()
+               if k in ("points", "points_mask")}
+    moved = None
+    if hasattr(cpu.module, "n_sectors") and cpu.module.n_sectors > 1:
+        moved, diff, g = moved_points(cpu.module, gpu.module, exc)
+        log(f"{name} on {SH_SMALL_GRID} x {SH_SMALL_GRID} pillars (sector "
+            f"grid {g[:2]}): {moved} of "
+            f"{int(last_sweep(exc)['points_mask'].sum())} points of the last "
+            f"sweep change pillar or sector between the card's turned "
+            f"coordinates and the CPU's (x, y apart by at most {diff!r} m)")
+    exc = edge_clear(exc, vg["voxel_size"][0])
+    exg = {k: v.to(dev) for k, v in exc.items()}
+    cpu.module.eval()
+    want, got = cpu.module(exc), gpu.module(exg)
+
+    def maps(out):
+        secs = out.get("sector_preds") or [out]
+        flat = [(f"sector {s} {k}", v) for s, p in enumerate(secs)
+                for k, v in sorted(p["det_preds"][0].items())]
+        segs = out.get("seg_preds")
+        segs = segs if isinstance(segs, list) else [segs]
+        return flat + [(f"seg {s}", v) for s, v in enumerate(segs)]
+
+    for (k, w), (_, gv) in zip(maps(want), maps(got)):
+        rel_rms(f"{name} {k} on {card}", gv, w, PP_REF_TOL)
+    wp, gp = cpu.predict(exc), gpu.predict(exg)
+    at_place = same_detections(gp, wp, tie=POLAR_TIE)
+    segs = want["seg_preds"]
+    differ = near_tie_labels(name, cpu, segs if isinstance(segs, list)
+                             else [segs], exc, wp["point_seg_labels"][0],
+                             gp["point_seg_labels"][0].cpu())
+    n = int(last_sweep(exc)["points_mask"].sum())
+    log(f"{name} kept detections on {SH_SMALL_GRID} x {SH_SMALL_GRID} "
+        f"pillars, card against CPU: {int(wp['mask'].sum())} each, "
+        f"{at_place} equal at their place, the rest within a score tie of "
+        f"{POLAR_TIE}; point labels {n - len(differ)} of {n} equal, "
+        f"{len(differ)} at near-ties (top-two logits within {SEG_TIE})")
+    return dict(at_place=at_place, moved=moved, label_ties=len(differ))
+
+
+def sh_train_cli(cfg_path, root, name, card, dev):
+    """One train-CLI step of a HAN config at batch 2: finite losses (every
+    sector's, the 4-sector targets assigned at the model's 4 sectors),
+    no kernel launched -> {launches, wall_s}."""
+    from partner_tpu_torch.tools import train
+
+    work_dir = os.path.join(root, f"train_{name}")
+    wall_ms, steps, launches = counted(lambda: train.main([
+        cfg_path, "--work_dir", work_dir, "--batch_size", "2",
+        "--total_steps", "1", "--max_steps_per_epoch", "1",
+        "--max_points", str(POLAR_ROWS), "--seed", str(SEED),
+        "--device", torch.device(dev).type]))
+    with open(os.path.join(work_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    n_sec = 4 if name.endswith("4") else 1
+    want_keys = ([f"sector{s}_loss" for s in range(n_sec)] if n_sec > 1
+                 else ["hm_loss"])
+    if steps != 1 or [r["step"] for r in recs] != [0] or not all(
+            k in recs[0] for k in want_keys + ["seg_loss"]):
+        raise AssertionError(f"{name} train CLI: steps {steps}, {recs}")
+    if launches != dict.fromkeys(kernel_wrappers(), 0):
+        raise AssertionError(f"{name} train CLI: launches {launches}")
+    vals = {k: recs[0][k] for k in recs[0]
+            if k in ["loss", "grad_norm", "seg_loss"] + want_keys}
+    flat = [x for v in vals.values()
+            for x in (v if isinstance(v, list) else [v])]
+    if not all(np.isfinite(flat)):
+        raise AssertionError(f"{name} train CLI: {vals}")
+    log(f"{name} train CLI step 0 on {card}: time {recs[0]['time']!r} s, "
+        f"data_time {recs[0]['data_time']!r} s, {vals}")
+    return dict(launches=launches, wall_s=wall_ms / 1e3)
+
+
+def strobe_han_phase(dev, card):
+    """The four HAN and STROBE configs (``configs/nusc/pp/{han_1_sector,
+    han_4_sectors,strobe_1_sector,strobe_4_sector}.py``: 512 x 512 cuboid
+    pillars, ``DynamicPFNet`` 64 -> 128, HAN 1-sector ``RPN`` and
+    PointPillars' seg head at 32,768 pillars; HAN 4-sector 4 wedges of
+    256 x 256 at 7,504 pillars with ``RPNWaymo``'s ConvLSTM and the sector
+    LSTM; STROBE ``RPNUber`` over SH_SLOTS sweep slots at 30,000 pillars,
+    or 4 wedges at 7,504; ``CenterHeadSingle`` and ``SingleConvHead``) at
+    full width, random weights with every norm drawn, on a synthetic
+    11-sweep nuScenes set with lidarseg files (10 sweeps a sample, as the
+    configs draw them; STROBE's (B, S, P, C) batch split from it by
+    :func:`sweep_split`). First ``ego_motion_warp_polar`` at WARP_SHAPE
+    (:func:`warp_reading`). For each config: its frame (median of SH_TIMED
+    after a warm-up, device busy and launches, every kernel count 0; the
+    point labels; a repeat bit-equal), decode + NMS alone, pillars
+    occupied against each cap, the card against the CPU on a reduced grid
+    (:func:`sh_reference`), the train step at batch 4 (STROBE at
+    SH_TRAIN_SLOTS sweep slots; median of SH_TRAIN_STEPS, peak memory);
+    for HAN ``dist_test`` (:func:`seg_dist_test`) and one train-CLI step.
+    No hand kernel lies on this path."""
+    import tempfile
+
+    from partner_tpu_torch.models import build_detector
+    from partner_tpu_torch.train.optim import build_one_cycle_optimizer
+    from partner_tpu_torch.train.train_state import make_train_step
+    from partner_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    none = dict.fromkeys(kernel_wrappers(), 0)
+    res = {"warp": warp_reading(dev, card)}
+    batches = {}
+    with tempfile.TemporaryDirectory() as root:
+        info = write_nusc_scene(root, np.random.RandomState(SEED + 70),
+                                SEG_FRAMES, POLAR_SWEEPS, NUSC_SWEEP_POINTS,
+                                lidarseg=True)
+        for name, config in STROBE_HAN_CONFIGS.items():
+            t_cfg = time.perf_counter()
+            cfg_path = write_nusc_config(root, f"sh_{name}", info, config)
+            cfg = load_config(cfg_path)
+            tc = dict(cfg["test_cfg"])
+            gen = torch.Generator().manual_seed(SEED + 72)
+            det = build_detector(cfg["model"], cfg["train_cfg"], tc,
+                                 device=dev, generator=gen)
+            randomize_norms(det.module, gen)
+            randomize_pfn(det.module, gen)
+            mod = det.module
+            n_sec = getattr(mod, "n_sectors", 1)
+            strobe = det.input_kind == "sweeps"
+            # STROBE's pipelines are HAN's (its files exec han_1_sector.py):
+            # a batch is built once for each sector count
+            if ("val", n_sec) not in batches:
+                batches["val", n_sec] = nusc_batch(cfg_path, "val", 1,
+                                                   rows=POLAR_ROWS)
+            batch = batches["val", n_sec]
+            rows = int(batch["points_mask"].sum())
+            if rows >= POLAR_ROWS:
+                raise AssertionError(f"{name}: the buffer is full")
+            if strobe:
+                batch = sweep_split(batch, SH_SLOTS)
+            ex = to_device({k: batch[k] for k in ("points", "points_mask")},
+                           dev)
+            median, times, out, tally = timed_predicts(det, ex, SH_TIMED,
+                                                       none)
+            busy, launches = device_busy(lambda: det.predict(ex))
+            share = seg_label_check(name, out, last_sweep(ex))
+            # a CenterPointDetector keeps the velocity, PolarStream drops it
+            kept = check_detections(out, tc, n_tasks=n_sec,
+                                    box_dim=9 if n_sec == 1 else 7)
+            if not identical(det.predict(ex), out):
+                raise AssertionError(f"{name}: a repeat differs")
+            with torch.no_grad():
+                preds = mod(ex)
+            nms_r = polar_nms_readings(det, preds)
+            last = last_sweep(ex)
+            if n_sec > 1:
+                census = polar_census(mod, last)
+            else:
+                occ, kept_p, dropped = pillar_census(mod, last)
+                census = dict(occupied=occ, pillars=kept_p,
+                              capacity=mod.max_pillars,
+                              dropped_points=dropped)
+            log(f"{name} frame on {card}: {rows} points"
+                + (f" in {tuple(ex['points'].shape)} sweep slots" if strobe
+                   else "") + f", median {median!r} ms over {SH_TIMED} "
+                f"frames (host clock around a synchronized predict), all "
+                f"{times!r}; device busy {busy!r} ms and {launches!r} "
+                f"launches a frame; kernel launches {tally}; {kept} boxes "
+                f"kept; {share!r} of the last sweep's points labelled; "
+                f"repeat bit-equal; decode + NMS alone {nms_r['ms']!r} ms "
+                f"(all {nms_r['all_ms']!r}), {nms_r['sweeps_per_sector']!r} "
+                f"fixpoint sweeps a sector; pillars {census}")
+            r = dict(median_ms=median, device_busy_ms=busy,
+                     launches_per_frame=launches, launches=tally, kept=kept,
+                     labelled=share, nms=nms_r, census=census, rows=rows)
+            del preds, out
+            r["reference"] = sh_reference(dev, card, name, ex)
+            del ex
+            torch.cuda.empty_cache()
+
+            # ---- the train step at batch 4 (STROBE: SH_TRAIN_SLOTS sweeps)
+            torch.cuda.reset_peak_memory_stats()
+            if ("train", n_sec) not in batches:
+                batches["train", n_sec] = nusc_batch(
+                    cfg_path, "train", NUSC_TRAIN_BATCH, rows=POLAR_ROWS,
+                    n_sectors=n_sec)
+            tb = batches["train", n_sec]
+            if strobe:
+                tb = sweep_split(tb, SH_TRAIN_SLOTS)
+            tex = to_device({k: v for k, v in tb.items()
+                             if k in det.loss_keys}, dev)
+            step = make_train_step(det, build_one_cycle_optimizer(
+                mod, lr_max=cfg["lr_config"]["lr_max"], total_steps=1000))
+            tl, t_med, t_times, steps, peak = timed_train_steps(
+                det, step, tex, None, none, f"{name} train step",
+                n_steps=SH_TRAIN_STEPS)
+            if not all("seg_loss" in st for st in steps):
+                raise AssertionError(f"{name} train step: no seg_loss")
+            log(f"{name} train step, batch {NUSC_TRAIN_BATCH}, on {card}: "
+                f"median {t_med!r} ms over {SH_TRAIN_STEPS} steps, all "
+                f"{t_times!r}; points {tuple(tex['points'].shape)}; peak "
+                f"memory {peak!r} GiB; targets {tuple(tex['hm'][0].shape)}; "
+                f"launches {tl}; every gradient finite, every parameter and "
+                "statistic moved")
+            r["train"] = dict(median_ms=t_med, peak_gib=peak, launches=tl,
+                              points=tuple(tex["points"].shape))
+            del step, tex
+            torch.cuda.empty_cache()
+            if not strobe:
+                r["dist_test"] = seg_dist_test(det, cfg_path, root, name,
+                                               card)
+                del det, mod
+                torch.cuda.empty_cache()
+                r["train_cli"] = sh_train_cli(cfg_path, root, name, card,
+                                              dev)
+            log(f"{name}: {time.perf_counter() - t_cfg:.1f} s")
+            res[name] = r
+    log(f"STROBE and HAN phase {time.perf_counter() - t_phase:.1f} s in all")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this run needs one NVIDIA card")
@@ -6060,6 +6486,7 @@ def main():
     pp = pp_phase(dev, card)
     polar = polarstream_phase(dev, card)
     seg = seg_phase(dev, card)
+    han = strobe_han_phase(dev, card)
 
     meta = {
         "stem": ("partner_tpu_torch/csrc/stem.cu",
@@ -6094,7 +6521,10 @@ def main():
             (f"seg {c} {k}", seg[c][k]["launches"] if k != "frame"
              else seg[c]["launches"], {})
             for c in SEG_CONFIGS
-            for k in ("frame", "train", "dist_test", "train_cli")):
+            for k in ("frame", "train", "dist_test", "train_cli")) + tuple(
+            (f"{c} {k}", (han[c]["launches"] if k == "frame"
+                          else han[c][k]["launches"]), {})
+            for c in STROBE_HAN_CONFIGS for k in SH_PATHS[c[:-2]]):
         if tally != {k: want.get(k, 0) for k in meta}:
             raise AssertionError(f"{key} launches {tally}")
     kernels = [dict(name=name, route="cuda", source=meta[name][0],
@@ -6172,6 +6602,11 @@ def main():
                        for c in SEG_CONFIGS
                        for k in ("frame", "train", "dist_test",
                                  "train_cli")},
+                    **{f"{c}_{k}_launches": (
+                        han[c]["launches"] if k == "frame"
+                        else han[c][k]["launches"])[name]
+                       for c in STROBE_HAN_CONFIGS
+                       for k in SH_PATHS[c[:-2]]},
                     **r)
                for name, r in kres.items()]
     log("summary: card " + card + ", flagship frame median ms: " + ", ".join(
@@ -6342,6 +6777,22 @@ def main():
         f"{seg[c]['dist_test']['miou']!r}, PQ {seg[c]['dist_test']['pq']!r};"
         f" train CLI 2 steps in {seg[c]['train_cli']['wall_s']!r} s"
         for c in SEG_CONFIGS))
+    w = han["warp"]
+    log(f"summary: card {card}, HAN and STROBE " + "; ".join(
+        f"{c}: frame median {han[c]['median_ms']!r} ms (device busy "
+        f"{han[c]['device_busy_ms']!r}, {han[c]['launches_per_frame']!r} "
+        f"launches), decode + NMS {han[c]['nms']['ms']!r} ms, "
+        f"{han[c]['kept']} boxes kept; train step at batch 4 "
+        f"{han[c]['train']['median_ms']!r} ms on "
+        f"{han[c]['train']['points']} points, peak "
+        f"{han[c]['train']['peak_gib']!r} GiB"
+        + (f"; dist_test middle-third FPS {han[c]['dist_test']['fps']!r}, "
+           f"mIoU {han[c]['dist_test']['miou']!r}; train CLI 1 step in "
+           f"{han[c]['train_cli']['wall_s']!r} s" if "dist_test" in han[c]
+           else "") for c in STROBE_HAN_CONFIGS)
+        + f"; ego_motion_warp_polar {WARP_SHAPE} {w['device_ms']!r} ms "
+        f"device (bound {w['bound_ms']!r}), relative RMS against the CPU "
+        f"{w['rel_rms']!r}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,9 +12,17 @@ submodules carry flax's names (``Conv_0``, ``BatchNorm_0``,
   ``running_mean``/``running_var``;
 - the ``layers.BatchNorm`` wrapper's nested ``BatchNorm_k/BatchNorm_0``
   collapses to ``BatchNorm_k``, and a stream neck's
-  ``deblock{j}_bn/BatchNorm_0`` to ``deblock{j}_bn`` (its
-  ``deblock{j}_conv`` maps by the Conv rule, a transposed one too:
-  ``models.rpn_stream.DeblockTranspose`` keeps that layout);
+  ``deblock{j}_bn/BatchNorm_0`` and ``block{i}_bn{li}/BatchNorm_0``
+  (``RPNHalo``, ``RPNUber``, ``RPNWaymoLSTM``) to ``deblock{j}_bn`` and
+  ``block{i}_bn{li}`` (its ``deblock{j}_conv`` maps by the Conv rule, a
+  transposed one too: ``models.rpn_stream.DeblockTranspose`` keeps that
+  layout; so do ``block{i}_conv{li}`` and the ConvLSTM's
+  ``memory/gates``, with its bias);
+- flax's ``OptimizedLSTMCell`` (HAN's sector memory ``lstm``) maps by
+  the Dense rule: its input kernels ``ii``, ``if``, ``ig``, ``io`` (no
+  bias) and recurrent kernels ``hi``, ``hf``, ``hg``, ``ho`` (with the
+  bias), gate order i, f, g, o, are ``models.strobe.LSTMCell``'s
+  submodules of those names;
 - raw parameters keep name and layout: ``stem{i}_kernel/scale/bias``,
   the ``stem{i}_mean/var`` stats, ``tau``, and a DCN head's
   ``deform_kernel`` (K, C, Cout) and ``deform_bias`` (its 1x1
@@ -57,7 +65,8 @@ def _collapse(path):
     path = list(path)
     if (len(path) >= 3 and path[-2] == "BatchNorm_0"
             and (path[-3].startswith("BatchNorm_")
-                 or re.fullmatch(r"deblock\d+_bn", path[-3]))):
+                 or re.fullmatch(r"deblock\d+_bn|block\d+_bn\d+",
+                                 path[-3]))):
         del path[-2]
     return path
 

@@ -22,17 +22,17 @@ stage is given (the dataset passes its own to each), in the JAX package's
 order, where the JAX package draws from the global ``np.random``: one
 seed gives the same batches.
 
-With ``nsectors > 1`` (PolarStream) ``AssignLabel`` assigns the center
-targets per cylinder sector, each gaining a leading sector axis. With
+With ``nsectors > 1`` (PolarStream, HAN, STROBE) ``AssignLabel`` assigns
+the center targets per sector (cylinder: azimuth slices of the polar
+grid; cuboid: wedges of the cartesian grid from -pi), each gaining a
+leading sector axis. With
 ``super_tasks`` holding ``"seg"`` (the seg configs) the nuScenes loader
 reads the key frame's lidarseg labels in train and ``debug_gt`` mode only,
 where the info has a ``lidarseg_path`` (no ``create_data`` writes one):
 the raw ids merged to the 17 classes by ``NUSCENES_SEMANTIC_MAPPING`` (0
 = ignore), -1 for the sweeps' rows, as a last column that ``Preprocess``
 splits off after the shuffle into ``pc_label`` and ``Reformat`` passes
-on (``collate`` makes it ``points_label``). Not ported, and raising
-``NotImplementedError`` where a config asks for them: the cuboid sector
-targets (ROADMAP.md queue 1 item 7).
+on (``collate`` makes it ``points_label``).
 """
 
 import pickle
@@ -376,9 +376,9 @@ class AssignLabel:
     vote map. Val mode passes through: no targets at evaluation.
 
     With ``nsectors > 1`` the center targets are assigned per azimuth
-    sector (:meth:`_assign_sectors`), each target gaining a leading sector
-    axis (``collate`` makes it (B, S, ...)); ``global_box`` and the vote
-    map stay whole-sweep."""
+    sector, cylinder or cuboid (:meth:`_assign_sectors`), each target
+    gaining a leading sector axis (``collate`` makes it (B, S, ...));
+    ``global_box`` and the vote map stay whole-sweep."""
 
     def __init__(self, cfg=None, rectify=False, with_votemap=True,
                  with_global_box=True, nsectors=1, **kwargs):
@@ -397,29 +397,38 @@ class AssignLabel:
         self.with_votemap = with_votemap
         self.with_global_box = with_global_box
         self.nsectors = cfg.get("nsectors", nsectors)
-        if self.nsectors > 1 and self.assigner.voxel_shape == "cuboid":
-            raise NotImplementedError(
-                "cuboid sector targets (cartesian azimuth wedges) are not "
-                "ported to partner_tpu_torch (ROADMAP.md queue 1 item 7: "
-                "STROBE and HAN)")
 
     def _assign_sectors(self, boxes, classes, meta):
-        """Per cylinder sector s (``pipeline.py:365-406``): the boxes whose
-        center azimuth lies in [lo, lo + span), lo = range[1] + s x span,
-        turned by -s x span into sector 0's frame and assigned on the
-        sector grid (n_r, n_az / S, nz) over the sector range; each target
-        stacked over the sectors (a per-task list of (S, ...) arrays)."""
+        """Per sector s (``pipeline.py:365-406``): the boxes whose center
+        azimuth lies in [lo, lo + span), lo = origin + s x span, turned by
+        -s x span into sector 0's frame and assigned on the sector grid
+        over the sector range; each target stacked over the sectors (a
+        per-task list of (S, ...) arrays). Cylinder sectors: origin
+        ``range[1]``, span the range's azimuth over S, the grid (n_r,
+        n_az / S, nz). Cuboid sectors: origin -pi, span 2 pi / S, the grid
+        and range of ``cart_sector_spec``."""
         full_range = np.asarray(meta["range"], np.float32)
-        span = (full_range[4] - full_range[1]) / self.nsectors
-        sec_range = full_range.copy()
-        sec_range[4] = sec_range[1] + span
-        sec_shape = np.asarray(meta["shape"]).copy()
-        sec_shape[1] = sec_shape[1] // self.nsectors
+        if self.assigner.voxel_shape == "cuboid":
+            from ..models.polarstream import cart_sector_spec
+
+            span = 2 * np.pi / self.nsectors
+            az_lo = -np.pi
+            sec_range, sec_shape = cart_sector_spec(
+                full_range, np.asarray(meta["shape"]), self.nsectors)
+            sec_range = np.asarray(sec_range, np.float32)
+            sec_shape = np.asarray(sec_shape)
+        else:
+            span = (full_range[4] - full_range[1]) / self.nsectors
+            az_lo = full_range[1]
+            sec_range = full_range.copy()
+            sec_range[4] = sec_range[1] + span
+            sec_shape = np.asarray(meta["shape"]).copy()
+            sec_shape[1] = sec_shape[1] // self.nsectors
         az = (np.arctan2(boxes[:, 1], boxes[:, 0])
               if len(boxes) else np.zeros((0,)))
         per_sector = []
         for s in range(self.nsectors):
-            lo = full_range[1] + s * span
+            lo = az_lo + s * span
             m = (az >= lo) & (az < lo + span)
             per_sector.append(self.assigner.assign(
                 _rotate_boxes(boxes[m], -s * span), classes[m], sec_shape,

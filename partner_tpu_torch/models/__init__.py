@@ -4,7 +4,7 @@ from .registry import (  # noqa: F401
 )
 from . import (backbone, backbone_dense, center_head, detectors,  # noqa: F401
                e2e_head, pillar, polarstream, readers, rpn, rpn_stream,
-               seg_head, two_stage)
+               seg_head, strobe, two_stage)
 
 
 def build_detector(cfg, train_cfg=None, test_cfg=None, *, device,

@@ -12,9 +12,12 @@
 - :class:`PointPillarsModule`: the points pillarized on their device by
   ``ops.voxelize.dynamic_voxelize`` on the (nx, ny, 1) grid, the PFN over
   the whole batch's pillars in one segment space, the scatter, then the
-  ``RPN`` neck and the ``CenterHead``.
+  ``RPN`` neck and the ``CenterHead``; with a ``seg_head`` (HAN's
+  ``SingleConvHead``) a seg map over the canvas and the neck's map.
 - ``build_point_pillars``, registered as ``PointPillars``: the module in a
   :class:`~.detectors.CenterPointDetector`.
+- :func:`pillar_module_kwargs` and :func:`max_pillars_rule`: the config
+  reading that every pillar module's factory shares.
 
 JAX wrote this stack in plain XLA (``segment_sum``, ``segment_max``,
 ``.at[].set``; no Pallas kernel), and the port writes it in plain torch.
@@ -32,6 +35,7 @@ import torch.nn as nn
 from ..ops.voxelize import dynamic_voxelize
 from .layers import Dense, MaskedBatchNorm, constant
 from .registry import BBOX_HEADS, DETECTORS, NECKS, READERS, build_from_cfg
+from .seg_head import build_seg_head, neck_out_features
 
 
 def _segment_max(x, seg, num_segments):
@@ -186,10 +190,15 @@ class PointPillarsModule(nn.Module):
     """points -> pillars -> PFN -> scatter -> ``RPN`` -> ``CenterHead``,
     NHWC (``pillar.py:149-240``). ``max_pillars`` is the pillar capacity
     of each sample: the lowest linear cell ids are kept, as in JAX (the
-    config's ``max_voxel_num`` is not read)."""
+    config's ``max_voxel_num`` is not read). ``seg_head_cfg`` adds a seg
+    head over (canvas, neck map), its config cut to JAX's keys."""
+
+    SEG_KEYS = ("type", "num_classes", "kernel", "in_channels", "up_scale",
+                "height", "weight")
 
     def __init__(self, reader_cfg, neck_cfg, head_cfg, grid_size, pc_range,
-                 voxel_size, max_pillars=32768, out_size_factor=8):
+                 voxel_size, max_pillars=32768, out_size_factor=8,
+                 seg_head_cfg=None):
         super().__init__()
         self.grid_size = tuple(grid_size)
         self.pc_range = tuple(pc_range)
@@ -202,6 +211,12 @@ class PointPillarsModule(nn.Module):
         self.reader = build_from_cfg(rc, READERS)
         self.neck = build_from_cfg(dict(neck_cfg), NECKS)
         self.bbox_head = build_from_cfg(dict(head_cfg), BBOX_HEADS)
+        self.seg_head = None
+        if seg_head_cfg:
+            self.seg_head = build_seg_head(
+                seg_head_cfg, self.SEG_KEYS,
+                tuple(rc.get("num_filters", (64,)))[-1],
+                neck_out_features(self.neck))
 
     def pillarize(self, points, points_mask):
         """``dynamic_voxelize`` on the pillar grid (nx, ny, 1), the z extent
@@ -235,14 +250,58 @@ class PointPillarsModule(nn.Module):
         return pp_scatter(feats.reshape(b, v, -1), vox["coords"],
                           vox["mask"], self.grid_size)
 
+    def heads(self, canvas, x):
+        """The head's maps of the neck's map x, with a seg head also
+        ``seg_preds`` (B, n_az, n_r, classes) over the canvas and x."""
+        out = self.bbox_head(x)
+        if self.seg_head is not None:
+            out = dict(out, seg_preds=self.seg_head(canvas, x)["seg_preds"])
+        return out
+
     def forward(self, example, generator=None, return_bev=False):
         """example {"points": (B, P, C), "points_mask": (B, P)} -> the
-        head's maps, and with ``return_bev`` the neck's map beside them:
-        ``(maps, bev)``. ``generator`` is unused (no dropout)."""
+        head's maps (:meth:`heads`), and with ``return_bev`` the neck's map
+        beside them: ``(maps, bev)``. ``generator`` is unused (no
+        dropout)."""
         canvas = self.encode_canvas(example["points"], example["points_mask"])
         x = self.neck(canvas)
-        out = self.bbox_head(x)
+        out = self.heads(canvas, x)
         return (out, x) if return_bev else out
+
+
+def max_pillars_rule(vg, n_sectors):
+    """A sector's pillar capacity where the config sets none: the first
+    ``max_voxel_num`` (32,768 without one) shared among the sectors,
+    ``max(1024, ceil(mv / S))`` rounded up to 8 (30,000 at one sector,
+    7,504 a sector at four)."""
+    mv = dict(vg or {}).get("max_voxel_num", 32768)
+    mv = mv[0] if isinstance(mv, (list, tuple)) else mv
+    return max(1024, (-(-mv // max(n_sectors, 1)) + 7) // 8 * 8)
+
+
+def pillar_module_kwargs(reader, neck, bbox_head, max_pillars):
+    """The keyword arguments a pillar module (PointPillars, PolarStream,
+    STROBE, HAN) takes from a config (``partner_tpu/models/strobe.py:
+    162-193``): the grid, range and cell size of
+    ``bbox_head["voxel_generator"]``, the reader and neck configs, and the
+    head config rewritten as ``build_voxelnet`` rewrites it."""
+    from .detectors import _grid_spec
+
+    grid, pc_range, voxel_size = _grid_spec(bbox_head)
+    head_cfg = dict(bbox_head)
+    for k in ("voxel_shape", "code_weights", "weight", "dataset"):
+        head_cfg.pop(k, None)
+    head_cfg["tasks"] = tuple({"class_names": tuple(t["class_names"])}
+                              for t in bbox_head["tasks"])
+    if "common_heads" in head_cfg:
+        head_cfg["common_heads"] = tuple(sorted(
+            (k, tuple(v)) for k, v in dict(bbox_head["common_heads"]).items()))
+    return dict(reader_cfg=dict(reader),
+                neck_cfg={k: v for k, v in dict(neck).items()
+                          if k != "logger"},
+                head_cfg=head_cfg, grid_size=grid, pc_range=pc_range,
+                voxel_size=voxel_size, max_pillars=max_pillars,
+                out_size_factor=bbox_head.get("out_size_factor", 8))
 
 
 @DETECTORS.register_module(name="PointPillars")
@@ -253,38 +312,24 @@ def build_point_pillars(reader, neck, bbox_head, backbone=None,
     """PointPillars factory (``pillar.py:258-303``): a
     :class:`PointPillarsModule` in a ``CenterPointDetector`` that takes
     points, with the head config rewritten as ``build_voxelnet`` rewrites
-    it. ``backbone`` (``PointPillarsScatter``) is read by neither package:
-    the module scatters its own canvas. The module is built on the meta
-    device and materialized on ``device`` with flax's default initializers
-    drawn from ``generator`` (seed 0 when None)."""
-    from .detectors import CenterPointDetector, _grid_spec, _materialize
+    it; a ``seg_head`` (HAN 1-sector) adds its head, its ``weight`` the seg
+    loss's (1.0 by default). ``max_pillars`` is 32,768 where the config
+    sets none: the factory does not read ``max_voxel_num``, as in JAX.
+    ``backbone`` (``PointPillarsScatter``) is read by neither package: the
+    module scatters its own canvas. The module is built on the meta device
+    and materialized on ``device`` with flax's default initializers drawn
+    from ``generator`` (seed 0 when None)."""
+    from .detectors import CenterPointDetector, _materialize
 
     if use_block_kernel:
         raise ValueError("use_block_kernel is an option of the E2E head's "
                          "Swin blocks; PointPillars' CenterHead has none")
-    if seg_head:
-        raise NotImplementedError(
-            "PointPillars seg_head is not ported (ROADMAP.md queue 1 item "
-            "7: HAN's seg head; its SingleConvHead, of item 5, is in "
-            "models/seg_head.py)")
-    grid, pc_range, voxel_size = _grid_spec(bbox_head)
-    osf = bbox_head.get("out_size_factor", 8)
-    head_cfg = dict(bbox_head)
-    for k in ("voxel_shape", "code_weights", "weight", "dataset"):
-        head_cfg.pop(k, None)
-    head_cfg["tasks"] = tuple({"class_names": tuple(t["class_names"])}
-                              for t in bbox_head["tasks"])
-    if "common_heads" in head_cfg:
-        head_cfg["common_heads"] = tuple(sorted(
-            (k, tuple(v)) for k, v in dict(bbox_head["common_heads"]).items()))
+    kw = pillar_module_kwargs(reader, neck, bbox_head, max_pillars)
     module = _materialize(device, generator, lambda: PointPillarsModule(
-        reader_cfg=dict(reader),
-        neck_cfg={k: v for k, v in dict(neck).items() if k != "logger"},
-        head_cfg=head_cfg, grid_size=grid, pc_range=pc_range,
-        voxel_size=voxel_size, max_pillars=max_pillars,
-        out_size_factor=osf))
+        seg_head_cfg=dict(seg_head) if seg_head else None, **kw))
     return CenterPointDetector(
         module, code_weights=bbox_head.get("code_weights", [1.0] * 10),
-        weight=bbox_head.get("weight", 0.25), voxel_size=voxel_size,
+        weight=bbox_head.get("weight", 0.25), voxel_size=kw["voxel_size"],
         test_cfg=test_cfg, voxel_shape=bbox_head.get("voxel_shape",
-                                                     "cylinder"))
+                                                     "cylinder"),
+        seg_weight=(seg_head or {}).get("weight", 1.0))

@@ -1,14 +1,26 @@
 """PolarStream, the azimuth-sector streaming detector (counterpart of
-``partner_tpu/models/polarstream.py``, its cylinder branch).
+``partner_tpu/models/polarstream.py``).
 
-A sweep of cylinder-layout points [rho, phi, z, x, y, ...] is cut into
-``n_sectors`` azimuth sectors. Each is rotated into sector 0's frame and
-goes through the pillar encoder (``dynamic_voxelize`` on the sector grid
-(n_r, n_az / S, 1), ``DynamicPFNet``, ``pp_scatter``), a streaming neck
-(``RPNTECP`` / ``RPNBDCP``, whose contexts pass from one sector to the
-next) and the head. At inference each sector's boxes are decoded, rotated
-back and go through a stateful NMS: the previous sector's kept boxes near
-their shared edge are prepended as kept suppressors.
+A sweep is cut into ``n_sectors`` azimuth sectors. Each is rotated into
+sector 0's frame and goes through the pillar encoder
+(``dynamic_voxelize`` on the sector grid, ``DynamicPFNet``,
+``pp_scatter``), a streaming neck (``RPNTECP`` / ``RPNBDCP``, or HAN's
+``RPNWaymoLSTM`` and STROBE's ``RPNUber``, whose contexts pass from one
+sector to the next) and the head. At inference each sector's boxes are
+decoded, rotated back and go through a stateful NMS: the previous
+sector's kept boxes near their shared edge are prepended as kept
+suppressors.
+
+Two sector shapes (``voxel_shape``):
+
+- ``cylinder``: points [rho, phi, z, x, y, ...]; a sector is an azimuth
+  slice of the polar grid (n_r, n_az / S), from ``range[1]``, turned by
+  subtracting ``s x span`` from phi.
+- ``cuboid`` (HAN and STROBE): points [x, y, z, ...]; a sector is the
+  wedge [-pi + s span, -pi + (s + 1) span) of ``arctan2(y, x)``, span
+  2 pi / S, turned onto the first wedge (``hypot``, ``arctan2 - s span``,
+  then ``cos`` / ``sin`` back to x, y) and pillarized on
+  :func:`cart_sector_spec`'s reduced cartesian grid.
 
 - :class:`PolarStreamModule`: points -> {"sector_preds": [head maps per
   sector]}. With more than one sector the points are split into compact
@@ -23,11 +35,11 @@ their shared edge are prepended as kept suppressors.
 - ``build_polarstream``, registered as ``PolarStream`` and
   ``PolarStreamBDCP``.
 
-The cuboid sectors (cartesian wedges, HAN and STROBE) raise, naming
-ROADMAP.md queue 1 item 7. No hand kernel lies on this path: JAX wrote it
-in plain XLA, the port in plain torch.
+No hand kernel lies on this path: JAX wrote it in plain XLA, the port in
+plain torch.
 """
 
+import inspect
 import math
 
 import torch
@@ -36,35 +48,49 @@ import torch.nn.functional as F
 
 from ..ops.nms import NEG_INF, rotated_nms, topk_lower_index_first
 from ..ops.voxelize import dynamic_voxelize
+from ..ops.warp import floor_mod
 from .center_head import center_head_decode, center_head_loss
 from .layers import constant
-from .pillar import pp_scatter
+from .pillar import max_pillars_rule, pillar_module_kwargs, pp_scatter
 from .registry import BBOX_HEADS, DETECTORS, NECKS, READERS, build_from_cfg
 from .seg_head import (build_seg_head, majority_grid_labels,
                        neck_out_features, point_labels_from_grid, seg_loss,
                        seg_points)
 
-STREAM_NECKS = ("RPNTECP", "RPNBDCP")
 
 
-def floor_mod(x, y):
-    """``x % y`` with the sign of ``y``, as XLA computes ``jnp.remainder``:
-    the exact ``fmod``, then ``y`` added where the signs differ."""
-    r = torch.fmod(x, y)
-    return torch.where((r != 0) & ((r < 0) != (y < 0)), r + y, r)
+def cart_sector_spec(full_range, grid, n_sectors):
+    """(range, grid) of a cuboid sector (``polarstream.py:36-52``): every
+    wedge is turned onto the first, from -pi, which lies in the lower
+    left of the cartesian box; at 4 sectors and more both grid sides
+    halve and ``range[3] = range[4] = 0``, at 2 the y side and
+    ``range[4]``."""
+    rng = list(full_range)
+    g = list(grid)
+    if n_sectors >= 4:
+        g[0] //= 2
+        g[1] //= 2
+        rng[3] = 0.0
+        rng[4] = 0.0
+    elif n_sectors >= 2:
+        g[1] //= 2
+        rng[4] = 0.0
+    return tuple(rng), tuple(g)
 
 
 class PolarStreamModule(nn.Module):
     """points -> per sector (pillars -> PFN -> scatter -> streaming neck
-    -> head), NHWC (``polarstream.py:55-287``, cylinder sectors)."""
+    -> head), NHWC (``polarstream.py:55-287``)."""
 
     def __init__(self, reader_cfg, neck_cfg, head_cfg, grid_size, pc_range,
                  voxel_size, n_sectors=1, max_pillars=32768,
-                 out_size_factor=8, seg_head_cfg=None):
+                 out_size_factor=8, seg_head_cfg=None,
+                 voxel_shape="cylinder"):
         super().__init__()
-        self.grid_size = tuple(grid_size)    # the full sweep (n_r, n_az, nz)
+        self.grid_size = tuple(grid_size)    # the full sweep (n_r|nx, ...)
         self.pc_range = tuple(pc_range)      # the full sweep
         self.voxel_size = tuple(voxel_size)
+        self.voxel_shape = voxel_shape
         self.n_sectors = int(n_sectors)
         self.max_pillars = int(max_pillars)  # per sector and sample
         self.out_size_factor = out_size_factor
@@ -85,18 +111,39 @@ class PolarStreamModule(nn.Module):
                 neck_out_features(self.neck))
 
     def angle_span(self):
-        """The azimuth extent of one sector, radians (a python float)."""
+        """The azimuth extent of one sector, radians (a python float):
+        2 pi / S for cuboid sectors."""
+        if self.voxel_shape == "cuboid":
+            return 2 * math.pi / self.n_sectors
         return (self.pc_range[4] - self.pc_range[1]) / self.n_sectors
 
     def sector_range(self):
+        if self.voxel_shape == "cuboid":
+            return cart_sector_spec(self.pc_range, self.grid_size,
+                                    self.n_sectors)[0]
         r = list(self.pc_range)
         r[4] = r[1] + self.angle_span()
         return tuple(r)
 
     def sector_grid(self):
+        if self.voxel_shape == "cuboid":
+            return cart_sector_spec(self.pc_range, self.grid_size,
+                                    self.n_sectors)[1]
         g = list(self.grid_size)
         g[1] = g[1] // self.n_sectors
         return tuple(g)
+
+    def point_azimuth(self, points):
+        """Each point's azimuth: ``arctan2(y, x)`` of a cuboid point, the
+        phi column of a cylinder one."""
+        if self.voxel_shape == "cuboid":
+            return torch.atan2(points[..., 1], points[..., 0])
+        return points[..., 1]
+
+    def azimuth_origin(self):
+        """Sector 0's lower azimuth edge: -pi for cuboid sectors, else
+        ``range[1]`` (a python float)."""
+        return -math.pi if self.voxel_shape == "cuboid" else self.pc_range[1]
 
     def sector_point_cap(self, n_points):
         """The rows of each sector's compact buffer: an even share plus
@@ -112,8 +159,9 @@ class PolarStreamModule(nn.Module):
         are dropped, as JAX drops them."""
         b, p, c = points.shape
         s_n = self.n_sectors
-        sec = torch.clamp(torch.floor((points[..., 1] - self.pc_range[1])
-                                      / self.angle_span()), 0, s_n - 1).long()
+        sec = torch.clamp(torch.floor(
+            (self.point_azimuth(points) - self.azimuth_origin())
+            / self.angle_span()), 0, s_n - 1).long()
         sec = torch.where(mask, sec, s_n)
         order = torch.argsort(sec, dim=-1, stable=True)
         sorted_pts = torch.gather(points, 1, order[..., None].expand(-1, -1,
@@ -135,7 +183,14 @@ class PolarStreamModule(nn.Module):
         return out
 
     def _rotated(self, points, new_phi):
-        """[rho, new_phi, z, rho cos, rho sin, the columns after 5]."""
+        """Points turned to azimuth ``new_phi``: cylinder [rho, new_phi, z,
+        rho cos, rho sin, the columns after 5]; cuboid [rho cos, rho sin,
+        z, the columns after 3], rho = hypot(x, y)."""
+        if self.voxel_shape == "cuboid":
+            rho = torch.hypot(points[..., 0], points[..., 1])
+            cols = [(rho * torch.cos(new_phi))[..., None],
+                    (rho * torch.sin(new_phi))[..., None], points[..., 2:]]
+            return torch.cat(cols, dim=-1)
         rho = points[..., 0]
         cols = [rho[..., None], new_phi[..., None], points[..., 2:3],
                 (rho * torch.cos(new_phi))[..., None],
@@ -146,15 +201,16 @@ class PolarStreamModule(nn.Module):
 
     def _rotate_points(self, points, valid, s):
         """A compact sector buffer re-referenced to sector 0's frame."""
-        return self._rotated(points, points[..., 1] - s * self.angle_span()
-                             ), valid
+        return self._rotated(points, self.point_azimuth(points)
+                             - s * self.angle_span()), valid
 
     def _rotate_to_sector(self, points, mask, s):
         """Sector s of the whole buffer, selected by azimuth
-        (``lo <= phi < lo + span``), re-referenced to sector 0."""
+        (``lo <= phi < lo + span``, lo = origin + s x span), re-referenced
+        to sector 0."""
         span = self.angle_span()
-        lo = self.pc_range[1] + s * span
-        phi = points[..., 1]
+        lo = self.azimuth_origin() + s * span
+        phi = self.point_azimuth(points)
         sel = mask & (phi >= lo) & (phi < lo + span)
         return self._rotated(points, phi - s * span), sel
 
@@ -385,7 +441,8 @@ class PolarStreamDetector:
             hw = (task["hm"].shape[1], task["hm"].shape[2])
             boxes, scores = center_head_decode(
                 task, hw, self.voxel_size, sr, mod.out_size_factor,
-                voxel_shape="cylinder", rectify=tc.get("rectify", False))
+                voxel_shape=mod.voxel_shape,
+                rectify=tc.get("rectify", False))
             boxes = rotate_boxes_to_global(boxes, s * span)
             limit = tuple(tc.get("post_center_limit_range",
                                  [-80, -80, -10, 80, 80, 10]))
@@ -403,7 +460,8 @@ class PolarStreamDetector:
             out = {k: torch.stack([r[k] for r in rows])
                    for k in ("box3d_lidar", "scores", "mask", "label_preds")}
             outs.append(out)
-            carry = self._next_carry(out, mod.pc_range[1] + (s + 1) * span)
+            carry = self._next_carry(out,
+                                     mod.azimuth_origin() + (s + 1) * span)
         return {k: torch.cat([o[k] for o in outs], dim=1) for k in outs[0]}
 
     @staticmethod
@@ -449,6 +507,29 @@ class PolarStreamDetector:
         return torch.gather(kb, 1, idx_c[..., None].expand(-1, -1, 7)), top_c
 
 
+def check_stream_neck(neck):
+    """A sector loop hands its neck a context: a neck whose forward takes
+    none (``RPN``, ``RPNHalo``) raises here, as JAX's module call would
+    raise at its first sector."""
+    name = dict(neck).get("type")
+    cls = NECKS.get(name)
+    if cls is not None and len(inspect.signature(cls.forward).parameters) < 3:
+        raise ValueError(
+            f"a sector-streaming detector passes its neck each sector's "
+            f"context; neck {name} takes none (a context neck: "
+            "RPNTECP, RPNBDCP, RPNUber, RPNWaymo / RPNWaymoLSTM)")
+
+
+def stream_detector(module, bbox_head, seg_head, test_cfg):
+    """``module`` in a :class:`PolarStreamDetector` with the config's loss
+    weights (a seg head's ``weight`` 2.0 by default, as in JAX)."""
+    return PolarStreamDetector(
+        module, code_weights=bbox_head.get("code_weights", [1.0] * 10),
+        weight=bbox_head.get("weight", 0.25),
+        voxel_size=module.voxel_size, test_cfg=test_cfg,
+        seg_weight=(seg_head or {}).get("weight", 2.0))
+
+
 @DETECTORS.register_module(name="PolarStream")
 @DETECTORS.register_module(name="PolarStreamBDCP")
 def build_polarstream(reader, neck, bbox_head, backbone=None, seg_head=None,
@@ -457,51 +538,26 @@ def build_polarstream(reader, neck, bbox_head, backbone=None, seg_head=None,
                       generator=None, use_block_kernel=False):
     """PolarStream factory (``polarstream.py:506-567``): the sector count
     from ``bbox_head["voxel_generator"]["nsectors"]``; ``max_pillars``,
-    where the config does not set it, from the first ``max_voxel_num``
-    shared among the sectors (``max(1024, ceil(mv / S))`` rounded up to 8:
-    30,000 at one sector, 7,504 a sector at four); the neck told
-    ``nsectors``; the head config rewritten as ``build_voxelnet`` rewrites
-    it. ``backbone`` (``DynamicPPScatter``) is not read: the module
-    scatters its own canvas. Built on the meta device and materialized on
-    ``device`` as the other factories do."""
-    from .detectors import _grid_spec, _materialize
+    where the config does not set it, by :func:`max_pillars_rule`; the
+    neck told ``nsectors``; the head config rewritten as
+    ``build_voxelnet`` rewrites it; cylinder or cuboid sectors by the
+    head's ``voxel_shape``. ``backbone`` (``DynamicPPScatter``) is not
+    read: the module scatters its own canvas. Built on the meta device and
+    materialized on ``device`` as the other factories do."""
+    from .detectors import _materialize
 
     if use_block_kernel:
         raise ValueError("use_block_kernel is an option of the E2E head's "
                          "Swin blocks; PolarStream's head has none")
-    if bbox_head.get("voxel_shape", "cylinder") != "cylinder":
-        raise NotImplementedError(
-            "PolarStream's cuboid sectors (cartesian azimuth wedges) are not "
-            "ported (ROADMAP.md queue 1 item 7: STROBE and HAN)")
-    if dict(neck).get("type") not in STREAM_NECKS:
-        raise NotImplementedError(
-            f"PolarStream neck {dict(neck).get('type')} is not ported; the "
-            f"port streams through {STREAM_NECKS} (ROADMAP.md queue 1 item "
-            "7: STROBE and HAN)")
-    grid, pc_range, voxel_size = _grid_spec(bbox_head)
-    osf = bbox_head.get("out_size_factor", 8)
+    check_stream_neck(neck)
     vg = bbox_head["voxel_generator"]
     n_sectors = vg.get("nsectors", 1)
     if max_pillars is None:
-        mv = vg.get("max_voxel_num", 32768)
-        mv = mv[0] if isinstance(mv, (list, tuple)) else mv
-        max_pillars = max(1024, (-(-mv // n_sectors) + 7) // 8 * 8)
-    head_cfg = dict(bbox_head)
-    for k in ("voxel_shape", "code_weights", "weight", "dataset"):
-        head_cfg.pop(k, None)
-    head_cfg["tasks"] = tuple({"class_names": tuple(t["class_names"])}
-                              for t in bbox_head["tasks"])
-    if "common_heads" in head_cfg:
-        head_cfg["common_heads"] = tuple(sorted(
-            (k, tuple(v)) for k, v in dict(bbox_head["common_heads"]).items()))
-    neck_cfg = {k: v for k, v in dict(neck).items() if k != "logger"}
-    neck_cfg.setdefault("nsectors", n_sectors)
+        max_pillars = max_pillars_rule(vg, n_sectors)
+    kw = pillar_module_kwargs(reader, neck, bbox_head, max_pillars)
+    kw["neck_cfg"].setdefault("nsectors", n_sectors)
     module = _materialize(device, generator, lambda: PolarStreamModule(
-        reader_cfg=dict(reader), neck_cfg=neck_cfg, head_cfg=head_cfg,
-        grid_size=grid, pc_range=pc_range, voxel_size=voxel_size,
-        n_sectors=n_sectors, max_pillars=max_pillars, out_size_factor=osf,
-        seg_head_cfg=dict(seg_head) if seg_head else None))
-    return PolarStreamDetector(
-        module, code_weights=bbox_head.get("code_weights", [1.0] * 10),
-        weight=bbox_head.get("weight", 0.25), voxel_size=voxel_size,
-        test_cfg=test_cfg, seg_weight=(seg_head or {}).get("weight", 2.0))
+        n_sectors=n_sectors, voxel_shape=bbox_head.get("voxel_shape",
+                                                       "cylinder"),
+        seg_head_cfg=dict(seg_head) if seg_head else None, **kw))
+    return stream_detector(module, bbox_head, seg_head, test_cfg)

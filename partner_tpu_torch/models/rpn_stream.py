@@ -1,9 +1,9 @@
-"""Streaming RPN necks with sector context padding, NHWC (counterpart of
-``RPNTECP`` and ``RPNBDCP`` in ``partner_tpu/models/rpn_stream.py``).
+"""Streaming RPN necks, NHWC (counterpart of
+``partner_tpu/models/rpn_stream.py``).
 
-A sweep is cut into azimuth sectors that arrive one after another. Each
-3x3 conv of the neck pads its input's azimuth axis (axis 1 of the
-(B, az, r, C) map) with context instead of zeros where it has some:
+A sweep is cut into azimuth sectors that arrive one after another, or a
+sweep follows the previous one. The necks carry context between calls
+(axis 1 of the (B, az, r, C) map is the azimuth):
 
 - :class:`ConvContextTE` (``RPNTECP``, trailing edge): sector 0 pads one
   zero row at both azimuth ends; a later sector puts the previous sector's
@@ -13,16 +13,26 @@ A sweep is cut into azimuth sectors that arrive one after another. Each
   sector's last row in front (zeros at sector 0), and after the sector
   the leading-edge row of the previous sweep's map where one is given
   (zeros otherwise). It returns its whole input as the next context.
+- ``RPNHalo``: a whole sweep, each conv's azimuth axis padded circularly
+  (the single-shard form of the JAX neck's ring halo).
+- ``RPNUber`` (STROBE): each scale's input concatenated with the previous
+  sweep's input of that scale (zeros without one); it returns this
+  sweep's per-scale inputs as the next context.
+- ``RPNWaymoLSTM``, also registered as ``RPNWaymo`` (HAN): a
+  :class:`ConvLSTMCell` memory over the canvas, its hidden map
+  concatenated to the canvas; it returns the new ``(h, c)`` state.
 
-The range axis is zero-padded on both sides, then the conv runs VALID.
-Contexts are plain lists, one entry per conv, threaded by the caller.
-Submodules keep flax's names (``block{i}_conv{li}`` holding ``Conv_0`` and
-``BatchNorm_0``; ``deblock{j}_conv``, ``deblock{j}_bn``), so
-``convert.flax_to_torch`` maps them.
-
-``RPNHalo``, ``RPNUber`` and ``RPNWaymo`` / ``RPNWaymoLSTM`` are not
-ported; a config that names them raises (ROADMAP.md queue 1 item 7, and
-items 9/11 for the halo's mesh form).
+``RPNTECP`` / ``RPNBDCP`` / ``RPNHalo`` zero-pad the range axis on both
+sides and run each conv VALID. ``RPNUber`` and ``RPNWaymoLSTM`` pass
+``padding=1`` to their convs as JAX does: 1 on both sides of both axes,
+also at stride 2, where flax's "SAME" would pad (0, 1). Contexts are
+plain lists or tuples threaded by the caller. Submodules keep flax's
+names (a context conv's ``block{i}_conv{li}`` holding ``Conv_0`` and
+``BatchNorm_0``; a plain conv's ``block{i}_conv{li}`` and
+``block{i}_bn{li}``; ``deblock{j}_conv``, ``deblock{j}_bn``;
+``memory.gates``), so ``convert.flax_to_torch`` maps them. No TPU kernel
+lies here: the JAX package wrote these necks in plain XLA, the port in
+plain torch.
 """
 
 import torch
@@ -111,13 +121,20 @@ class DeblockTranspose(ConvTranspose2d):
 
 class _StreamRPNBase(nn.Module):
     """The blocks and deblocks of a stream neck (``rpn_stream.py:81-103``):
-    per scale ``layer_nums[i] + 1`` context convs, the first at
+    per scale ``layer_nums[i] + 1`` 3x3 convs, the first at
     ``ds_layer_strides[i]``; the last ``len(us_layer_strides)`` scales each
     end in a deblock: a transposed conv (kernel = stride) above stride 1,
     else a conv of kernel and stride ``round(1 / stride)`` (1x1 at stride
-    1, 2x2 stride 2 at 0.5), + BatchNorm + ReLU."""
+    1, 2x2 stride 2 at 0.5), + BatchNorm + ReLU.
 
-    unit = None   # the context conv class
+    A context neck names its conv class ``unit`` (``block{i}_conv{li}``);
+    without one each conv is a plain ``Conv2d`` (no bias, padding
+    ``conv_padding``) named ``block{i}_conv{li}`` beside its
+    ``block{i}_bn{li}``. :meth:`_in_width` gives a scale's input width
+    from the width that reaches it."""
+
+    unit = None          # the context conv class, or None: plain convs
+    conv_padding = 1     # a plain conv's padding on every side
 
     def __init__(self, layer_nums=(2, 2), ds_layer_strides=(1, 2),
                  ds_num_filters=(64, 128), us_layer_strides=(1, 2),
@@ -127,15 +144,25 @@ class _StreamRPNBase(nn.Module):
         self.layer_nums = tuple(layer_nums)
         self.ds_layer_strides = tuple(ds_layer_strides)
         self.us_layer_strides = tuple(us_layer_strides)
+        self.num_input_features = num_input_features
         self.nsectors = nsectors
         self.upsample_start = len(layer_nums) - len(us_layer_strides)
+        self._init_extra()
         cin = num_input_features
         for i, n_layers in enumerate(self.layer_nums):
             f = ds_num_filters[i]
+            cin = self._in_width(i, cin)
             for li in range(n_layers + 1):
                 stride = ds_layer_strides[i] if li == 0 else 1
-                self.add_module(f"block{i}_conv{li}",
-                                self.unit(cin, f, stride))
+                if self.unit is not None:
+                    self.add_module(f"block{i}_conv{li}",
+                                    self.unit(cin, f, stride))
+                else:
+                    self.add_module(f"block{i}_conv{li}", Conv2d(
+                        cin, f, 3, stride, self.conv_padding,
+                        use_bias=False))
+                    self.add_module(f"block{i}_bn{li}",
+                                    BatchNorm(f, BN_EPS, BN_MOMENTUM))
                 cin = f
             j = i - self.upsample_start
             if j >= 0:
@@ -149,9 +176,21 @@ class _StreamRPNBase(nn.Module):
                 self.add_module(f"deblock{j}_bn",
                                 BatchNorm(uf, BN_EPS, BN_MOMENTUM))
 
+    def _init_extra(self):
+        """Submodules built before the blocks (none here)."""
+
+    def _in_width(self, i, cin):
+        """Scale i's input width from the ``cin`` that reaches it."""
+        return cin
+
     def _deblock(self, x, j):
         u = getattr(self, f"deblock{j}_conv")(x)
         return torch.relu(getattr(self, f"deblock{j}_bn")(u))
+
+    def _plain(self, i, li, x):
+        """Plain conv ``block{i}_conv{li}`` + its BatchNorm + ReLU."""
+        y = getattr(self, f"block{i}_conv{li}")(x)
+        return torch.relu(getattr(self, f"block{i}_bn{li}")(y))
 
     def _run(self, x, conv):
         """The blocks over x with ``conv(module, x, ctx_i) -> (y, ctx)``
@@ -167,6 +206,23 @@ class _StreamRPNBase(nn.Module):
             if j >= 0:
                 ups.append(self._deblock(x, j))
         return (torch.cat(ups, dim=-1) if ups else x), new_context
+
+    def _run_plain(self, x, scale_input=None, pad=None):
+        """The blocks of plain convs over x -> (the deblocks' outputs
+        concatenated, each scale's input before ``scale_input``).
+        ``scale_input(i, x)`` rewrites scale i's input (``RPNUber``'s
+        concat), ``pad(x)`` each conv's input (``RPNHalo``'s halo)."""
+        ups, inputs = [], []
+        for i, n_layers in enumerate(self.layer_nums):
+            inputs.append(x)
+            if scale_input is not None:
+                x = scale_input(i, x)
+            for li in range(n_layers + 1):
+                x = self._plain(i, li, x if pad is None else pad(x))
+            j = i - self.upsample_start
+            if j >= 0:
+                ups.append(self._deblock(x, j))
+        return (torch.cat(ups, dim=-1) if ups else x), inputs
 
 
 @NECKS.register_module(name="RPNTECP")
@@ -210,15 +266,102 @@ class RPNBDCP(_StreamRPNBase):
         return self._run(x, conv)
 
 
-def _not_ported(name, item):
-    def build(*args, **kwargs):
-        raise NotImplementedError(
-            f"neck {name} is not ported (ROADMAP.md queue 1 item {item})")
-    return build
+@NECKS.register_module(name="RPNHalo")
+class RPNHalo(_StreamRPNBase):
+    """A whole sweep's RPN with circular azimuth padding
+    (``rpn_stream.py:173-207``, its single-shard form): each conv's input
+    gets the last azimuth row in front and the first after, then a zero
+    column at both range ends, and the conv runs VALID. ``axis_name``
+    names the JAX neck's mesh axis, whose ring halo across shards is not
+    ported (ROADMAP.md queue 1 item 9)."""
+
+    conv_padding = 0
+
+    def __init__(self, *args, axis_name=None, **kwargs):
+        if axis_name is not None:
+            raise NotImplementedError(
+                f"RPNHalo on the mesh axis {axis_name!r} (a ring halo across "
+                "shards) is not ported (ROADMAP.md queue 1 item 9); the "
+                "single-shard neck (axis_name None) is")
+        super().__init__(*args, **kwargs)
+
+    def forward(self, x):
+        """x (B, az, r, C) a whole sweep -> (B, az', r', sum(
+        us_num_filters))."""
+        def halo(x):
+            return F.pad(torch.cat([x[:, -1:], x, x[:, :1]], dim=1),
+                         (0, 0, 1, 1))
+
+        return self._run_plain(x, pad=halo)[0]
 
 
-for _name, _item in (("RPNHalo", "7 (and items 9/11: the azimuth mesh)"),
-                     ("RPNUber", "7: STROBE and HAN"),
-                     ("RPNWaymo", "7: STROBE and HAN"),
-                     ("RPNWaymoLSTM", "7: STROBE and HAN")):
-    NECKS.register_module(_not_ported(_name, _item), name=_name)
+@NECKS.register_module(name="RPNUber")
+class RPNUber(_StreamRPNBase):
+    """STROBE's previous-sweep concat neck (``rpn_stream.py:210-237``):
+    scale i's input is concatenated (after it, on the channels) with
+    ``prev_sweep[i]``, zeros without a previous sweep; the convs pad 1 on
+    every side."""
+
+    def _in_width(self, i, cin):
+        return 2 * cin
+
+    def forward(self, x, prev_sweep=None):
+        """x (B, az, r, C), prev_sweep the previous sweep's contexts or
+        None -> ((B, az', r', sum(us_num_filters)), this sweep's contexts:
+        each scale's input before the concat; scale i > 0's is scale i -
+        1's last conv output, not a deblocked map)."""
+        def concat(i, x):
+            prev = (prev_sweep[i] if prev_sweep is not None
+                    else torch.zeros_like(x))
+            return torch.cat([x, prev], dim=-1)
+
+        return self._run_plain(x, scale_input=concat)
+
+
+class ConvLSTMCell(nn.Module):
+    """A convolutional LSTM over BEV maps (``rpn_stream.py:240-261``): one
+    k x k conv ``gates`` (bias, "SAME") of [x, h] to 4F channels split
+    (i, f, g, o); c' = sigmoid(f + 1) c + sigmoid(i) tanh(g), h' =
+    sigmoid(o) tanh(c'). A missing state is zeros."""
+
+    def __init__(self, in_features, features, kernel=3):
+        super().__init__()
+        self.features = features
+        self.gates = Conv2d(in_features + features, 4 * features, kernel, 1,
+                            "SAME")
+
+    def forward(self, x, state):
+        """x (B, H, W, C), state (h, c) each (B, H, W, F) or None -> (h',
+        (h', c'))."""
+        if state is None:
+            h = x.new_zeros(x.shape[:-1] + (self.features,))
+            c = torch.zeros_like(h)
+        else:
+            h, c = state
+        i, f, g, o = torch.chunk(self.gates(torch.cat([x, h], dim=-1)), 4,
+                                 dim=-1)
+        c = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        return h, (h, c)
+
+
+@NECKS.register_module(name="RPNWaymo")
+@NECKS.register_module(name="RPNWaymoLSTM")
+class RPNWaymoLSTM(_StreamRPNBase):
+    """HAN's memory neck (``rpn_stream.py:264-292``): a ``memory``
+    ConvLSTM of ``num_input_features`` on the canvas, its hidden map
+    concatenated after the canvas, then plain convs padding 1 on every
+    side."""
+
+    def _init_extra(self):
+        self.memory = ConvLSTMCell(self.num_input_features,
+                                   self.num_input_features)
+
+    def _in_width(self, i, cin):
+        return 2 * cin if i == 0 else cin
+
+    def forward(self, x, prev_state=None):
+        """x (B, az, r, C), prev_state the previous call's (h, c) or None
+        -> ((B, az', r', sum(us_num_filters)), the new (h, c))."""
+        h, state = self.memory(x, prev_state)
+        return self._run_plain(torch.cat([x, h], dim=-1))[0], state

@@ -59,6 +59,7 @@ def main(argv=None):
     from ..data import build_dataset
     from ..eval.evaluator import evaluate, init_example
     from ..models import build_detector
+    from ..models.strobe import no_sweep_loader
     from ..train.checkpoint import load_checkpoint
     from ..train.hooks import get_logger
     from ..utils.config import load_config
@@ -73,6 +74,8 @@ def main(argv=None):
 
     det = build_detector(cfg["model"], cfg.get("train_cfg"),
                          cfg.get("test_cfg"), device=device)
+    if det.input_kind == "sweeps":
+        sys.exit(no_sweep_loader("dist_test", cfg["model"]["type"]))
     dataset = build_dataset(dict(cfg["data"]["val"]))
     kind = args.input if args.input != "auto" else det.input_kind
     logger.info(f"model type {cfg['model']['type']}, input contract: "

@@ -150,6 +150,27 @@ def load_pretrained_first_stage(det, path):
     det.module.first.load_state_dict(payload["state_dict"], strict=True)
 
 
+def sector_targets(data_cfg, n_sectors, logger, config_path):
+    """The train set's config with each ``AssignLabel`` assigning the
+    model's ``n_sectors``. ``han_4_sectors.py`` builds its pipeline from
+    ``han_1_sector.py`` and rebinds ``assigner`` only after, so its
+    ``AssignLabel`` keeps one sector while the model has four; the JAX
+    train CLI then fails at its first loss (ROADMAP.md §3). Each rewrite
+    is logged as a warning naming ``config_path`` and the old count."""
+    pipeline = []
+    for stage in data_cfg.get("pipeline", []):
+        stage = dict(stage)
+        old = (dict(stage.get("cfg") or {}).get("nsectors", 1)
+               if stage.get("type") == "AssignLabel" else n_sectors)
+        if old != n_sectors:
+            stage["cfg"] = dict(stage.get("cfg") or {}, nsectors=n_sectors)
+            logger.warning(f"{config_path}: the train pipeline's AssignLabel "
+                           f"assigns {old} sector(s) and the model has "
+                           f"{n_sectors}; assigning {n_sectors}")
+        pipeline.append(stage)
+    return dict(data_cfg, pipeline=pipeline)
+
+
 def main(argv=None):
     args = parse_args(argv)
     import torch
@@ -157,6 +178,7 @@ def main(argv=None):
     from ..data import build_dataloader, build_dataset
     from ..eval.evaluator import evaluate
     from ..models import build_detector
+    from ..models.strobe import no_sweep_loader
     from ..train.checkpoint import (latest_checkpoint, load_checkpoint,
                                     optimizer_state, restore_train_state,
                                     save_checkpoint)
@@ -193,7 +215,12 @@ def main(argv=None):
     det = build_detector(cfg["model"], cfg.get("train_cfg"),
                          cfg.get("test_cfg"), device=device,
                          generator=torch.Generator().manual_seed(args.seed))
-    dataset = build_dataset(dict(cfg["data"]["train"]), dict(
+    if det.input_kind == "sweeps":
+        sys.exit(no_sweep_loader("train", cfg["model"]["type"]))
+    train_data = sector_targets(dict(cfg["data"]["train"]),
+                                getattr(det.module, "n_sectors", 1), logger,
+                                args.config)
+    dataset = build_dataset(train_data, dict(
         rng=np.random.RandomState([args.seed, start_step])))
     batch_size = args.batch_size or cfg["data"]["samples_per_gpu"]
     vg_mv = dict(cfg["voxel_generator"]).get("max_voxel_num", 150000)

@@ -156,10 +156,25 @@ def test_what_is_not_ported_raises(tmp_path):
         for g, w in (zip(got[k], want[k]) if isinstance(want[k], list)
                      else [(got[k], want[k])]):
             np.testing.assert_array_equal(g, w, err_msg=k)
-    # the cuboid sectors (cartesian wedges) wait for queue 1 item 7
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        pipeline.AssignLabel(dict(cfg["assigner"], nsectors=2,
-                                  voxel_shape="cuboid"))
+    # the cuboid sectors (cartesian wedges), once a raise naming queue 1
+    # item 7, are ported (HAN, STROBE; held against JAX on their grids in
+    # tests/test_torch_strobe.py): on the flagship's grid, every target
+    # equal to JAX's too
+    outs = []
+    for cls in (pipeline.AssignLabel, JaxAssignLabel):
+        res = {"mode": "train", "lidar": {
+            "voxels": dict(shape=shape, range=pr, size=size),
+            "annotations": {"gt_boxes": boxes.copy(),
+                            "gt_classes": np.ones(8, np.int64)}}}
+        outs.append(cls(dict(cfg["assigner"], nsectors=2,
+                             voxel_shape="cuboid"))(res, {})[0][
+            "lidar"]["targets"])
+    got, want = outs
+    assert sorted(got) == sorted(want) and got["hm"][0].shape[0] == 2
+    for k in want:
+        for g, w in (zip(got[k], want[k]) if isinstance(want[k], list)
+                     else [(got[k], want[k])]):
+            np.testing.assert_array_equal(g, w, err_msg=k)
     # a seg Preprocess splits the label column off after the shuffle, as
     # JAX's does; without the loader's seg_labeled mark it keeps every
     # column

@@ -3,7 +3,8 @@ import or when it builds its detectors (the Waymo PARTNER, CenterPoint and
 two-stage configs, the sparse backbone, the three nuScenes CenterPoint
 configs, the two Waymo PointPillars configs, the two PointPillars
 two-stage configs, the nuScenes single-head config, the two PolarStream
-det configs and the five seg configs), and the flax
+det configs, the five seg configs and the four HAN / STROBE configs: all
+27 model configs under ``configs/`` but ``configs/tests/``), and the flax
 converter covers every parameter and buffer of the port's detectors."""
 
 import os
@@ -41,7 +42,8 @@ def test_import_leaves_out_jax_and_flax():
         "          'eval.nusc_protocol', 'eval.nuscenes', 'models.pillar',\n"
         "          'ops.nms', 'models.layers', 'convert',\n"
         "          'models.rpn_stream', 'models.polarstream',\n"
-        "          'models.seg_head', 'eval.seg_metrics'):\n"
+        "          'models.seg_head', 'eval.seg_metrics', 'models.strobe',\n"
+        "          'ops.warp'):\n"
         "    assert 'partner_tpu_torch.' + n in names, n\n"
         "from partner_tpu_torch.models import build_detector\n"
         "from partner_tpu_torch.utils.config import load_config\n"
@@ -111,6 +113,25 @@ def test_import_leaves_out_jax_and_flax():
         "                         cfg['test_cfg'], device='meta')\n"
         "    assert det.module.seg_head is not None, c\n"
         "    assert 'points_label' in det.loss_keys, c\n"
+        "for c, mod in (('han_1_sector', 'PointPillarsModule'),\n"
+        "               ('han_4_sectors', 'PolarStreamLSTMModule'),\n"
+        "               ('strobe_1_sector', 'StrobeModule'),\n"
+        "               ('strobe_4_sector', 'StrobeSectorModule')):\n"
+        "    cfg = load_config(f'configs/nusc/pp/{c}.py')\n"
+        "    det = build_detector(cfg['model'], cfg['train_cfg'],\n"
+        "                         cfg['test_cfg'], device='meta')\n"
+        "    assert type(det.module).__name__ == mod, c\n"
+        "    assert det.module.seg_head is not None, c\n"
+        "    assert det.input_kind == ('sweeps' if 'strobe' in c\n"
+        "                              else 'points'), c\n"
+        "import glob\n"
+        "zoo = sorted(f for f in glob.glob('configs/**/*.py', recursive=True)\n"
+        "             if not f.startswith('configs/tests/'))\n"
+        "assert len(zoo) == 27, zoo\n"
+        "for f in zoo:\n"
+        "    cfg = load_config(f)\n"
+        "    build_detector(cfg['model'], cfg.get('train_cfg'),\n"
+        "                   cfg.get('test_cfg'), device='meta')\n"
         "from partner_tpu_torch import native\n"
         "assert native.available()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

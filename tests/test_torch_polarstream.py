@@ -692,7 +692,12 @@ def test_full_width_builds_with_jax_parameter_count(n_sec):
 def test_what_is_not_ported_raises():
     """The seg configs, once a raise naming queue 1 item 5, build with
     their seg head (held against JAX in ``tests/test_torch_seg.py``);
-    cuboid sectors and the other stream necks name item 7."""
+    cuboid sectors and the ``RPNUber`` / ``RPNWaymo`` necks, once raises
+    naming item 7, build too (held against JAX in
+    ``tests/test_torch_strobe.py`` and ``test_torch_rpn_stream.py``); a
+    neck that takes no sector context (``RPN``, ``RPNHalo``) raises, as
+    JAX's sector loop would at its first call; so does the E2E head's
+    block route."""
     from partner_tpu_torch.models import build_detector
     from partner_tpu_torch.utils.config import load_config
 
@@ -706,10 +711,15 @@ def test_what_is_not_ported_raises():
     m, tc = tiny_polarstream_cfg()
     cuboid = copy.deepcopy(m)
     cuboid["bbox_head"]["voxel_shape"] = "cuboid"
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        build_detector(cuboid, None, tc, device="meta")
-    for neck in ("RPNUber", "RPNWaymo", "RPN"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    det = build_detector(cuboid, None, tc, device="meta")
+    assert det.module.voxel_shape == "cuboid"
+    assert det.module.azimuth_origin() == -np.pi
+    for neck in ("RPNUber", "RPNWaymo"):
+        det = build_detector(dict(m, neck=dict(m["neck"], type=neck)), None,
+                             tc, device="meta")
+        assert type(det.module.neck).__name__ in (neck, "RPNWaymoLSTM")
+    for neck in ("RPN", "RPNHalo"):
+        with pytest.raises(ValueError, match="takes none"):
             build_detector(dict(m, neck=dict(m["neck"], type=neck)), None,
                            tc, device="meta")
     with pytest.raises(ValueError, match="use_block_kernel"):

@@ -517,18 +517,23 @@ def test_full_width_builds_with_jax_parameter_count(name):
 
 
 def test_what_is_not_ported_raises():
-    """A seg head raises naming its ROADMAP item; so does the E2E head's
-    block route; a PFN reader or a pillar scatter under VoxelNet names the
-    PointPillars detector. The two-stage detector over this first stage,
-    once such a raise, now builds (held against JAX in
+    """A seg head, once a raise naming its ROADMAP item, builds HAN's
+    ``SingleConvHead`` over the canvas and the RPN's map (held against JAX
+    in ``tests/test_torch_strobe.py``); the E2E head's block route raises;
+    a PFN reader or a pillar scatter under VoxelNet names the PointPillars
+    detector. The two-stage detector over this first stage, once such a
+    raise, now builds (held against JAX in
     ``tests/test_torch_pp_two_stage.py``)."""
     from partner_tpu_torch.models import build_detector
     from partner_tpu_torch.utils.config import load_config
 
     m, tc = tiny_pp_cfg()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        build_detector(dict(m, seg_head=dict(type="SingleConvHead")), None,
-                       tc, device="meta")
+    det = build_detector(dict(m, seg_head=dict(type="SingleConvHead",
+                                               weight=2)), None, tc,
+                         device="meta")
+    assert type(det.module.seg_head).__name__ == "SingleConvHead"
+    assert det.module.seg_head.Conv_0.weight.shape[1] == 16 + 48
+    assert det.seg_weight == 2 and "points_label" in det.loss_keys
     with pytest.raises(ValueError, match="use_block_kernel"):
         build_detector(m, None, tc, device="meta", use_block_kernel=True)
     two = load_config(os.path.join(

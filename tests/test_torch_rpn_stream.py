@@ -1,14 +1,19 @@
-"""The streaming necks ``RPNTECP`` and ``RPNBDCP`` in partner_tpu_torch
-against the JAX package (CPU, float32).
+"""The streaming necks in partner_tpu_torch against the JAX package (CPU,
+float32): ``RPNTECP`` and ``RPNBDCP`` (PolarStream), ``RPNUber``
+(STROBE), ``RPNWaymo`` / ``RPNWaymoLSTM`` with its ``ConvLSTMCell``
+(HAN) and ``RPNHalo``.
 
-Three scales as the PolarStream configs have them (strides 2, 2, 2) with
+Three scales as the configs have them (strides 2, 2, 2) with
 ``us_layer_strides`` [0.5, 1, 2] (a 2x2 stride-2 conv, a 1x1 conv and a
 transposed conv), narrow widths, one drawn flax tree with every norm
 randomized: the outputs, every context and the BatchNorm statistics
 through a chain of 4 sectors from sector 0, in eval and in train mode;
 ``RPNBDCP``'s leading-edge branch (the previous sweep's rows); and that
 without that branch, as the JAX module calls it, ``RPNBDCP`` computes what
-``RPNTECP`` computes on the same weights.
+``RPNTECP`` computes on the same weights. The plain-conv necks: each
+without and with its context or state over a chain of 3 calls, eval and
+train; their convs' explicit padding 1 at stride 2 (not "SAME"); the
+halo's circular pad.
 """
 
 import jax
@@ -216,7 +221,187 @@ def test_stream_neck_names_map_and_init():
 @pytest.mark.parametrize("name", ["RPNHalo", "RPNUber", "RPNWaymo",
                                   "RPNWaymoLSTM"])
 def test_other_stream_necks_raise(name):
+    """These names, once registered as raises naming queue 1 item 7, build
+    the ported necks (held against JAX below), their parameters named as
+    flax names them; only the halo neck's mesh form (an ``axis_name``: a
+    ring halo across shards) still raises, naming item 9."""
+    from partner_tpu_torch.convert import flax_to_torch
+    from partner_tpu_torch.models import rpn_stream as trs
     from partner_tpu_torch.models.registry import NECKS, build_from_cfg
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        build_from_cfg(dict(NECK, type=name), NECKS)
+    neck = build_from_cfg(dict(NECK, type=name), NECKS)
+    assert type(neck).__name__ == {"RPNWaymo": "RPNWaymoLSTM"}.get(name,
+                                                                   name)
+    _, v, tneck, _ = _plain_pair(type(neck).__name__)
+    assert sorted(neck.state_dict()) == sorted(flax_to_torch(v))
+    if name == "RPNHalo":
+        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+            build_from_cfg(dict(NECK, type=name, axis_name="azimuth"),
+                           NECKS)
+    assert isinstance(trs.NECKS.get(name)(**NECK), trs._StreamRPNBase)
+
+
+# ------------------------------------------ RPNUber, RPNWaymoLSTM, RPNHalo
+
+PLAIN = ("RPNUber", "RPNWaymoLSTM", "RPNHalo")
+
+
+def _plain_pair(name, seed=0):
+    """(JAX neck, its randomized drawn variables, the port neck, 3 inputs
+    (2, 16, 16, 6)) for a plain-conv neck."""
+    from partner_tpu.models import rpn_stream as jrs
+    from partner_tpu_torch.models import rpn_stream as trs
+
+    rng = np.random.RandomState(seed)
+    xs = [rng.randn(*SHAPE).astype(np.float32) for _ in range(3)]
+    jneck = getattr(jrs, name)(**NECK)
+    args = (xs[0],) if name == "RPNHalo" else (xs[0], None)
+    v = randomize(drawn_init(jneck.init, rng, *args, train=False), rng)
+    return jneck, v, load_converted(getattr(trs, name)(**NECK), v), xs
+
+
+def _tree(c, fn):
+    return (tuple(fn(x) for x in c) if isinstance(c, tuple)
+            else [fn(x) for x in c])
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("name", PLAIN)
+def test_plain_neck_chain_matches_jax(name, train):
+    """Three calls in a row: the first without a context (``RPNUber``
+    concatenates zeros, ``RPNWaymoLSTM`` starts from a zero state), the
+    next two given the previous call's contexts (``RPNUber``: each
+    scale's input before the concat, 3 maps; ``RPNWaymoLSTM``: the
+    ConvLSTM's (h, c)); ``RPNHalo`` takes none. Every output (2, 4, 4,
+    24), context and, in train mode, BatchNorm statistic within ``TOL``
+    of JAX's, the statistics after the 3 chained updates."""
+    from partner_tpu_torch.convert import flax_to_torch
+
+    jneck, v, tneck, xs = _plain_pair(name, seed=8)
+    halo = name == "RPNHalo"
+    fn = jax.jit(lambda v, x, ctx: jneck.apply(
+        v, x, *(() if halo else (ctx,)), train=train,
+        mutable=["batch_stats"] if train else False))
+    tneck.train(train)
+    ctx = tctx = None
+    for i, x in enumerate(xs):
+        res = fn(v, x, ctx)
+        if train:
+            res, upd = res
+            v = {"params": v["params"], "batch_stats": upd["batch_stats"]}
+        with torch.no_grad():
+            got = tneck(t(x)) if halo else tneck(t(x), tctx)
+        if halo:
+            res, got = (res, None), (got, None)
+        assert got[0].shape == res[0].shape == (2, 4, 4, 24)
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(res[0]),
+                                   rtol=TOL, atol=TOL, err_msg=f"call {i}")
+        if not halo:
+            assert len(got[1]) == len(res[1]) == (3 if name == "RPNUber"
+                                                  else 2)
+            for g, w in zip(got[1], res[1]):
+                np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                           rtol=TOL, atol=TOL)
+            ctx, tctx = _tree(res[1], np.asarray), got[1]
+    if train:
+        want = flax_to_torch({"batch_stats": jax.tree_util.tree_map(
+            np.asarray, v["batch_stats"])})
+        sd = tneck.state_dict()
+        for k, w in want.items():
+            np.testing.assert_allclose(sd[k].numpy(), w.numpy(), rtol=TOL,
+                                       atol=1e-6, err_msg=k)
+
+
+def test_explicit_padding_one_at_stride_two():
+    """``RPNUber`` and ``RPNWaymoLSTM`` hand flax ``padding=1``: one row
+    and column of zeros on both sides, at stride 2 too, where "SAME" (the
+    plain ``RPN``'s flax default) pads 0 before and 1 after. The port's
+    first conv of ``RPNUber`` (stride 2) equals the conv of the input
+    padded 1 all round and differs from the "SAME" one, in both
+    packages."""
+    import flax.linen as fnn
+    import torch.nn.functional as F
+
+    _, _, tneck, xs = _plain_pair("RPNUber", seed=9)
+    conv = tneck.block0_conv0
+    x = torch.cat([t(xs[0]), torch.zeros_like(t(xs[0]))], dim=-1)
+    w = conv.weight
+    with torch.no_grad():
+        got = conv(x)
+        ones = F.conv2d(F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1)), w,
+                        stride=2).permute(0, 2, 3, 1)
+        same = F.conv2d(F.pad(x.permute(0, 3, 1, 2), (0, 1, 0, 1)), w,
+                        stride=2).permute(0, 2, 3, 1)
+    assert got.shape == (2, 8, 8, 8)
+    np.testing.assert_allclose(got.numpy(), ones.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    assert (got - same).abs().max() > 1e-2
+    kernel = w.detach().numpy().transpose(2, 3, 1, 0)
+    for pad, want in ((1, ones), ("SAME", same)):
+        y = fnn.Conv(8, (3, 3), strides=(2, 2), padding=pad,
+                     use_bias=False).apply({"params": {"kernel": kernel}},
+                                           x.numpy())
+        np.testing.assert_allclose(np.asarray(y), want.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_halo_is_a_circular_azimuth_pad():
+    """Each of ``RPNHalo``'s convs sees its input with the last azimuth row
+    in front and the first after, and a zero column at both range ends:
+    the first conv's input, caught inside the neck, is exactly that
+    padding of the canvas; its output (stride 2: the windows start at
+    padded rows 0, 2, 4, 6 of 10, so only the first reads a wrapped row)
+    differs from the conv of the zero-padded canvas (the 1-sector stream
+    necks' pad) in the first azimuth row only."""
+    import torch.nn.functional as F
+
+    _, _, tneck, _ = _plain_pair("RPNHalo", seed=10)
+    x = t(np.random.RandomState(11).randn(2, 8, 8, 6).astype(np.float32))
+    seen = []
+    hook = tneck.block0_conv0.register_forward_pre_hook(
+        lambda m, a: seen.append(a[0]))
+    with torch.no_grad():
+        tneck(x)
+    hook.remove()
+    ring = F.pad(torch.cat([x[:, -1:], x, x[:, :1]], 1), (0, 0, 1, 1))
+    assert torch.equal(seen[0], ring)
+    with torch.no_grad():
+        got = tneck.block0_conv0(ring)
+        zero = tneck.block0_conv0(F.pad(x, (0, 0, 1, 1, 1, 1)))
+    differs = (zero - got).abs().amax(dim=(0, 2, 3)) > 1e-3
+    assert differs.tolist() == [True, False, False, False]
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["zero", "state"])
+def test_conv_lstm_cell_matches_jax(with_state):
+    """``ConvLSTMCell`` alone: the ``gates`` conv (bias, "SAME") of [x, h]
+    split (i, f, g, o), the forget gate at sigmoid(f + 1): from a zero
+    state and from a drawn (h, c), h' and c' within ``TOL`` of JAX's;
+    with a zero state and zero gates the new c is sigmoid(0) tanh(0) =
+    0 and h' 0, and with zero gates a carried c is kept at sigmoid(1)."""
+    from partner_tpu.models.rpn_stream import ConvLSTMCell as JCell
+    from partner_tpu_torch.models.rpn_stream import ConvLSTMCell
+
+    rng = np.random.RandomState(12)
+    x = rng.randn(2, 8, 8, 6).astype(np.float32)
+    state = (tuple(rng.randn(2, 8, 8, 5).astype(np.float32)
+                   for _ in range(2)) if with_state else None)
+    jc = JCell(5)
+    v = randomize(drawn_init(jc.init, rng, x, state), rng)
+    cell = load_converted(ConvLSTMCell(6, 5), v)
+    wh, (_, wc) = jc.apply(v, x, state)
+    with torch.no_grad():
+        gh, (_, gc) = cell(t(x), None if state is None
+                           else tuple(t(a) for a in state))
+        np.testing.assert_allclose(gh.numpy(), np.asarray(wh), rtol=TOL,
+                                   atol=TOL)
+        np.testing.assert_allclose(gc.numpy(), np.asarray(wc), rtol=TOL,
+                                   atol=TOL)
+        cell.gates.weight.zero_()
+        cell.gates.bias.zero_()
+        c0 = torch.full((2, 8, 8, 5), 2.0)
+        h1, (_, c1) = cell(t(x), (torch.zeros_like(c0), c0))
+        np.testing.assert_allclose(c1.numpy(), torch.sigmoid(
+            torch.tensor(1.0)).item() * 2.0, rtol=1e-6)
+        h0, (_, z) = cell(t(x), None)
+        assert float(z.abs().max()) == 0.0 and float(h0.abs().max()) == 0.0

@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 
 from test_torch_centerpoint import finish, port
 from test_torch_nusc_train import ADAM_CLEAR, GRAD_RMS, OUT_RMS, four_ulp
@@ -47,6 +48,12 @@ torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOGIT_RMS = 1e-5     # seg logits, float32 both sides
 LOSS_RTOL = 1e-5
+# a train-mode ReLU input this close to 0 can fall on either side of its
+# kink in the two packages (their rounding apart at a deep block's BN
+# output measured ~3e-6 RMS; the inputs that fell apart, -5.6e-7 and
+# 1.2e-6): ``_step_against_jax``'s ``kinks``
+KINK = 1e-5
+KINK_TRIES = 4
 
 
 def t(a):
@@ -357,7 +364,35 @@ def test_voxelnet_seg_matches_jax(voxseg):
 
 # ------------------------------------------------------------ train steps
 
-def _step_against_jax(jdet, tdet, v, ex, lr_max=3e-3, total=1000):
+class FlipReLU(TorchFunctionMode):
+    """Watches the ``relu`` calls of a port forward: records each nonzero
+    input within ``KINK`` of 0 as (|x|, call, flat index) in ``near``, and
+    with ``at`` = (call, flat index) puts that one input on the other side
+    of its kink (out x and gradient 1 where x <= 0, out 0 and gradient 0
+    where x > 0). Every other output is the plain ``relu``'s."""
+
+    def __init__(self, at=None):
+        super().__init__()
+        self.at, self.calls, self.near = at, 0, []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if getattr(func, "__name__", "") != "relu":
+            return out
+        x, i = args[0], self.calls
+        self.calls += 1
+        flat = x.detach().reshape(-1)
+        near = ((flat != 0) & (flat.abs() < KINK)).nonzero().flatten()
+        self.near += [(float(flat[j].abs()), i, int(j)) for j in near]
+        if self.at is None or self.at[0] != i:
+            return out
+        on = (flat > 0).clone()
+        on[self.at[1]] = ~on[self.at[1]]
+        return torch.where(on.reshape(x.shape), x, torch.zeros_like(x))
+
+
+def _step_against_jax(jdet, tdet, v, ex, lr_max=3e-3, total=1000,
+                      kinks=False):
     """One port train step and one ``jax.jit(make_train_step)`` step from
     the same tree (and one from the tree moved by four ulps), held by the
     rules of ``tests/test_torch_nusc_train.py``: the loss terms at 1e-5,
@@ -365,7 +400,17 @@ def _step_against_jax(jdet, tdet, v, ex, lr_max=3e-3, total=1000):
     move, each gradient within ``GRAD_RMS`` (``OUT_RMS`` for output
     convs) or 3x that spread, the BatchNorm statistics at 1e-5, and the
     parameters within 2 lr of the start and at 2e-6 where Adam's first
-    step is determined. -> the port's metrics."""
+    step is determined. -> the port's metrics.
+
+    ``kinks``: at random weights a train-mode ReLU input can lie within
+    rounding of 0, and the two packages then take opposite sides of its
+    kink: the gradient of every leaf upstream jumps by a piece (1.6-4.3%
+    measured), while the loss moves by the input's size. Where a gradient
+    misses its bound and ``kinks`` is set, the port's step is taken again
+    from the same tree with one ReLU input within ``KINK`` of 0 on its
+    other side (:class:`FlipReLU`; the ``KINK_TRIES`` closest, one at a
+    time), and the first such step that meets every rule above, at every
+    leaf, is the one held. Off by default."""
     from partner_tpu.train.optim import build_one_cycle_optimizer as jax_opt
     from partner_tpu.train.train_state import create_train_state
     from partner_tpu.train.train_state import make_train_step as jax_step
@@ -381,19 +426,13 @@ def _step_against_jax(jdet, tdet, v, ex, lr_max=3e-3, total=1000):
     moved_state, moved_met = jstep(create_train_state(
         four_ulp(v, np.random.RandomState(9)), tx))
 
-    load_converted(tdet.module, v)
-    opt = build_one_cycle_optimizer(tdet.module, lr_max, total)
-    met = make_train_step(tdet, opt)(tree(ex),
-                                     torch.Generator().manual_seed(0))
-    assert sorted(met) == sorted(jmet)
-    for k in sorted(met):
-        if k != "grad_norm":
-            np.testing.assert_allclose(float(met[k]), float(jmet[k]),
-                                       rtol=LOSS_RTOL, err_msg=k)
-    norm, jnorm = float(met["grad_norm"]), float(jmet["grad_norm"])
-    spread = abs(float(moved_met["grad_norm"]) - jnorm) / jnorm
-    assert abs(norm - jnorm) / jnorm <= max(1e-5, 3 * spread), (
-        norm, jnorm, spread)
+    def port_step(at=None):
+        load_converted(tdet.module, v)
+        opt = build_one_cycle_optimizer(tdet.module, lr_max, total)
+        with FlipReLU(at) as mode:
+            met = make_train_step(tdet, opt)(tree(ex),
+                                             torch.Generator().manual_seed(0))
+        return met, sorted(mode.near)
 
     b1 = np.float32(0.95)
 
@@ -403,20 +442,48 @@ def _step_against_jax(jdet, tdet, v, ex, lr_max=3e-3, total=1000):
             state.opt_state.inner_state[1].mu)})
 
     want, moved = grads(new_state), grads(moved_state)
-    scale = min(1.0, 35.0 / norm)
+    floats = lambda x: [float(y) for y in (x if isinstance(x, list) else [x])]
+
+    def misses(met):
+        """The loss terms and the gradient norm held here; -> (scale, the
+        gradient leaves beyond their bounds)."""
+        assert sorted(met) == sorted(jmet)
+        for k in sorted(met):
+            if k != "grad_norm":   # a CenterPoint loss gives per-task lists
+                np.testing.assert_allclose(floats(met[k]), floats(jmet[k]),
+                                           rtol=LOSS_RTOL, err_msg=k)
+        norm, jnorm = float(met["grad_norm"]), float(jmet["grad_norm"])
+        spread = abs(float(moved_met["grad_norm"]) - jnorm) / jnorm
+        scale = min(1.0, 35.0 / norm)
+        params = dict(tdet.module.named_parameters())
+        assert sorted(want) == sorted(params)
+        gmax = max(float(np.abs(w.numpy()).max()) for w in want.values())
+        bad = [] if abs(norm - jnorm) / jnorm <= max(1e-5, 3 * spread) else [
+            ("grad_norm", norm, jnorm, spread)]
+        for name, p in params.items():
+            g, r = p.grad.numpy() * scale, want[name].numpy()
+            if "_stack.Conv_0.bias" in name:
+                assert max(np.abs(g).max(), np.abs(r).max()) <= 1e-5 * gmax, \
+                    name
+                continue
+            out = ("reg_out." in name or "_stack.Conv_1." in name
+                   or name.startswith("seg_head."))
+            bound = max(OUT_RMS if out else GRAD_RMS,
+                        3 * rel_rms(moved[name].numpy(), r))
+            if rel_rms(g, r) > bound:
+                bad.append((name, rel_rms(g, r), bound))
+        return scale, bad
+
+    met, near = port_step()
+    scale, bad = misses(met)
+    for _, call, j in (near[:KINK_TRIES] if bad and kinks else []):
+        met = port_step((call, j))[0]
+        scale, flipped_bad = misses(met)
+        if not flipped_bad:
+            bad = []
+            break
+    assert not bad, (bad, near[:KINK_TRIES])
     params = dict(tdet.module.named_parameters())
-    assert sorted(want) == sorted(params)
-    gmax = max(float(np.abs(w.numpy()).max()) for w in want.values())
-    for name, p in params.items():
-        g, r = p.grad.numpy() * scale, want[name].numpy()
-        if "_stack.Conv_0.bias" in name:
-            assert max(np.abs(g).max(), np.abs(r).max()) <= 1e-5 * gmax, name
-            continue
-        out = ("reg_out." in name or "_stack.Conv_1." in name
-               or name.startswith("seg_head."))
-        bound = max(OUT_RMS if out else GRAD_RMS,
-                    3 * rel_rms(moved[name].numpy(), r))
-        assert rel_rms(g, r) <= bound, (name, rel_rms(g, r), bound)
 
     lr0 = lr_max / 10.0
     after = flax_to_torch(jax.tree_util.tree_map(np.asarray, {

@@ -50,6 +50,14 @@ POLARSTREAM_SEG_CONFIGS = {
 VOXELNET_SEG_CONFIGS = {
     n: f"configs/nusc/voxelnet/voxelnet_seg_{n}.py"
     for n in ("10sweep", "cylinder")}
+# the HAN and STROBE configs (cuboid pillars, 512 x 512)
+STROBE_HAN_CONFIGS = {
+    "han-1": "configs/nusc/pp/han_1_sector.py",
+    "han-4": "configs/nusc/pp/han_4_sectors.py",
+    "strobe-1": "configs/nusc/pp/strobe_1_sector.py",
+    "strobe-4": "configs/nusc/pp/strobe_4_sector.py"}
+STROBE_GRID = 64    # their pillar grid cut to 64 x 64 (voxel size x 8)
+STROBE_PILLARS = 2048   # the tiny cut's pillar capacity (a sector)
 POLAR_GRID = (64, 128)   # (n_r, n_az) pillars, cut from 512 x 512
 PP_GRID = 64        # the pillar grid, cut from 468 x 468 to 64 x 64
 PP_PILLARS = 512    # the tiny configs' pillar capacity: the sweeps overflow it
@@ -251,6 +259,101 @@ log_config = dict(interval=1, hooks=[dict(type="TextLoggerHook"),
     return path
 
 
+_STROBE_CUT = f"""
+_vg = model["bbox_head"]["voxel_generator"]
+_vg["voxel_size"] = [_vg["voxel_size"][0] * 8, _vg["voxel_size"][1] * 8,
+                     _vg["voxel_size"][2]]
+model["reader"].update(num_filters=[16, 16])
+model["neck"].update(layer_nums=[1, 1, 1], ds_num_filters=[16, 16, 32],
+                     us_num_filters=[16, 16, 16], num_input_features=16)
+model["bbox_head"]["in_channels"] = 48
+model["max_pillars"] = {STROBE_PILLARS}
+"""
+
+
+def tiny_strobe_cfg(config, variant=None):
+    """(model cfg, test cfg): a HAN or STROBE config
+    (``STROBE_HAN_CONFIGS``) cut to the ``STROBE_GRID`` pillar grid
+    (the voxel size x 8, ``tests/test_config_zoo.py``'s rule), PFN filters
+    [16, 16], a narrow three-scale neck (48 channels out, every
+    ``us_layer_strides`` kept) and ``STROBE_PILLARS`` pillars; ``variant``
+    renames a STROBE model (``STROBEV2``, ``STROBEV3``). The NMS cut as in
+    :func:`tiny_polarstream_cfg`."""
+    import os
+
+    from partner_tpu_torch.utils.config import load_config
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(root, config))
+    m = copy.deepcopy(cfg["model"])
+    exec(_STROBE_CUT, {"model": m})
+    if variant is not None:
+        m["type"] = variant
+    tc = copy.deepcopy(cfg["test_cfg"])
+    tc["score_threshold"] = 0.0
+    tc["nms"] = dict(tc["nms"], nms_pre_max_size=256)
+    return m, tc
+
+
+def write_tiny_strobe_config(path, train_info, val_info, root, config):
+    """A HAN or STROBE config file for the CLIs: ``config`` exec'd, cut as
+    :func:`tiny_strobe_cfg` cuts it, ``nsweeps`` cut to ``NUSC_SWEEPS``,
+    every pipeline's ``Voxelization`` at the model's grid, ``data.train``
+    at ``train_info`` with no augmentation and the points kept in order,
+    ``data.val`` at ``val_info``, one loader thread, a log flush and a
+    ``metrics.jsonl`` record every step."""
+    import os
+
+    base = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), config)
+    with open(path, "w") as f:
+        f.write(f"""
+__file__ = {base!r}
+exec(open({base!r}).read())
+{_STROBE_CUT}
+test_cfg["score_threshold"] = 0.0
+test_cfg["nms"].update(nms_pre_max_size=256)
+train_preprocessor.update(no_augmentation=True, shuffle_points=False)
+for _s, _info in (("train", {train_info!r}), ("val", {val_info!r})):
+    data[_s].update(info_path=_info, root_path={root!r},
+                    nsweeps={NUSC_SWEEPS})
+    for _p in data[_s]["pipeline"]:
+        if _p["type"] == "Voxelization":
+            _p["cfg"] = _vg
+data["workers_per_gpu"] = 1
+log_config = dict(interval=1, hooks=[dict(type="TextLoggerHook"),
+                                     dict(type="MetricsSinkHook")])
+""")
+    return path
+
+
+def cuboid_points(rng, pc_range, n_points, n_pad, cell, margin=1e-3,
+                  wedge=None):
+    """(1, n_pad, 7) cuboid-layout points [x, y, z, intensity, time lag,
+    rho, phi] (:func:`pp_points` drawn; with ``wedge`` (lo, hi) 2/3 of
+    them turned into that azimuth wedge) and their (1, n_pad) mask, every
+    x and y moved at least ``margin`` off the multiples of ``cell`` (the
+    pillar edges, the axes among them; ``margin`` 0 leaves them): a cuboid
+    sector turns its points by ``cos`` / ``sin``, which XLA and torch
+    round apart by an ulp, so a point within an ulp of an edge could
+    change pillar or sector."""
+    pts, mask = pp_points(rng, pc_range, n_points, n_pad)
+    xy = pts[0, :n_points, :2].astype(np.float64)
+    if wedge is not None:
+        k = 2 * n_points // 3
+        rho = np.hypot(xy[:k, 0], xy[:k, 1])
+        phi = rng.uniform(wedge[0], wedge[1], k)
+        xy[:k] = np.stack([rho * np.cos(phi), rho * np.sin(phi)], 1)
+    k = np.round(xy / cell)
+    near = np.abs(xy - k * cell) < margin
+    xy = np.where(near, k * cell + np.where(xy >= k * cell, 1, -1) * margin
+                  * 2, xy)
+    pts[0, :n_points, :2] = xy
+    pts[0, :n_points, 5] = np.hypot(xy[:, 0], xy[:, 1])
+    pts[0, :n_points, 6] = np.arctan2(xy[:, 1], xy[:, 0])
+    return pts, mask
+
+
 def pp_points(rng, pc_range, n_points, n_pad, dup=0):
     """(1, n_pad, 7) cuboid-layout points [x, y, z, intensity, elongation,
     rho, phi] and a (1, n_pad) mask: log-uniform range as a lidar sees it,
@@ -342,13 +445,15 @@ def write_tiny_nusc_set(root, seed=3, n_frames=4, n_points=1500,
 
 
 def nusc_batch(config, model_cfg, info_path, root, mode, samples, seed=0,
-               max_points=5000):
+               max_points=5000, n_sectors=None):
     """The first ``samples`` frames of the nuScenes infos at ``info_path``
     through ``config``'s ``mode`` pipeline in the port (``nsweeps`` cut to
     ``NUSC_SWEEPS``, ``Voxelization`` on ``model_cfg``'s grid (its
     ``bbox_head``'s, or a seg-only model's ``seg_head``'s), the draws
     from ``RandomState(seed)``), collated: the batch the CLIs hand the
-    detector (the double-flip pipeline's 4 rows a sample)."""
+    detector (the double-flip pipeline's 4 rows a sample). ``n_sectors``
+    sets each ``AssignLabel``'s sector count as the train CLI sets it to
+    the model's (``tools.train.sector_targets``)."""
     import os
 
     import partner_tpu_torch.data as tdata
@@ -362,6 +467,13 @@ def nusc_batch(config, model_cfg, info_path, root, mode, samples, seed=0,
     for p in ds["pipeline"]:
         if p["type"] == "Voxelization":
             p["cfg"] = copy.deepcopy(spec["voxel_generator"])
+    if n_sectors is not None:
+        import logging
+
+        from partner_tpu_torch.tools.train import sector_targets
+
+        ds = sector_targets(ds, n_sectors, logging.getLogger(__name__),
+                            config)
     data = tdata.build_dataset(ds, dict(rng=np.random.RandomState(seed)))
     return collate([data[i] for i in range(samples)], max_points=max_points)
 

@@ -16,7 +16,10 @@ CUDA card.
                                                   nusc-seg-cylinder|
                                                   nusc-polarstream-seg-1|
                                                   nusc-polarstream-seg-4|
-                                                  nusc-polarstream-seg-4te]
+                                                  nusc-polarstream-seg-4te|
+                                                  nusc-han-1|nusc-han-4|
+                                                  nusc-strobe-1|
+                                                  nusc-strobe-4]
                                          [--part frame|rpn] [--batch B]
 
 Builds the flagship detector of ``partner_tpu_torch`` exactly as
@@ -72,6 +75,17 @@ VoxelNet config (``SpMiddleResNetFHD`` through voxel inputs,
 voxelized on the card outside the frame (the second ``max_voxel_num``),
 with the stages backbone (reader and sparse backbone), RPN, seg head and
 point labels.
+``--model nusc-han-1|nusc-han-4|nusc-strobe-1|nusc-strobe-4`` profiles a
+HAN or STROBE config of ``chip_smoke.py``'s STROBE and HAN phase on one
+synthetic 10-sweep sample in POLAR_ROWS rows (STROBE: split into its 10
+sweep slots by ``chip_smoke.sweep_split``), with the stages, each summed
+over the sweeps and sectors: sector inputs, pillars (``encode_canvas`` /
+``encode_sector``), the sector LSTM (HAN 4-sector), neck, head, seg head,
+decode + NMS and, for the sector models, the point labels; ``rest`` is
+the frame's device timeline outside them. ``--part rpn`` times each conv
+of its neck on the input the frame's first sweep or sector hands it
+(``RPNWaymo``'s ConvLSTM ``memory.gates`` and ``RPNUber``'s doubled
+first-block input among them).
 ``--part rpn`` times each conv of the model's RPN alone instead, on the
 input the frame hands it: device ms and the kernels cuDNN picks, as the
 port calls the conv (channels-last strides), NCHW-contiguous,
@@ -109,6 +123,8 @@ import chip_smoke  # noqa: E402  (its config, weights and sweep builders)
 
 POLAR_MODELS = {"nusc-polarstream-1": "1_sector",
                 "nusc-polarstream-4": "4_sector"}
+SH_MODELS = {"nusc-han-1": "han_1", "nusc-han-4": "han_4",
+             "nusc-strobe-1": "strobe_1", "nusc-strobe-4": "strobe_4"}
 SEG_MODELS = {"nusc-seg-10sweep": "voxelnet_10sweep",
               "nusc-seg-cylinder": "voxelnet_cylinder",
               "nusc-polarstream-seg-1": "polarstream_1",
@@ -218,6 +234,63 @@ def polar_stage_times(det, ex, frames):
     out = {n: statistics.median(v) for n, v in per.items()}
     out["frame_host"] = statistics.median(totals)
     return out
+
+
+def sh_stage_times(det, ex, frames):
+    """A HAN or STROBE frame's median ms per stage, each the sum of the
+    spans between CUDA events recorded around every call of that stage's
+    module or method inside ``det.predict`` (so summed over the sweeps and
+    sectors), ``rest`` the frame's event-to-event span outside them, and
+    the median host time of the frame."""
+    mod = det.module
+    sites = {"sector_inputs": (mod, "sector_inputs"),
+             "pillars": (mod, "encode_sector" if hasattr(mod, "encode_sector")
+                         else "encode_canvas"),
+             "lstm": (getattr(mod, "lstm", None), "forward"),
+             "neck": (mod.neck, "forward"),
+             "head": (mod.bbox_head, "forward"),
+             "seg_head": (mod.seg_head, "forward"),
+             "decode_nms": (det, "decode"),
+             "point_labels": (det, "point_seg_labels")}
+    sites = {n: (o, a) for n, (o, a) in sites.items()
+             if o is not None and hasattr(o, a)}
+    calls = []
+
+    def wrap(name, fn):
+        def run(*args, **kwargs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kwargs)
+            b.record()
+            calls.append((name, a, b))
+            return out
+        return run
+
+    for name, (owner, attr) in sites.items():
+        setattr(owner, attr, wrap(name, getattr(owner, attr)))
+    per = {n: [] for n in list(sites) + ["rest", "frame_host"]}
+    try:
+        for _ in range(frames):
+            calls.clear()
+            t0 = time.perf_counter()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            det.predict(ex)
+            b.record()
+            torch.cuda.synchronize()
+            per["frame_host"].append((time.perf_counter() - t0) * 1e3)
+            spans = dict.fromkeys(sites, 0.0)
+            for name, x, y in calls:
+                spans[name] += x.elapsed_time(y)
+            for n, v in spans.items():
+                per[n].append(v)
+            per["rest"].append(a.elapsed_time(b) - sum(spans.values()))
+    finally:
+        for owner, attr in sites.values():
+            owner.__dict__.pop(attr, None)
+    return {n: statistics.median(v) for n, v in per.items()}
 
 
 def seg_stage_times(det, ex, frames):
@@ -332,6 +405,8 @@ def build_frame(dev, args):
     n_points, c = chip_smoke.N_POINTS, 7
     if args.model in SEG_MODELS:
         return build_seg_frame(dev, args)
+    if args.model in SH_MODELS:
+        return build_sh_frame(dev, args)
     if args.model == "flagship":
         m, tc = chip_smoke.frame_cfgs()
     elif args.model == "sparse":
@@ -416,6 +491,32 @@ def build_seg_frame(dev, args):
     return det, chip_smoke.with_voxels(ex, vox)
 
 
+def build_sh_frame(dev, args):
+    """A HAN or STROBE config of ``chip_smoke.py``'s STROBE and HAN phase
+    at full width (its norms drawn as there) and ``--batch`` synthetic
+    10-sweep samples in POLAR_ROWS rows (``chip_smoke.nusc_example``),
+    split into STROBE's sweep slots where the model takes them."""
+    from partner_tpu_torch.models import build_detector
+    from partner_tpu_torch.utils.config import load_config
+
+    config = chip_smoke.STROBE_HAN_CONFIGS[SH_MODELS[args.model]]
+    cfg = load_config(config)
+    tc = dict(cfg["test_cfg"], score_threshold=0.0)
+    gen = torch.Generator().manual_seed(chip_smoke.SEED)
+    det = build_detector(cfg["model"], None, tc, device=dev, generator=gen)
+    chip_smoke.randomize_norms(det.module, gen)
+    chip_smoke.randomize_pfn(det.module, gen)
+    samples = [chip_smoke.nusc_example(
+        None, seed=chip_smoke.SEED + i, config=config,
+        sweeps=chip_smoke.NUSC_SWEEPS, rows=chip_smoke.POLAR_ROWS)
+        for i in range(args.batch)]
+    ex = {k: np.concatenate([e[k] for e in samples]) for k in samples[0]}
+    if det.input_kind == "sweeps":
+        ex = chip_smoke.sweep_split(ex, chip_smoke.SH_SLOTS)
+    return det, chip_smoke.to_device(
+        {k: ex[k] for k in ("points", "points_mask")}, dev)
+
+
 def profile_frame(dev, args):
     det, ex = build_frame(dev, args)
     for _ in range(2):
@@ -424,6 +525,7 @@ def profile_frame(dev, args):
     stages = (polar_stage_times if args.model in POLAR_MODELS
               or args.model.startswith("nusc-polarstream-seg")
               else seg_stage_times if args.model in SEG_MODELS
+              else sh_stage_times if args.model in SH_MODELS
               else stage_times)
     out = {"card": chip_smoke.gpu_name_and_power_limit(),
            "torch": torch.__version__, "model": args.model,
@@ -559,7 +661,8 @@ def profile_rpn_convs(dev, args):
     convs = {f"neck.{n}" if args.model.startswith("pp") else n: m
              for n, m in mod.neck.named_children()
              if n.startswith(("Conv_", "ConvTranspose_"))}
-    if args.model in POLAR_MODELS:   # the stream neck's convs, sector 0
+    if args.model in POLAR_MODELS or args.model in SH_MODELS:
+        # the stream neck's convs at sector 0 (STROBE: sweep 0)
         convs = {n: m for n, m in mod.neck.named_modules()
                  if isinstance(m, (Conv2d, ConvTranspose2d))}
     if args.model.startswith("pp"):
@@ -574,6 +677,8 @@ def profile_rpn_convs(dev, args):
         if args.model in POLAR_MODELS:
             p, v = mod.sector_inputs(ex["points"], ex["points_mask"])[0]
             mod.neck(mod.encode_sector(p, v), None)
+        elif args.model in SH_MODELS:
+            mod(ex)
         else:
             x = mod.neck(backbone_stage(mod, ex))
         if args.model.startswith("pp"):
@@ -669,7 +774,7 @@ def main():
                              "sparse", "nusc-dcn", "nusc-01voxel",
                              "nusc-dcn_flip", "nusc-singlehead", "pp",
                              "pp-two_cls"] + list(POLAR_MODELS)
-                    + list(SEG_MODELS),
+                    + list(SEG_MODELS) + list(SH_MODELS),
                     help="the frame's model (the train step: flagship)")
     ap.add_argument("--batch", type=int, default=1,
                     help="sweeps a frame (the PointPillars models and "
@@ -680,10 +785,11 @@ def main():
     if args.batch != 1 and not (args.model.startswith("pp")
                                 or args.model == "nusc-singlehead"
                                 or args.model in POLAR_MODELS
-                                or args.model in SEG_MODELS):
+                                or args.model in SEG_MODELS
+                                or args.model in SH_MODELS):
         sys.exit("torch_frame_profile: --batch is for the PointPillars "
-                 "models, nusc-singlehead, the PolarStream and the seg "
-                 "models")
+                 "models, nusc-singlehead, the PolarStream, seg, HAN and "
+                 "STROBE models")
     if args.part == "rpn" and args.model in SEG_MODELS:
         sys.exit("torch_frame_profile: --part rpn is not wired for the "
                  "seg models")
