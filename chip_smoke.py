@@ -209,6 +209,20 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
    train-CLI steps. No hand kernel lies on this path: every launch count
    stays 0.
 
+17. data parallelism (:func:`dist_phase`): an NCCL group of one in
+   process, the flagship's float32 train step data-parallel
+   (``DistributedDataParallel`` with the global BatchNorm statistics and
+   loss normalizers) against the plain step from the same weights, batch
+   and draws (loss terms, gradients, the parameters after the step where
+   Adam's first step is determined, statistics; times each way,
+   collectives a step, the scatter-max once a step); the lr family's sgd, amsgrad and adamw on the card against CPU copies,
+   and the lrs against the schedule; then ``dist_test`` and the train CLI
+   through ``python -m torch.distributed.run --standalone
+   --nproc_per_node 1``: predictions bit-equal to the run without a group,
+   the stem, attention and scatter-max kernels launched, finite losses and
+   the schedule's lr. The card holds one process: two ranks are the CPU
+   tests' (``tests/test_torch_dist*.py``).
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises before it, so the
 exit code is then non-zero.
@@ -6445,6 +6459,430 @@ def strobe_han_phase(dev, card):
     return res
 
 
+# ------------------------------------------------------ data parallelism
+
+DIST_TIMED = 3       # timed steps each way after one warm-up (dist phase)
+DIST_FRAMES = 8      # dist_test frames under torchrun
+DIST_TRAIN_FRAMES = 4  # the torchrun train CLI's set: one batch of 4
+DIST_LR = dict(type="cosine", lr=1e-3, target_lr=1e-5, warmup="linear",
+               warmup_iters=1, warmup_ratio=0.1, by_epoch=False)
+DIST_OPTIMIZERS = (dict(type="sgd", momentum=0.9),
+                   dict(type="amsgrad", wd=0.01),
+                   dict(type="adamw", betas=(0.9, 0.99), wd=0.01))
+# the lr family on the card against CPU copies: one update apart by float32
+# rounding (the global norm summed in another order moves the clip scale
+# by an ulp), so |card - cpu| <= DIST_OPT_TOL * (|cpu| + the update's size)
+DIST_OPT_TOL = 1e-5
+DIST_GRAD_CLIP = 35.0     # build_one_cycle_optimizer's global-norm clip
+DIST_ADAM_CLEAR = 1e-7    # a clipped gradient clear of Adam's eps (1e-8)
+DIST_LOOSE_SHARE = 0.01   # elements where Adam's first step is not determined
+_DIST_RUNNER = r"""
+import json, sys, time
+import torch
+import torch.distributed as tdist
+from partner_tpu_torch.ops import scatter_max, stem, swin_attn, swin_block
+from partner_tpu_torch.parallel import dist
+from partner_tpu_torch.tools import dist_test, train
+wrappers = {"stem": stem.stem2_channel_major,
+            "scatter_max": scatter_max.scatter_max_fold2d,
+            "swin_attn": swin_attn.swin_vote_attention,
+            "swin_block": swin_block.swin_vote_block}
+assert dist.initialize("cuda")
+info = {"backend": tdist.get_backend(), "world": tdist.get_world_size(),
+        "device": torch.cuda.current_device()}
+for w in wrappers.values():
+    w.launches = 0
+t0 = time.perf_counter()
+if sys.argv[1] == "train":
+    out = train.main(sys.argv[2:])
+else:
+    out = dist_test.main(sys.argv[2:])[1]
+torch.cuda.synchronize()
+info.update(out=out, wall_s=time.perf_counter() - t0,
+            launches={k: w.launches for k, w in wrappers.items()},
+            jax=[m for m in sys.modules if m.split(".")[0] in
+                 ("jax", "jaxlib", "flax", "optax", "partner_tpu")])
+dist.finalize()
+print("DIST_RESULT " + json.dumps(info), flush=True)
+"""
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def torchrun(root, tool, args, timeout=600):
+    """``tool`` (train or dist_test) through ``python -m
+    torch.distributed.run --standalone --nproc_per_node 1`` on the card ->
+    the runner's record: backend, world size, the tool's return, wall s,
+    the kernels' launches in that process."""
+    runner = os.path.join(root, "dist_runner.py")
+    with open(runner, "w") as f:
+        f.write(_DIST_RUNNER)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", runner, tool] + list(args), cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode:
+        raise AssertionError(f"torchrun {tool} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    lines = [l for l in proc.stdout.splitlines()
+             if l.startswith("DIST_RESULT ")]
+    if len(lines) != 1:
+        raise AssertionError(f"torchrun {tool}: no result\n"
+                             f"{proc.stdout[-3000:]}")
+    rec = json.loads(lines[0][len("DIST_RESULT "):])
+    if rec["jax"] or rec["backend"] != "nccl" or rec["world"] != 1:
+        raise AssertionError(f"torchrun {tool}: {rec}")
+    return rec
+
+
+def ddp_steps(det, init, ex, lr_max):
+    """DIST_TIMED + 1 steps of the flagship from the weights ``init``, the
+    same batch and dropout draws each step, data-parallel where a process
+    group exists ->
+    (step 0's metrics, gradients and state after it on the CPU, the
+    median ms of the timed steps, all their ms, collectives a step,
+    launches summed)."""
+    from partner_tpu_torch.parallel import dist
+    from partner_tpu_torch.train.optim import build_one_cycle_optimizer
+    from partner_tpu_torch.train.train_state import make_train_step
+
+    det.module.load_state_dict(init)
+    step = make_train_step(det, build_one_cycle_optimizer(
+        det.module, lr_max=lr_max, total_steps=1000))
+    data_parallel = torch.distributed.is_initialized()
+    want = {"stem": 0, "scatter_max": 1, "swin_attn": 0, "swin_block": 0}
+    first, times, coll = None, [], []
+    launches = dict.fromkeys(want, 0)
+    for i in range(DIST_TIMED + 1):
+        n0 = dist.counts["collectives"]
+        ms, met, counts = counted(lambda: step(
+            ex, torch.Generator().manual_seed(SEED + 61)))
+        coll.append(dist.counts["collectives"] - n0)
+        if counts != want:
+            raise AssertionError(f"dist step {i} (data_parallel "
+                                 f"{data_parallel}): launches {counts}")
+        for k in launches:
+            launches[k] += counts[k]
+        vals = {k: float(v) for k, v in met.items()}
+        if not all(np.isfinite(list(vals.values()))):
+            raise AssertionError(f"dist step {i}: {vals}")
+        if i == 0:
+            first = (vals, {k: p.grad.float().cpu() for k, p in
+                            det.module.named_parameters()},
+                     {k: v.float().cpu() for k, v in
+                      det.module.state_dict().items()})
+        else:
+            times.append(ms)
+        log(f"dist step {i}, data_parallel {data_parallel}: {ms!r} ms, "
+            f"{coll[-1]} collectives, {vals}")
+    return first, statistics.median(times), times, coll, launches
+
+
+def family_on_card(det, dev):
+    """The lr family's optimizers (DIST_OPTIMIZERS under DIST_LR) on the
+    flagship's parameters with their last step's gradients, three updates
+    on the card against the same on CPU copies; the lr each sgd update
+    applied, read back from the update (no decay: ``-dp / trace``),
+    against ``build_lr_schedule``. -> {type: (largest error against the
+    bound's scale, lrs read back)}."""
+    from partner_tpu_torch.train.optim import (build_lr_schedule,
+                                               build_optimizer)
+
+    class Params(torch.nn.Module):
+        def __init__(self, tensors):
+            super().__init__()
+            self.names = list(tensors)
+            self.ps = torch.nn.ParameterList(
+                [torch.nn.Parameter(t.clone()) for t in tensors.values()])
+
+        def named_parameters(self, *a, **k):
+            return zip(self.names, self.ps)
+
+    params = {k: p.detach().float() for k, p in
+              det.module.named_parameters()}
+    grads = {k: p.grad.detach().float() for k, p in
+             det.module.named_parameters()}
+    sched = build_lr_schedule(DIST_LR, 10)
+    out = {}
+    for cfg in DIST_OPTIMIZERS:
+        sides = {}
+        for side in ("card", "cpu"):
+            mod = Params({k: v if side == "card" else v.cpu()
+                          for k, v in params.items()})
+            opt = build_optimizer(cfg, build_lr_schedule(DIST_LR, 10), mod,
+                                  no_wd_patterns=("bbox_head",))
+            lrs = []
+            for i in range(3):
+                for (k, p) in mod.named_parameters():
+                    g = grads[k] * (1.0 + 0.5 * i)
+                    p.grad = g if side == "card" else g.cpu()
+                prev = {k: p.detach().clone() for k, p in
+                        mod.named_parameters()}
+                opt.step()
+                if cfg["type"] == "sgd":   # the largest tensor's largest
+                    j = max(range(len(opt.params)),
+                            key=lambda i: opt.params[i].numel())
+                    t = opt.trace[j].flatten()
+                    top = torch.argmax(t.abs())
+                    dp = (opt.params[j].detach().flatten()
+                          - prev[mod.names[j]].flatten())[top]
+                    lrs.append(float(-dp / t[top]))
+            sides[side] = ({k: p.detach().float().cpu() for k, p in
+                            mod.named_parameters()}, lrs)
+        worst = max(float(((sides["card"][0][k] - sides["cpu"][0][k]).abs()
+                           / ((sides["cpu"][0][k]).abs()
+                              + (sides["cpu"][0][k] - params[k].cpu()).abs()
+                              + 1e-12)).max())
+                    for k in params)
+        want = [float(sched(i)) for i in range(3)]
+        out[cfg["type"]] = (worst, sides["card"][1], want)
+        log(f"dist lr family {cfg}: card against CPU largest relative error "
+            f"{worst!r} (bound {DIST_OPT_TOL})" + (
+                f"; sgd lrs read back {sides['card'][1]!r}, schedule {want!r}"
+                if cfg["type"] == "sgd" else ""))
+        if not worst <= DIST_OPT_TOL:
+            raise AssertionError(f"dist: {cfg['type']} on the card {worst}")
+        if cfg["type"] == "sgd" and not np.allclose(sides["card"][1], want,
+                                                    rtol=1e-3):
+            raise AssertionError(f"dist: sgd lrs {sides['card'][1]} against "
+                                 f"the schedule {want}")
+    return out
+
+
+def dist_phase(dev, card):
+    """Data parallelism of the port on the one card: (a) an NCCL group of
+    one made in process by ``parallel.dist.initialize`` (torchrun's
+    variables set by hand, a free localhost port), the flagship's float32
+    train step at full width and the train phase's batch (4 x 150,000
+    points in 180,000 rows) data-parallel (``DistributedDataParallel``,
+    the global BatchNorm statistics and loss normalizers through NCCL)
+    against the plain step from the same weights, batch and dropout draws:
+    each loss term and the gradients by top-level module (bounds of the
+    float32 train reference), the parameters after the step (2e-6 where
+    Adam's first step is determined, at most 1% of the elements elsewhere),
+    the statistics (bit-equality recorded), DIST_TIMED timed steps each way, collectives a
+    step and the scatter-max once a step; (b) the lr family on the card
+    against CPU copies (:func:`family_on_card`); (c) with the group left,
+    both CLIs through ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1``: ``dist_test`` of the flagship (bf16, seeded
+    weights) over DIST_FRAMES synthetic sweeps, its ``prediction.pkl``
+    bit-equal frame by frame to the same CLI run without a group, the
+    stem, attention and scatter-max kernels launched; and two train-CLI
+    steps at batch 4 with GT-AUG, ``adamw`` under a cosine schedule after
+    a linear warmup: finite losses, the logged lr the schedule's."""
+    import pickle
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from partner_tpu_torch.models import build_detector
+    from partner_tpu_torch.parallel import dist
+    from partner_tpu_torch.tools import dist_test
+    from partner_tpu_torch.train.checkpoint import save_checkpoint
+    from partner_tpu_torch.train.optim import build_lr_schedule
+
+    t_phase = time.perf_counter()
+    m, tc, batch, lr_max = train_cfgs(compute_dtype="float32")
+    gen = torch.Generator().manual_seed(SEED + 61)
+    det = build_detector(m, None, tc, device=dev, generator=gen)
+    randomize_norms(det.module, gen)
+    init = {k: v.clone() for k, v in det.module.state_dict().items()}
+    ex = to_device(train_example(
+        np.random.RandomState(SEED + 61), m["bbox_head"]["voxel_generator"][
+            "range"], det.module.grid_size, batch, TRAIN_POINTS, TRAIN_ROWS,
+        MAX_BOXES), dev)
+    plain = ddp_steps(det, init, ex, lr_max)   # no group yet: the plain step
+    saved = {k: os.environ.get(k) for k in (
+        "RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+    try:
+        if not dist.initialize("cuda"):
+            raise AssertionError("dist: no group made")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"dist: process group backend {tdist.get_backend()}, world "
+        f"{tdist.get_world_size()}, device {torch.cuda.current_device()}")
+    ddp = ddp_steps(det, init, ex, lr_max)
+    (pv, pg, ps), (dv, dg, ds) = plain[0], ddp[0]
+    bad = {}
+    if pv["num_matched"] != dv["num_matched"]:
+        bad["num_matched"] = (dv["num_matched"], pv["num_matched"])
+    loss_err = {k: abs(dv[k] - pv[k]) / abs(pv[k]) for k in pv
+                if k.startswith("loss")}
+    for k, e in loss_err.items():
+        if not e <= TRAIN_F32_LOSS_TOL:
+            bad[k] = e
+    gerr = grad_errors(dg, pg)
+    for k, (e, _) in gerr.items():
+        if not e <= TRAIN_F32_GRAD_TOL[k]:
+            bad[f"grad {k}"] = e
+    params = dict(det.module.named_parameters())
+    lr0 = lr_max / 10.0
+    # Adam's first step is about +-lr0 on every element whatever the
+    # gradient, so two first steps are always within 2 lr0. Where the
+    # clipped gradients agree within 1% and stand clear of eps (1e-8) by
+    # DIST_ADAM_CLEAR the step is determined (the two steps then differ by
+    # at most ~1e-3 lr0), and there the two must agree to 2e-6; at most
+    # DIST_LOOSE_SHARE of the elements may lie elsewhere
+    # (tests/test_torch_dist.py's "agree" rule, PARTNER's share).
+    clip = min(1.0, DIST_GRAD_CLIP / pv["grad_norm"])
+    moved = firm_err = 0.0
+    n_loose = n_all = 0
+    for k in params:
+        d = (ds[k] - ps[k]).abs()
+        g, gp = dg[k] * clip, pg[k] * clip
+        firm = ((gp.abs() > DIST_ADAM_CLEAR)
+                & ((g - gp).abs() <= 1e-2 * gp.abs()))
+        moved = max(moved, float(d.max()))
+        if firm.any():
+            firm_err = max(firm_err, float(
+                (d[firm] - 1e-6 * ps[k][firm].abs()).max()))
+        n_loose += int((~firm).sum())
+        n_all += firm.numel()
+    loose_share = n_loose / n_all
+    if not moved <= 2 * lr0 * 1.01:
+        bad["parameters"] = moved
+    if not firm_err <= 2e-6:
+        bad["parameters where the step is determined"] = firm_err
+    if not loose_share <= DIST_LOOSE_SHARE:
+        bad["share of undetermined elements"] = loose_share
+    stat_err = max([rel_rms_of(k, ds[k], ps[k])[0] for k in ps
+                    if k not in params and not torch.equal(ds[k], ps[k])],
+                   default=0.0)
+    if not stat_err <= TRAIN_F32_LOSS_TOL:
+        bad["statistics"] = stat_err
+    bit_equal = all(torch.equal(ds[k], ps[k]) for k in ps)
+    log(f"dist (a): DDP step against the plain step from the same weights, "
+        f"batch and draws: num_matched {dv['num_matched']!r} / "
+        f"{pv['num_matched']!r}, loss terms' relative errors {loss_err} "
+        f"(bound {TRAIN_F32_LOSS_TOL}), grad relative RMS and norm ratio by "
+        f"module {gerr} (bounds {TRAIN_F32_GRAD_TOL}), parameters after: "
+        f"where Adam's step is determined within {firm_err!r} beyond 1e-6 "
+        f"relative (bound 2e-6), elsewhere within {moved!r} (bound 2 lr = "
+        f"{2 * lr0!r}) on {loose_share!r} of the elements (bound "
+        f"{DIST_LOOSE_SHARE}), statistics relative "
+        f"RMS {stat_err!r} (bound {TRAIN_F32_LOSS_TOL}); bit-equal: "
+        f"{bit_equal}")
+    if bad:
+        raise AssertionError(f"dist (a): DDP step beyond its bounds: {bad}")
+    if len(set(ddp[3])) != 1 or not ddp[3][0] > 0 or any(plain[3]):
+        raise AssertionError(f"dist (a): collectives DDP {ddp[3]}, plain "
+                             f"{plain[3]}")
+    log(f"dist (a): flagship float32 step at batch {batch} on {card}: plain "
+        f"median {plain[1]!r} ms {plain[2]!r}, DDP (NCCL, world 1) median "
+        f"{ddp[1]!r} ms {ddp[2]!r}; {ddp[3][0]} collectives a DDP step; "
+        f"launches over {DIST_TIMED + 1} steps each: plain {plain[4]}, DDP "
+        f"{ddp[4]}")
+    family = family_on_card(det, dev)
+    del det
+    dist.finalize()
+    torch.cuda.empty_cache()
+    if tdist.is_initialized():
+        raise AssertionError("dist: the group outlived the in-process part")
+
+    with tempfile.TemporaryDirectory() as root:
+        fm, ftc = frame_cfgs()
+        pr = fm["bbox_head"]["voxel_generator"]["range"]
+        gen = torch.Generator().manual_seed(SEED + 62)
+        fdet = build_detector(fm, None, ftc, device=dev, generator=gen)
+        randomize_norms(fdet.module, gen)
+        ckpt = os.path.join(root, "ckpt")
+        save_checkpoint(ckpt, 0, fdet.module.state_dict())
+        depth = fdet.module.bbox_head.layer.depth
+        del fdet
+        val = write_val_set(root, np.random.RandomState(SEED + 62), pr,
+                            DIST_FRAMES)
+        eval_cfg = write_eval_config(root, val)
+        args = [eval_cfg, "--checkpoint", os.path.join(ckpt, "latest"),
+                "--max_points", str(EVAL_ROWS)]
+        _, (_, plain_fps), plain_launches = counted(lambda: dist_test.main(
+            args + ["--work_dir", os.path.join(root, "eval_plain")]))
+        rec = torchrun(root, "dist_test", args + [
+            "--work_dir", os.path.join(root, "eval_dist"), "--mesh",
+            "data=1"])
+        want = {"stem": DIST_FRAMES, "scatter_max": DIST_FRAMES,
+                "swin_attn": depth * DIST_FRAMES, "swin_block": 0}
+        if rec["launches"] != want or plain_launches != want:
+            raise AssertionError(f"dist dist_test launches {rec['launches']}"
+                                 f", without a group {plain_launches}")
+        preds = []
+        for sub in ("eval_plain", "eval_dist"):
+            with open(os.path.join(root, sub, "prediction.pkl"), "rb") as f:
+                preds.append(pickle.load(f))
+        if list(preds[0]) != list(preds[1]) or len(preds[0]) != DIST_FRAMES:
+            raise AssertionError(f"dist dist_test frames {list(preds[1])}")
+        for token, d in preds[0].items():
+            if not all(np.array_equal(preds[1][token][k], d[k]) for k in
+                       ("box3d_lidar", "scores", "label_preds")):
+                raise AssertionError(f"dist dist_test {token}: torchrun's "
+                                     "prediction differs")
+        log(f"dist (c): dist_test under torchrun (NCCL, world 1) over "
+            f"{DIST_FRAMES} frames: every frame bit-equal to the run without "
+            f"a group; launches {rec['launches']}; middle-third FPS "
+            f"{rec['out']!r} (without a group {plain_fps!r}); whole run "
+            f"{rec['wall_s']!r} s")
+
+        train_info, db_info, _ = write_train_set(
+            os.path.join(root, "train_set"), np.random.RandomState(SEED + 63),
+            pr, DIST_TRAIN_FRAMES)
+        cfg_path = write_train_config(root, train_info, val, db_info)
+        with open(cfg_path, "a") as f:
+            f.write(f"lr_config = {DIST_LR!r}\n"
+                    f"optimizer = {DIST_OPTIMIZERS[2]!r}\n")
+        work = os.path.join(root, "train_out")
+        trec = torchrun(root, "train", [
+            cfg_path, "--work_dir", work, "--batch_size", "4",
+            "--total_steps", "2", "--max_points", str(TRAIN_ROWS),
+            "--mesh", "data=1"])
+        with open(os.path.join(work, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        sched = build_lr_schedule(DIST_LR, 2, steps_per_epoch=1)
+        if trec["out"] != 2 or [r["step"] for r in recs] != [0, 1]:
+            raise AssertionError(f"dist train CLI: {trec}, {recs}")
+        for r in recs:
+            vals = [r[k] for k in r if k.startswith("loss") or
+                    k == "grad_norm"]
+            if not all(np.isfinite(vals)) or r["lr"] != float(
+                    sched(r["step"])):
+                raise AssertionError(f"dist train CLI step {r}")
+        want = {"stem": 0, "scatter_max": 2, "swin_attn": 0, "swin_block": 0}
+        if trec["launches"] != want:
+            raise AssertionError(f"dist train CLI launches "
+                                 f"{trec['launches']}")
+        log(f"dist (c): train CLI under torchrun (NCCL, world 1), adamw "
+            f"under {DIST_LR}: losses "
+            f"{[r['loss'] for r in recs]!r}, lr {[r['lr'] for r in recs]!r}"
+            f" (the schedule's), launches {trec['launches']}, whole run "
+            f"{trec['wall_s']!r} s")
+    phase_s = time.perf_counter() - t_phase
+    log(f"dist phase: {phase_s!r} s")
+    return {"step": {"plain_ms": plain[1], "ddp_ms": ddp[1],
+                     "firm_err": firm_err, "loose_share": loose_share,
+                     "collectives": ddp[3][0], "launches": ddp[4],
+                     "bit_equal": bit_equal},
+            "family": family,
+            "dist_test": {"launches": rec["launches"], "fps": rec["out"],
+                          "plain_fps": plain_fps},
+            "train_cli": {"launches": trec["launches"],
+                          "wall_s": trec["wall_s"]},
+            "phase_s": phase_s}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this run needs one NVIDIA card")
@@ -6487,6 +6925,7 @@ def main():
     polar = polarstream_phase(dev, card)
     seg = seg_phase(dev, card)
     han = strobe_han_phase(dev, card)
+    dp = dist_phase(dev, card)
 
     meta = {
         "stem": ("partner_tpu_torch/csrc/stem.cu",
@@ -6607,6 +7046,9 @@ def main():
                         else han[c][k]["launches"])[name]
                        for c in STROBE_HAN_CONFIGS
                        for k in SH_PATHS[c[:-2]]},
+                    dist_ddp_step_launches=dp["step"]["launches"][name],
+                    dist_dist_test_launches=dp["dist_test"]["launches"][name],
+                    dist_train_cli_launches=dp["train_cli"]["launches"][name],
                     **r)
                for name, r in kres.items()]
     log("summary: card " + card + ", flagship frame median ms: " + ", ".join(
@@ -6793,6 +7235,19 @@ def main():
         + f"; ego_motion_warp_polar {WARP_SHAPE} {w['device_ms']!r} ms "
         f"device (bound {w['bound_ms']!r}), relative RMS against the CPU "
         f"{w['rel_rms']!r}")
+    st = dp["step"]
+    log(f"summary: card {card}, data parallelism (NCCL, world 1): flagship "
+        f"float32 step at batch 4 plain {st['plain_ms']!r} ms, DDP "
+        f"{st['ddp_ms']!r} ms, {st['collectives']} collectives a step, "
+        f"parameters where Adam's step is determined within "
+        f"{st['firm_err']!r} beyond 1e-6 relative, {st['loose_share']!r} of "
+        f"the elements undetermined, bit-equal {st['bit_equal']}; dist_test "
+        f"under torchrun middle-third "
+        f"FPS {dp['dist_test']['fps']!r} (without a group "
+        f"{dp['dist_test']['plain_fps']!r}); train CLI under torchrun 2 "
+        f"steps in {dp['train_cli']['wall_s']!r} s; lr family card against "
+        f"CPU {({k: v[0] for k, v in dp['family'].items()})}; phase "
+        f"{dp['phase_s']!r} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

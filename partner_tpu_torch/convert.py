@@ -117,3 +117,16 @@ def flax_to_torch(variables):
                 raise KeyError(f"two flax leaves map to {name}")
             sd[name] = torch.from_numpy(np.array(arr, np.float32))
     return sd
+
+
+def flax_param_path(name, ndim):
+    """A port parameter's name and rank -> its flax path ("a/b/kernel"),
+    the inverse of the parameter rule above. Exact for every parameter of
+    more than one dimension (kernels and raw parameters keep flax's module
+    names); a BatchNorm's ``scale`` and ``bias`` come back without the
+    wrapper level that :func:`flax_to_torch` collapses
+    (``BatchNorm_k/BatchNorm_0``)."""
+    *mods, leaf = name.split(".")
+    if leaf == "weight" and not _keeps_names(mods):
+        leaf = "kernel" if ndim > 1 else "scale"
+    return "/".join(mods + [leaf])

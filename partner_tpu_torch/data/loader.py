@@ -8,6 +8,17 @@ bounded queue. Batches come out in the order the threads finish them: with
 more than one thread that order, and the order in which the pipeline draws
 from its random state, can change from run to run. The JAX version asks
 jax for the host count and index; here the caller passes them.
+
+Data parallelism (``rank``, ``world_size``) splits each global batch by
+position: the sampler runs as one process's would (one host, the same
+seed on every rank), and rank r loads the r-th ``batch_size /
+world_size`` samples of each batch, whole samples (a double-flip
+sample's four point rows stay together; a group sampler's batch stays in
+one group). So N ranks load the same samples (the same indices) in
+each global batch as one process does, as JAX's single-host ``data=N``
+mesh does (``shard_batch``), and not the per-host contiguous shards of
+the JAX loader's multi-host path. The pipeline's random draws
+(augmentation, GT-AUG, sweeps) are each rank's own.
 """
 
 import queue
@@ -88,9 +99,16 @@ class GroupSampler:
 class DataLoader:
     def __init__(self, dataset, batch_size, shuffle=True, num_workers=2,
                  max_points=200000, max_voxels=None, num_hosts=1, host_id=0,
-                 seed=0, prefetch=4, collate_fn=None, group_by_flag=None):
+                 seed=0, prefetch=4, collate_fn=None, group_by_flag=None,
+                 rank=0, world_size=1):
+        if batch_size % world_size:
+            raise ValueError(f"a global batch of {batch_size} does not split "
+                             f"over {world_size} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
+        # this rank's positions in each global batch
+        self.part = slice(rank * batch_size // world_size,
+                          (rank + 1) * batch_size // world_size)
         self.max_points = max_points
         self.max_voxels = max_voxels
         flag = getattr(dataset, "flag", None)
@@ -121,7 +139,7 @@ class DataLoader:
     def __iter__(self):
         idx = self.sampler.indices(self.epoch)
         batches = [
-            idx[i : i + self.batch_size]
+            idx[i : i + self.batch_size][self.part]
             for i in range(0, len(idx), self.batch_size)
         ]
         q = queue.Queue(maxsize=self.prefetch)
@@ -182,6 +200,8 @@ class DataLoader:
 def build_dataloader(dataset, batch_size, workers_per_gpu=2, shuffle=True,
                      max_points=200000, max_voxels=None, num_hosts=1,
                      host_id=0, **kwargs):
+    """A loader of global batches of ``batch_size``; with ``rank`` and
+    ``world_size`` in ``kwargs``, each batch's part of that rank."""
     return DataLoader(
         dataset, batch_size, shuffle=shuffle, num_workers=workers_per_gpu,
         max_points=max_points, max_voxels=max_voxels,

@@ -23,8 +23,14 @@ where it has none), its panoptic inputs (``evaluator.py:150-240``). A
 segmentation-only detector's frames have no boxes: ``prediction.pkl`` is
 then empty, as in JAX.
 
-Not ported: the mesh-sharded eval and the per-host gather (ROADMAP.md
-queue 1: DDP and mesh eval).
+With a process group (``parallel.dist``; torchrun's ranks) the eval is
+sharded as JAX's mesh eval is (``evaluator.py:115-135,197-201``): the
+batch size is the global batch's, each rank loads and predicts its
+positional part of each global batch (``data.loader``), and
+``parallel.dist.all_gather_object`` brings every rank's detections and
+seg predictions to rank 0, which writes ``prediction.pkl`` (frames in the
+dataset's order, whatever rank or loader thread predicted them) and
+evaluates; the other ranks return ``(None, fps)``.
 """
 
 import os
@@ -37,6 +43,7 @@ import torch
 from ..data import build_dataloader
 from ..data.pipeline import read_lidarseg
 from ..ops.voxelize import DeviceVoxelizer
+from ..parallel import dist
 
 # the lidarseg classes (after the 32 -> 17 merge) of the ten detection
 # classes, and each one's label in NuScenesDataset.CLASSES
@@ -98,20 +105,25 @@ def init_example(dataset, device, kind="points"):
 def evaluate(det, dataset, work_dir, logger, device, batch_size=1,
              max_points=200000, max_frames=None, testset=False, cfg=None,
              input_kind=None):
-    """Predict over ``dataset`` and evaluate -> (result, fps). The input
-    contract is ``input_kind``, the detector's own (``points``) when
-    None; ``voxels`` needs the config ``cfg``."""
+    """Predict over ``dataset`` and evaluate -> (result, fps) on rank 0
+    (the only process without a group), (None, fps) on the others. The
+    input contract is ``input_kind``, the detector's own (``points``) when
+    None; ``voxels`` needs the config ``cfg``. ``batch_size`` is the
+    global batch, which the world size must divide; ``max_frames`` counts
+    the global batches' frames; ``fps`` is global frames a second."""
+    rank, world = dist.process_info()
     predict = build_predict_fn(det, device, cfg,
                                input_kind or det.input_kind)
     loader = build_dataloader(dataset, batch_size, workers_per_gpu=4,
-                              shuffle=False, max_points=max_points)
+                              shuffle=False, max_points=max_points,
+                              rank=rank, world_size=world)
     vshape = dict((cfg or {}).get("voxel_generator", {})).get(
         "voxel_shape", getattr(det, "voxel_shape", "cylinder"))
     # the cartesian xy columns (transform_points: cylinder rows are
     # [rho, phi, z, x, y, ...]) for the panoptic fusion
     xy_cols = slice(3, 5) if vshape == "cylinder" else slice(0, 2)
     detections, seg_preds, times = {}, {}, []
-    n_frames = 0
+    n_frames = n_global = 0
     for batch in loader:
         t0 = time.perf_counter()
         out = predict(batch["points"], batch["points_mask"])
@@ -119,7 +131,8 @@ def evaluate(det, dataset, work_dir, logger, device, batch_size=1,
         # a double-flip batch holds 4 point rows a sample: the original first
         group = len(batch["points"]) // max(1, len(batch["metadata"]))
         for i, meta in enumerate(batch["metadata"]):
-            token = meta["token"] if meta else str(n_frames)
+            token = meta["token"] if meta else (
+                str(n_frames) if world == 1 else f"{rank}:{n_frames}")
             if "box3d_lidar" in out:
                 m = out["mask"][i]
                 detections[token] = {
@@ -135,14 +148,20 @@ def evaluate(det, dataset, work_dir, logger, device, batch_size=1,
                     "labels": out["point_seg_labels"][i][:n_key],
                     "xy": batch["points"][i * group][:n_key, xy_cols]}
             n_frames += 1
-        if max_frames and n_frames >= max_frames:
+        n_global += batch_size
+        if max_frames and n_global >= max_frames:
             break
 
     third = max(1, len(times) // 3)
     window = times[third: 2 * third] or times
     fps = batch_size * len(window) / sum(window)
-    logger.info(f"frames: {n_frames}, middle-third FPS: {fps:.2f}")
+    logger.info(f"frames: {n_global}, middle-third FPS: {fps:.2f}")
 
+    gathered = dist.all_gather_object((detections, seg_preds))
+    if rank != 0:
+        return None, fps
+    detections = in_dataset_order(dataset, [d for d, _ in gathered])
+    seg_preds = in_dataset_order(dataset, [s for _, s in gathered])
     with open(os.path.join(work_dir, "prediction.pkl"), "wb") as f:
         pickle.dump(detections, f)
     kwargs = seg_inputs(dataset, detections, seg_preds)
@@ -150,6 +169,18 @@ def evaluate(det, dataset, work_dir, logger, device, batch_size=1,
                                 testset=testset, **kwargs)
     logger.info(f"evaluation: {result}")
     return result, fps
+
+
+def in_dataset_order(dataset, parts):
+    """Per-frame dicts (one a rank) -> one dict, its frames in the
+    dataset's order (the infos' tokens), any other key after them."""
+    merged = {}
+    for p in parts:
+        merged.update(p)
+    order = {info.get("token", str(i)): i
+             for i, info in enumerate(dataset.infos)}
+    keys = sorted(merged, key=lambda k: (k not in order, order.get(k, 0)))
+    return {k: merged[k] for k in keys}
 
 
 def seg_inputs(dataset, detections, seg_preds):

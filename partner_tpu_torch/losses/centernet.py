@@ -1,9 +1,15 @@
 """CenterNet losses (counterpart of ``partner_tpu/losses/centernet.py``):
 the CenterPoint head's ``fast_focal_loss`` and ``reg_loss`` over NHWC maps
 flattened to (B, H*W, C) with the index ``ind = az * n_r + r`` of the
-host target assigner, and the element losses of the E2E set criterion."""
+host target assigner, and the element losses of the E2E set criterion.
+In a data-parallel step the normalizers (``num_pos``, the regression's
+mask sum) are the global batch's (``parallel.dist.global_sum``), each
+clamp and epsilon applied to the global count: each rank's loss is its
+part of the global batch's."""
 
 import torch
+
+from ..parallel.dist import global_sum
 
 
 def _gather_feat(feat, ind):
@@ -25,7 +31,7 @@ def fast_focal_loss(out, target, ind, mask, cat):
     flat = out.reshape(b, -1, out.shape[-1])
     pos_pred = torch.gather(_gather_feat(flat, ind), 2,
                             cat.long()[..., None])[..., 0]       # (B, M)
-    num_pos = mask.sum()
+    num_pos = global_sum(mask.sum())
     pos_loss = (torch.log(pos_pred) * torch.pow(1 - pos_pred, 2)
                 * mask).sum()
     return torch.where(num_pos == 0, -neg_loss,
@@ -40,7 +46,7 @@ def reg_loss(output, mask, ind, target):
     pred = _gather_feat(output.reshape(b, h * w, d), ind)
     m = mask.to(output.dtype)[..., None]
     loss = torch.abs(pred * m - target * m)
-    loss = loss / (m.sum() + 1e-4)
+    loss = loss / (global_sum(m.sum()) + 1e-4)
     return loss.sum(dim=(0, 1))
 
 

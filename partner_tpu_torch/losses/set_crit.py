@@ -14,7 +14,11 @@ buffers:
                 2 * IoU3D(decode(pred), gt) - 1, / num_boxes
 
 The assignment (the auction matcher) and the IoU target carry no
-gradient; ``num_boxes`` and ``vote_num`` are floored at 1. The
+gradient; ``num_boxes`` and ``vote_num`` are floored at 1. In a
+data-parallel step both are the global batch's counts
+(``parallel.dist.global_sum``, floored after the sum), so each rank's terms
+are its part of the global batch's (JAX's ``axis_name`` form,
+``set_crit.py:81-82``). The
 ``loss_iou_reg`` (DIoU) term is not ported: the flagship does not use it.
 """
 
@@ -22,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.rotated_iou import boxes_iou3d
+from ..parallel.dist import global_sum
 from .centernet import sigmoid_focal_loss, smooth_l1
 from .matcher import assign_auction
 
@@ -60,7 +65,7 @@ class SetCriterion:
                                   gt_enc, gt_mask, cw)
         matched = (assigned >= 0) & gt_mask
         safe_idx = torch.clamp(assigned, min=0)
-        num_boxes = torch.clamp(gt_mask.sum().float(), min=1.0)
+        num_boxes = torch.clamp(global_sum(gt_mask.sum().float()), min=1.0)
         out = {}
 
         pred_matched = torch.gather(
@@ -81,7 +86,8 @@ class SetCriterion:
 
         if votemap is not None and "pred_centers" in preds:
             votemask = votemap[..., 0] != 0
-            vote_num = torch.clamp(votemask.sum().float(), min=1.0)
+            vote_num = torch.clamp(global_sum(votemask.sum().float()),
+                                   min=1.0)
             vdelta = ((preds["pred_centers"] - votemap[..., :2])
                       * votemask[..., None])
             out["loss_vote"] = smooth_l1(vdelta, self.sigma).sum() / vote_num

@@ -28,7 +28,8 @@ import torch.nn as nn
 from ..ops import scatter_max, stem
 from ..utils.dtypes import resolve_compute_dtype
 from .layers import (BN_EPS, BN_MOMENTUM, BatchNorm, Conv2d, Conv3d,
-                     _lecun_normal_, constant, update_running)
+                     _lecun_normal_, centered_stats, constant,
+                     update_running)
 from .registry import BACKBONES
 
 
@@ -201,7 +202,8 @@ class PolarDenseFHD(nn.Module):
         """The train branch of the JAX ``_stem_t`` (``backbone_dense.py:
         379-399``): per layer a product with f32 accumulation, cast, x
         mask, BatchNorm with the statistics of all (B, P) positions (masked
-        zeros included, biased variance, as ``jnp.var``), momentum 0.99 on
+        zeros included, biased variance, as ``jnp.var``; of every rank's
+        positions in a data-parallel step), momentum 0.99 on
         ``stem{i}_mean/var``, ReLU, cast."""
         dt = self.dtype
         m = mask[:, None, :].to(dt)
@@ -209,8 +211,7 @@ class PolarDenseFHD(nn.Module):
             w = getattr(self, f"stem{i}_kernel").to(dt)
             x = torch.einsum("bcp,cf->bfp", x.float(), w.float()).to(dt)
             xf = (x * m).float()
-            mean = xf.mean((0, 2))
-            var = ((xf - mean[:, None]) ** 2).mean((0, 2))
+            mean, var = centered_stats(xf, (0, 2), xf.shape[0] * xf.shape[2])
             update_running(getattr(self, f"stem{i}_mean"), mean, BN_MOMENTUM)
             update_running(getattr(self, f"stem{i}_var"), var, BN_MOMENTUM)
             y = (xf - mean[:, None]) * torch.rsqrt(var[:, None] + BN_EPS)

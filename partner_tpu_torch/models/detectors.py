@@ -39,6 +39,7 @@ import torch.nn as nn
 from ..core.center_coder import build_coder
 from ..core.geometry import bev_cell_centers
 from ..losses.set_crit import SetCriterion
+from ..parallel.dist import global_sum
 from ..utils.dtypes import resolve_compute_dtype
 from . import e2e_head
 from .center_head import (center_head_decode, center_head_loss,
@@ -294,12 +295,14 @@ def apply_seg_decay(det_total, seg, example):
     seg x decay``, the decay ``example["seg_loss_decay"]`` (the train CLI's
     ``curriculum_weights`` entry of the epoch), ``det + seg`` without one;
     a negative decay balances seg against det: ``det / (seg + 1e-6)``,
-    detached."""
+    detached (of the global batch in a data-parallel step)."""
     decay = example.get("seg_loss_decay")
     if decay is None:
         return det_total + seg
     decay = torch.as_tensor(decay, dtype=torch.float32, device=seg.device)
-    dyn = (det_total / (seg + 1e-6)).detach()
+    # the global batch's losses in a data-parallel step
+    det = torch.as_tensor(det_total, dtype=torch.float32, device=seg.device)
+    dyn = global_sum(det.detach()) / (global_sum(seg.detach()) + 1e-6)
     return det_total + seg * torch.where(decay < 0, dyn, decay)
 
 

@@ -15,7 +15,12 @@ docstring):
   operation order; its eps and momentum are explicit at every call site
   (1e-3 and 0.99 for the conv trunks, stem and RPN; 1e-5 and 0.9 for the
   head and pos-embed stacks). In train mode it uses flax's batch
-  statistics and running update, not ``nn.BatchNorm*``'s.
+  statistics and running update, not ``nn.BatchNorm*``'s. Inside a
+  data-parallel step (``parallel.dist.reducing``) every batch statistic
+  here (``batch_stats``, ``MaskedBatchNorm``, :func:`centered_stats`) is
+  that of the global batch: its sums go through
+  ``parallel.dist.global_sum`` before the division, each clamp on the
+  global count.
 - ``LayerNorm`` uses flax's eps of 1e-6 (torch's default is 1e-5).
 - GELU is the tanh approximation (flax ``approximate=True``).
 - ``Dropout`` and ``DropPath`` are the identity in eval mode; in train mode
@@ -28,6 +33,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel import dist
 
 BN_EPS = 1e-3       # conv trunks, stem and RPN
 BN_MOMENTUM = 0.99  # their flax momentum (the retained fraction)
@@ -255,10 +262,8 @@ class MaskedBatchNorm(nn.Module):
     def forward(self, x, mask):
         m = mask[..., None].to(x.dtype)
         if self.training:
-            dims = tuple(range(x.dim() - 1))
-            n = torch.clamp(m.sum(), min=1.0)
-            mean = (x * m).sum(dims) / n
-            var = ((x - mean) ** 2 * m).sum(dims) / n
+            mean, var = centered_stats(x, tuple(range(x.dim() - 1)), m.sum(),
+                                       m)
             update_running(self.mean, mean, self.momentum)
             update_running(self.var, var, self.momentum)
         else:
@@ -275,10 +280,40 @@ class MaskedBatchNorm(nn.Module):
 
 def batch_stats(xf, dims):
     """flax's train-mode statistics of float32 ``xf`` over ``dims``: the
-    mean and ``max(E[x^2] - E[x]^2, 0)``, the biased variance."""
-    mean = xf.mean(dims)
-    var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+    mean and ``max(E[x^2] - E[x]^2, 0)``, the biased variance. Inside
+    ``parallel.dist.reducing``, of the global batch: the sums of x, x^2
+    and the count in one all-reduce, then flax's formula on the global
+    means."""
+    s1, s2 = xf.sum(dims), (xf * xf).sum(dims)
+    k = s1.numel()
+    tot = dist.global_sum(torch.cat([
+        s1.reshape(-1), s2.reshape(-1),
+        s1.new_full((1,), xf.numel() // max(k, 1))]))
+    mean = (tot[:k] / tot[-1]).reshape(s1.shape)
+    var = torch.clamp((tot[k:2 * k] / tot[-1]).reshape(s1.shape)
+                      - mean * mean, min=0.0)
     return mean, var
+
+
+def centered_stats(x, dims, count, m=None):
+    """The global batch's two-pass statistics over ``dims`` (inside
+    ``parallel.dist.reducing``): the mean ``sum(x m) / max(N, 1)``, then
+    the biased variance ``sum((x - mean)^2 m) / max(N, 1)``, N the global
+    ``count`` (the valid rows; every position without a mask ``m``), the
+    order of flax's ``MaskedBatchNorm`` and of ``jnp.var``. Each sum is
+    one all-reduce -> (mean, var) with ``dims`` reduced."""
+    xm = x if m is None else x * m
+    s = xm.sum(dims, keepdim=True)
+    tot = dist.global_sum(torch.cat([
+        s.reshape(-1), torch.as_tensor(count, dtype=s.dtype,
+                                       device=s.device).reshape(1)]))
+    n = torch.clamp(tot[-1], min=1.0)
+    mean = (tot[:-1] / n).reshape(s.shape)
+    d = (x - mean) ** 2
+    var = dist.global_sum((d if m is None else d * m).sum(dims, keepdim=True))
+    keep = [i for i in range(x.dim()) if i not in dims]
+    out = [a.reshape([x.shape[i] for i in keep]) for a in (mean, var / n)]
+    return out[0], out[1]
 
 
 @torch.no_grad()

@@ -13,8 +13,9 @@ sweep follows the previous one. The necks carry context between calls
   sector's last row in front (zeros at sector 0), and after the sector
   the leading-edge row of the previous sweep's map where one is given
   (zeros otherwise). It returns its whole input as the next context.
-- ``RPNHalo``: a whole sweep, each conv's azimuth axis padded circularly
-  (the single-shard form of the JAX neck's ring halo).
+- ``RPNHalo``: a whole sweep, each conv's azimuth axis padded circularly;
+  with ``axis_name``, a rank's azimuth shard padded by its neighbours'
+  rows (``parallel.halo.ring_halo``, the JAX neck's ring halo).
 - ``RPNUber`` (STROBE): each scale's input concatenated with the previous
   sweep's input of that scale (zeros without one); it returns this
   sweep's per-scale inputs as the next context.
@@ -39,6 +40,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.halo import ring_halo
 from .layers import (BN_EPS, BN_MOMENTUM, BatchNorm, Conv2d,
                      ConvTranspose2d)
 from .registry import NECKS
@@ -268,29 +270,28 @@ class RPNBDCP(_StreamRPNBase):
 
 @NECKS.register_module(name="RPNHalo")
 class RPNHalo(_StreamRPNBase):
-    """A whole sweep's RPN with circular azimuth padding
-    (``rpn_stream.py:173-207``, its single-shard form): each conv's input
-    gets the last azimuth row in front and the first after, then a zero
-    column at both range ends, and the conv runs VALID. ``axis_name``
-    names the JAX neck's mesh axis, whose ring halo across shards is not
-    ported (ROADMAP.md queue 1 item 9)."""
+    """A whole sweep's RPN with cyclic azimuth halos
+    (``rpn_stream.py:173-207``): each conv's input gets the previous
+    azimuth row in front and the next after, then a zero column at both
+    range ends, and the conv runs VALID. With ``axis_name`` None the
+    sweep is whole and the halo is circular padding. With an
+    ``axis_name``, the rank holds one shard of the azimuth rows and the
+    rows come from its neighbours through ``parallel.halo.ring_halo`` over
+    the process group registered under that name (as JAX's form runs under
+    ``shard_map``); the BatchNorm statistics are the shard's own there, as
+    in JAX."""
 
     conv_padding = 0
 
     def __init__(self, *args, axis_name=None, **kwargs):
-        if axis_name is not None:
-            raise NotImplementedError(
-                f"RPNHalo on the mesh axis {axis_name!r} (a ring halo across "
-                "shards) is not ported (ROADMAP.md queue 1 item 9); the "
-                "single-shard neck (axis_name None) is")
         super().__init__(*args, **kwargs)
+        self.axis_name = axis_name
 
     def forward(self, x):
-        """x (B, az, r, C) a whole sweep -> (B, az', r', sum(
-        us_num_filters))."""
+        """x (B, az, r, C) a whole sweep, or this rank's azimuth shard ->
+        (B, az', r', sum(us_num_filters))."""
         def halo(x):
-            return F.pad(torch.cat([x[:, -1:], x, x[:, :1]], dim=1),
-                         (0, 0, 1, 1))
+            return F.pad(ring_halo(x, 1, self.axis_name), (0, 0, 1, 1))
 
         return self._run_plain(x, pad=halo)[0]
 

@@ -33,6 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.dist import global_cat, global_sum, world_size
 from .layers import Conv2d, ConvTranspose2d
 from .registry import SEG_HEADS, build_from_cfg
 
@@ -140,12 +141,14 @@ class DeconvConvHead(nn.Module):
 
 def cross_entropy_ignore(logits, labels, ignore=-1):
     """Mean cross entropy over the rows whose label is not ``ignore``:
-    logits (N, C), labels (N,) int."""
+    logits (N, C), labels (N,) int. In a data-parallel step this rank's
+    part of the global batch's mean (the valid rows counted over every
+    rank)."""
     valid = labels != ignore
     safe = torch.clamp(labels, min=0).long()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-    return (nll * valid).sum() / torch.clamp(valid.sum(), min=1)
+    return (nll * valid).sum() / torch.clamp(global_sum(valid.sum()), min=1)
 
 
 def lovasz_grad(gt_sorted):
@@ -181,13 +184,20 @@ def lovasz_softmax_flat(probs, labels, valid):
 def seg_loss(seg_preds, voxel_labels, ignore=-1, weight=1.0):
     """``weight`` x (cross entropy + Lovasz-softmax) over every cell:
     seg_preds (B, [D,] H, W, C), voxel_labels the same cells, int and
-    1-based (0 = unlabelled, ignored)."""
+    1-based (0 = unlabelled, ignored).
+
+    In a data-parallel step the Lovasz-softmax, which sorts every class's
+    errors over the whole batch, runs on every rank's cells
+    (``parallel.dist.global_cat``, in the global batch's order) and enters
+    each rank's part divided by the world size; its gradient reaches each
+    rank's own cells through the gather."""
     labels = voxel_labels.to(torch.int32).reshape(-1) - 1
     logits = seg_preds.reshape(-1, seg_preds.shape[-1])
     valid = labels >= 0
     ce = cross_entropy_ignore(logits, labels, ignore=-1)
-    lv = lovasz_softmax_flat(torch.softmax(logits, dim=-1), labels, valid)
-    return weight * (ce + lv)
+    lv = lovasz_softmax_flat(global_cat(torch.softmax(logits, dim=-1)),
+                             global_cat(labels), global_cat(valid))
+    return weight * (ce + lv / world_size())
 
 
 # ------------------------------------------------------------ grid helpers

@@ -38,6 +38,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.rotated_iou import rect_intersection_area_green
+from ..parallel import dist
 from .center_head import (center_head_decode, center_head_loss,
                           center_head_post_process)
 from .detectors import CenterPointDetector
@@ -305,9 +306,11 @@ class TwoStageDetector:
         gt7c = torch.cat([gt[..., :6], gt[..., -2:]], dim=-1)
         iou_t, reg_t, pos = proposal_targets(props, gt7c,
                                              example["global_box_mask"])
-        cls_loss = torch.mean((torch.sigmoid(iou_pred) - iou_t) ** 2)
+        sq = (torch.sigmoid(iou_pred) - iou_t) ** 2
+        # the global batch's mean and positives in a data-parallel step
+        cls_loss = sq.sum() / (sq.numel() * dist.world_size())
         pos = pos.to(reg_pred.dtype)
-        n_pos = torch.clamp(pos.sum(), min=1.0)
+        n_pos = torch.clamp(dist.global_sum(pos.sum()), min=1.0)
         reg_loss = ((reg_pred - reg_t).abs().sum(-1) * pos).sum() / n_pos
         ld["roi_cls_loss"] = cls_loss
         ld["roi_reg_loss"] = reg_loss

@@ -3,7 +3,9 @@
     python -m partner_tpu_torch.tools.dist_test CONFIG --checkpoint CKPT
         [--work_dir D] [--speed_test] [--testset] [--max_frames N]
         [--max_points P] [--batch_size B] [--input auto|points|voxels]
-        [--device cuda|cpu] [--static_rpe]
+        [--device cuda|cpu] [--static_rpe] [--mesh auto|data=N]
+    python -m torch.distributed.run --nproc_per_node N \
+        -m partner_tpu_torch.tools.dist_test CONFIG ... --mesh data=N
 
 Reads the config with ``utils.config.load_config``, builds the detector on
 ``--device`` (the card unless ``--device cpu``; with no card it stops with
@@ -20,9 +22,16 @@ batch voxelized on the device by ``ops.voxelize.dynamic_voxelize`` first).
 ``--static_rpe`` fills the
 static-RPE cache (``E2EDetector.prepare_inference``) on a small all-padding
 example before the loop, as ``bench.py`` does behind its knob; a detector
-without the cache (the CenterPoint detectors) stops with a message. The JAX
-CLI's ``--mesh`` is not ported (one process, one device; ROADMAP.md queue
-1: DDP and mesh eval).
+without the cache (the CenterPoint detectors) stops with a message.
+
+Under torchrun each process joins the group first
+(``parallel.dist.initialize``: NCCL on the cards, gloo with ``--device
+cpu``) and the eval is sharded: ``--batch_size`` is the global batch
+(which the world size must divide), each rank predicts its part of each,
+and rank 0 gathers the detections, writes ``prediction.pkl`` and
+evaluates (``eval.evaluator``). ``--mesh`` is the JAX CLI's spec: every
+rank on ``data`` (``auto``, or ``data=N`` with N the world size); the
+``model`` and ``azimuth`` axes stop the run (ROADMAP.md queue 1 item 9a).
 """
 
 import argparse
@@ -47,12 +56,15 @@ def parse_args(argv=None):
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--static_rpe", action="store_true",
                    help="fill the static-RPE cache before the loop")
+    p.add_argument("--mesh", default=None,
+                   help="'auto' or 'data=N' (N the torchrun world size): "
+                        "each rank predicts its part of each global batch")
     return p.parse_args(argv)
 
 
 def main(argv=None):
-    """-> (result, fps): ``dataset.evaluation``'s result and the
-    middle-third frames per second."""
+    """-> (result, fps): ``dataset.evaluation``'s result (None on a rank
+    other than 0) and the middle-third frames per second."""
     args = parse_args(argv)
     import torch
 
@@ -60,6 +72,8 @@ def main(argv=None):
     from ..eval.evaluator import evaluate, init_example
     from ..models import build_detector
     from ..models.strobe import no_sweep_loader
+    from ..parallel import dist
+    from ..parallel.mesh import data_axis
     from ..train.checkpoint import load_checkpoint
     from ..train.hooks import get_logger
     from ..utils.config import load_config
@@ -67,7 +81,11 @@ def main(argv=None):
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("dist_test: no CUDA device; pass --device cpu to run on "
                  "the CPU")
-    device = torch.device(args.device)
+    owned = dist.initialize(args.device)
+    rank, world = dist.process_info()
+    data_axis(args.mesh, world, "dist_test")
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if args.device == "cuda" else torch.device("cpu"))
     cfg = load_config(args.config)
     os.makedirs(args.work_dir, exist_ok=True)
     logger = get_logger(args.work_dir)
@@ -97,12 +115,17 @@ def main(argv=None):
 
     # --speed_test forces batch 1, as the reference's dist_test does
     batch_size = 1 if args.speed_test else args.batch_size
+    if batch_size % world:
+        sys.exit(f"dist_test: the global batch {batch_size} does not split "
+                 f"over {world} ranks")
     result, fps = evaluate(det, dataset, args.work_dir, logger, device,
                            batch_size=batch_size, max_points=args.max_points,
                            max_frames=args.max_frames, testset=args.testset,
                            cfg=cfg, input_kind=kind)
     if isinstance(result, tuple) and len(result) == 3:
         logger.info(f"seg mIoU: {result[1]}, panoptic: {result[2]}")
+    if owned:
+        dist.finalize()
     return result, fps
 
 

@@ -5,13 +5,15 @@
         [--total_steps N] [--max_steps_per_epoch N] [--max_points P]
         [--batch_size B] [--validate] [--eval_interval E]
         [--eval_max_frames F] [--tensorboard] [--debug_nans]
-        [--profile_dir D] [--device cuda|cpu]
+        [--profile_dir D] [--device cuda|cpu] [--mesh auto|data=N]
+    python -m torch.distributed.run --nproc_per_node N \
+        -m partner_tpu_torch.tools.train CONFIG ... --mesh data=N
 
 Reads the config with ``utils.config.load_config``, builds the detector on
 ``--device`` (the card unless ``--device cpu``; with no card it stops with
 an error rather than run on the CPU), the ``data.train`` dataset in train
-mode and its loader (``samples_per_gpu`` a batch by default), and runs the
-one-cycle Adam loop of ``make_train_step`` as the JAX CLI does:
+mode and its loader, and runs the loop of ``make_train_step`` as the JAX
+CLI does:
 
 - resume from ``--resume_from`` or, without it, from ``work_dir/latest``:
   weights, BatchNorm statistics, the Adam count and moments and the step,
@@ -20,6 +22,25 @@ one-cycle Adam loop of ``make_train_step`` as the JAX CLI does:
   for a two-stage config, the first stage's weights and statistics from
   the one-stage checkpoint ``first_stage_cfg["pretrained"]`` names (the
   run stops if it does not exist);
+- the optimizer as the JAX CLI chooses it: one-cycle Adam
+  (``build_one_cycle_optimizer``) for ``lr_config`` type ``one_cycle``,
+  else ``build_lr_schedule`` (fixed, step, exp, poly, inv, cosine, with
+  a constant, linear or exp warmup; ``by_epoch`` over the run's steps an
+  epoch) with the config-built ``build_optimizer`` (adam / adamw,
+  amsgrad, sgd); the logged ``lr`` is the schedule's at the step;
+- data parallelism over torchrun's processes, one a card
+  (``parallel.dist.initialize`` first: NCCL on the cards, gloo with
+  ``--device cpu``): ``--batch_size`` is the global batch (default
+  ``samples_per_gpu`` x the world size), which the world size must
+  divide; each rank loads its positional part of every global batch
+  (``data.loader``), and the step is data-parallel
+  (``train.train_state``), so N ranks train as one process on the
+  global batch; ``--mesh`` is the JAX CLI's spec, every rank on
+  ``data`` (``auto``, or ``data=N`` with N the world size), the
+  ``model`` and ``azimuth`` axes stop the run (ROADMAP.md queue 1 item
+  9a); rank 0 alone logs and writes checkpoints (the inner module's
+  ``state_dict``, no ``module.`` prefix: interchangeable with a
+  one-process run's); every rank resumes from the same checkpoint;
 - any ported detector: PARTNER (``VoxelNetV3``), CenterPoint
   (``VoxelNet``), whose per-task loss terms are logged as lists, or the
   two-stage CenterPoint (``TwoStageDetector``; with ``freeze`` the
@@ -40,31 +61,31 @@ one-cycle Adam loop of ``make_train_step`` as the JAX CLI does:
   ``PaviLoggerHook`` or ``MetricsSinkHook`` in ``log_config.hooks`` writes
   ``metrics.jsonl`` (each step's loss terms, ``num_matched``,
   ``grad_norm`` and phase times), ``--tensorboard`` a TensorBoard log;
-- a checkpoint (weights, statistics, Adam state) after every epoch, the
-  newest ``checkpoint_config.keep`` kept;
+- a checkpoint (weights, statistics, the optimizer's state: the Adam
+  moments, AMSGrad's max or SGD's trace) after every epoch, the newest
+  ``checkpoint_config.keep`` kept;
 - with ``--validate`` (or a ``("val", n)`` entry in ``workflow``) the
-  ported evaluator over ``data.val`` after the epoch's checkpoint.
+  ported evaluator over ``data.val`` after the epoch's checkpoint,
+  sharded over the ranks as ``dist_test`` shards it.
   ``predict`` leaves the module in eval mode; the next step puts it back in
   train mode.
 
 Random draws: the data pipeline draws from one ``np.random.RandomState``
 seeded from ``--seed`` and the step the run starts at; dropout and DropPath
 from a ``torch.Generator`` seeded from ``--seed`` and the step, so a run
-resumed at a step takes the same dropout draws as an unbroken one. The
-initial weights come from ``--seed``.
+resumed at a step takes the same dropout draws as an unbroken one. With
+more than one rank each rank's two seeds take its rank too, so no two
+ranks draw alike. The initial weights come from ``--seed``.
 
 ``--debug_nans`` turns on ``torch.autograd.set_detect_anomaly``;
 ``--profile_dir`` writes a ``torch.profiler`` trace of steps 10-15 after
-the start. Not ported: the JAX CLI's ``--mesh`` (ROADMAP.md queue 1: DDP
-and mesh eval), and the ``lr_config`` types other than ``one_cycle`` with
-the config-built optimizer (ROADMAP.md queue 1: the lr schedule family);
-each stops the run with a message naming its item.
-``--resume_from`` and ``--load_from`` take what
+the start. ``--resume_from`` and ``--load_from`` take what
 ``train.checkpoint.load_checkpoint`` takes (``modelzoo://``, ``file://``
 and remote-store paths too).
 """
 
 import argparse
+import logging
 import os
 import sys
 
@@ -81,9 +102,11 @@ def parse_args(argv=None):
     p.add_argument("--max_steps_per_epoch", type=int, default=None)
     p.add_argument("--max_points", type=int, default=200000)
     p.add_argument("--batch_size", type=int, default=None,
-                   help="override samples_per_gpu")
+                   help="the global batch (default samples_per_gpu x the "
+                        "world size)")
     p.add_argument("--mesh", default=None,
-                   help="not ported: the port trains on one device")
+                   help="'auto' or 'data=N' (N the torchrun world size): "
+                        "each rank trains on its part of each global batch")
     p.add_argument("--validate", action="store_true")
     p.add_argument("--eval_interval", type=int, default=None)
     p.add_argument("--eval_max_frames", type=int, default=None)
@@ -108,12 +131,16 @@ def example_to_device(batch, device, keys):
             else move(batch[k]) for k in keys}
 
 
-def dropout_generator(seed, step):
+def dropout_generator(seed, step, rank=0, world=1):
     """The dropout and DropPath generator of one step (on the CPU, which
-    gives the same masks on the CPU and the card)."""
+    gives the same masks on the CPU and the card); with more than one rank
+    each rank's own."""
     import torch
 
-    return torch.Generator().manual_seed(seed * 2 ** 32 + step)
+    if world == 1:
+        return torch.Generator().manual_seed(seed * 2 ** 32 + step)
+    return torch.Generator().manual_seed(int(np.random.SeedSequence(
+        [seed, step, rank]).generate_state(1, np.uint64)[0] >> 1))
 
 
 def load_parameters(det, payload):
@@ -179,34 +206,36 @@ def main(argv=None):
     from ..eval.evaluator import evaluate
     from ..models import build_detector
     from ..models.strobe import no_sweep_loader
+    from ..parallel import dist
+    from ..parallel.mesh import data_axis
     from ..train.checkpoint import (latest_checkpoint, load_checkpoint,
                                     optimizer_state, restore_train_state,
                                     save_checkpoint)
     from ..train.hooks import (IterTimer, LogBuffer, MetricsSinkHook,
                                TensorBoardLoggerHook, TextLoggerHook,
                                get_logger)
-    from ..train.optim import build_one_cycle_optimizer, one_cycle_lr
+    from ..train.optim import (build_lr_schedule, build_one_cycle_optimizer,
+                               build_optimizer, one_cycle_lr)
     from ..train.train_state import make_train_step
     from ..utils.config import load_config
 
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("train: no CUDA device; pass --device cpu to run on the CPU")
-    if args.mesh:
-        sys.exit("train: --mesh is not ported; the port trains on one "
-                 "device (ROADMAP.md queue 1: DDP and mesh eval)")
+    owned = dist.initialize(args.device)
+    rank, world = dist.process_info()
+    data_axis(args.mesh, world, "train")
+    main_rank = rank == 0
     cfg = load_config(args.config)
     lr_cfg = dict(cfg["lr_config"])
-    if lr_cfg.get("type", "one_cycle") != "one_cycle":
-        sys.exit(f"train: lr_config type {lr_cfg['type']!r} is not ported; "
-                 "only one_cycle is (ROADMAP.md queue 1: the lr schedule "
-                 "family)")
-    device = torch.device(args.device)
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if args.device == "cuda" else torch.device("cpu"))
     work_dir = args.work_dir or cfg.get("work_dir", "./work_dir")
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     os.makedirs(work_dir, exist_ok=True)
-    logger = get_logger(work_dir)
-    logger.info(f"device: {device}")
+    logger = (get_logger(work_dir) if main_rank
+              else get_logger(level=logging.WARNING))
+    logger.info(f"device: {device}, rank {rank} of {world}")
 
     resume = args.resume_from or latest_checkpoint(work_dir)
     payload = load_checkpoint(resume)[0] if resume else None
@@ -220,15 +249,19 @@ def main(argv=None):
     train_data = sector_targets(dict(cfg["data"]["train"]),
                                 getattr(det.module, "n_sectors", 1), logger,
                                 args.config)
-    dataset = build_dataset(train_data, dict(
-        rng=np.random.RandomState([args.seed, start_step])))
-    batch_size = args.batch_size or cfg["data"]["samples_per_gpu"]
+    dataset = build_dataset(train_data, dict(rng=np.random.RandomState(
+        [args.seed, start_step] + ([rank] if world > 1 else []))))
+    batch_size = args.batch_size or cfg["data"]["samples_per_gpu"] * world
+    if batch_size % world:
+        sys.exit(f"train: batch_size {batch_size} not divisible by mesh "
+                 f"data={world}")
     vg_mv = dict(cfg["voxel_generator"]).get("max_voxel_num", 150000)
     loader = build_dataloader(
         dataset, batch_size,
         workers_per_gpu=cfg["data"].get("workers_per_gpu", 4),
         max_points=args.max_points,
-        max_voxels=vg_mv if isinstance(vg_mv, int) else vg_mv[0])
+        max_voxels=vg_mv if isinstance(vg_mv, int) else vg_mv[0],
+        rank=rank, world_size=world)
 
     if len(loader) == 0:
         sys.exit(f"train: the train set's {len(dataset)} samples make no "
@@ -238,15 +271,22 @@ def main(argv=None):
                                        * cfg.get("total_epochs", 1))
     grad_clip = dict(cfg.get("optimizer_config", {})).get(
         "grad_clip", {}).get("max_norm", 35.0)
-    lr_max = lr_cfg.get("lr_max", 3e-3)
-    div_factor = lr_cfg.get("div_factor", 10.0)
-    pct_start = lr_cfg.get("pct_start", 0.4)
-    opt = build_one_cycle_optimizer(
-        det.module, lr_max=lr_max, total_steps=total_steps,
-        wd=dict(cfg["optimizer"]).get("wd", 0.01),
-        moms=lr_cfg.get("moms", (0.95, 0.85)), div_factor=div_factor,
-        pct_start=pct_start, grad_clip=grad_clip)
-    lr_sched = one_cycle_lr(lr_max, total_steps, div_factor, pct_start)
+    if lr_cfg.get("type", "one_cycle") == "one_cycle":
+        lr_max = lr_cfg.get("lr_max", 3e-3)
+        div_factor = lr_cfg.get("div_factor", 10.0)
+        pct_start = lr_cfg.get("pct_start", 0.4)
+        opt = build_one_cycle_optimizer(
+            det.module, lr_max=lr_max, total_steps=total_steps,
+            wd=dict(cfg["optimizer"]).get("wd", 0.01),
+            moms=lr_cfg.get("moms", (0.95, 0.85)), div_factor=div_factor,
+            pct_start=pct_start, grad_clip=grad_clip)
+        lr_sched = one_cycle_lr(lr_max, total_steps, div_factor, pct_start)
+    else:
+        # the reference lr_updater family with the config-built optimizer
+        lr_sched = build_lr_schedule(lr_cfg, total_steps,
+                                     steps_per_epoch=steps_per_epoch)
+        opt = build_optimizer(dict(cfg["optimizer"]), lr_sched, det.module,
+                              grad_clip=grad_clip)
 
     if payload is not None:
         restore_train_state(det, opt, payload)
@@ -263,11 +303,11 @@ def main(argv=None):
     buffer = LogBuffer()
     text_hook = TextLoggerHook(logger, interval=log_interval)
     tb_hook = (TensorBoardLoggerHook(os.path.join(work_dir, "tb"))
-               if args.tensorboard else None)
+               if args.tensorboard and main_rank else None)
     sink_hook = None
     sinks = [dict(h) for h in log_cfg.get("hooks", [])
              if dict(h).get("type") in ("PaviLoggerHook", "MetricsSinkHook")]
-    if sinks:
+    if sinks and main_rank:
         sink_hook = MetricsSinkHook(
             path=sinks[0].get("path", os.path.join(work_dir, "metrics.jsonl")),
             interval=sinks[0].get("interval", log_interval))
@@ -278,6 +318,9 @@ def main(argv=None):
     pending = []
 
     def flush_pending():
+        if not main_rank:   # the terms are global: rank 0 logs them
+            pending.clear()
+            return
         if not pending:
             return
         keys = [k for k in pending[0][2] if k in ("loss", "grad_norm",
@@ -342,7 +385,8 @@ def main(argv=None):
         for batch in loader:
             if step_i >= total_steps:
                 break
-            if args.profile_dir and step_i == start_step + 10:
+            if (args.profile_dir and main_rank
+                    and step_i == start_step + 10):
                 acts = [torch.profiler.ProfilerActivity.CPU]
                 if device.type == "cuda":
                     acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -363,7 +407,8 @@ def main(argv=None):
             transfer_time = timer.lap()
             if voxelize is not None:
                 ex.update(voxelize(ex["points"], ex["points_mask"]))
-            metrics = step(ex, dropout_generator(args.seed, step_i))
+            metrics = step(ex, dropout_generator(args.seed, step_i, rank,
+                                                 world))
             # no host read here: the next step's data work overlaps the
             # card's; the window is read at the flush
             forward_time = timer.lap()
@@ -378,12 +423,14 @@ def main(argv=None):
                 break
         epoch += 1
         flush_pending()
-        save_checkpoint(
-            work_dir, step_i, det.module.state_dict(),
-            meta=dict(epoch=epoch, step=step_i, config=config_text),
-            keep=dict(cfg.get("checkpoint_config", {})).get("keep", 5),
-            opt_state=optimizer_state(det.module, opt))
-        logger.info(f"epoch {epoch} done @ step {step_i}; checkpoint saved")
+        if main_rank:
+            save_checkpoint(
+                work_dir, step_i, det.module.state_dict(),
+                meta=dict(epoch=epoch, step=step_i, config=config_text),
+                keep=dict(cfg.get("checkpoint_config", {})).get("keep", 5),
+                opt_state=optimizer_state(det.module, opt))
+            logger.info(f"epoch {epoch} done @ step {step_i}; checkpoint "
+                        "saved")
 
         if args.validate and epoch % eval_interval == 0:
             if val_dataset is None:
@@ -408,6 +455,8 @@ def main(argv=None):
     if tb_hook is not None:
         tb_hook.close()
     logger.info("training complete")
+    if owned:
+        dist.finalize()
     return step_i
 
 

@@ -5,8 +5,9 @@ step directories ``ckpt_%08d/`` under a work directory, each with a
 ``state.pt`` payload and an optional ``meta.json``, and a ``latest`` file
 naming the newest step directory, rewritten on every save. The payload is
 a ``torch.save`` of ``{"step", "state_dict", "opt_state"}``, tensors on the
-CPU: ``opt_state`` holds the Adam step count and both moments, keyed by
-parameter name (:func:`optimizer_state`). A payload without it (weights
+CPU: ``opt_state`` holds the optimizer's step count and its state slots
+(the Adam moments; AMSGrad's max; SGD's trace), keyed by parameter name
+(:func:`optimizer_state`). A payload without it (weights
 only, as the port's first checkpoints and converted reference checkpoints
 are) still loads for evaluation.
 
@@ -25,9 +26,9 @@ optax and jax: it is read by :class:`_NumpyUnpickler`, which lets numpy
 and plain builtins through and turns every other class into an inert stub
 that keeps its constructor arguments (a named tuple's fields). ``params``
 and ``batch_stats`` are mapped by
-:func:`partner_tpu_torch.convert.flax_to_torch`, and so are the Adam
-moments of the ``ScaleByAdamState`` inside the optax chain (they have the
-parameters' layout and names), with its count.
+:func:`partner_tpu_torch.convert.flax_to_torch`, and so is the state of
+the scale inside the optax chain (Adam's or AMSGrad's moments, SGD's
+trace: they have the parameters' layout and names), with its count.
 """
 
 import hashlib
@@ -57,23 +58,27 @@ def _trainable_names(module):
 
 
 def optimizer_state(module, opt):
-    """A ``OneCycleAdam`` on ``module``'s trainable parameters -> {"count",
-    "mu", "nu"}, the moments keyed by parameter name."""
+    """A ``ChainOptimizer`` on ``module``'s trainable parameters ->
+    {"count", <slot>: {name: tensor}, ...}: the
+    step count and each slot of its state (the Adam moments ``mu``,
+    ``nu``; AMSGrad's ``nu_max`` too; SGD's ``trace``) keyed by parameter
+    name."""
     names = _trainable_names(module)
     state = opt.state_dict()
-    return {"count": state["count"],
-            "mu": dict(zip(names, state["mu"])),
-            "nu": dict(zip(names, state["nu"]))}
+    return dict({"count": state["count"]},
+                **{k: dict(zip(names, v)) for k, v in state.items()
+                   if k != "count"})
 
 
 def restore_train_state(det, opt, payload):
     """Load a payload's weights and BatchNorm statistics into ``det`` and
-    its optimizer state into ``opt`` (a ``OneCycleAdam`` on
-    ``det.module``'s trainable parameters) -> the payload's step. The
-    counterpart of the JAX package's ``restore_train_state``: every part
-    must be there. Moments of frozen parameters (a JAX checkpoint of a
-    frozen two-stage holds them) are left out; any other name that
-    differs raises."""
+    its optimizer state into ``opt`` (an optimizer on ``det.module``'s
+    trainable parameters) -> the payload's step. The counterpart of the
+    JAX package's ``restore_train_state``: every part must be there, and
+    the checkpoint's slots must be the optimizer's (a checkpoint of
+    another optimizer type raises). Slots of frozen parameters (a JAX
+    checkpoint of a frozen two-stage holds them) are left out; any other
+    name that differs raises."""
     det.module.load_state_dict(payload["state_dict"], strict=True)
     if "opt_state" not in payload:
         raise KeyError("the checkpoint holds no optimizer state")
@@ -81,12 +86,12 @@ def restore_train_state(det, opt, payload):
     names = _trainable_names(det.module)
     frozen = {n for n, p in det.module.named_parameters()
               if not p.requires_grad}
-    for key in ("mu", "nu"):
+    slots = [k for k in st if k != "count"]
+    for key in slots:
         if set(names) - set(st[key]) or set(st[key]) - set(names) - frozen:
             raise KeyError(f"optimizer {key}: names differ from the module's")
-    opt.load_state_dict({"count": st["count"],
-                         "mu": [st["mu"][n] for n in names],
-                         "nu": [st["nu"][n] for n in names]})
+    opt.load_state_dict(dict({"count": st["count"]},
+                             **{k: [st[k][n] for n in names] for k in slots}))
     return int(payload["step"])
 
 
@@ -106,9 +111,9 @@ def save_checkpoint(work_dir, step, state_dict, meta=None, keep=None,
     rio.makedirs(path)
     payload = {"step": int(step), "state_dict": _cpu(state_dict)}
     if opt_state is not None:
-        payload["opt_state"] = {"count": int(opt_state["count"]),
-                                "mu": _cpu(opt_state["mu"]),
-                                "nu": _cpu(opt_state["nu"])}
+        payload["opt_state"] = dict(
+            {"count": int(opt_state["count"])},
+            **{k: _cpu(v) for k, v in opt_state.items() if k != "count"})
     buf = io.BytesIO()
     torch.save(payload, buf)
     rio.write_bytes(_join(path, PORT_PAYLOAD), buf.getvalue())
@@ -279,21 +284,36 @@ def _find_stub(tree, name):
 def _jax_opt_state(opt_state):
     """optax's ``inject_hyperparams`` state (``InjectHyperparamsState`` or,
     in newer optax, ``InjectStatefulHyperparamsState``; the count first)
-    around the chain (clip, ``ScaleByAdamState(count, mu, nu)``, decay,
-    lr) -> {"count", "mu", "nu"} in the port's names, or None when the
-    tree holds no Adam state."""
-    adam = _find_stub(opt_state, "ScaleByAdamState")
-    if adam is None:
-        return None
-    count, mu, nu = adam.args
+    around the chain (clip, the scale's state, decay, lr) -> {"count",
+    <slot>: {name: tensor}} in the port's names, or None when the tree
+    holds no scale state. The scale's state is ``ScaleByAdamState(count,
+    mu, nu)``, ``ScaleByAmsgradState(count, mu, nu, nu_max)`` or
+    ``TraceState(trace)`` (whose count is the schedule's)."""
     inject = (_find_stub(opt_state, "InjectStatefulHyperparamsState")
               or _find_stub(opt_state, "InjectHyperparamsState"))
-    if inject is not None and int(inject.args[0]) != int(count):
-        raise ValueError(f"optax counts differ: schedule {inject.args[0]}, "
-                         f"Adam {count}")
-    return {"count": int(count),
-            "mu": flax_to_torch({"params": mu}),
-            "nu": flax_to_torch({"params": nu})}
+    found = None
+    for cls, slots in (("ScaleByAdamState", ("mu", "nu")),
+                       ("ScaleByAmsgradState", ("mu", "nu", "nu_max")),
+                       ("TraceState", ("trace",))):
+        st = _find_stub(opt_state, cls)
+        if st is not None:
+            found = (cls, slots, st)
+            break
+    if found is None:
+        return None
+    cls, slots, st = found
+    if cls == "TraceState":
+        if inject is None:
+            return None
+        count, trees = int(inject.args[0]), st.args
+    else:
+        count, trees = int(st.args[0]), st.args[1:]
+        if inject is not None and int(inject.args[0]) != count:
+            raise ValueError(f"optax counts differ: schedule "
+                             f"{inject.args[0]}, {cls} {count}")
+    return dict({"count": count},
+                **{k: flax_to_torch({"params": t})
+                   for k, t in zip(slots, trees)})
 
 
 def _read_jax_payload(data):

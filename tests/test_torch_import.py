@@ -26,7 +26,7 @@ def test_import_leaves_out_jax_and_flax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'partner_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 71, names\n"
+        "assert len(names) >= 75, names\n"
         "for n in ('ops.swin_block', 'ops.scatter_max', 'core.targets',\n"
         "          'losses.centernet', 'losses.matcher', 'losses.set_crit',\n"
         "          'train.optim', 'train.train_state', 'data.pipeline',\n"
@@ -43,7 +43,8 @@ def test_import_leaves_out_jax_and_flax():
         "          'ops.nms', 'models.layers', 'convert',\n"
         "          'models.rpn_stream', 'models.polarstream',\n"
         "          'models.seg_head', 'eval.seg_metrics', 'models.strobe',\n"
-        "          'ops.warp'):\n"
+        "          'ops.warp', 'parallel', 'parallel.dist',\n"
+        "          'parallel.mesh', 'parallel.halo'):\n"
         "    assert 'partner_tpu_torch.' + n in names, n\n"
         "from partner_tpu_torch.models import build_detector\n"
         "from partner_tpu_torch.utils.config import load_config\n"

@@ -223,8 +223,10 @@ def test_stream_neck_names_map_and_init():
 def test_other_stream_necks_raise(name):
     """These names, once registered as raises naming queue 1 item 7, build
     the ported necks (held against JAX below), their parameters named as
-    flax names them; only the halo neck's mesh form (an ``axis_name``: a
-    ring halo across shards) still raises, naming item 9."""
+    flax names them. The halo neck's mesh form (an ``axis_name``: a ring
+    halo across shards, ``tests/test_torch_halo.py``) builds too, and its
+    forward raises while no process group is registered under that name,
+    as an unbound axis name raises in JAX."""
     from partner_tpu_torch.convert import flax_to_torch
     from partner_tpu_torch.models import rpn_stream as trs
     from partner_tpu_torch.models.registry import NECKS, build_from_cfg
@@ -235,9 +237,11 @@ def test_other_stream_necks_raise(name):
     _, v, tneck, _ = _plain_pair(type(neck).__name__)
     assert sorted(neck.state_dict()) == sorted(flax_to_torch(v))
     if name == "RPNHalo":
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            build_from_cfg(dict(NECK, type=name, axis_name="azimuth"),
-                           NECKS)
+        sharded = build_from_cfg(dict(NECK, type=name, axis_name="azimuth"),
+                                 NECKS)
+        assert sorted(sharded.state_dict()) == sorted(neck.state_dict())
+        with pytest.raises(NameError, match="unbound axis name 'azimuth'"):
+            sharded(torch.zeros(1, 8, 8, NECK["num_input_features"]))
     assert isinstance(trs.NECKS.get(name)(**NECK), trs._StreamRPNBase)
 
 

@@ -373,31 +373,31 @@ def test_hooks_match_jax():
 
 @pytest.mark.parametrize("case", ["mesh", "lr_config", "curriculum"])
 def test_what_is_not_ported_exits(tmp_path, case):
-    """--mesh and a non-one-cycle lr_config stop the run before anything
-    is built, naming their ROADMAP item. curriculum_weights, once such a
-    stop, is ported with the seg heads: a det-only config trains with it
-    (the weight scales a seg loss it has none of, as in JAX;
-    ``tests/test_torch_seg.py`` holds it on the seg configs)."""
+    """A --mesh that is not a data-only mesh of the processes running (a
+    data axis of 2 in one process, a model axis) stops the run before
+    anything is built, naming what it asks for or the ROADMAP item of the
+    axes not ported. A non-one-cycle lr_config and curriculum_weights,
+    once such stops, are ported (the lr family; the seg heads): a det-only
+    config trains with each (the curriculum weight scales a seg loss it
+    has none of, as in JAX; ``tests/test_torch_seg.py`` holds it on the
+    seg configs, ``tests/test_torch_optim_family.py`` the family)."""
     from partner_tpu_torch.tools import train
 
     info_path = make_waymo_infos(tmp_path, n=2, seed=1)
     cfg = write_tiny_train_config(str(tmp_path / "cfg.py"), info_path,
                                   str(tmp_path))
-    extra, item = [], {"mesh": "DDP and mesh eval",
-                       "lr_config": "lr schedule family",
-                       "curriculum": None}[case]
-    if case == "mesh":
-        extra = ["--mesh", "data=2"]
-    else:
-        with open(cfg, "a") as f:
-            f.write('lr_config["type"] = "cosine"\n' if case == "lr_config"
-                    else "curriculum_weights = [0.5, 1.0]\n")
     argv = [cfg, "--device", "cpu", "--work_dir", str(tmp_path / "wd")]
-    if item is None:
-        assert train.main(argv + ["--batch_size", "2", "--total_steps",
-                                  "1"]) == 1
-        assert os.path.exists(tmp_path / "wd" / "latest")
+    if case == "mesh":
+        for mesh, says in (("data=2", "asks for data=2"),
+                           ("model=2", "queue 1 item 9a")):
+            with pytest.raises(SystemExit, match=says):
+                train.main(argv + ["--mesh", mesh])
+        assert not os.path.exists(tmp_path / "wd")
         return
-    with pytest.raises(SystemExit, match=item):
-        train.main(argv + extra)
-    assert not os.path.exists(tmp_path / "wd")
+    with open(cfg, "a") as f:
+        f.write('lr_config = dict(type="cosine", lr=1e-3)\n'
+                if case == "lr_config" else "curriculum_weights = [0.5, 1.0]\n")
+    assert train.main(argv + ["--batch_size", "2", "--total_steps",
+                              "1"]) == 1
+    assert os.path.exists(tmp_path / "wd" / "latest")
+
