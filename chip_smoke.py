@@ -222,6 +222,22 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
    the stem, attention and scatter-max kernels launched, finite losses and
    the schedule's lr. The card holds one process: two ranks are the CPU
    tests' (``tests/test_torch_dist*.py``).
+18. tools (:func:`tools_phase`): the host tools and the FLOP counter
+   without JAX. ``dist_test`` of the flagship over 10 fake Waymo frames of
+   one sequence (40 boxes moving at constant velocities, the poses in the
+   annos' ``veh_to_global`` only) prepared by ``create_data``, then
+   ``tools.track`` over its predictions (tracked boxes, launches); the
+   ground-truth boxes with their velocities as detections, tracked to
+   MOTA 1.0 with no id switch, and a 2 x 2 ``track_line_search``;
+   ``nms_ensemble`` of the predictions and a perturbed copy on the card,
+   each frame's kept boxes equal to the CPU's (ms a frame);
+   ``CSWinBlock`` at the flagship BEV (1, 144, 256, 256), 8 heads, both
+   stage kinds in float32 against the CPU (median ms, peak memory);
+   ``flops_report`` on the full-size flagship, its table equal on the
+   card's kernel route and on the CPU's plain twins, with the MFU of the
+   median frame against ``utils.flops.device_peak_flops()``;
+   ``write_ply_scene``, ``box_corners_bev``, ``generate_instance_ids``
+   and, where matplotlib is installed, the demo CLI.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises before it, so the
@@ -345,10 +361,9 @@ def gpu_name_and_power_limit():
     return res.stdout.strip()
 
 
-# The H100 SXM's published dense peaks (NVIDIA's data sheet, at the full
-# 700 W): tensor-core bf16 and float32 outside the tensor cores, FLOP/s;
-# HBM3, bytes/s.
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+# The card the bounds are of, and its published HBM3 rate (NVIDIA's data
+# sheet), bytes/s; its peak FLOP/s are partner_tpu_torch.utils.flops'.
+H100_SXM = "NVIDIA H100 80GB HBM3"
 PEAK_BYTES = 3.35e12
 
 
@@ -407,9 +422,11 @@ def bound(work):
     "operations"): the larger of its bytes over the memory rate and, for
     each number type, its FLOPs over that type's peak (tensor cores and
     the float32 units run side by side)."""
+    from partner_tpu_torch.utils.flops import device_peak_flops
+
     t_bytes = work["bytes"] / PEAK_BYTES * 1e3
-    t_ops = max([f / PEAK_FLOPS[k] * 1e3 for k, f in work["flops"].items()]
-                or [0.0])
+    t_ops = max([f / device_peak_flops(k, H100_SXM) * 1e3
+                 for k, f in work["flops"].items()] or [0.0])
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2752,15 +2769,15 @@ def plant_positives(det, ex, dev, n=8):
     return ex
 
 
-def fake_waymo_frame(rng, frame_id, n_objects=40):
+def fake_waymo_frame(rng, frame_id, n_objects=40, ego_step=10.0):
     """A Waymo frame as ``data.waymo_decoder`` reads one (dicts in place of
     the protos, numpy range images in place of zlib payloads): the TOP
     lidar's 64 x 2650 range image mounted 2 m up, ranges log-uniform over
     2-75 m and cut where a downward beam meets the ground, 2% of pixels in
     the no-label zone, a second return on 10% of pixels, the per-pixel
-    pose of a car moving 10 m a frame (the rolling-shutter path), and
-    ``n_objects`` labels of the three classes in turn centered on returns
-    of the first."""
+    pose of a car moving ``ego_step`` m a frame along x (the
+    rolling-shutter path), and ``n_objects`` labels of the three classes
+    in turn centered on returns of the first."""
     from partner_tpu_torch.data import waymo_decoder as wd
 
     h, w = RANGE_IMAGE
@@ -2776,9 +2793,9 @@ def fake_waymo_frame(rng, frame_id, n_objects=40):
     ri2 = ri1.copy()
     ri2[..., 0] = np.where(rng.rand(h, w) < 0.1, ri1[..., 0] * 1.05, 0.0)
     pose_ri = np.zeros((h, w, 6))
-    pose_ri[..., 3] = 10.0 * frame_id + np.linspace(0.5, -0.5, w)[None]
+    pose_ri[..., 3] = ego_step * frame_id + np.linspace(0.5, -0.5, w)[None]
     frame_pose = np.eye(4)
-    frame_pose[0, 3] = 10.0 * frame_id
+    frame_pose[0, 3] = ego_step * frame_id
     pts = wd.decode_range_image(ri1, ext, incl)
     rho = np.hypot(pts[:, 0], pts[:, 1])
     cand = pts[(rho > 5) & (rho < 70) & (np.abs(pts[:, 2]) < 1.5)]
@@ -6883,6 +6900,355 @@ def dist_phase(dev, card):
             "phase_s": phase_s}
 
 
+TOOLS_FRAMES = 10            # one sequence of fake Waymo frames (cut first)
+TOOLS_OBJECTS = 40           # moving boxes a frame
+TOOLS_EGO_STEP = 2.0         # metres the ego drives a frame: 20 m/s at 10 Hz
+FRAME_S = 0.1                # seconds between two Waymo frames
+CSWIN_SHAPE = (1, 144, 256, 256)   # the flagship's BEV map, NHWC
+CSWIN_HEADS = 8
+CSWIN_SPLIT = 8              # the last stage's windows (144 = 18 x 8)
+CSWIN_TOL = 1e-5             # relative RMS, card against CPU, float32
+CSWIN_TIMED = 5              # timed calls of each stage kind
+FLOPS_TIMED = 5              # timed flagship frames for the MFU
+WAYMO_KINDS = {1: 0, 2: 1, 4: 2}   # Waymo type -> tracker label
+
+
+def moving_objects(rng, n):
+    """``n`` objects of the three classes in turn, each at a constant
+    global velocity: (Waymo type, dims, start (n, 3) global at frame 0 =
+    the sensor frame then, velocity (n, 2) m/s)."""
+    kinds = [(1, 2, 4)[j % 3] for j in range(n)]
+    rho = rng.uniform(8.0, 45.0, n)
+    phi = rng.uniform(-np.pi, np.pi, n)
+    # centres 0.5 m up: the boxes hold the ground's returns (z ~ 0)
+    start = np.stack([rho * np.cos(phi), rho * np.sin(phi),
+                      np.full(n, 0.5)], 1)
+    speed = np.array([{1: rng.uniform(5, 12), 2: rng.uniform(1, 2),
+                       4: rng.uniform(3, 6)}[k] for k in kinds])
+    head = rng.uniform(-np.pi, np.pi, n)
+    vel = np.stack([speed * np.cos(head), speed * np.sin(head)], 1)
+    return kinds, start, vel
+
+
+def tracked_frames(rng, n_frames, n_objects):
+    """:func:`fake_waymo_frame`\\ s of one sequence, the ego driving
+    TOOLS_EGO_STEP m a frame along x, each labelled with the same
+    ``n_objects`` moving objects (ids ``obj{j}``; ``speed_x`` / ``speed_y``
+    their global m/s, which the decoder turns into the vehicle frame) ->
+    (frames, {frame: (global centers (n, 3), tracker labels, ids)})."""
+    kinds, start, vel = moving_objects(rng, n_objects)
+    frames, truth = [], {}
+    for f in range(n_frames):
+        fr = fake_waymo_frame(rng, f, n_objects, ego_step=TOOLS_EGO_STEP)
+        glob = start.copy()
+        glob[:, :2] += vel * f * FRAME_S
+        local = glob - np.array([TOOLS_EGO_STEP * f, 0.0, 0.0])
+        fr["laser_labels"] = [{
+            "id": f"obj{j}", "type": k,
+            "box": {"center_x": local[j, 0], "center_y": local[j, 1],
+                    "center_z": local[j, 2], "length": TS_SIZES[k][1][0],
+                    "width": TS_SIZES[k][1][1], "height": TS_SIZES[k][1][2],
+                    "heading": float(np.arctan2(vel[j, 1], vel[j, 0]))},
+            "metadata": {"speed_x": vel[j, 0], "speed_y": vel[j, 1],
+                         "accel_x": 0.0, "accel_y": 0.0},
+            "num_lidar_points_in_box": 10,
+            "detection_difficulty_level": 0} for j, k in enumerate(kinds)]
+        frames.append(fr)
+        truth[f] = (glob, np.array([WAYMO_KINDS[k] for k in kinds]),
+                    np.arange(n_objects))
+    return frames, truth
+
+
+def cswin_reading(dev, card):
+    """``CSWinBlock`` at the flagship BEV, CSWIN_SHAPE, CSWIN_HEADS heads,
+    float32, seeded weights and a polar grid's cell centres as ``pos``:
+    the row and column stripes, and the last stage's CSWIN_SPLIT x
+    CSWIN_SPLIT windows; each the card against the CPU (relative RMS
+    within CSWIN_TOL), the median of CSWIN_TIMED calls and the peak
+    memory of one call."""
+    from partner_tpu_torch.models.cswin import CSWinBlock
+    from partner_tpu_torch.models.layers import init_weights
+
+    b, h, w, c = CSWIN_SHAPE
+    gen = torch.Generator().manual_seed(SEED + 71)
+    x = torch.randn(CSWIN_SHAPE, generator=gen)
+    az = (torch.arange(h) + 0.5) / h * 2 * np.pi - np.pi
+    r = (torch.arange(w) + 0.5) / w * 75.0
+    pos = torch.stack([r[None, :] * torch.cos(az[:, None]),
+                       r[None, :] * torch.sin(az[:, None])], -1)
+    out = {}
+    for kind, last in (("rows_cols", False), ("last_stage", True)):
+        blk = CSWinBlock(c, CSWIN_HEADS, split_size=CSWIN_SPLIT,
+                         last_stage=last)
+        with torch.no_grad():
+            init_weights(blk, gen)
+            for p in blk.parameters():   # norms and biases off their init
+                p.add_(0.05 * torch.randn(p.shape, generator=gen))
+            want = blk(x, pos)
+            card_blk = blk.to(dev)
+            xd, pd = x.to(dev), pos.to(dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            got = card_blk(xd, pd)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            rel_rms(f"CSWin {kind}", got, want, CSWIN_TOL)
+            ms = cuda_ms(lambda: card_blk(xd, pd), reps=CSWIN_TIMED,
+                         warmup=1)
+        out[kind] = dict(ms=ms, peak_gib=peak,
+                         rel_rms=rel_rms_of(kind, got, want)[0])
+        log(f"tools: CSWinBlock {kind} at {CSWIN_SHAPE}, {CSWIN_HEADS} heads, "
+            f"float32 on {card}: median {ms!r} ms of {CSWIN_TIMED} calls, "
+            f"peak {peak!r} GiB")
+        del card_blk, got
+    return out
+
+
+def flops_reading(dev, card):
+    """``tools.flops_report`` on the flagship at full size on the card (the
+    kernel route, charged by the wrappers) and with ``--device cpu`` (the
+    plain twins, counted by the counter; its seconds are logged): the two
+    tables and totals equal; the MFU of the median of
+    FLOPS_TIMED timed frames (after one warm-up) of the same detector and
+    sweep against ``utils.flops.device_peak_flops()``."""
+    from partner_tpu_torch.tools import flops_report
+    from partner_tpu_torch.utils.flops import device_peak_flops, mfu
+
+    argv = ["--config", CONFIG, "--points", str(N_POINTS), "--device"]
+    _, (tbl, total), launches = counted(
+        lambda: flops_report.main(argv + [dev.type]))
+    if launches != {"stem": 1, "scatter_max": 1, "swin_attn": 2,
+                    "swin_block": 0}:
+        raise AssertionError(f"flops_report launches {launches}")
+    t_cpu = time.perf_counter()
+    _, (plain_tbl, plain_total), plain_launches = counted(
+        lambda: flops_report.main(argv + ["cpu"]))
+    t_cpu = time.perf_counter() - t_cpu
+    if any(plain_launches.values()):
+        raise AssertionError(f"plain route launched {plain_launches}")
+    if plain_total != total or plain_tbl != tbl:
+        raise AssertionError(f"FLOPs: kernel route {total}, plain route "
+                             f"{plain_total}")
+    det, ex = flops_report.build_frame(CONFIG, N_POINTS, dev)
+    times = []
+    with torch.no_grad():
+        for i in range(FLOPS_TIMED + 1):
+            ms, _, _ = counted(lambda: det.predict(ex))
+            if i:
+                times.append(ms)
+    median = statistics.median(times)
+    peak = device_peak_flops()
+    util = mfu(total, median / 1e3)
+    log(f"tools: flops_report on {card}: {total / 1e9!r} GFLOP a frame on "
+        f"the card and the CPU (kernel charges and plain twins equal; the "
+        f"CPU's count {t_cpu!r} s); frame median {median!r} ms of "
+        f"{FLOPS_TIMED}, MFU {util!r} against {peak!r} FLOP/s bf16 "
+        f"({torch.cuda.get_device_name(0)})")
+    return dict(gflop=total / 1e9, median_ms=median, mfu=util, peak=peak,
+                cpu_count_s=t_cpu, launches=launches, modules=len(tbl))
+
+
+def tools_phase(dev, card):
+    """The host tools and the FLOP counter of the port on the card's
+    machine (no JAX): (a) TOOLS_FRAMES fake Waymo frames of one sequence
+    (:func:`tracked_frames`: TOOLS_OBJECTS moving boxes, ``veh_to_global``
+    in the annos, no ``pose`` in the infos) through ``create_data``, then
+    ``dist_test`` of the flagship (bf16, seeded weights) over them on the
+    card and ``tools.track`` over its predictions; (b) the ground-truth
+    boxes with their true velocities as detections: ``tools.track`` to
+    MOTA 1.0 with no id switch against the objects' own global tracks, and
+    a 2 x 2 ``track_line_search``; (c) ``nms_ensemble`` of the dist_test
+    predictions and a seeded perturbed copy on the card, each frame's kept
+    boxes equal to ``--device cpu``'s; (d) ``CSWinBlock`` at full width
+    (:func:`cswin_reading`); (e) ``flops_report`` (:func:`flops_reading`);
+    (f) ``write_ply_scene``, ``box_corners_bev`` and
+    ``generate_instance_ids`` on a frame, and the demo CLI where
+    matplotlib is installed."""
+    import importlib.util
+    import pickle
+    import tempfile
+
+    from partner_tpu_torch.eval.tracking import mota_evaluate
+    from partner_tpu_torch.tools import (create_data, demo, dist_test,
+                                         generate_instance_ids, nms_ensemble,
+                                         track, track_line_search)
+    from partner_tpu_torch.utils.viz3d import write_ply_scene
+
+    t_phase = time.perf_counter()
+    res = {}
+    rng = np.random.RandomState(SEED + 70)
+    with tempfile.TemporaryDirectory() as root:
+        frames, truth = tracked_frames(rng, TOOLS_FRAMES, TOOLS_OBJECTS)
+        record = os.path.join(root, "records.pkl")
+        with open(record, "wb") as f:
+            pickle.dump(frames, f)
+        del frames
+        create_data.main(["waymo_convert", "--record_path", record,
+                          "--root_path", root, "--split", "val"])
+        info_path = create_data.main(["waymo_data_prep", "--root_path", root,
+                                      "--split", "val"])
+        with open(info_path, "rb") as f:
+            infos = pickle.load(f)
+        if len(infos) != TOOLS_FRAMES or any("pose" in i for i in infos):
+            raise AssertionError(f"tools: {len(infos)} infos")
+
+        # (a) dist_test on the card, then the tracker over its boxes
+        cfg_path = write_eval_config(root, info_path)
+        wd = os.path.join(root, "eval")
+        _, _, dt_launches = counted(lambda: dist_test.main([
+            cfg_path, "--work_dir", wd, "--max_points", str(EVAL_ROWS),
+            "--device", dev.type]))
+        want = {"stem": TOOLS_FRAMES, "swin_attn": 2 * TOOLS_FRAMES,
+                "scatter_max": TOOLS_FRAMES, "swin_block": 0}
+        if dt_launches != want:
+            raise AssertionError(f"tools dist_test launches {dt_launches}")
+        pred_path = os.path.join(wd, "prediction.pkl")
+        with open(pred_path, "rb") as f:
+            preds = pickle.load(f)
+        t0 = time.perf_counter()
+        tracked = track.main(["--prediction", pred_path, "--info_path",
+                              info_path, "--work_dir",
+                              os.path.join(root, "track"),
+                              "--score_thresh", "0"])
+        track_ms = (time.perf_counter() - t0) * 1e3 / TOOLS_FRAMES
+        n_tracked = sum(len(r["tracking_ids"]) for r in tracked.values())
+        n_ids = len({int(i) for r in tracked.values()
+                     for i in r["tracking_ids"]})
+        boxes = sum(len(p["scores"]) for p in preds.values())
+        if len(tracked) != TOOLS_FRAMES or not n_tracked:
+            raise AssertionError(f"tools: tracked {n_tracked} boxes")
+        log(f"tools (a): dist_test of the flagship over {TOOLS_FRAMES} fake "
+            f"frames on {card}, launches {dt_launches}; track (poses from "
+            f"veh_to_global, --score_thresh 0): {n_tracked} tracked boxes of "
+            f"{boxes}, {n_ids} track ids, {track_ms!r} ms a frame")
+        res["dist_test"] = dict(launches=dt_launches, tracked=n_tracked,
+                                ids=n_ids, boxes=boxes, track_ms=track_ms)
+
+        # (b) ground truth as detections: MOTA 1.0, then the line search
+        names = ("Vehicle", "Pedestrian", "Cyclist")
+        by_token = {i["token"]: i for i in infos}
+        gt_dets, gt_frames = {}, {}
+        for f in range(TOOLS_FRAMES):
+            tok = f"seq_0_frame_{f}"
+            gt = by_token[tok]["gt_boxes"].copy()
+            # the infos' timestamp counts frames (ROADMAP.md §3): the
+            # velocities go in metres a frame
+            gt[:, 6:8] *= FRAME_S
+            gt_dets[tok] = {"box3d_lidar": gt,
+                            "scores": np.ones(len(gt), np.float32),
+                            "label_preds": np.array(
+                                [names.index(n) for n in
+                                 by_token[tok]["gt_names"]])}
+            centers, labels, ids = truth[f]
+            gt_frames[tok] = {"centers": centers, "labels": labels,
+                              "ids": ids}
+        paths = {}
+        for name, obj in (("gt_dets", gt_dets), ("gt_frames", gt_frames)):
+            paths[name] = os.path.join(root, f"{name}.pkl")
+            with open(paths[name], "wb") as f:
+                pickle.dump(obj, f)
+        gt_tracked = track.main(["--prediction", paths["gt_dets"],
+                                 "--info_path", info_path, "--work_dir",
+                                 os.path.join(root, "track_gt")])
+        m = mota_evaluate(gt_tracked, gt_frames)
+        if m["mota"] != 1.0 or m["id_switches"]:
+            raise AssertionError(f"tools: ground-truth tracking {m}")
+        best = track_line_search.main([
+            "--prediction", paths["gt_dets"], "--info_path", info_path,
+            "--gt_path", paths["gt_frames"], "--scores", "0.5:0.8:0.3",
+            "--dists", "1.0:3.0:2.0"])
+        if best[0] != 1.0:
+            raise AssertionError(f"tools: line search best {best}")
+        log(f"tools (b): ground truth ({TOOLS_OBJECTS} objects x "
+            f"{TOOLS_FRAMES} frames, ego {TOOLS_EGO_STEP} m a frame) as "
+            f"detections: MOTA {m['mota']!r}, {m['id_switches']} id "
+            f"switches, {m['num_gt']} ground-truth boxes; 2 x 2 line search "
+            f"best MOTA {best[0]!r} at score {best[1]!r}, dist {best[2]!r}")
+        res["mota"] = m
+
+        # (c) the NMS ensemble on the card against the CPU
+        prng = np.random.RandomState(SEED + 72)
+        other = {}
+        for tok, p in preds.items():
+            b = np.array(p["box3d_lidar"], np.float32)
+            b[:, :2] += prng.randn(len(b), 2).astype(np.float32) * 0.2
+            other[tok] = {"box3d_lidar": b,
+                          "scores": p["scores"] * prng.uniform(
+                              0.8, 1.2, len(b)).astype(np.float32),
+                          "label_preds": p["label_preds"]}
+        other_path = os.path.join(root, "other.pkl")
+        with open(other_path, "wb") as f:
+            pickle.dump(other, f)
+        out = {}
+        for d in (dev.type, "cpu"):
+            t0 = time.perf_counter()
+            out[d] = nms_ensemble.main([os.path.join(root, f"ens_{d}.pkl"),
+                                        pred_path, other_path, "--weights",
+                                        "1.0", "0.8", "--device", d])
+            out[d + "_ms"] = (time.perf_counter() - t0) * 1e3 / len(preds)
+        card_out = out[dev.type]
+        bad = [tok for tok in preds if any(
+            not np.array_equal(card_out[tok][k], out["cpu"][tok][k])
+            for k in ("box3d_lidar", "scores", "label_preds"))]
+        kept = sum(len(v["scores"]) for v in card_out.values())
+        if bad or sorted(card_out) != sorted(out["cpu"]):
+            raise AssertionError(f"nms_ensemble: frames {bad} differ "
+                                 "between the card and the CPU")
+        log(f"tools (c): nms_ensemble of {len(preds)} frames x 2 models "
+            f"({2 * boxes} boxes) on {card}: {kept} kept, every frame equal "
+            f"to --device cpu; {out[dev.type + '_ms']!r} ms a frame on the "
+            f"card, {out['cpu_ms']!r} on the CPU")
+        res["ensemble"] = dict(kept=kept, ms=out[dev.type + "_ms"],
+                               cpu_ms=out["cpu_ms"])
+
+        # (d), (e)
+        res["cswin"] = cswin_reading(dev, card)
+        res["flops"] = flops_reading(dev, card)
+
+        # (f) host tools on the first frame
+        info = infos[0]
+        with open(info["path"], "rb") as f:
+            lidars = pickle.load(f)["lidars"]
+        pts = np.concatenate([lidars["points_xyz"],
+                              lidars["points_feature"]], 1)
+        det0 = preds[info["token"]]
+        ply = write_ply_scene(os.path.join(root, "scene.ply"), pts,
+                              det_boxes=det0["box3d_lidar"][:20],
+                              gt_boxes=info["gt_boxes"])
+        corners = demo.box_corners_bev(info["gt_boxes"])
+        labelled = [dict(info, points=pts,
+                         points_label=np.ones(len(pts), np.int64))]
+        lab_path = os.path.join(root, "labelled.pkl")
+        with open(lab_path, "wb") as f:
+            pickle.dump(labelled, f)
+        inst = generate_instance_ids.main([
+            "--info_path", lab_path, "--out",
+            os.path.join(root, "instance_ids.pkl")])[info["token"]]
+        if corners.shape != (TOOLS_OBJECTS, 4, 2) or not np.isfinite(
+                corners).all():
+            raise AssertionError(f"box_corners_bev {corners.shape}")
+        has_mpl = importlib.util.find_spec("matplotlib") is not None
+        if has_mpl:
+            written = demo.main(["--prediction", pred_path, "--info_path",
+                                 info_path, "--out_dir",
+                                 os.path.join(root, "demo"),
+                                 "--max_frames", "1"])
+            demo_note = f"demo CLI wrote {written}"
+        else:
+            demo_note = "matplotlib not installed: the demo CLI not run"
+        log(f"tools (f): write_ply_scene {os.path.getsize(ply)} bytes "
+            f"({len(pts)} points, 20 + {TOOLS_OBJECTS} boxes); "
+            f"box_corners_bev {corners.shape}; generate_instance_ids "
+            f"{int((inst > 0).sum())} points in {len(set(inst.tolist())) - 1}"
+            f" boxes; {demo_note}")
+        res["host"] = dict(ply_bytes=os.path.getsize(ply),
+                           instance_points=int((inst > 0).sum()),
+                           demo=has_mpl)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"tools phase: {res['phase_s']!r} s")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this run needs one NVIDIA card")
@@ -6926,6 +7292,7 @@ def main():
     seg = seg_phase(dev, card)
     han = strobe_han_phase(dev, card)
     dp = dist_phase(dev, card)
+    tools = tools_phase(dev, card)
 
     meta = {
         "stem": ("partner_tpu_torch/csrc/stem.cu",
@@ -7049,6 +7416,10 @@ def main():
                     dist_ddp_step_launches=dp["step"]["launches"][name],
                     dist_dist_test_launches=dp["dist_test"]["launches"][name],
                     dist_train_cli_launches=dp["train_cli"]["launches"][name],
+                    tools_dist_test_launches=tools["dist_test"]["launches"][
+                        name],
+                    tools_flops_report_launches=tools["flops"]["launches"][
+                        name],
                     **r)
                for name, r in kres.items()]
     log("summary: card " + card + ", flagship frame median ms: " + ", ".join(
@@ -7248,6 +7619,22 @@ def main():
         f"steps in {dp['train_cli']['wall_s']!r} s; lr family card against "
         f"CPU {({k: v[0] for k, v in dp['family'].items()})}; phase "
         f"{dp['phase_s']!r} s")
+    ta, cs, fl = tools["dist_test"], tools["cswin"], tools["flops"]
+    log(f"summary: card {card}, tools (no JAX): dist_test over "
+        f"{TOOLS_FRAMES} fake frames then track, {ta['tracked']} tracked "
+        f"boxes in {ta['ids']} tracks, {ta['track_ms']!r} ms a frame; ground "
+        f"truth MOTA {tools['mota']['mota']!r} with "
+        f"{tools['mota']['id_switches']} id switches; nms_ensemble "
+        f"{tools['ensemble']['ms']!r} ms a frame on the card (CPU "
+        f"{tools['ensemble']['cpu_ms']!r}), kept boxes equal; CSWinBlock "
+        f"{CSWIN_SHAPE} rows and columns {cs['rows_cols']['ms']!r} ms, peak "
+        f"{cs['rows_cols']['peak_gib']!r} GiB, last stage "
+        f"{cs['last_stage']['ms']!r} ms, peak {cs['last_stage']['peak_gib']!r}"
+        f" GiB, relative RMS against the CPU {cs['rows_cols']['rel_rms']!r} / "
+        f"{cs['last_stage']['rel_rms']!r}; flagship {fl['gflop']!r} GFLOP a "
+        f"frame on both routes, frame median {fl['median_ms']!r} ms, MFU "
+        f"{fl['mfu']!r} of {fl['peak']!r} FLOP/s bf16; phase "
+        f"{tools['phase_s']!r} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

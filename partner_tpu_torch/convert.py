@@ -39,7 +39,11 @@ submodules carry flax's names (``Conv_0``, ``BatchNorm_0``,
   ``bias``, ``gn_scale``, ``gn_bias``); its ``shared_conv``,
   ``{head}_out``, ``cal_*`` and each ``*_stack/Conv_k`` (grouped convs
   too: HWIO (kh, kw, C / groups, F) -> (F, C / groups, kh, kw)) map by
-  the Conv rule, each ``*_stack/GroupNorm_k`` by the ``scale`` rule.
+  the Conv rule, each ``*_stack/GroupNorm_k`` by the ``scale`` rule;
+- ``models.cswin``'s ``CSWinBlock`` needs no rule of its own: its
+  ``qkv``, ``proj``, ``mlp/Dense_k`` and each branch's ``pos_fc1`` /
+  ``pos_fc2`` map by the Dense rule, ``norm1``, ``norm2`` and ``pos_ln``
+  by the ``scale`` rule.
 
 Inputs are nested dicts of numpy arrays (``{"params": ..., "batch_stats":
 ...}``), so this module needs neither jax nor flax.

@@ -78,17 +78,38 @@ def _quat_rotate(q, v):
     return r @ np.asarray(v, np.float64)
 
 
+# the info's lidar -> ego and ego -> global records, (rotation, translation)
+CALIB_CHAIN = (("lidar2ego_rotation", "lidar2ego_translation"),
+               ("ego2global_rotation", "ego2global_translation"))
+
+
+def has_calibration(info):
+    return all(k in info for pair in CALIB_CHAIN for k in pair)
+
+
 def _box_to_global(center, q_box, vel, info):
     """lidar -> ego -> global (CenterPoint lidar_nusc_box_to_global)."""
-    for rot_key, tr_key in (("lidar2ego_rotation", "lidar2ego_translation"),
-                            ("ego2global_rotation",
-                             "ego2global_translation")):
+    for rot_key, tr_key in CALIB_CHAIN:
         q = np.asarray(info[rot_key], np.float64)
         t = np.asarray(info[tr_key], np.float64)
         center = _quat_rotate(q, center) + t
         q_box = _quat_mult(q, q_box)
         vel = _quat_rotate(q, vel)
     return center, q_box, vel
+
+
+def lidar_to_global(info):
+    """The 4 x 4 lidar -> global matrix of :func:`_box_to_global`'s chain
+    (float64): each record's rotation by :func:`_quat_rotate` of the unit
+    axes, then its translation."""
+    pose = np.eye(4)
+    for rot_key, tr_key in CALIB_CHAIN:
+        q = np.asarray(info[rot_key], np.float64)
+        step = np.eye(4)
+        step[:3, :3] = np.stack([_quat_rotate(q, e) for e in np.eye(3)], 1)
+        step[:3, 3] = np.asarray(info[tr_key], np.float64)
+        pose = step @ pose
+    return pose
 
 
 def write_nusc_results(detections, infos, output_dir, class_names):
@@ -105,9 +126,7 @@ def write_nusc_results(detections, infos, output_dir, class_names):
         scores = np.asarray(det["scores"])
         labels = np.asarray(det["label_preds"])
         info = info_by_token.get(token, {})
-        has_calib = all(k in info for k in (
-            "lidar2ego_rotation", "lidar2ego_translation",
-            "ego2global_rotation", "ego2global_translation"))
+        has_calib = has_calibration(info)
         annos = []
         for i in range(boxes.shape[0]):
             name = class_names[int(labels[i])]

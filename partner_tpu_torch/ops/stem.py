@@ -9,12 +9,14 @@ folded BatchNorm ``t * a + b`` in f32 -> ReLU -> cast, where
 
 :func:`stem2_channel_major` launches ``csrc/stem.cu`` for CUDA tensors and
 runs :func:`stem2_channel_major_plain` for CPU tensors; there is no other
-switch. ``stem2_channel_major.launches`` counts kernel launches.
+switch. ``stem2_channel_major.launches`` counts kernel launches;
+a launch also charges its twin's FLOPs to an open ``utils.flops`` count.
 """
 
 import torch
 
 from . import _cuda
+from ..utils import flops as _flops
 
 # the shapes csrc/stem.cu is compiled for: C_in 8 (the cuboid nuScenes
 # configs' 5 point features + 3 decorations), 10 (7 + 3) or 11 (the
@@ -84,6 +86,8 @@ def stem2_channel_major(x, mask, w1, a1, b1, w2, a2, b2):
         out.data_ptr(), bsz, p, cin, _cuda.stream_ptr(x.device))
     _cuda.check(err, "stem2")
     stem2_channel_major.launches += 1
+    if _flops.active:
+        _flops.charge("stem", _flops.stem_flops(x, w1, w2))
     return out
 
 

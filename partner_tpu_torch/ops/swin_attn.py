@@ -13,7 +13,8 @@ computed from pre-normalized bf16 q/k as the JAX package's plain path
 
 :func:`swin_vote_attention` launches ``csrc/swin_attn.cu`` for CUDA tensors
 and runs :func:`swin_vote_attention_plain` for CPU tensors; there is no
-other switch. ``swin_vote_attention.launches`` counts kernel launches. The
+other switch. ``swin_vote_attention.launches`` counts kernel launches;
+a launch also charges its twin's FLOPs to an open ``utils.flops`` count. The
 kernel takes one window per block over all 4 heads: both products on the
 tensor cores (``mma.sync``), logits and softmax in registers, and the RPE
 MLP evaluated once per window into a shared table for all heads (the
@@ -23,6 +24,7 @@ source note has the design and its rounding).
 import torch
 
 from . import _cuda
+from ..utils import flops as _flops
 
 # the shapes csrc/swin_attn.cu is compiled for
 T, HD, HIDDEN, NH = 64, 64, 16, 4
@@ -112,6 +114,8 @@ def swin_vote_attention(q, k, v, pos, mask, w1, b1, w2, b2, tau):
         _cuda.stream_ptr(q.device))
     _cuda.check(err, "swin_attn")
     swin_vote_attention.launches += 1
+    if _flops.active:
+        _flops.charge("swin_attn", _flops.swin_attn_flops(q, w1, w2))
     return out
 
 

@@ -25,13 +25,15 @@ the JAX package builds it in XLA outside the Pallas call
 
 :func:`swin_vote_block` launches ``csrc/swin_block.cu`` for CUDA tensors
 and runs :func:`swin_vote_block_plain` for CPU tensors; there is no other
-switch. ``swin_vote_block.launches`` counts kernel launches.
+switch. ``swin_vote_block.launches`` counts kernel launches;
+a launch also charges its twin's FLOPs to an open ``utils.flops`` count.
 """
 
 import torch
 import torch.nn.functional as F
 
 from . import _cuda
+from ..utils import flops as _flops
 
 # the shapes csrc/swin_block.cu is compiled for: channels, heads (of
 # width 64), window, MLP hidden width, vote-MLP hidden width
@@ -248,6 +250,9 @@ def swin_vote_block(x, vote, bias, params, nh, ws):
         _cuda.stream_ptr(x.device))
     _cuda.check(err, "swin_block")
     swin_vote_block.launches += 1
+    if _flops.active:
+        _flops.charge("swin_block",
+                      _flops.swin_block_flops(x, params, nh, ws))
     return out
 
 

@@ -1,5 +1,6 @@
 """partner_tpu_torch stands alone: no jax, flax, optax or partner_tpu at
-import or when it builds its detectors (the Waymo PARTNER, CenterPoint and
+import (every module, the host tools, the FLOP counter and CSWin too) or
+when it builds its detectors (the Waymo PARTNER, CenterPoint and
 two-stage configs, the sparse backbone, the three nuScenes CenterPoint
 configs, the two Waymo PointPillars configs, the two PointPillars
 two-stage configs, the nuScenes single-head config, the two PolarStream
@@ -26,7 +27,7 @@ def test_import_leaves_out_jax_and_flax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'partner_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 75, names\n"
+        "assert len(names) >= 90, names\n"
         "for n in ('ops.swin_block', 'ops.scatter_max', 'core.targets',\n"
         "          'losses.centernet', 'losses.matcher', 'losses.set_crit',\n"
         "          'train.optim', 'train.train_state', 'data.pipeline',\n"
@@ -44,7 +45,11 @@ def test_import_leaves_out_jax_and_flax():
         "          'models.rpn_stream', 'models.polarstream',\n"
         "          'models.seg_head', 'eval.seg_metrics', 'models.strobe',\n"
         "          'ops.warp', 'parallel', 'parallel.dist',\n"
-        "          'parallel.mesh', 'parallel.halo'):\n"
+        "          'parallel.mesh', 'parallel.halo', 'eval.tracking',\n"
+        "          'utils.viz3d', 'utils.flops', 'models.cswin',\n"
+        "          'tools.track', 'tools.track_line_search',\n"
+        "          'tools.nms_ensemble', 'tools.demo',\n"
+        "          'tools.generate_instance_ids', 'tools.flops_report'):\n"
         "    assert 'partner_tpu_torch.' + n in names, n\n"
         "from partner_tpu_torch.models import build_detector\n"
         "from partner_tpu_torch.utils.config import load_config\n"
