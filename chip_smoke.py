@@ -6900,6 +6900,454 @@ def dist_phase(dev, card):
             "phase_s": phase_s}
 
 
+MESH_SPECS = ("model=2", "azimuth=2")   # two processes on the one card
+MESH_EVAL_FRAMES = 8        # dist_test frames under each mesh
+MESH_BLOCK_FRAMES = 2       # whole-block route frames under model=2
+MESH_BATCH = 2              # the train step's batch: two ranks fit in 80 GB
+# a kept row that overlaps a kept row of the other run this near the NMS
+# threshold is a near-tie (:func:`mesh_same_kept`)
+MESH_IOU_MARGIN = 0.02
+# the share of elements where Adam's first step must be determined
+# (tests/test_torch_dist.py's rule for a chaotic upstream network)
+MESH_FIRM_SHARE = 0.5
+_MESH_RUNNER = r"""
+import os, sys
+import torch
+import torch.distributed as tdist
+torch.cuda.set_device(0)
+tdist.init_process_group(
+    "gloo", init_method="tcp://%s:%s" % (os.environ["MASTER_ADDR"],
+                                         os.environ["MASTER_PORT"]),
+    rank=int(os.environ["RANK"]), world_size=int(os.environ["WORLD_SIZE"]))
+import chip_smoke
+chip_smoke.mesh_rank(sys.argv[1], sys.argv[2])
+tdist.destroy_process_group()
+"""
+
+
+def mesh_inputs(root, dev):
+    """The mesh phase's shared inputs, made the same in every process:
+    the flagship's seeded bf16 weights as a port checkpoint (written once,
+    by the phase), its val set and eval config, the whole-block route's
+    sweeps, the float32 train step's weights and batch, and CenterPoint's
+    seeded weights and sweep."""
+    from partner_tpu_torch.models import build_detector
+
+    fm, ftc = frame_cfgs()
+    pr = fm["bbox_head"]["voxel_generator"]["range"]
+    sweeps = [synthetic_sweep(np.random.RandomState(SEED + 71 + i), pr,
+                              N_POINTS) for i in range(MESH_BLOCK_FRAMES)]
+    tm, ttc, _, lr_max = train_cfgs(compute_dtype="float32")
+    grid = tuple(int(round((pr[3 + i] - pr[i]) / v)) for i, v in
+                 enumerate(tm["bbox_head"]["voxel_generator"]["voxel_size"]))
+    batch = to_device(train_example(np.random.RandomState(SEED + 72), pr,
+                                    grid, MESH_BATCH, TRAIN_POINTS,
+                                    TRAIN_ROWS, MAX_BOXES), dev)
+    cm, _, ctc = centerpoint_cfgs()
+    cpr = cm["bbox_head"]["voxel_generator"]["range"]
+    cp_sweep = synthetic_sweep(np.random.RandomState(SEED + 73), cpr,
+                               N_POINTS)
+
+    def seeded(m, tc, seed, **kw):
+        gen = torch.Generator().manual_seed(seed)
+        det = build_detector(m, None, tc, device=dev, generator=gen, **kw)
+        randomize_norms(det.module, gen)
+        return det
+
+    return dict(
+        eval_cfg=os.path.join(root, "eval_cfg.py"),
+        ckpt=os.path.join(root, "ckpt", "latest"),
+        block=lambda: seeded(fm, ftc, SEED + 70, use_block_kernel=True),
+        frame=lambda: seeded(fm, ftc, SEED + 70),
+        sweeps=sweeps, train=lambda: seeded(tm, ttc, SEED + 74),
+        batch=batch, lr_max=lr_max, cp=lambda: seeded(cm, ctc, SEED + 75),
+        cp_sweep=cp_sweep)
+
+
+def mesh_tasks(spec, root, dev):
+    """Every path of the mesh phase for ``spec`` in this process (one
+    process without a group: the references) -> {path: record}. Each path
+    is :func:`counted` (launches set to 0 just before it, read just after)
+    and records its host ms, the collectives it issued, its peak memory
+    and its outputs on the CPU; the train step's state after it is
+    gathered whole."""
+    from partner_tpu_torch.parallel import dist, mesh, tp
+    from partner_tpu_torch.tools import dist_test
+    from partner_tpu_torch.train.optim import build_one_cycle_optimizer
+    from partner_tpu_torch.train.train_state import make_train_step
+
+    inp = mesh_inputs(root, dev)
+    one = spec == "one"
+    axes = (1, 1, 1) if one else mesh.parse_mesh_spec(
+        spec, torch.distributed.get_world_size())
+    out = {}
+
+    def record(name, fn):
+        n0 = dist.counts["collectives"]
+        torch.cuda.reset_peak_memory_stats()
+        ms, res, counts = counted(fn)
+        out[name] = {"ms": ms, "launches": counts, "result": res,
+                     "collectives": dist.counts["collectives"] - n0,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        return res
+
+    work = os.path.join(root, f"eval_{spec}")
+    record("dist_test", lambda: dist_test.main([
+        inp["eval_cfg"], "--checkpoint", inp["ckpt"], "--max_points",
+        str(EVAL_ROWS), "--work_dir", work, "--device", dev.type] + (
+            [] if one else ["--mesh", spec]))[1])
+    out["dist_test"]["predictions"] = os.path.join(work, "prediction.pkl")
+
+    def frames(det, sweeps):   # the checkpoint's weights, seeded alike
+        mesh.place(det, mesh.build(*axes))
+        return [{k: v.cpu() for k, v in det.predict(to_device(
+            {"points": p, "points_mask": m}, dev)).items()}
+            for p, m in sweeps]
+
+    if "model" in spec or one:
+        record("block", lambda: frames(inp["block"](), inp["sweeps"]))
+    det = inp["train"]()
+    grid = mesh.build(*axes)
+    mesh.place(det, grid)
+    step = make_train_step(det, build_one_cycle_optimizer(
+        det.module, lr_max=inp["lr_max"], total_steps=1000))
+    drops = lambda: torch.Generator().manual_seed(SEED + 76)
+    met = record("train", lambda: step(inp["batch"], drops()))
+    out["train"]["result"] = {k: float(v) for k, v in met.items()}
+    out["train"]["state"] = {k: v.float().cpu().clone() for k, v in
+                             tp.full_state_dict(det.module).items()}
+    out["train"]["grads"] = {k: tp.whole(p, p.grad).float().cpu().clone()
+                             for k, p in det.module.named_parameters()
+                             if p.grad is not None}
+    out["train"]["second_ms"] = counted(lambda: step(inp["batch"],
+                                                     drops()))[0]
+    del det, step
+    if "azimuth" in spec or one:
+        def cp_frame():
+            det = inp["cp"]()
+            mesh.place(det, mesh.build(*axes))
+            p, m = inp["cp_sweep"]
+            return {k: v.cpu() for k, v in det.predict(to_device(
+                {"points": p, "points_mask": m}, dev)).items()}
+        record("cp", cp_frame)
+    out["peak_gib"] = {k: v["peak_gib"] for k, v in out.items()}
+    return out
+
+
+def mesh_rank(spec, root, dev=torch.device("cuda", 0)):
+    """A rank of the mesh phase's torchrun launch: :func:`mesh_tasks` of
+    ``spec`` on the group the runner made, saved for the phase."""
+    rank = torch.distributed.get_rank()
+    # main()'s flags: full-f32 products wherever a reference computes f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = mesh_tasks(spec, root, dev)
+    out["jax"] = [m for m in sys.modules if m.split(".")[0] in
+                  ("jax", "jaxlib", "flax", "optax", "partner_tpu")]
+    out["backend"] = torch.distributed.get_backend()
+    torch.save(out, os.path.join(root, f"mesh_{spec}_rank{rank}.pt"))
+
+
+def mesh_launch(root, spec, timeout=600):
+    """:func:`mesh_rank` of ``spec`` on two processes of the one card
+    through ``python -m torch.distributed.run --standalone
+    --nproc_per_node 2`` -> each rank's record, and the launch's wall s."""
+    runner = os.path.join(root, "mesh_runner.py")
+    with open(runner, "w") as f:
+        f.write(_MESH_RUNNER)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    env["PYTHONPATH"] = ROOT
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", runner, spec, root], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"mesh {spec} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    recs = [torch.load(os.path.join(root, f"mesh_{spec}_rank{r}.pt"),
+                       weights_only=False) for r in range(2)]
+    for r in recs:
+        if r["jax"] or r["backend"] != "gloo":
+            raise AssertionError(f"mesh {spec}: {r['jax']} {r['backend']}")
+    return recs, wall
+
+
+def bev_iou_matrix(a, b):
+    """(n, 7) and (m, 7) boxes (numpy) -> their (n, m) rotated BEV IoU, as
+    the NMS computes it (``ops.nms.suppression_matrix``)."""
+    from partner_tpu_torch.ops.rotated_iou import (
+        rect_intersection_area_green_pretrig)
+
+    a, b = (torch.from_numpy(np.asarray(x, np.float32)[:, [0, 1, 3, 4, 6]])
+            for x in (a, b))
+    trig = lambda x: torch.stack([torch.cos(x[:, 4]), torch.sin(x[:, 4])], -1)
+    inter = rect_intersection_area_green_pretrig(
+        a[:, None], b[None], trig(a)[:, None], trig(b)[None])
+    area = lambda x: x[:, 2] * x[:, 3]
+    union = torch.clamp(area(a)[:, None] + area(b)[None] - inter, min=1e-8)
+    return (inter / union).numpy()
+
+
+def mesh_same_kept(got, want, tag, iou_threshold):
+    """One frame's kept boxes (``kept_boxes``) of a mesh run against the
+    one-process run's: the same count, and every row matched by a row of
+    the same label whose box and score lie within KERNEL_TOL (1 + |value|),
+    but near-ties, which a rounding of the score or the box may decide
+    either way: a row whose score lies within twice that bound of both
+    runs' lowest kept scores (the kept cut), or that overlaps a kept row
+    of the other run at a BEV IoU above ``iou_threshold`` -
+    MESH_IOU_MARGIN (the NMS suppressing one of the two, or not). ->
+    (rows matched at their own place, near-ties, rows)."""
+    n = len(want["scores"])
+    if len(got["scores"]) != n:
+        raise AssertionError(f"{tag}: kept {len(got['scores'])} != {n}")
+    tol = lambda a: KERNEL_TOL * (1 + np.abs(a))
+    free = set(range(n))
+    left, at_place = [], 0
+    for i in range(n):
+        ok = [k for k in free
+              if got["label_preds"][i] == want["label_preds"][k]
+              and np.all(np.abs(got["box3d_lidar"][i] - want["box3d_lidar"][k])
+                         <= tol(want["box3d_lidar"][k]))
+              and abs(got["scores"][i] - want["scores"][k])
+              <= tol(want["scores"][k])]
+        if not ok:
+            left.append(i)
+            continue
+        k = i if i in ok else ok[0]
+        at_place += int(k == i)
+        free.discard(k)
+    near = 0
+    lows = [run["scores"].min() for run in (got, want)] if n else []
+    for run, other, rows in ((got, want, left), (want, got, sorted(free))):
+        if not rows:
+            continue
+        iou = bev_iou_matrix(run["box3d_lidar"][rows], other["box3d_lidar"])
+        for j, i in enumerate(rows):
+            if (all(abs(run["scores"][i] - low) <= 2 * tol(low)
+                    for low in lows)
+                    or iou[j].max() > iou_threshold - MESH_IOU_MARGIN):
+                near += 1
+                continue
+            raise AssertionError(
+                f"{tag}: kept row {i} (score {run['scores'][i]!r}) matches "
+                f"no row and is no near-tie (largest IoU with the other "
+                f"run's kept rows {iou[j].max()!r})")
+    return at_place, near, n
+
+
+def mesh_kept(pairs, tag, iou_threshold):
+    """:func:`mesh_same_kept` over (mesh, one process) kept-box pairs of
+    frames -> the summed (at place, near-ties, rows)."""
+    tot = np.zeros(3, int)
+    for i, (got, want) in enumerate(pairs):
+        tot += mesh_same_kept(got, want, f"{tag} frame {i}", iou_threshold)
+    return tuple(int(x) for x in tot)
+
+
+def mesh_phase(dev, card):
+    """The mesh's model and azimuth axes on the one card: two processes
+    over a gloo group (NCCL refuses two ranks on one device) under
+    ``python -m torch.distributed.run --nproc_per_node 2``, at
+    ``--mesh model=2`` and at ``--mesh azimuth=2``, each rank on cuda:0.
+    Each rank runs (:func:`mesh_tasks`) the flagship's ``dist_test`` over
+    MESH_EVAL_FRAMES synthetic 180,000-point frames from a seeded bf16
+    checkpoint; under model=2 the whole-block route on MESH_BLOCK_FRAMES
+    sweeps; one float32 flagship train step at batch MESH_BATCH from
+    seeded weights; under azimuth=2 one CenterPoint frame. This process
+    runs the same paths without a group first, the references. Held: the
+    kept boxes of every frame (:func:`mesh_same_kept`), the train step
+    (:func:`mesh_step_check`: loss terms, gradients, parameters after
+    Adam), and each rank's launches: the stem, scatter-max,
+    attention and block kernels where their path runs them. Prints the
+    launches per rank, the collectives a path, ms a frame and a step
+    (smoke readings: two processes share one card), the peak memory per
+    rank, beside the card's name and power limit."""
+    import pickle
+    import tempfile
+
+    from partner_tpu_torch.train.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    out = {}
+    thr = frame_cfgs()[1]["nms"]["nms_iou_threshold"]
+    cp_thr = centerpoint_cfgs()[2]["nms"]["nms_iou_threshold"]
+    with tempfile.TemporaryDirectory() as root:
+        fm, _ = frame_cfgs()
+        pr = fm["bbox_head"]["voxel_generator"]["range"]
+        det = mesh_inputs(root, dev)["frame"]()
+        depth = det.module.bbox_head.layer.depth   # the head's Swin blocks
+        save_checkpoint(os.path.join(root, "ckpt"), 0,
+                        det.module.state_dict())
+        write_eval_config(root, write_val_set(
+            root, np.random.RandomState(SEED + 77), pr, MESH_EVAL_FRAMES))
+        del det
+        one = mesh_tasks("one", root, dev)
+        torch.cuda.empty_cache()
+        with open(one["dist_test"]["predictions"], "rb") as f:
+            want_preds = pickle.load(f)
+        for spec in MESH_SPECS:
+            recs, wall = mesh_launch(root, spec)
+            with open(recs[0]["dist_test"]["predictions"], "rb") as f:
+                preds = pickle.load(f)
+            if list(preds) != list(want_preds):
+                raise AssertionError(f"mesh {spec}: frames {list(preds)}")
+            at, near, rows = mesh_kept(
+                [(preds[t], w) for t, w in want_preds.items()],
+                f"{spec} dist_test", thr)
+            res = {"wall_s": wall, "kept": (at, near, rows),
+                   "peak_gib": [r["peak_gib"] for r in recs],
+                   "dist_test": {
+                       "launches": [r["dist_test"]["launches"]
+                                    for r in recs],
+                       "ms_frame": [r["dist_test"]["ms"] / MESH_EVAL_FRAMES
+                                    for r in recs],
+                       "collectives": [r["dist_test"]["collectives"]
+                                       for r in recs]}}
+            want_eval = {"stem": MESH_EVAL_FRAMES,
+                         "scatter_max": MESH_EVAL_FRAMES,
+                         "swin_attn": depth * MESH_EVAL_FRAMES,
+                         "swin_block": 0}
+            checks = [("dist_test", want_eval)]
+            if "block" in recs[0]:
+                kb = mesh_kept([(kept_boxes(r["block"]["result"][i]),
+                                 kept_boxes(w)) for r in recs for i, w in
+                                enumerate(one["block"]["result"])],
+                               f"{spec} block", thr)
+                res["block"] = {"kept": kb, "launches": [
+                    r["block"]["launches"] for r in recs], "ms_frame": [
+                    r["block"]["ms"] / MESH_BLOCK_FRAMES for r in recs]}
+                checks.append(("block", {
+                    "stem": MESH_BLOCK_FRAMES,
+                    "scatter_max": MESH_BLOCK_FRAMES, "swin_attn": 0,
+                    "swin_block": depth * MESH_BLOCK_FRAMES}))
+            if "cp" in recs[0]:
+                kc = mesh_kept([(kept_boxes(recs[0]["cp"]["result"]),
+                                 kept_boxes(one["cp"]["result"]))],
+                               f"{spec} CenterPoint", cp_thr)
+                res["cp"] = {"kept": kc, "launches": [
+                    r["cp"]["launches"] for r in recs], "ms": [
+                    r["cp"]["ms"] for r in recs]}
+                checks.append(("cp", {"stem": 1, "scatter_max": 1,
+                                      "swin_attn": 0, "swin_block": 0}))
+            checks.append(("train", {"stem": 0, "scatter_max": 1,
+                                     "swin_attn": 0, "swin_block": 0}))
+            for path, want in checks:
+                for rank, r in enumerate(recs):
+                    if r[path]["launches"] != want:
+                        raise AssertionError(
+                            f"mesh {spec} {path} rank {rank}: launches "
+                            f"{r[path]['launches']} != {want}")
+            res["train"] = mesh_step_check(spec, recs, one["train"])
+            out[spec] = res
+            log(f"mesh {spec} on {card}: two processes over gloo, whole "
+                f"launch {wall!r} s, peak per rank {res['peak_gib']!r} GiB "
+                f"(one process {one['peak_gib']!r}); dist_test over "
+                f"{MESH_EVAL_FRAMES} frames: kept rows {at} of {rows} "
+                f"matched at their place, {near} near-ties (at the kept cut "
+                f"or the NMS threshold), the rest within KERNEL_TOL of "
+                f"another row; launches per "
+                f"rank {res['dist_test']['launches']}, collectives per rank "
+                f"{res['dist_test']['collectives']}, ms a frame per rank "
+                f"{res['dist_test']['ms_frame']!r} (one process "
+                f"{one['dist_test']['ms'] / MESH_EVAL_FRAMES!r})")
+            if "block" in res:
+                log(f"mesh {spec} whole-block route on {card}: kept rows "
+                    f"(at place, near-ties, all) {res['block']['kept']}, "
+                    f"launches per rank {res['block']['launches']}, ms a "
+                    f"frame per rank {res['block']['ms_frame']!r}")
+            if "cp" in res:
+                log(f"mesh {spec} CenterPoint frame on {card}: kept rows (at "
+                    f"place, near-ties, all) {res['cp']['kept']}, "
+                    f"launches per rank {res['cp']['launches']}, ms per rank "
+                    f"{res['cp']['ms']!r}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"mesh phase: {out['phase_s']!r} s")
+    return out
+
+
+def mesh_step_check(spec, recs, one):
+    """The mesh's train step (rank 0's; every rank's metrics alike) against
+    the one-process step, at the float32 train reference's bounds: the
+    loss terms within TRAIN_F32_LOSS_TOL, the gradients by top-level
+    module within TRAIN_F32_GRAD_TOL relative RMS (the upstream network is
+    chaotic at random weights: a summation order moves its gradients by a
+    percent), the parameters after Adam within 2e-6 where its first step
+    is determined (the clipped gradients agree within 1% and stand clear
+    of eps by DIST_ADAM_CLEAR), on at least MESH_FIRM_SHARE of the
+    elements, and within 2 lr everywhere; the statistics within
+    TRAIN_F32_LOSS_TOL relative RMS."""
+    got, want = recs[0]["train"], one
+    for r in recs[1:]:
+        if r["train"]["result"] != got["result"]:
+            raise AssertionError(f"mesh {spec} train: ranks disagree")
+    lv, pv = got["result"], want["result"]
+    bad = {}
+    loss_err = {k: abs(lv[k] - pv[k]) / abs(pv[k]) for k in pv
+                if k.startswith("loss")}
+    bad.update({k: e for k, e in loss_err.items()
+                if not e <= TRAIN_F32_LOSS_TOL})
+    gerr = grad_errors(got["grads"], want["grads"])
+    bad.update({f"grad {k}": e for k, (e, _) in gerr.items()
+                if not e <= TRAIN_F32_GRAD_TOL[k]})
+    _, _, _, lr_max = train_cfgs()
+    lr0 = lr_max / 10.0
+    clip = min(1.0, DIST_GRAD_CLIP / pv["grad_norm"])
+    firm_err = moved = 0.0
+    n_firm = n_all = 0
+    for k, g in want["grads"].items():
+        d = (got["state"][k] - want["state"][k]).abs()
+        gm, gp = got["grads"][k] * clip, g * clip
+        firm = ((gp.abs() > DIST_ADAM_CLEAR)
+                & ((gm - gp).abs() <= 1e-2 * gp.abs()))
+        moved = max(moved, float(d.max()))
+        if firm.any():
+            firm_err = max(firm_err, float(
+                (d[firm] - 1e-6 * want["state"][k][firm].abs()).max()))
+        n_firm += int(firm.sum())
+        n_all += firm.numel()
+    share = n_firm / n_all
+    stat_err = max([rel_rms_of(k, got["state"][k], t)[0] for k, t in
+                    want["state"].items() if k not in want["grads"]
+                    and not torch.equal(got["state"][k], t)], default=0.0)
+    if not moved <= 2 * lr0 * 1.01:
+        bad["parameters"] = moved
+    if not firm_err <= 2e-6:
+        bad["parameters where the step is determined"] = firm_err
+    if not share >= MESH_FIRM_SHARE:
+        bad["share of determined elements"] = share
+    if not stat_err <= TRAIN_F32_LOSS_TOL:
+        bad["statistics"] = stat_err
+    bit_equal = all(torch.equal(got["state"][k], t)
+                    for k, t in want["state"].items())
+    res = {"loss_err": loss_err, "grad_err": gerr, "firm_err": firm_err,
+           "firm_share": share, "stat_err": stat_err, "bit_equal": bit_equal,
+           "ms": [r["train"]["ms"] for r in recs],
+           "second_ms": [r["train"]["second_ms"] for r in recs],
+           "one_ms": (want["ms"], want["second_ms"]),
+           "collectives": [r["train"]["collectives"] for r in recs],
+           "launches": [r["train"]["launches"] for r in recs]}
+    log(f"mesh {spec} float32 flagship train step at batch {MESH_BATCH}: "
+        f"loss terms' relative errors against one process {loss_err} "
+        f"(bound {TRAIN_F32_LOSS_TOL}), grad relative RMS and norm ratio by "
+        f"module {gerr} (bounds {TRAIN_F32_GRAD_TOL}), parameters after "
+        f"Adam within {firm_err!r} beyond 1e-6 relative where its step is "
+        f"determined (bound 2e-6), on {share!r} of the elements (bound "
+        f"{MESH_FIRM_SHARE}), all within {moved!r} (bound 2 lr), "
+        f"statistics relative RMS {stat_err!r}; bit-equal {bit_equal}; "
+        f"collectives a step per rank {res['collectives']}, ms per rank "
+        f"{res['ms']!r} then {res['second_ms']!r} (one process "
+        f"{res['one_ms']!r}); launches per rank {res['launches']}")
+    if bad:
+        raise AssertionError(f"mesh {spec} train step beyond its bounds: "
+                             f"{bad}")
+    return res
+
+
 TOOLS_FRAMES = 10            # one sequence of fake Waymo frames (cut first)
 TOOLS_OBJECTS = 40           # moving boxes a frame
 TOOLS_EGO_STEP = 2.0         # metres the ego drives a frame: 20 m/s at 10 Hz
@@ -7292,6 +7740,7 @@ def main():
     seg = seg_phase(dev, card)
     han = strobe_han_phase(dev, card)
     dp = dist_phase(dev, card)
+    mp = mesh_phase(dev, card)
     tools = tools_phase(dev, card)
 
     meta = {
@@ -7416,6 +7865,11 @@ def main():
                     dist_ddp_step_launches=dp["step"]["launches"][name],
                     dist_dist_test_launches=dp["dist_test"]["launches"][name],
                     dist_train_cli_launches=dp["train_cli"]["launches"][name],
+                    **{f"mesh_{spec.replace('=', '')}_{path}_launches": [
+                        r[name] for r in mp[spec][path]["launches"]]
+                       for spec in MESH_SPECS
+                       for path in ("dist_test", "block", "train", "cp")
+                       if path in mp[spec]},
                     tools_dist_test_launches=tools["dist_test"]["launches"][
                         name],
                     tools_flops_report_launches=tools["flops"]["launches"][
@@ -7619,6 +8073,21 @@ def main():
         f"steps in {dp['train_cli']['wall_s']!r} s; lr family card against "
         f"CPU {({k: v[0] for k, v in dp['family'].items()})}; phase "
         f"{dp['phase_s']!r} s")
+    log(f"summary: card {card}, mesh (two processes on the one card over "
+        f"gloo; smoke readings): " + "; ".join(
+            f"{spec}: dist_test {mp[spec]['dist_test']['ms_frame']!r} ms a "
+            f"frame per rank, kept rows (at place, near-ties, all) "
+            f"{mp[spec]['kept']}, float32 step at batch {MESH_BATCH} "
+            f"{mp[spec]['train']['ms']!r} then "
+            f"{mp[spec]['train']['second_ms']!r} ms per rank (one process "
+            f"{mp[spec]['train']['one_ms']!r}), "
+            f"{mp[spec]['train']['collectives']} collectives a step, "
+            f"parameters where Adam's step is determined (on "
+            f"{mp[spec]['train']['firm_share']!r} of them) within "
+            f"{mp[spec]['train']['firm_err']!r}, bit-equal "
+            f"{mp[spec]['train']['bit_equal']}, peak "
+            f"{mp[spec]['peak_gib']!r} GiB per rank" for spec in MESH_SPECS)
+        + f"; phase {mp['phase_s']!r} s")
     ta, cs, fl = tools["dist_test"], tools["cswin"], tools["flops"]
     log(f"summary: card {card}, tools (no JAX): dist_test over "
         f"{TOOLS_FRAMES} fake frames then track, {ta['tracked']} tracked "

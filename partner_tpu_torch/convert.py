@@ -40,13 +40,19 @@ submodules carry flax's names (``Conv_0``, ``BatchNorm_0``,
   ``{head}_out``, ``cal_*`` and each ``*_stack/Conv_k`` (grouped convs
   too: HWIO (kh, kw, C / groups, F) -> (F, C / groups, kh, kw)) map by
   the Conv rule, each ``*_stack/GroupNorm_k`` by the ``scale`` rule;
+- the factorized 3D trunk's R(2+1)D convs (``PolarDenseFHD(factorized=
+  True)``: a stage conv's ``conv_bev`` / ``conv_z``, a residual block's
+  ``conv1_bev``, ``conv1_z``, ``conv2_bev``, ``conv2_z``) map by the Conv
+  rule, DHWIO -> OIDHW;
 - ``models.cswin``'s ``CSWinBlock`` needs no rule of its own: its
   ``qkv``, ``proj``, ``mlp/Dense_k`` and each branch's ``pos_fc1`` /
   ``pos_fc2`` map by the Dense rule, ``norm1``, ``norm2`` and ``pos_ln``
   by the ``scale`` rule.
 
 Inputs are nested dicts of numpy arrays (``{"params": ..., "batch_stats":
-...}``), so this module needs neither jax nor flax.
+...}``), so this module needs neither jax nor flax. :func:`flax_leaf`
+reads the layouts backwards (a port parameter -> its flax path and
+shape), as the mesh's model axis needs (``parallel.tp``).
 """
 
 import re
@@ -82,25 +88,46 @@ def _keeps_names(mods):
         is not None)
 
 
-def _param(path, arr):
+def _kernel_layout(mods, ndim):
+    """A flax ``kernel`` of rank ``ndim`` under the modules ``mods`` ->
+    (the transpose taking it to the port's layout, whether it is flipped
+    spatially first)."""
+    if ndim == 4 and mods and mods[-1].startswith("ConvTranspose"):
+        return (2, 3, 0, 1), True
+    perm = {4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2), 2: (1, 0)}.get(ndim)
+    if perm is None:
+        raise ValueError(f"unexpected kernel {'/'.join(mods)} of rank {ndim}")
+    return perm, False
+
+
+def _param_layout(path, ndim):
+    """A flax parameter's path and rank -> (its port name, the transpose
+    to the port's layout or None, whether it is flipped first)."""
     *mods, leaf = _collapse(path)
+    perm, flip = None, False
     if _keeps_names(mods):
         pass
     elif leaf == "kernel":
-        if arr.ndim == 4 and mods and mods[-1].startswith("ConvTranspose"):
-            arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
-        elif arr.ndim == 4:
-            arr = arr.transpose(3, 2, 0, 1)
-        elif arr.ndim == 5:
-            arr = arr.transpose(4, 3, 0, 1, 2)
-        elif arr.ndim == 2:
-            arr = arr.T
-        else:
-            raise ValueError(f"unexpected kernel {'/'.join(path)} {arr.shape}")
+        perm, flip = _kernel_layout(mods, ndim)
         leaf = "weight"
     elif leaf == "scale":
         leaf = "weight"
-    return ".".join(mods + [leaf]), arr
+    return ".".join(mods + [leaf]), perm, flip
+
+
+def torch_param_name(path, ndim):
+    """A flax parameter's path (a tuple of names) and rank -> the port
+    parameter it loads into."""
+    return _param_layout(path, ndim)[0]
+
+
+def _param(path, arr):
+    name, perm, flip = _param_layout(path, arr.ndim)
+    if flip:
+        arr = arr[::-1, ::-1]
+    if perm is not None:
+        arr = arr.transpose(perm)
+    return name, arr
 
 
 def _stat(path, arr):
@@ -134,3 +161,21 @@ def flax_param_path(name, ndim):
     if leaf == "weight" and not _keeps_names(mods):
         leaf = "kernel" if ndim > 1 else "scale"
     return "/".join(mods + [leaf])
+
+
+def flax_leaf(name, shape):
+    """A port parameter's name and shape -> (its flax path, the flax
+    leaf's shape, the port dim that holds the flax leaf's last dim): the
+    layouts of :func:`flax_to_torch` read backwards. A kernel's output
+    channels are dim 0 of a Linear, Conv2d or Conv3d weight and dim 1 of
+    a ConvTranspose2d weight; a parameter that keeps flax's name keeps its
+    layout."""
+    path = flax_param_path(name, len(shape))
+    *mods, leaf = path.split("/")
+    if leaf != "kernel" or _keeps_names(mods):
+        return path, tuple(shape), len(shape) - 1
+    perm, _ = _kernel_layout(mods, len(shape))
+    fshape = [0] * len(shape)
+    for i, axis in enumerate(perm):     # port dim i holds flax axis perm[i]
+        fshape[axis] = shape[i]
+    return path, tuple(fshape), perm.index(len(shape) - 1)

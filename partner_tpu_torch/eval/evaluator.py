@@ -24,13 +24,17 @@ segmentation-only detector's frames have no boxes: ``prediction.pkl`` is
 then empty, as in JAX.
 
 With a process group (``parallel.dist``; torchrun's ranks) the eval is
-sharded as JAX's mesh eval is (``evaluator.py:115-135,197-201``): the
-batch size is the global batch's, each rank loads and predicts its
-positional part of each global batch (``data.loader``), and
-``parallel.dist.all_gather_object`` brings every rank's detections and
-seg predictions to rank 0, which writes ``prediction.pkl`` (frames in the
-dataset's order, whatever rank or loader thread predicted them) and
-evaluates; the other ranks return ``(None, fps)``.
+sharded as JAX's mesh eval is (``evaluator.py:115-135,197-201``), on the
+current mesh (``parallel.mesh``): the batch size is the global batch's,
+the ranks of data coordinate d predict the d-th positional part of each
+global batch (``data.loader``) together, on the detector
+``parallel.mesh.place`` put on the mesh (d's rank at model 0, azimuth 0
+loads it for all: ``parallel.mesh.batches``), and
+``parallel.dist.all_gather_object`` brings the detections and seg
+predictions of the ranks at model 0, azimuth 0 (the others add none, so
+no frame is counted twice) to rank 0, which writes ``prediction.pkl``
+(frames in the dataset's order, whatever rank or loader thread predicted
+them) and evaluates; the other ranks return ``(None, fps)``.
 """
 
 import os
@@ -43,7 +47,7 @@ import torch
 from ..data import build_dataloader
 from ..data.pipeline import read_lidarseg
 from ..ops.voxelize import DeviceVoxelizer
-from ..parallel import dist
+from ..parallel import dist, mesh
 
 # the lidarseg classes (after the 32 -> 17 merge) of the ten detection
 # classes, and each one's label in NuScenesDataset.CLASSES
@@ -109,14 +113,20 @@ def evaluate(det, dataset, work_dir, logger, device, batch_size=1,
     (the only process without a group), (None, fps) on the others. The
     input contract is ``input_kind``, the detector's own (``points``) when
     None; ``voxels`` needs the config ``cfg``. ``batch_size`` is the
-    global batch, which the world size must divide; ``max_frames`` counts
+    global batch, which the mesh's data axis must divide; ``max_frames`` counts
     the global batches' frames; ``fps`` is global frames a second."""
-    rank, world = dist.process_info()
+    rank, _ = dist.process_info()
+    grid = mesh.current()
+    d = grid.coords[0]
+    world = grid.n_data
+    # one copy of each frame's predictions: its data coordinate's rank at
+    # model 0, azimuth 0
+    keep = grid.coords[1:] == (0, 0)
     predict = build_predict_fn(det, device, cfg,
                                input_kind or det.input_kind)
     loader = build_dataloader(dataset, batch_size, workers_per_gpu=4,
                               shuffle=False, max_points=max_points,
-                              rank=rank, world_size=world)
+                              rank=d, world_size=world)
     vshape = dict((cfg or {}).get("voxel_generator", {})).get(
         "voxel_shape", getattr(det, "voxel_shape", "cylinder"))
     # the cartesian xy columns (transform_points: cylinder rows are
@@ -124,7 +134,7 @@ def evaluate(det, dataset, work_dir, logger, device, batch_size=1,
     xy_cols = slice(3, 5) if vshape == "cylinder" else slice(0, 2)
     detections, seg_preds, times = {}, {}, []
     n_frames = n_global = 0
-    for batch in loader:
+    for batch in mesh.batches(loader, grid):
         t0 = time.perf_counter()
         out = predict(batch["points"], batch["points_mask"])
         times.append(time.perf_counter() - t0)
@@ -132,16 +142,16 @@ def evaluate(det, dataset, work_dir, logger, device, batch_size=1,
         group = len(batch["points"]) // max(1, len(batch["metadata"]))
         for i, meta in enumerate(batch["metadata"]):
             token = meta["token"] if meta else (
-                str(n_frames) if world == 1 else f"{rank}:{n_frames}")
-            if "box3d_lidar" in out:
-                m = out["mask"][i]
+                str(n_frames) if world == 1 else f"{d}:{n_frames}")
+            if keep and "box3d_lidar" in out:
+                kept = out["mask"][i]
                 detections[token] = {
-                    "box3d_lidar": out["box3d_lidar"][i][m],
-                    "scores": out["scores"][i][m],
-                    "label_preds": out["label_preds"][i][m],
+                    "box3d_lidar": out["box3d_lidar"][i][kept],
+                    "scores": out["scores"][i][kept],
+                    "label_preds": out["label_preds"][i][kept],
                     "metadata": meta,
                 }
-            if "point_seg_labels" in out:
+            if keep and "point_seg_labels" in out:
                 pm = batch["points_mask"][i * group]
                 n_key = (meta or {}).get("n_key_points", int(pm.sum()))
                 seg_preds[token] = {

@@ -12,14 +12,17 @@ buffers:
                 gaussians, / vote_num
   loss_iou      smooth-L1 (beta 1) of the predicted IoU against
                 2 * IoU3D(decode(pred), gt) - 1, / num_boxes
+  loss_iou_reg  1 - DIoU (``iou_reg_type``: IoU, GIoU or DIoU;
+                ``losses.iou_losses``) of the decoded matched boxes
+                against their gt, summed over the matches, / num_boxes
+                (where ``losses`` names it)
 
 The assignment (the auction matcher) and the IoU target carry no
 gradient; ``num_boxes`` and ``vote_num`` are floored at 1. In a
 data-parallel step both are the global batch's counts
 (``parallel.dist.global_sum``, floored after the sum), so each rank's terms
 are its part of the global batch's (JAX's ``axis_name`` form,
-``set_crit.py:81-82``). The
-``loss_iou_reg`` (DIoU) term is not ported: the flagship does not use it.
+``set_crit.py:81-82``).
 """
 
 import torch
@@ -28,15 +31,15 @@ import torch.nn.functional as F
 from ..ops.rotated_iou import boxes_iou3d
 from ..parallel.dist import global_sum
 from .centernet import sigmoid_focal_loss, smooth_l1
+from .iou_losses import iou_reg_loss
 from .matcher import assign_auction
 
 
 class SetCriterion:
     def __init__(self, box_coder, weight_dict, losses, sigma=3.0,
                  code_weights=(1.0,) * 8, gamma=2.0, alpha=0.25,
-                 matcher_weights=None):
-        if "loss_iou_reg" in losses:
-            raise ValueError("loss_iou_reg (DIoU) is not ported")
+                 matcher_weights=None, iou_reg_type="DIoU"):
+        self.iou_reg_type = iou_reg_type
         self.coder = box_coder
         self.weight_dict = dict(weight_dict)
         self.losses = list(losses)
@@ -103,6 +106,12 @@ class SetCriterion:
             p_iou = torch.gather(preds["pred_ious"][..., 0], 1, safe_idx)
             li = smooth_l1_torch(p_iou - t_iou) * matched
             out["loss_iou"] = li.sum() / num_boxes
+
+        if "loss_iou_reg" in self.losses:   # ``set_crit.py:133-140``
+            dec = _safe_dims(self.coder.decode(pred_matched)[..., :7])
+            out["loss_iou_reg"] = iou_reg_loss(
+                dec, gt_boxes[..., :7], self.iou_reg_type,
+                mask=matched) / num_boxes
 
         out["loss"] = sum(out[k] * self.weight_dict[k] for k in out
                           if k in self.weight_dict)

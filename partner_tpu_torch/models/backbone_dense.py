@@ -10,7 +10,12 @@ into the stride-8 BEV map: the 2D ``trunk2d`` trunk of the PARTNER
 configs, or the 3D-conv trunk of the CenterPoint configs (the canvas
 unfolded to (B, cz, cy, cx, C); 3x3x3 stages at 1/4 and 1/8 resolution,
 then the z-squeeze ``extra_conv`` and the channel fold). The 3D trunk's
-``factorized`` option (no config sets it) is not ported.
+``factorized`` option (no config sets it) splits each 3x3x3 conv into the
+R(2+1)D pair of ``backbone_dense.py:44-103``: a (1, 3, 3) BEV conv
+carrying the spatial stride, then a (3, 1, 1) z conv carrying the z
+stride (``conv_bev`` / ``conv_z`` in a stage conv, ``conv{k}_bev`` /
+``conv{k}_z`` in a residual block; flax's names, so converted weights
+load by name).
 
 In eval mode the stem runs through :func:`ops.stem.stem2_channel_major`
 (the CUDA kernel for CUDA tensors, its plain twin for CPU tensors). In
@@ -67,34 +72,65 @@ class Dense2DResBlock(nn.Module):
 
 
 class DenseConvBlock(nn.Module):
-    """3D conv (no bias) + BN + ReLU (the 3D trunk's stage convs)."""
+    """3D conv (no bias) + BN + ReLU (the 3D trunk's stage convs);
+    ``factorized`` (a 3x3x3 kernel only) the (1, 3, 3) ``conv_bev`` with
+    the spatial stride, then the (3, 1, 1) ``conv_z`` with the z
+    stride."""
 
     def __init__(self, in_features, features, kernel=(3, 3, 3),
-                 stride=(1, 1, 1), padding="SAME", dtype=torch.bfloat16):
+                 stride=(1, 1, 1), padding="SAME", dtype=torch.bfloat16,
+                 factorized=False):
         super().__init__()
         self.dtype = dtype
-        self.Conv_0 = Conv3d(in_features, features, kernel, stride, padding,
-                             dtype=dtype)
+        if factorized and tuple(kernel) == (3, 3, 3):
+            sz, sy, sx = stride
+            self.conv_bev = Conv3d(in_features, features, (1, 3, 3),
+                                   (1, sy, sx), padding, dtype=dtype)
+            self.conv_z = Conv3d(features, features, (3, 1, 1), (sz, 1, 1),
+                                 padding, dtype=dtype)
+            self.convs = ("conv_bev", "conv_z")
+        else:
+            self.Conv_0 = Conv3d(in_features, features, kernel, stride,
+                                 padding, dtype=dtype)
+            self.convs = ("Conv_0",)
         self.BatchNorm_0 = BatchNorm(features, BN_EPS, BN_MOMENTUM)
 
     def forward(self, x):
-        return torch.relu(self.BatchNorm_0(self.Conv_0(x))).to(self.dtype)
+        for name in self.convs:
+            x = getattr(self, name)(x)
+        return torch.relu(self.BatchNorm_0(x)).to(self.dtype)
 
 
 class DenseBasicBlock(nn.Module):
-    """Two 3x3x3 convs with residual."""
+    """Two 3x3x3 convs with residual; ``factorized``: each the (1, 3, 3)
+    ``conv{k}_bev`` then the (3, 1, 1) ``conv{k}_z``."""
 
-    def __init__(self, features, dtype=torch.bfloat16):
+    def __init__(self, features, dtype=torch.bfloat16, factorized=False):
         super().__init__()
         self.dtype = dtype
-        self.conv1 = Conv3d(features, features, (3, 3, 3), dtype=dtype)
-        self.BatchNorm_0 = BatchNorm(features, BN_EPS, BN_MOMENTUM)
-        self.conv2 = Conv3d(features, features, (3, 3, 3), dtype=dtype)
-        self.BatchNorm_1 = BatchNorm(features, BN_EPS, BN_MOMENTUM)
+        self.factorized = factorized
+        for k, name in enumerate(("conv1", "conv2")):
+            if factorized:
+                setattr(self, f"{name}_bev", Conv3d(
+                    features, features, (1, 3, 3), dtype=dtype))
+                setattr(self, f"{name}_z", Conv3d(
+                    features, features, (3, 1, 1), dtype=dtype))
+            else:
+                setattr(self, name, Conv3d(features, features, (3, 3, 3),
+                                           dtype=dtype))
+            setattr(self, f"BatchNorm_{k}",
+                    BatchNorm(features, BN_EPS, BN_MOMENTUM))
+
+    def _conv(self, x, name):
+        if self.factorized:
+            x = getattr(self, f"{name}_bev")(x)
+            name = f"{name}_z"
+        return getattr(self, name)(x)
 
     def forward(self, x):
-        y = torch.relu(self.BatchNorm_0(self.conv1(x))).to(self.dtype)
-        y = self.BatchNorm_1(self.conv2(y))
+        y = torch.relu(self.BatchNorm_0(self._conv(x, "conv1"))).to(
+            self.dtype)
+        y = self.BatchNorm_1(self._conv(y, "conv2"))
         return torch.relu(y.to(self.dtype) + x)
 
 
@@ -116,10 +152,6 @@ class PolarDenseFHD(nn.Module):
         conv's width, cz * F2, and the 3D trunk's BEV width depend on
         it."""
         super().__init__()
-        if factorized:
-            raise NotImplementedError(
-                "PolarDenseFHD(factorized=True) is not ported: no config "
-                "of the repo sets it")
         if len(stem_features) != 2:
             raise ValueError("the fused stem takes exactly two layers")
         self.num_input_features = num_input_features
@@ -155,12 +187,16 @@ class PolarDenseFHD(nn.Module):
             return
         # the z-squeeze leaves (cz - 3) // 2 + 1 planes of 2F channels
         self.out_features = 2 * f * ((cz - 3) // 2 + 1)
-        self.conv_a = DenseConvBlock(f, f, dtype=dt)
+        fz = factorized
+        self.conv_a = DenseConvBlock(f, f, dtype=dt, factorized=fz)
         for i in range(stage_a_blocks):
-            setattr(self, f"block_a{i}", DenseBasicBlock(f, dtype=dt))
-        self.conv_b = DenseConvBlock(f, 2 * f, stride=(1, 2, 2), dtype=dt)
+            setattr(self, f"block_a{i}",
+                    DenseBasicBlock(f, dtype=dt, factorized=fz))
+        self.conv_b = DenseConvBlock(f, 2 * f, stride=(1, 2, 2), dtype=dt,
+                                     factorized=fz)
         for i in range(stage_b_blocks):
-            setattr(self, f"block_b{i}", DenseBasicBlock(2 * f, dtype=dt))
+            setattr(self, f"block_b{i}",
+                    DenseBasicBlock(2 * f, dtype=dt, factorized=fz))
         self.extra_conv = DenseConvBlock(2 * f, 2 * f, kernel=(3, 1, 1),
                                          stride=(2, 1, 1), padding="VALID",
                                          dtype=dt)

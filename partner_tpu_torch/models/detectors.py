@@ -39,6 +39,7 @@ import torch.nn as nn
 from ..core.center_coder import build_coder
 from ..core.geometry import bev_cell_centers
 from ..losses.set_crit import SetCriterion
+from ..parallel import dist
 from ..parallel.dist import global_sum
 from ..utils.dtypes import resolve_compute_dtype
 from . import e2e_head
@@ -108,6 +109,9 @@ class VoxelNetModule(nn.Module):
         self.pc_range = tuple(pc_range)
         self.out_size_factor = out_size_factor
         self.with_set_attention = with_set_attention
+        # this rank's part of an azimuth-sharded neck (``parallel.mesh.
+        # place``), or None: the whole map
+        self.azimuth = None
         reader_cfg = dict(reader_cfg)
         if reader_cfg.get("type") in _PFN_READERS:
             raise NotImplementedError(
@@ -188,11 +192,23 @@ class VoxelNetModule(nn.Module):
             x = self.attns(x, pos[None].expand(x.shape[0], -1, -1, -1),
                            generator)
             bev = x.transpose(1, 2)
-        x = self.neck(bev)
+        x = self.neck(bev) if self.azimuth is None else self.sharded_neck(bev)
         out = {} if self.bbox_head is None else self.bbox_head(x)
         if self.seg_head is not None:
             out = dict(out, seg_preds=self.seg_head(bev, x)["seg_preds"])
         return (out, x) if return_bev else out
+
+
+    def sharded_neck(self, bev):
+        """The neck on this rank's azimuth rows, as XLA partitions it under
+        JAX's ``bev_pspec`` (``detectors.py:63-66, 154-155``): the backbone
+        and the SetBlock ran on the whole map on every azimuth rank; the
+        neck's BatchNorm statistics reduce over data x azimuth; its output
+        is all-gathered over the azimuth group for the heads."""
+        az = self.azimuth
+        with dist.reducing(az.neck_group):
+            x = self.neck(az.split(bev), azimuth=az.group)
+        return az.gather(x)
 
 
 class E2EDetector:

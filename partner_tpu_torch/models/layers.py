@@ -122,11 +122,16 @@ class Conv2d(nn.Module):
     def fan_in(self):
         return math.prod(self.weight.shape[1:])
 
-    def forward(self, x):
+    def forward(self, x, padding=None):
+        """``padding`` (an int or an (H, W) pair) in place of the
+        module's own, where given."""
         dt = self.dtype
-        k = self.weight.shape[-1]
+        weight = self.weight
+        k = weight.shape[-1]
         x = x.permute(0, 3, 1, 2).to(dt)
-        if self.padding == "SAME":
+        if padding is not None:
+            pad = padding
+        elif self.padding == "SAME":
             ph = same_pads(x.shape[2], k, self.stride)
             pw = same_pads(x.shape[3], k, self.stride)
             if ph[0] == ph[1] and pw[0] == pw[1]:
@@ -137,8 +142,7 @@ class Conv2d(nn.Module):
         else:
             pad = int(self.padding)
         b = None if self.bias is None else self.bias.to(dt)
-        y = F.conv2d(x, self.weight.to(dt), b, self.stride, pad, 1,
-                     self.groups)
+        y = F.conv2d(x, weight.to(dt), b, self.stride, pad, 1, self.groups)
         return y.permute(0, 2, 3, 1)
 
 
@@ -159,16 +163,17 @@ class Conv3d(nn.Module):
 
     def forward(self, x):
         dt = self.dtype
+        weight = self.weight
         x = x.permute(0, 4, 1, 2, 3).to(dt)
         pad = 0
         if self.padding == "SAME":
-            pads = [same_pads(x.shape[2 + i], self.weight.shape[2 + i],
+            pads = [same_pads(x.shape[2 + i], weight.shape[2 + i],
                               self.stride[i]) for i in range(3)]
             if all(a == b for a, b in pads):
                 pad = tuple(a for a, _ in pads)
             else:
                 x = F.pad(x, [v for p in pads[::-1] for v in p])
-        y = F.conv3d(x, self.weight.to(dt), None, self.stride, pad)
+        y = F.conv3d(x, weight.to(dt), None, self.stride, pad)
         return y.permute(0, 2, 3, 4, 1)
 
 

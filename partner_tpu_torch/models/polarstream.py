@@ -513,7 +513,9 @@ def check_stream_neck(neck):
     raise at its first sector."""
     name = dict(neck).get("type")
     cls = NECKS.get(name)
-    if cls is not None and len(inspect.signature(cls.forward).parameters) < 3:
+    positional = [p for p in inspect.signature(cls.forward).parameters.values()
+                  if p.kind == p.POSITIONAL_OR_KEYWORD] if cls else []
+    if cls is not None and len(positional) < 3:
         raise ValueError(
             f"a sector-streaming detector passes its neck each sector's "
             f"context; neck {name} takes none (a context neck: "

@@ -5,11 +5,19 @@ Per scale: a 3x3 conv with stride s (explicit padding 1) + BN + ReLU, then
 for stride > 1, a 1x1 conv for stride 1) whose outputs are concatenated.
 Submodules carry flax's creation-order names (``Conv_k``, ``BatchNorm_k``,
 ``ConvTranspose_k``) so converted weights load by name.
+
+On the mesh's azimuth axis (``parallel.halo.AzimuthShard``) the neck runs
+on a rank's contiguous run of azimuth rows: each 3x3 conv takes one row
+from each neighbour (``parallel.halo.edge_halo``; zeros past the sweep's
+two ends, the unsharded conv's zero padding), a stride-2 conv the previous
+row alone, and a deblock (a transpose conv whose kernel is its stride, or
+a 1x1 conv) none.
 """
 
 import torch
 import torch.nn as nn
 
+from ..parallel.halo import edge_halo
 from ..utils.dtypes import resolve_compute_dtype
 from .layers import BN_EPS, BN_MOMENTUM, BatchNorm, Conv2d, ConvTranspose2d
 from .registry import NECKS
@@ -57,14 +65,22 @@ class RPN(nn.Module):
                 up = (deb, add("BatchNorm", BatchNorm(uf, BN_EPS, BN_MOMENTUM)))
             self.stages.append((units, up))
 
-    def forward(self, x):
-        """x (B, H, W, C) -> (B, H', W', sum(us_num_filters)) float32."""
+    def forward(self, x, *, azimuth=None):
+        """x (B, H, W, C) -> (B, H', W', sum(us_num_filters)) float32.
+        ``azimuth``: the process group of an azimuth-sharded neck, whose
+        ranks each hold a run of H."""
         dt = self.dtype
         x = x.to(dt)
         ups = []
         for units, up in self.stages:
             for conv, bn in units:
-                x = torch.relu(getattr(self, bn)(getattr(self, conv)(x))).to(dt)
+                c = getattr(self, conv)
+                if azimuth is None:
+                    y = c(x)
+                else:
+                    y = c(edge_halo(x, 1, int(c.stride == 1), azimuth),
+                          padding=(0, 1))
+                x = torch.relu(getattr(self, bn)(y)).to(dt)
             if up is not None:
                 deb, bn = up
                 ups.append(torch.relu(getattr(self, bn)(getattr(self, deb)(x))))

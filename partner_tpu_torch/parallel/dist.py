@@ -15,12 +15,20 @@ of its own rows (an all-reduce of the whole cotangent, so no
 ``reduce_scatter`` is needed: gloo has none). Outside :func:`reducing` both
 are the identity, and the step computes what one process computes.
 
-The model's collectives run on a group of their own (:func:`model_group`,
-the same ranks), apart from the default group that
-``DistributedDataParallel`` reduces the gradients on: the two streams of
-collectives then never have to interleave alike on every rank.
+The model's collectives run on groups of their own, apart from the
+gradient group that ``DistributedDataParallel`` reduces on
+(``parallel.mesh``: the statistics on the ``data`` group, or inside an
+azimuth-sharded neck on ``neck``; the gradients on ``grad``), so the
+streams of collectives never have to interleave alike on every rank.
 ``counts["collectives"]`` counts every collective this module and the
 train step's gradient hook issue.
+
+Two processes sharing one card run gloo (NCCL refuses two ranks on one
+device). On an NVIDIA H100 with torch 2.11, gloo takes CUDA tensors in
+``all_reduce``, ``broadcast`` and ``all_gather`` and aborts the process
+on a point-to-point send of one (``tools/gloo_cuda_probe.py``), so on a
+gloo group the halo's sends (:func:`exchange`) go through host copies.
+NCCL takes them as they are.
 """
 
 import contextlib
@@ -29,8 +37,10 @@ import os
 import torch
 import torch.distributed as tdist
 
+from . import mesh
+
 counts = {"collectives": 0}
-_state = {"group": None, "model_group": None, "owned": False}
+_state = {"group": None, "owned": False}
 
 
 def initialize(device="cuda"):
@@ -64,7 +74,8 @@ def finalize():
     if _state["owned"] and tdist.is_initialized():
         tdist.barrier()
         tdist.destroy_process_group()
-    _state.update(group=None, model_group=None, owned=False)
+    _state.update(group=None, owned=False)
+    mesh.set_current(None)
 
 
 def process_info():
@@ -78,6 +89,15 @@ def is_main_process():
     return process_info()[0] == 0
 
 
+def broadcast_object(obj, src, group):
+    """The global rank ``src``'s picklable ``obj`` on every rank of
+    ``group`` (``obj`` is read on ``src`` only), counted."""
+    box = [obj]
+    counts["collectives"] += 1
+    tdist.broadcast_object_list(box, src=src, group=group)
+    return box[0]
+
+
 def all_gather_object(obj):
     """Every rank's picklable ``obj`` -> a list in rank order (payloads of
     any size); ``[obj]`` without a group."""
@@ -89,21 +109,13 @@ def all_gather_object(obj):
     return out
 
 
-def model_group():
-    """The group of the model's collectives: every rank, apart from the
-    default group (made once, by every rank together)."""
-    if _state["model_group"] is None:
-        _state["model_group"] = tdist.new_group(
-            list(range(tdist.get_world_size())))
-    return _state["model_group"]
-
-
 @contextlib.contextmanager
-def reducing():
+def reducing(group=None):
     """Inside, :func:`global_sum` and :func:`global_cat` reduce over
-    :func:`model_group`."""
+    ``group``, by default the current mesh's ``data`` group (with no mesh
+    built, a data-only mesh of the running group)."""
     old = _state["group"]
-    _state["group"] = model_group()
+    _state["group"] = mesh.current().data if group is None else group
     try:
         yield _state["group"]
     finally:
@@ -136,22 +148,73 @@ class _GlobalSum(torch.autograd.Function):
                            ctx.group), None
 
 
-class _GlobalCat(torch.autograd.Function):
+def all_gather(t, group):
+    """Every rank's ``t`` (one shape on every rank) over ``group`` -> a
+    list in group rank order, counted."""
+    src = t.contiguous()
+    parts = [torch.empty_like(src) for _ in range(tdist.get_world_size(group))]
+    counts["collectives"] += 1
+    tdist.all_gather(parts, src, group=group)
+    return parts
+
+
+def exchange(t, dst, src, group):
+    """Send ``t`` to the global rank ``dst`` and return what the global
+    rank ``src`` sent (one ``batch_isend_irecv``; a CUDA tensor on a gloo
+    group through the host), counted."""
+    t = t.contiguous()
+    host = t.is_cuda and tdist.get_backend(group) == "gloo"
+    send = t.cpu() if host else t
+    out = torch.empty_like(send)
+    counts["collectives"] += 1
+    ops = [tdist.P2POp(tdist.isend, send, dst, group),
+           tdist.P2POp(tdist.irecv, out, src, group)]
+    for w in tdist.batch_isend_irecv(ops):
+        w.wait()
+    return out.to(t.device) if host else out
+
+
+class _CatOver(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, group):
-        n = tdist.get_world_size(group)
-        ctx.group, ctx.rows = group, t.shape[0]
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim, ctx.rows = group, dim, t.shape[dim]
         ctx.rank = tdist.get_rank(group)
-        parts = [torch.empty_like(t) for _ in range(n)]
-        counts["collectives"] += 1
-        tdist.all_gather(parts, t.contiguous(), group=group)
-        return torch.cat(parts, 0)
+        return torch.cat(all_gather(t, group), dim)
 
     @staticmethod
     def backward(ctx, g):
         g = all_reduce_(g.clone(memory_format=torch.contiguous_format),
                         ctx.group)
-        return g[ctx.rank * ctx.rows: (ctx.rank + 1) * ctx.rows], None
+        return g.narrow(ctx.dim, ctx.rank * ctx.rows, ctx.rows), None, None
+
+
+def cat_over(t, group, dim=0):
+    """Every rank's ``t`` over ``group`` concatenated along ``dim`` in
+    group rank order (autograd: each rank's part gets the sum of every
+    rank's cotangent of it, an all-reduce of the whole cotangent, so no
+    ``reduce_scatter`` is needed: gloo has none)."""
+    if t.requires_grad:
+        return _CatOver.apply(t, group, dim)
+    flag = t.dtype == torch.bool
+    out = torch.cat(all_gather(t.to(torch.uint8) if flag else t, group), dim)
+    return out.bool() if flag else out
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, scale):
+        ctx.scale = scale
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def scale_grad(t, scale):
+    """``t`` itself, whose cotangent is scaled by ``scale`` on its way
+    back."""
+    return _ScaleGrad.apply(t, scale)
 
 
 def global_sum(t):
@@ -172,17 +235,7 @@ def global_cat(t):
     (autograd: each rank's rows get the sum of every rank's cotangent of
     them); ``t`` itself outside :func:`reducing`."""
     g = _state["group"]
-    if g is None:
-        return t
-    if t.requires_grad:
-        return _GlobalCat.apply(t, g)
-    flag = t.dtype == torch.bool
-    src = (t.to(torch.uint8) if flag else t).contiguous()
-    parts = [torch.empty_like(src) for _ in range(tdist.get_world_size(g))]
-    counts["collectives"] += 1
-    tdist.all_gather(parts, src, group=g)
-    out = torch.cat(parts, 0)
-    return out.bool() if flag else out
+    return t if g is None else cat_over(t, g, 0)
 
 
 def sum_terms(terms, group):
@@ -205,10 +258,12 @@ def sum_terms(terms, group):
     return out
 
 
-def sum_gradients_hook(state, bucket):
-    """``DistributedDataParallel`` comm hook: sum each gradient bucket over
-    the ranks (DDP's own hook averages). Each rank's loss is its part of
-    the global loss, so the sum is the global batch's gradient."""
+def sum_gradients_hook(group, bucket):
+    """``DistributedDataParallel`` comm hook (its state the gradient
+    ``group``): sum each gradient bucket over the group (DDP's own hook
+    averages). Each rank's loss is its part of the global loss, so the sum
+    is the global batch's gradient."""
     counts["collectives"] += 1
-    fut = tdist.all_reduce(bucket.buffer(), async_op=True).get_future()
+    fut = tdist.all_reduce(bucket.buffer(), group=group,
+                           async_op=True).get_future()
     return fut.then(lambda f: f.value()[0])

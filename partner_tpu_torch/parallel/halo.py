@@ -13,6 +13,17 @@ neighbour that skipped one.
 A module names its group as JAX names its mesh axis: ``RPNHalo(axis_name=
 "azimuth")`` reads the group :func:`set_axis_group` registered under that
 name; an unregistered name raises, as an unbound axis name does in JAX.
+
+The mesh's ``azimuth`` axis (``parallel.mesh``) shards the neck of
+``VoxelNetV3`` and ``VoxelNet`` as XLA partitions it under JAX's
+``bev_pspec``: :class:`AzimuthShard` keeps each rank's contiguous rows of
+the BEV map (:meth:`~AzimuthShard.split`; the backward pads the other rows
+with zeros), ``RPN`` runs on them with :func:`edge_halo` before each 3x3
+conv (a neighbour's row on each side, zeros past the sweep's two ends, as
+the unsharded conv's zero padding; not ``RPNHalo``'s ring), and
+:meth:`~AzimuthShard.gather` all-gathers the neck's output for the heads
+(the backward sums the cotangent over the group and keeps the rank's
+rows).
 """
 
 import torch
@@ -47,16 +58,8 @@ def _send_along(t, group, step):
     if n == 1:
         return t.clone()
     r = tdist.get_rank(group)
-    dst = tdist.get_global_rank(group, (r + step) % n)
-    src = tdist.get_global_rank(group, (r - step) % n)
-    t = t.contiguous()
-    out = torch.empty_like(t)
-    dist.counts["collectives"] += 1
-    ops = [tdist.P2POp(tdist.isend, t, dst, group),
-           tdist.P2POp(tdist.irecv, out, src, group)]
-    for w in tdist.batch_isend_irecv(ops):
-        w.wait()
-    return out
+    return dist.exchange(t, tdist.get_global_rank(group, (r + step) % n),
+                         tdist.get_global_rank(group, (r - step) % n), group)
 
 
 class _Shift(torch.autograd.Function):
@@ -107,3 +110,51 @@ def trailing_halo(x, pad, group=None, axis=1):
     first = torch.tensor(tdist.get_rank(g) == 0, device=x.device)
     prev = torch.where(first, torch.zeros_like(prev), prev)
     return torch.cat([prev, x, tail], dim=axis)
+
+
+def _zeroed(t):
+    """Zeros in ``t``'s place that keep ``t`` in the graph, so its shift's
+    backward runs (and sends a zero cotangent) on this rank too."""
+    keep = torch.ones((), dtype=torch.bool, device=t.device)
+    return torch.where(keep, torch.zeros_like(t), t)
+
+
+def edge_halo(x, before, after, group, axis=1):
+    """The previous shard's trailing ``before`` rows prepended and the next
+    shard's leading ``after`` rows appended along ``axis``, zeros past the
+    first and the last shard (a conv's zero padding at the sweep's ends).
+    Every rank takes part in every shift."""
+    parts = [x]
+    n, r = tdist.get_world_size(group), tdist.get_rank(group)
+    if before:
+        prev = shift(x.narrow(axis, x.shape[axis] - before, before), group, 1)
+        parts.insert(0, _zeroed(prev) if r == 0 else prev)
+    if after:
+        nxt = shift(x.narrow(axis, 0, after), group, -1)
+        parts.append(_zeroed(nxt) if r == n - 1 else nxt)
+    return torch.cat(parts, dim=axis)
+
+
+class AzimuthShard:
+    """This rank's part of an azimuth-sharded neck: the ``azimuth`` group
+    (ring order) and the ``neck`` group (data x azimuth) its BatchNorm
+    statistics reduce over."""
+
+    def __init__(self, group, neck_group):
+        self.group = group
+        self.neck_group = neck_group
+        self.size = tdist.get_world_size(group)
+        self.index = tdist.get_rank(group)
+
+    def split(self, x, axis=1):
+        """This rank's contiguous run of ``x``'s rows along ``axis``."""
+        rows = x.shape[axis]
+        if rows % self.size:
+            raise ValueError(f"{rows} azimuth rows do not split over "
+                             f"{self.size} ranks")
+        n = rows // self.size
+        return x.narrow(axis, self.index * n, n)
+
+    def gather(self, x, axis=1):
+        """Every rank's run, in order: the whole map."""
+        return dist.cat_over(x, self.group, axis)

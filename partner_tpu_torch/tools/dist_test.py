@@ -3,9 +3,11 @@
     python -m partner_tpu_torch.tools.dist_test CONFIG --checkpoint CKPT
         [--work_dir D] [--speed_test] [--testset] [--max_frames N]
         [--max_points P] [--batch_size B] [--input auto|points|voxels]
-        [--device cuda|cpu] [--static_rpe] [--mesh auto|data=N]
-    python -m torch.distributed.run --nproc_per_node N \
-        -m partner_tpu_torch.tools.dist_test CONFIG ... --mesh data=N
+        [--device cuda|cpu] [--static_rpe]
+        [--mesh auto|data=D,model=M,azimuth=K]
+    python -m torch.distributed.run --nproc_per_node D*M*K \
+        -m partner_tpu_torch.tools.dist_test CONFIG ... \
+        --mesh data=D,model=M,azimuth=K
 
 Reads the config with ``utils.config.load_config``, builds the detector on
 ``--device`` (the card unless ``--device cpu``; with no card it stops with
@@ -26,12 +28,15 @@ without the cache (the CenterPoint detectors) stops with a message.
 
 Under torchrun each process joins the group first
 (``parallel.dist.initialize``: NCCL on the cards, gloo with ``--device
-cpu``) and the eval is sharded: ``--batch_size`` is the global batch
-(which the world size must divide), each rank predicts its part of each,
-and rank 0 gathers the detections, writes ``prediction.pkl`` and
-evaluates (``eval.evaluator``). ``--mesh`` is the JAX CLI's spec: every
-rank on ``data`` (``auto``, or ``data=N`` with N the world size); the
-``model`` and ``azimuth`` axes stop the run (ROADMAP.md queue 1 item 9a).
+cpu``) and the eval runs on the JAX CLI's mesh (``--mesh``, as the train
+CLI reads it: ``parallel.mesh.check`` stops a spec it cannot run, naming
+the cause): ``--batch_size`` is the global batch (which the data axis must
+divide), the ranks of each data coordinate predict their part of each on
+the detector placed on the mesh after its weights are loaded
+(``parallel.mesh.place``: the large kernels sliced over ``model``, the
+neck of VoxelNetV3 and VoxelNet sharded over ``azimuth``), and rank 0
+gathers one copy of the detections, writes ``prediction.pkl`` and
+evaluates (``eval.evaluator``).
 """
 
 import argparse
@@ -57,8 +62,8 @@ def parse_args(argv=None):
     p.add_argument("--static_rpe", action="store_true",
                    help="fill the static-RPE cache before the loop")
     p.add_argument("--mesh", default=None,
-                   help="'auto' or 'data=N' (N the torchrun world size): "
-                        "each rank predicts its part of each global batch")
+                   help="'auto' or 'data=D,model=M,azimuth=K' over the "
+                        "D*M*K torchrun ranks")
     return p.parse_args(argv)
 
 
@@ -72,8 +77,7 @@ def main(argv=None):
     from ..eval.evaluator import evaluate, init_example
     from ..models import build_detector
     from ..models.strobe import no_sweep_loader
-    from ..parallel import dist
-    from ..parallel.mesh import data_axis
+    from ..parallel import dist, mesh
     from ..train.checkpoint import load_checkpoint
     from ..train.hooks import get_logger
     from ..utils.config import load_config
@@ -83,10 +87,13 @@ def main(argv=None):
                  "the CPU")
     owned = dist.initialize(args.device)
     rank, world = dist.process_info()
-    data_axis(args.mesh, world, "dist_test")
+    cfg = load_config(args.config)
+    # --speed_test forces batch 1, as the reference's dist_test does
+    batch_size = 1 if args.speed_test else args.batch_size
+    grid = mesh.build(*mesh.check(args.mesh, world, "dist_test", batch_size,
+                                  cfg["model"]))
     device = (torch.device("cuda", torch.cuda.current_device())
               if args.device == "cuda" else torch.device("cpu"))
-    cfg = load_config(args.config)
     os.makedirs(args.work_dir, exist_ok=True)
     logger = get_logger(args.work_dir)
 
@@ -104,6 +111,7 @@ def main(argv=None):
         logger.info(f"loaded {args.checkpoint}")
     else:
         logger.info("no checkpoint: random weights (seed 0)")
+    mesh.place(det, grid)
     if args.static_rpe:
         if not hasattr(det, "prepare_inference"):
             sys.exit(f"dist_test: --static_rpe fills the E2E head's "
@@ -113,11 +121,6 @@ def main(argv=None):
         logger.info(f"static-RPE cache: {len(tables)} tables, "
                     f"{sum(t.nbytes for t in tables.values())} bytes")
 
-    # --speed_test forces batch 1, as the reference's dist_test does
-    batch_size = 1 if args.speed_test else args.batch_size
-    if batch_size % world:
-        sys.exit(f"dist_test: the global batch {batch_size} does not split "
-                 f"over {world} ranks")
     result, fps = evaluate(det, dataset, args.work_dir, logger, device,
                            batch_size=batch_size, max_points=args.max_points,
                            max_frames=args.max_frames, testset=args.testset,

@@ -5,9 +5,11 @@
         [--total_steps N] [--max_steps_per_epoch N] [--max_points P]
         [--batch_size B] [--validate] [--eval_interval E]
         [--eval_max_frames F] [--tensorboard] [--debug_nans]
-        [--profile_dir D] [--device cuda|cpu] [--mesh auto|data=N]
-    python -m torch.distributed.run --nproc_per_node N \
-        -m partner_tpu_torch.tools.train CONFIG ... --mesh data=N
+        [--profile_dir D] [--device cuda|cpu]
+        [--mesh auto|data=D,model=M,azimuth=K]
+    python -m torch.distributed.run --nproc_per_node D*M*K \
+        -m partner_tpu_torch.tools.train CONFIG ... \
+        --mesh data=D,model=M,azimuth=K
 
 Reads the config with ``utils.config.load_config``, builds the detector on
 ``--device`` (the card unless ``--device cpu``; with no card it stops with
@@ -28,19 +30,26 @@ CLI does:
   a constant, linear or exp warmup; ``by_epoch`` over the run's steps an
   epoch) with the config-built ``build_optimizer`` (adam / adamw,
   amsgrad, sgd); the logged ``lr`` is the schedule's at the step;
-- data parallelism over torchrun's processes, one a card
+- the JAX CLI's mesh over torchrun's processes, one a card
   (``parallel.dist.initialize`` first: NCCL on the cards, gloo with
-  ``--device cpu``): ``--batch_size`` is the global batch (default
-  ``samples_per_gpu`` x the world size), which the world size must
-  divide; each rank loads its positional part of every global batch
-  (``data.loader``), and the step is data-parallel
-  (``train.train_state``), so N ranks train as one process on the
-  global batch; ``--mesh`` is the JAX CLI's spec, every rank on
-  ``data`` (``auto``, or ``data=N`` with N the world size), the
-  ``model`` and ``azimuth`` axes stop the run (ROADMAP.md queue 1 item
-  9a); rank 0 alone logs and writes checkpoints (the inner module's
-  ``state_dict``, no ``module.`` prefix: interchangeable with a
-  one-process run's); every rank resumes from the same checkpoint;
+  ``--device cpu``): ``--mesh`` lays the ranks out as ``data=D,model=M,
+  azimuth=K`` in JAX's device order (``parallel.mesh``; ``auto`` puts
+  every rank on ``data``) and stops the run, naming the cause, where the
+  spec is not the world's, the global batch does not split over D, or
+  the azimuth axis is asked of a detector other than VoxelNetV3 and
+  VoxelNet or of a map whose rows do not split into K runs of whole neck
+  strides. ``--batch_size`` is the global batch (default
+  ``samples_per_gpu`` x the world size); data coordinate d's rank at
+  model 0, azimuth 0 loads the d-th positional part of every global batch
+  (``data.loader``) with d's random draws and broadcasts it to d's other
+  ranks (``parallel.mesh.batches``). The detector is placed on the mesh
+  (``parallel.mesh.place``: its large kernels sliced over ``model``,
+  its neck on an azimuth axis sharded over ``azimuth``) and the step
+  runs on it (``train.train_state``), so the ranks train as one process
+  on the global batch. Rank 0 alone logs and writes checkpoints, in the
+  data-only layout (the model slices and their Adam slots gathered; no
+  ``module.`` prefix: interchangeable with a one-process run's); every
+  rank resumes its own slice of the same checkpoint;
 - any ported detector: PARTNER (``VoxelNetV3``), CenterPoint
   (``VoxelNet``), whose per-task loss terms are logged as lists, or the
   two-stage CenterPoint (``TwoStageDetector``; with ``freeze`` the
@@ -74,8 +83,10 @@ Random draws: the data pipeline draws from one ``np.random.RandomState``
 seeded from ``--seed`` and the step the run starts at; dropout and DropPath
 from a ``torch.Generator`` seeded from ``--seed`` and the step, so a run
 resumed at a step takes the same dropout draws as an unbroken one. With
-more than one rank each rank's two seeds take its rank too, so no two
-ranks draw alike. The initial weights come from ``--seed``.
+more than one data coordinate each coordinate's two seeds take it too, so
+no two parts of a global batch draw alike, while the model and azimuth
+ranks of one coordinate draw alike. The initial weights come from
+``--seed``.
 
 ``--debug_nans`` turns on ``torch.autograd.set_detect_anomaly``;
 ``--profile_dir`` writes a ``torch.profiler`` trace of steps 10-15 after
@@ -105,8 +116,8 @@ def parse_args(argv=None):
                    help="the global batch (default samples_per_gpu x the "
                         "world size)")
     p.add_argument("--mesh", default=None,
-                   help="'auto' or 'data=N' (N the torchrun world size): "
-                        "each rank trains on its part of each global batch")
+                   help="'auto' or 'data=D,model=M,azimuth=K' over the "
+                        "D*M*K torchrun ranks")
     p.add_argument("--validate", action="store_true")
     p.add_argument("--eval_interval", type=int, default=None)
     p.add_argument("--eval_max_frames", type=int, default=None)
@@ -131,16 +142,16 @@ def example_to_device(batch, device, keys):
             else move(batch[k]) for k in keys}
 
 
-def dropout_generator(seed, step, rank=0, world=1):
+def dropout_generator(seed, step, d=0, n_data=1):
     """The dropout and DropPath generator of one step (on the CPU, which
-    gives the same masks on the CPU and the card); with more than one rank
-    each rank's own."""
+    gives the same masks on the CPU and the card); with more than one data
+    coordinate, coordinate ``d``'s own."""
     import torch
 
-    if world == 1:
+    if n_data == 1:
         return torch.Generator().manual_seed(seed * 2 ** 32 + step)
     return torch.Generator().manual_seed(int(np.random.SeedSequence(
-        [seed, step, rank]).generate_state(1, np.uint64)[0] >> 1))
+        [seed, step, d]).generate_state(1, np.uint64)[0] >> 1))
 
 
 def load_parameters(det, payload):
@@ -151,6 +162,8 @@ def load_parameters(det, payload):
     reference checkpoint) loads every tensor it names, statistics too, as
     the reference's ``load_from`` does; the other sections keep their
     initial values. A name the module lacks raises."""
+    from ..parallel import tp
+
     names = [n for n, _ in det.module.named_parameters()]
     sd = payload["state_dict"]
     unknown = sorted(set(sd) - set(det.module.state_dict()))
@@ -158,7 +171,7 @@ def load_parameters(det, payload):
         raise KeyError(f"the module has no tensors {unknown[:5]}")
     if all(n in sd for n in names):
         sd = {n: sd[n] for n in names}
-    det.module.load_state_dict(sd, strict=False)
+    tp.load_state_dict(det.module, sd, strict=False)
 
 
 def load_pretrained_first_stage(det, path):
@@ -166,6 +179,7 @@ def load_pretrained_first_stage(det, path):
     ``first_stage_cfg["pretrained"]`` names (a port checkpoint or a JAX
     ``state.pkl``) -> the first stage's weights and BatchNorm statistics.
     A missing path stops the run with a message."""
+    from ..parallel import tp
     from ..train.checkpoint import load_checkpoint
 
     try:
@@ -174,7 +188,7 @@ def load_pretrained_first_stage(det, path):
         sys.exit(f"train: the first stage's pretrained checkpoint {path} "
                  "does not exist; train the one-stage config first, or pass "
                  "--load_from")
-    det.module.first.load_state_dict(payload["state_dict"], strict=True)
+    tp.load_state_dict(det.module.first, payload["state_dict"], strict=True)
 
 
 def sector_targets(data_cfg, n_sectors, logger, config_path):
@@ -206,8 +220,7 @@ def main(argv=None):
     from ..eval.evaluator import evaluate
     from ..models import build_detector
     from ..models.strobe import no_sweep_loader
-    from ..parallel import dist
-    from ..parallel.mesh import data_axis
+    from ..parallel import dist, mesh, tp
     from ..train.checkpoint import (latest_checkpoint, load_checkpoint,
                                     optimizer_state, restore_train_state,
                                     save_checkpoint)
@@ -223,9 +236,13 @@ def main(argv=None):
         sys.exit("train: no CUDA device; pass --device cpu to run on the CPU")
     owned = dist.initialize(args.device)
     rank, world = dist.process_info()
-    data_axis(args.mesh, world, "train")
-    main_rank = rank == 0
     cfg = load_config(args.config)
+    batch_size = args.batch_size or cfg["data"]["samples_per_gpu"] * world
+    n_data, n_model, n_az = mesh.check(args.mesh, world, "train", batch_size,
+                                       cfg["model"])
+    grid = mesh.build(n_data, n_model, n_az)
+    d = grid.coords[0]
+    main_rank = rank == 0
     lr_cfg = dict(cfg["lr_config"])
     device = (torch.device("cuda", torch.cuda.current_device())
               if args.device == "cuda" else torch.device("cpu"))
@@ -235,7 +252,7 @@ def main(argv=None):
     os.makedirs(work_dir, exist_ok=True)
     logger = (get_logger(work_dir) if main_rank
               else get_logger(level=logging.WARNING))
-    logger.info(f"device: {device}, rank {rank} of {world}")
+    logger.info(f"device: {device}, rank {rank} of {world}, {grid}")
 
     resume = args.resume_from or latest_checkpoint(work_dir)
     payload = load_checkpoint(resume)[0] if resume else None
@@ -246,22 +263,21 @@ def main(argv=None):
                          generator=torch.Generator().manual_seed(args.seed))
     if det.input_kind == "sweeps":
         sys.exit(no_sweep_loader("train", cfg["model"]["type"]))
+    sliced = mesh.place(det, grid)
+    if sliced:
+        logger.info(f"{len(sliced)} parameters sliced over model={n_model}")
     train_data = sector_targets(dict(cfg["data"]["train"]),
                                 getattr(det.module, "n_sectors", 1), logger,
                                 args.config)
     dataset = build_dataset(train_data, dict(rng=np.random.RandomState(
-        [args.seed, start_step] + ([rank] if world > 1 else []))))
-    batch_size = args.batch_size or cfg["data"]["samples_per_gpu"] * world
-    if batch_size % world:
-        sys.exit(f"train: batch_size {batch_size} not divisible by mesh "
-                 f"data={world}")
+        [args.seed, start_step] + ([d] if n_data > 1 else []))))
     vg_mv = dict(cfg["voxel_generator"]).get("max_voxel_num", 150000)
     loader = build_dataloader(
         dataset, batch_size,
         workers_per_gpu=cfg["data"].get("workers_per_gpu", 4),
         max_points=args.max_points,
         max_voxels=vg_mv if isinstance(vg_mv, int) else vg_mv[0],
-        rank=rank, world_size=world)
+        rank=d, world_size=n_data)
 
     if len(loader) == 0:
         sys.exit(f"train: the train set's {len(dataset)} samples make no "
@@ -382,7 +398,7 @@ def main(argv=None):
     epoch = step_i // max(steps_per_epoch, 1)
     while step_i < total_steps:
         loader.set_epoch(epoch)
-        for batch in loader:
+        for batch in mesh.batches(loader, grid):
             if step_i >= total_steps:
                 break
             if (args.profile_dir and main_rank
@@ -407,8 +423,8 @@ def main(argv=None):
             transfer_time = timer.lap()
             if voxelize is not None:
                 ex.update(voxelize(ex["points"], ex["points_mask"]))
-            metrics = step(ex, dropout_generator(args.seed, step_i, rank,
-                                                 world))
+            metrics = step(ex, dropout_generator(args.seed, step_i, d,
+                                                 n_data))
             # no host read here: the next step's data work overlaps the
             # card's; the window is read at the flush
             forward_time = timer.lap()
@@ -423,12 +439,15 @@ def main(argv=None):
                 break
         epoch += 1
         flush_pending()
+        # the data-only layout: every rank gathers its model slices
+        state, opt_state = (tp.full_state_dict(det.module),
+                            optimizer_state(det.module, opt))
         if main_rank:
             save_checkpoint(
-                work_dir, step_i, det.module.state_dict(),
+                work_dir, step_i, state,
                 meta=dict(epoch=epoch, step=step_i, config=config_text),
                 keep=dict(cfg.get("checkpoint_config", {})).get("keep", 5),
-                opt_state=optimizer_state(det.module, opt))
+                opt_state=opt_state)
             logger.info(f"epoch {epoch} done @ step {step_i}; checkpoint "
                         "saved")
 

@@ -9,7 +9,10 @@ CPU: ``opt_state`` holds the optimizer's step count and its state slots
 (the Adam moments; AMSGrad's max; SGD's trace), keyed by parameter name
 (:func:`optimizer_state`). A payload without it (weights
 only, as the port's first checkpoints and converted reference checkpoints
-are) still loads for evaluation.
+are) still loads for evaluation. A payload is always in the data-only
+layout: a run on a mesh's model axis writes its slices gathered
+(``parallel.tp.full_state_dict``, :func:`optimizer_state`) and each rank
+resumes its own slice, so a checkpoint loads under any mesh.
 
 Every read and write goes through :mod:`..utils.remote_io`, so a work
 directory or checkpoint may be a local path or a scheme-prefixed path of a
@@ -43,6 +46,7 @@ import numpy as np
 import torch
 
 from ..convert import flax_to_torch
+from ..parallel import tp
 from ..utils import remote_io as rio
 
 PORT_PAYLOAD = "state.pt"
@@ -62,12 +66,14 @@ def optimizer_state(module, opt):
     {"count", <slot>: {name: tensor}, ...}: the
     step count and each slot of its state (the Adam moments ``mu``,
     ``nu``; AMSGrad's ``nu_max`` too; SGD's ``trace``) keyed by parameter
-    name."""
+    name, in the data-only layout: the slots of a parameter sliced over a
+    mesh's model axis are gathered (every model rank must call it)."""
     names = _trainable_names(module)
     state = opt.state_dict()
     return dict({"count": state["count"]},
-                **{k: dict(zip(names, v)) for k, v in state.items()
-                   if k != "count"})
+                **{k: {n: tp.whole(p, t) for n, p, t in
+                       zip(names, opt.params, v)}
+                   for k, v in state.items() if k != "count"})
 
 
 def restore_train_state(det, opt, payload):
@@ -76,10 +82,12 @@ def restore_train_state(det, opt, payload):
     trainable parameters) -> the payload's step. The counterpart of the
     JAX package's ``restore_train_state``: every part must be there, and
     the checkpoint's slots must be the optimizer's (a checkpoint of
-    another optimizer type raises). Slots of frozen parameters (a JAX
+    another optimizer type raises). On a mesh's model axis each sliced
+    parameter and its slots take this rank's slice of the checkpoint's
+    whole tensors. Slots of frozen parameters (a JAX
     checkpoint of a frozen two-stage holds them) are left out; any other
     name that differs raises."""
-    det.module.load_state_dict(payload["state_dict"], strict=True)
+    tp.load_state_dict(det.module, payload["state_dict"], strict=True)
     if "opt_state" not in payload:
         raise KeyError("the checkpoint holds no optimizer state")
     st = payload["opt_state"]
@@ -90,8 +98,9 @@ def restore_train_state(det, opt, payload):
     for key in slots:
         if set(names) - set(st[key]) or set(st[key]) - set(names) - frozen:
             raise KeyError(f"optimizer {key}: names differ from the module's")
-    opt.load_state_dict(dict({"count": st["count"]},
-                             **{k: [st[k][n] for n in names] for k in slots}))
+    opt.load_state_dict(dict({"count": st["count"]}, **{
+        k: [tp.local_slice(p, st[k][n]) for n, p in zip(names, opt.params)]
+        for k in slots}))
     return int(payload["step"])
 
 

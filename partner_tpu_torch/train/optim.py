@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..convert import flax_param_path
+from ..parallel import dist
 
 
 def _annealing_cos(start, end, pct):
@@ -93,7 +94,10 @@ class ChainOptimizer:
         loss.backward(); grad_norm = opt.step()
 
     ``state_dict()`` holds ``count`` and one list a slot (``mu``, ``nu``,
-    ``nu_max`` or ``trace``) in the order of ``params``."""
+    ``nu_max`` or ``trace``) in the order of ``params``. Built on a module
+    placed on a mesh's model axis (``parallel.tp``), it holds a sliced
+    parameter's slots for its slice alone, and the global norm sums the
+    slices' squares over the model group."""
 
     SLOTS = {"adam": ("mu", "nu"), "amsgrad": ("mu", "nu", "nu_max"),
              "sgd": ("trace",)}
@@ -122,8 +126,17 @@ class ChainOptimizer:
         clipping (a 0-dim tensor on the parameters' device)."""
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in self.params]
-        g_norm = torch.sqrt(torch.stack(
-            [(g.float() * g.float()).sum() for g in grads]).sum())
+        sq = [(g.float() * g.float()).sum() for g in grads]
+        # a model-sliced parameter (``parallel.tp``): its slices' squares
+        # summed over the model group; a replicated one counts once
+        sliced = [i for i, p in enumerate(self.params)
+                  if getattr(p, "model_shard", None) is not None]
+        if sliced:
+            part = dist.all_reduce_(torch.stack([sq[i] for i in sliced]),
+                                    self.params[sliced[0]].model_shard.group)
+            for j, i in enumerate(sliced):
+                sq[i] = part[j]
+        g_norm = torch.sqrt(torch.stack(sq).sum())
         keep = g_norm < self.grad_clip
         lr = float(self.lr(self.count))
         b1 = float(self.b1(self.count) if callable(self.b1) else self.b1)

@@ -479,25 +479,31 @@ def test_collectives_outside_a_step_are_the_identity():
 
 
 def test_mesh_spec_as_jax_and_the_data_axis(capsys):
-    """``parse_mesh_spec`` gives what the JAX package's gives; the CLIs
-    take a data-only mesh of the world and stop on the rest, naming the
-    ROADMAP item."""
+    """``parse_mesh_spec`` gives what the JAX package's gives; the CLIs'
+    check takes a mesh of the world (data-only or not) and stops on the
+    rest, naming the cause: a mesh that is not the world's, and the
+    azimuth axis on a detector other than VoxelNetV3 and VoxelNet."""
     from partner_tpu.parallel.mesh import parse_mesh_spec as jparse
-    from partner_tpu_torch.parallel.mesh import data_axis, parse_mesh_spec
+    from partner_tpu_torch.parallel.mesh import check, parse_mesh_spec
+    from torch_port_fixtures import tiny_pp_cfg
 
     for spec in (None, "", "auto", "data=2", "model=2", "data=2,model=2",
                  "azimuth=2", "data=1,model=2,azimuth=2"):
         assert parse_mesh_spec(spec, 8) == jparse(spec, 8), spec
     with pytest.raises(ValueError, match="unknown mesh axis"):
         parse_mesh_spec("batch=2", 8)
-    assert data_axis(None, 2, "train") is None
-    assert data_axis("data=2", 2, "t") is None
-    for spec, msg in (("data=2", "asks for data=2"),
-                      ("data=2,model=2", "item 9a"),
-                      ("azimuth=2", "item 9a"),
-                      ("batch=2", "unknown mesh axis")):
+    flagship, pp = tiny_frame_cfg()[0], tiny_pp_cfg()[0]
+    assert check(None, 2, "train") == (2, 1, 1)
+    assert check("data=2", 2, "t") == (2, 1, 1)
+    assert check("data=2,model=2", 4, "t", 2, flagship) == (2, 2, 1)
+    assert check("azimuth=2", 2, "t", 2, flagship) == (1, 1, 2)
+    for spec, model, msg in (("data=2", flagship, "asks for data=2"),
+                             ("data=2,model=2", flagship, "but 1 run"),
+                             ("data=1,azimuth=2", pp,
+                              "PointPillars takes no bev_pspec"),
+                             ("batch=2", flagship, "unknown mesh axis")):
         with pytest.raises(SystemExit, match=msg):
-            data_axis(spec, 1, "train")
+            check(spec, 1 if model is flagship else 2, "train", 2, model)
 
 
 def test_loader_splits_each_global_batch_by_position(tmp_path):

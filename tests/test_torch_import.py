@@ -45,7 +45,8 @@ def test_import_leaves_out_jax_and_flax():
         "          'models.rpn_stream', 'models.polarstream',\n"
         "          'models.seg_head', 'eval.seg_metrics', 'models.strobe',\n"
         "          'ops.warp', 'parallel', 'parallel.dist',\n"
-        "          'parallel.mesh', 'parallel.halo', 'eval.tracking',\n"
+        "          'parallel.mesh', 'parallel.halo', 'parallel.tp',\n"
+        "          'losses.iou_losses', 'eval.tracking',\n"
         "          'utils.viz3d', 'utils.flops', 'models.cswin',\n"
         "          'tools.track', 'tools.track_line_search',\n"
         "          'tools.nms_ensemble', 'tools.demo',\n"

@@ -36,6 +36,7 @@ import torch
 
 from test_data_pipeline import make_waymo_infos
 from torch_port_fixtures import (randomize, tiny_frame_cfg,
+                                 write_tiny_pp_config,
                                  write_tiny_train_config)
 
 torch.set_num_threads(2)
@@ -373,10 +374,10 @@ def test_hooks_match_jax():
 
 @pytest.mark.parametrize("case", ["mesh", "lr_config", "curriculum"])
 def test_what_is_not_ported_exits(tmp_path, case):
-    """A --mesh that is not a data-only mesh of the processes running (a
-    data axis of 2 in one process, a model axis) stops the run before
-    anything is built, naming what it asks for or the ROADMAP item of the
-    axes not ported. A non-one-cycle lr_config and curriculum_weights,
+    """A --mesh the processes running cannot run (a data axis of 2 in one
+    process; the azimuth axis on a PointPillars config, whose JAX builder
+    takes no ``bev_pspec``) stops the run before anything is built,
+    naming its cause. A non-one-cycle lr_config and curriculum_weights,
     once such stops, are ported (the lr family; the seg heads): a det-only
     config trains with each (the curriculum weight scales a seg loss it
     has none of, as in JAX; ``tests/test_torch_seg.py`` holds it on the
@@ -388,10 +389,14 @@ def test_what_is_not_ported_exits(tmp_path, case):
                                   str(tmp_path))
     argv = [cfg, "--device", "cpu", "--work_dir", str(tmp_path / "wd")]
     if case == "mesh":
-        for mesh, says in (("data=2", "asks for data=2"),
-                           ("model=2", "queue 1 item 9a")):
+        pp = write_tiny_pp_config(str(tmp_path / "pp.py"), info_path,
+                                  info_path, str(tmp_path))
+        for config, mesh, says in (
+                (cfg, "data=2", "asks for data=2"),
+                (pp, "azimuth=2", "detector PointPillars takes no "
+                                  "bev_pspec")):
             with pytest.raises(SystemExit, match=says):
-                train.main(argv + ["--mesh", mesh])
+                train.main([config] + argv[1:] + ["--mesh", mesh])
         assert not os.path.exists(tmp_path / "wd")
         return
     with open(cfg, "a") as f:

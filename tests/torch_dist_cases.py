@@ -1,6 +1,7 @@
-"""Two-rank CPU runs of partner_tpu_torch's data parallelism.
+"""Multi-rank CPU runs of partner_tpu_torch's data parallelism and mesh.
 
-The test files (``tests/test_torch_dist.py``, ``test_torch_halo.py``)
+The test files (``tests/test_torch_dist.py``, ``test_torch_halo.py``,
+``test_torch_mesh_*.py``)
 write a job (a ``torch.save`` of a list of tasks, each with its inputs:
 weights, the global batch, a config), launch ``WORLD`` processes of this
 file as torchrun would (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
@@ -261,8 +262,90 @@ def run_unused(task, rank, world):
     return out
 
 
+def run_mesh_step(task, rank, world):
+    """One train step on the mesh ``task["mesh"]`` (data, model, azimuth)
+    of this rank's data coordinate's part of the global batch -> the
+    step's metrics, the whole gradients and state (model slices gathered),
+    the optimizer's state in the data-only layout, the sliced names, the
+    shapes of this rank's Adam slots and its coordinates; with
+    ``task["frame"]``, first the eval-mode module's neck output map on the
+    batch part (``return_bev``); with ``task["neck_x"]``, then the neck of the eval-mode module on that
+    map (``sharded_neck`` on an azimuth axis) with the gradients of
+    ``sum(out * neck_cot)`` by the map and the neck's parameters (an
+    azimuth rank's part: the cotangent scaled by 1 / K, as the step
+    scales its loss's); with
+    ``task["resume"]`` (a whole checkpoint payload), after the step, what
+    a fresh detector and optimizer on the mesh resume from it."""
+    from partner_tpu_torch.parallel import dist, mesh, tp
+    from partner_tpu_torch.train.checkpoint import (optimizer_state,
+                                                    restore_train_state)
+    from partner_tpu_torch.train.train_state import make_train_step
+
+    grid = mesh.build(*task["mesh"])
+    det = build(task)
+    sliced = mesh.place(det, grid)
+    out = {"coords": grid.coords, "sliced": sliced}
+    if task.get("frame"):   # the eval-mode neck output of the batch part
+        with torch.no_grad():
+            det.module.eval()
+            out["bev"] = det.module(part(task["example"], grid.coords[0],
+                                         grid.n_data), return_bev=True)[1]
+    if "neck_x" in task:
+        out["neck"] = neck_result(det, task)
+    opt = optimizer(det, task)
+    step = make_train_step(det, opt)
+    d = grid.coords[0]
+    n0 = dist.counts["collectives"]
+    met = step(part(task["example"], d, grid.n_data),
+               torch.Generator().manual_seed(1000 * d))
+    out["collectives"] = dist.counts["collectives"] - n0
+    names = [n for n, p in det.module.named_parameters() if p.requires_grad]
+    out.update(
+        metrics=floats(met),
+        grads={n: tp.whole(p, p.grad) for n, p in
+               det.module.named_parameters() if p.grad is not None},
+        state=tp.full_state_dict(det.module),
+        opt_state=optimizer_state(det.module, opt),
+        slot_shapes={n: tuple(t.shape) for n, t in zip(names, opt.mu)})
+    if "resume" in task:
+        det2 = build(task)
+        mesh.place(det2, grid)
+        opt2 = optimizer(det2, task)
+        restore_train_state(det2, opt2, task["resume"])
+        out["resumed"] = {
+            "state": {k: v.clone() for k, v in
+                      det2.module.state_dict().items()},
+            "mu": dict(zip(names, [t.clone() for t in opt2.mu])),
+            "count": opt2.count}
+    return out
+
+
+def neck_result(det, task):
+    """The eval-mode neck of ``det`` on ``task["neck_x"]`` (the whole map:
+    this rank splits it where the neck is azimuth-sharded) -> its output,
+    and the gradients of ``sum(out * task["neck_cot"])`` by the map and by
+    the neck's parameters (model slices gathered; this azimuth rank's part
+    of each, which sum over the azimuth ranks to the whole)."""
+    from partner_tpu_torch.parallel import dist, tp
+
+    mod = det.module
+    mod.eval()
+    x = torch.from_numpy(task["neck_x"]).requires_grad_()
+    if mod.azimuth is None:
+        y = mod.neck(x)
+    else:   # every azimuth rank's cotangent is whole, as the step's
+        y = dist.scale_grad(mod.sharded_neck(x), 1.0 / mod.azimuth.size)
+    (y * torch.from_numpy(task["neck_cot"])).sum().backward()
+    res = {"y": y.detach(), "x_grad": x.grad,
+           "param_grads": {n: tp.whole(p, p.grad) for n, p in
+                           mod.neck.named_parameters()}}
+    for p in mod.parameters():
+        p.grad = None
+    return res
+
+
 RUNS = {"step": run_step, "norms": run_norms, "gather": run_gather,
-        "halo": run_halo, "unused": run_unused}
+        "halo": run_halo, "unused": run_unused, "mesh_step": run_mesh_step}
 
 
 def main(job, out_dir):
