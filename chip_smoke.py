@@ -7697,6 +7697,209 @@ def tools_phase(dev, card):
     return res
 
 
+# ---------------------------------------------------------------- box coders
+
+CODER_TEMPLATE = [2.0, 4.5, 1.6]   # a vehicle's dx, dy, dz (dy >= dx)
+# the six variant coders of CODER_CONFIG["type"] and the arguments each
+# runs with here (the flagship's own CenterCoder is the other phases')
+CODER_VARIANTS = {
+    "CenterCoderV2": dict(rectify=False),
+    "CenterCoderPolar": dict(rectify=True),
+    "CenterCoderPolarTP": dict(template_ratio=2.25),
+    "CenterCoderPolarSIG": dict(),
+    "CenterCoderTP": dict(templates_box=CODER_TEMPLATE),
+    "CenterCoderMTTP": dict(tmp_box=[CODER_TEMPLATE]),
+}
+CODER_TIE = 1e-6        # kept scores closer than this may swap places
+CODER_LOSS_TOL = 1e-4   # set losses, card against CPU, relative
+
+
+def with_coder(m, tc, kind, kw):
+    """The flagship's (model cfg, test cfg) with ``CODER_CONFIG`` naming
+    ``kind`` and ``kw``, and the test cfg's rectify paired with it."""
+    import copy
+
+    m = copy.deepcopy(m)
+    bh = m["bbox_head"]
+    bh["CODER_CONFIG"] = dict(bh["CODER_CONFIG"], type=kind, **kw)
+    return m, dict(tc, rectify=bool(kw.get("rectify")))
+
+
+def kept_indices(det, maps):
+    """Sample 0's kept candidates of ``det.decode(maps)``, recomputed by
+    its steps (flatten, the coder's decode, the score and range mask,
+    ``rotate_nms_pcdet``) on the maps' device -> (candidate indices,
+    their scores), numpy, in kept order."""
+    from partner_tpu_torch.models import e2e_head
+    from partner_tpu_torch.ops.nms import rotate_nms_pcdet
+
+    tc = det.test_cfg
+    flat = e2e_head.flatten_head_preds(
+        maps, det.module.bbox_head.offset_grid_on(maps["hm"].device))
+    boxes, scores = e2e_head.decode_flat_preds(
+        flat, det.coder, iou_factor=tc.get("iou_factor", 1.0),
+        rectify=tc.get("rectify", False))
+    score = scores[0].max(-1)[0]
+    lim = tc.get("post_center_limit_range", [-80, -80, -10, 80, 80, 10])
+    m = score > tc.get("score_threshold", 0.1)
+    for i in range(3):
+        m &= (boxes[0][:, i] >= lim[i]) & (boxes[0][:, i] <= lim[3 + i])
+    masked = torch.where(m, score, torch.full_like(score, -float("inf")))
+    nms = tc.get("nms", {})
+    keep, kmask = rotate_nms_pcdet(
+        boxes[0], masked, nms.get("nms_iou_threshold", 0.7),
+        nms.get("nms_pre_max_size", 4096), nms.get("nms_post_max_size", 500))
+    keep = keep[kmask & (masked[keep] > -float("inf"))]
+    return keep.cpu().numpy(), score[keep].cpu().numpy()
+
+
+def same_kept(kind, card, cpu):
+    """Kept candidate indices of the card and of the CPU: equal, or each
+    place where they differ a tie of the two scores there within
+    CODER_TIE (named in the log) -> the number of such ties."""
+    (ki, ks), (ci, cs) = card, cpu
+    if len(ki) != len(ci):
+        raise AssertionError(f"coder {kind}: kept {len(ki)} on the card, "
+                             f"{len(ci)} on the CPU")
+    ties = np.flatnonzero(ki != ci)
+    for i in ties:
+        log(f"coder {kind}: kept place {i}: card candidate {ki[i]} score "
+            f"{ks[i]!r}, CPU candidate {ci[i]} score {cs[i]!r}")
+        if not abs(ks[i] - cs[i]) <= CODER_TIE:
+            raise AssertionError(f"coder {kind}: kept place {i} differs "
+                                 "beyond a score tie")
+    return len(ties)
+
+
+def coder_train_reading(m, tc, dev, card, gen):
+    """One batch-4 ``make_train_step`` step of the flagship under
+    ``CenterCoderPolar(rectify=True)``: launches, finite loss terms, and
+    the step's own set losses against the CPU criterion on the same head
+    maps (copied to the CPU in float32) and the same assignment."""
+    from partner_tpu_torch.losses import set_crit
+    from partner_tpu_torch.models import build_detector
+    from partner_tpu_torch.train.optim import build_one_cycle_optimizer
+    from partner_tpu_torch.train.train_state import make_train_step
+
+    _, _, batch, lr_max = train_cfgs()
+    m, tc = with_coder(m, tc, "CenterCoderPolar", dict(rectify=True))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    det = build_detector(m, None, tc, device=dev, generator=gen)
+    randomize_norms(det.module, gen)
+    ex = to_device(train_example(
+        np.random.RandomState(SEED + 24), m["bbox_head"]["voxel_generator"][
+            "range"], det.module.grid_size, batch, TRAIN_POINTS, TRAIN_ROWS,
+        MAX_BOXES), dev)
+    step = make_train_step(det, build_one_cycle_optimizer(
+        det.module, lr_max=lr_max, total_steps=1000))
+    seen = {}
+    assign, set_losses = set_crit.assign_auction, det.set_losses
+
+    def recorded(*args, **kwargs):
+        seen["assigned"] = assign(*args, **kwargs)
+        return seen["assigned"]
+
+    def kept_maps(preds, example):
+        seen["maps"] = {k: v.detach() for k, v in preds.items()}
+        return set_losses(preds, example)
+
+    set_crit.assign_auction, det.set_losses = recorded, kept_maps
+    try:
+        ms, met, counts = counted(lambda: step(
+            ex, torch.Generator().manual_seed(SEED + 24)))
+    finally:
+        set_crit.assign_auction = assign
+        del det.set_losses
+    want = {"stem": 0, "scatter_max": 1, "swin_attn": 0, "swin_block": 0}
+    if counts != want:
+        raise AssertionError(f"coder train step: launches {counts}")
+    card_terms = {k: float(v) for k, v in met.items()}
+    if not all(np.isfinite(list(card_terms.values()))):
+        raise AssertionError(f"coder train step: {card_terms}")
+    cpu_assigned = seen["assigned"].cpu()
+    set_crit.assign_auction = lambda *a, **k: cpu_assigned
+    try:
+        with torch.no_grad():
+            cpu = det.set_losses(
+                {k: v.float().cpu() for k, v in seen["maps"].items()},
+                {k: v.cpu() for k, v in ex.items()})
+    finally:
+        set_crit.assign_auction = assign
+    rel = {k: abs(card_terms[k] - float(v)) / abs(float(v))
+           for k, v in cpu.items() if k.startswith("loss")}
+    log(f"coder train step (CenterCoderPolar, rectify) at batch {batch} on "
+        f"{card}: {ms!r} ms, num_matched {card_terms['num_matched']!r}, "
+        "loss terms " + ", ".join(f"{k} {card_terms[k]!r}" for k in rel)
+        + "; relative error against the CPU criterion on the same maps "
+        f"and assignment {rel} (bound {CODER_LOSS_TOL})")
+    bad = {k: e for k, e in rel.items() if not e <= CODER_LOSS_TOL}
+    if bad or not card_terms["num_matched"] > 0:
+        raise AssertionError(f"coder train step: {bad}, num_matched "
+                             f"{card_terms['num_matched']}")
+    return dict(ms=ms, launches=counts, rel=rel,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+@torch.no_grad()
+def coder_phase(dev, card):
+    """The flagship at full width (seeded weights, the 180,000-point sweep
+    in 216,000 rows, batch 1) under each of the six variant coders of
+    ``CODER_CONFIG["type"]`` (CODER_VARIANTS): one ``predict`` with its
+    stem, scatter-max and attention launches; then the card's decode +
+    NMS of the frame's head maps against the CPU's in float32 on the same
+    maps (kept candidates equal, or a named score tie); and one batch-4
+    train step under the polar rectified coder
+    (:func:`coder_train_reading`)."""
+    from partner_tpu_torch.models import build_detector
+
+    t_phase = time.perf_counter()
+    base_m, base_tc = frame_cfgs()
+    gen = torch.Generator().manual_seed(SEED + 24)
+    base = build_detector(base_m, None, base_tc, device=dev, generator=gen)
+    randomize_norms(base.module, gen)
+    state = base.module.state_dict()
+    del base
+    pts, mask = synthetic_sweep(
+        np.random.RandomState(SEED + 24),
+        base_m["bbox_head"]["voxel_generator"]["range"], N_POINTS)
+    ex = to_device({"points": pts, "points_mask": mask}, dev)
+    res = {}
+    for kind, kw in CODER_VARIANTS.items():
+        m, tc = with_coder(base_m, base_tc, kind, kw)
+        det = build_detector(m, None, tc, device=dev)
+        det.module.load_state_dict(state)
+        if type(det.coder).__name__ != kind:
+            raise AssertionError(f"built {type(det.coder).__name__}")
+        det.predict(ex)   # warm-up: the first call of a new coder
+        ms, out, counts = counted(lambda: det.predict(ex))
+        depth = det.module.bbox_head.layer.depth
+        if counts != {"stem": 1, "scatter_max": 1, "swin_attn": depth,
+                      "swin_block": 0}:
+            raise AssertionError(f"coder {kind}: launches {counts}")
+        n_kept = check_detections(out, tc)
+        maps = det.module(ex)
+        nms_ms, _, _ = counted(lambda: det.decode(maps))
+        cpu_maps = {k: v.float().cpu() for k, v in maps.items()}
+        t0 = time.perf_counter()
+        det.decode(cpu_maps)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        ties = same_kept(kind, kept_indices(det, maps),
+                         kept_indices(det, cpu_maps))
+        log(f"coder {kind} {kw}: predict {ms!r} ms on {card}, launches "
+            f"{counts}, {n_kept} kept; decode + NMS of its maps "
+            f"{nms_ms!r} ms on the card, {cpu_ms!r} ms on the CPU, kept "
+            f"candidates equal but {ties} score ties")
+        res[kind] = dict(ms=ms, launches=counts, kept=n_kept,
+                         nms_ms=nms_ms, cpu_nms_ms=cpu_ms, ties=ties)
+        del det, maps, cpu_maps
+    with torch.enable_grad():
+        res["train"] = coder_train_reading(base_m, base_tc, dev, card, gen)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"coder phase: {res['phase_s']!r} s")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this run needs one NVIDIA card")
@@ -7742,6 +7945,7 @@ def main():
     dp = dist_phase(dev, card)
     mp = mesh_phase(dev, card)
     tools = tools_phase(dev, card)
+    coders = coder_phase(dev, card)
 
     meta = {
         "stem": ("partner_tpu_torch/csrc/stem.cu",
@@ -7874,6 +8078,9 @@ def main():
                         name],
                     tools_flops_report_launches=tools["flops"]["launches"][
                         name],
+                    coder_launches={k: coders[k]["launches"][name]
+                                    for k in CODER_VARIANTS},
+                    coder_train_launches=coders["train"]["launches"][name],
                     **r)
                for name, r in kres.items()]
     log("summary: card " + card + ", flagship frame median ms: " + ", ".join(
@@ -8104,6 +8311,15 @@ def main():
         f"frame on both routes, frame median {fl['median_ms']!r} ms, MFU "
         f"{fl['mfu']!r} of {fl['peak']!r} FLOP/s bf16; phase "
         f"{tools['phase_s']!r} s")
+    log(f"summary: card {card}, box coders (flagship frame, full width): "
+        + "; ".join(f"{k}: predict {coders[k]['ms']!r} ms, {coders[k]['kept']}"
+                    f" kept, decode + NMS {coders[k]['nms_ms']!r} ms (CPU "
+                    f"{coders[k]['cpu_nms_ms']!r}), {coders[k]['ties']} ties"
+                    for k in CODER_VARIANTS)
+        + f"; polar rectified train step at batch 4 "
+        f"{coders['train']['ms']!r} ms, peak {coders['train']['peak_gib']!r}"
+        f" GiB, set losses against the CPU {coders['train']['rel']}; phase "
+        f"{coders['phase_s']!r} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

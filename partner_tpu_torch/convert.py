@@ -44,6 +44,8 @@ submodules carry flax's names (``Conv_0``, ``BatchNorm_0``,
   True)``: a stage conv's ``conv_bev`` / ``conv_z``, a residual block's
   ``conv1_bev``, ``conv1_z``, ``conv2_bev``, ``conv2_z``) map by the Conv
   rule, DHWIO -> OIDHW;
+- ``models.layers.ConvBNReLU`` maps by the Conv rule (``Conv_0``) and
+  the wrapper rule (``BatchNorm_0/BatchNorm_0`` -> ``BatchNorm_0``);
 - ``models.cswin``'s ``CSWinBlock`` needs no rule of its own: its
   ``qkv``, ``proj``, ``mlp/Dense_k`` and each branch's ``pos_fc1`` /
   ``pos_fc2`` map by the Dense rule, ``norm1``, ``norm2`` and ``pos_ln``

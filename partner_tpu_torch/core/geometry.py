@@ -1,8 +1,9 @@
-"""Geometry helpers of the inference path.
-
-Counterparts of ``bev_cell_centers`` and ``wrap_angle_pi`` in
-``partner_tpu/core/geometry.py``. ``bev_cell_centers`` is numpy (the grid
-is a constant of the model); ``wrap_angle_pi`` works on tensors.
+"""Geometry helpers (counterparts of ``bev_cell_centers``,
+``wrap_angle_pi``, ``boxes_to_corners_3d``, ``cart_to_polar`` and
+``polar_to_cart`` in ``partner_tpu/core/geometry.py``).
+``bev_cell_centers`` is numpy (the grid is a constant of the model); the
+others work on tensors. Boxes are ``[x, y, z, dx, dy, dz, yaw]``, yaw CCW
+about +z.
 """
 
 import numpy as np
@@ -14,6 +15,35 @@ def wrap_angle_pi(angle):
     within (-3*pi, 3*pi), as in the JAX twin)."""
     angle = torch.where(angle > np.pi, angle - 2 * np.pi, angle)
     return torch.where(angle < -np.pi, angle + 2 * np.pi, angle)
+
+
+# the 8 corners of the unit box, bottom ring clockwise from (-, -), then
+# the top ring (the numpy twin's ``corners_nd`` order)
+_CORNERS3D = np.array(
+    [[-0.5, -0.5, -0.5], [-0.5, 0.5, -0.5], [0.5, 0.5, -0.5],
+     [0.5, -0.5, -0.5], [-0.5, -0.5, 0.5], [-0.5, 0.5, 0.5],
+     [0.5, 0.5, 0.5], [0.5, -0.5, 0.5]], dtype=np.float32)
+
+
+def boxes_to_corners_3d(boxes):
+    """(N, 8, 3) corners of (N, 7) boxes."""
+    corners = boxes[:, None, 3:6] * torch.as_tensor(
+        _CORNERS3D, dtype=boxes.dtype, device=boxes.device)
+    c = torch.cos(boxes[:, 6])[:, None]
+    s = torch.sin(boxes[:, 6])[:, None]
+    x, y = corners[..., 0], corners[..., 1]
+    xy = torch.stack([x * c - y * s, x * s + y * c], dim=-1)
+    return torch.cat([xy, corners[..., 2:3]], dim=-1) + boxes[:, None, :3]
+
+
+def cart_to_polar(xy):
+    """(..., 2) -> (rho, phi)."""
+    rho = torch.sqrt(xy[..., 0] ** 2 + xy[..., 1] ** 2)
+    return rho, torch.atan2(xy[..., 1], xy[..., 0])
+
+
+def polar_to_cart(rho, phi):
+    return rho * torch.cos(phi), rho * torch.sin(phi)
 
 
 def bev_cell_centers(grid_hw, voxel_size, pc_range, out_size_factor,

@@ -17,8 +17,12 @@ buffers:
                 against their gt, summed over the matches, / num_boxes
                 (where ``losses`` names it)
 
-The assignment (the auction matcher) and the IoU target carry no
-gradient; ``num_boxes`` and ``vote_num`` are floored at 1. In a
+The matcher's cost and ``loss_bbox`` run in the box coder's space
+(``encode``, ``get_delta``) and the IoU terms on its ``decode``, whatever
+its type (``core.center_coder.CODERS``), called with the JAX criterion's
+arguments: no grid cell, so a rectifying ``CenterCoderV2`` fails here as
+it does there. The assignment (the auction matcher) and the IoU target
+carry no gradient; ``num_boxes`` and ``vote_num`` are floored at 1. In a
 data-parallel step both are the global batch's counts
 (``parallel.dist.global_sum``, floored after the sum), so each rank's terms
 are its part of the global batch's (JAX's ``axis_name`` form,

@@ -5,9 +5,10 @@
 fast path ``encode_points``, or the reader and the voxel path
 ``forward``; or the reader and the sparse ``SpMiddleResNetFHD``) ->
 ``SetBlockStack`` -> ``RPN`` ->
-``E2ESWVoteHead``, then at inference decode through the configured
-CenterCoder and rotated NMS, and in training the ``SetCriterion`` over the
-auction matcher. ``build_voxelnet`` turns a VoxelNet config into a
+``E2ESWVoteHead``, then at inference decode through the box coder that
+``CODER_CONFIG["type"]`` selects (``core.center_coder.build_coder``) and
+rotated NMS, and in training the ``SetCriterion`` over the auction
+matcher, in that coder's space. ``build_voxelnet`` turns a VoxelNet config into a
 :class:`CenterPointDetector`: the same point path -> ``RPN`` ->
 ``CenterHead`` (``SepHead`` or ``DCNSepHead`` tasks), per-task decode
 (after the double-flip average where ``test_cfg["double_flip"]`` is set)
@@ -489,20 +490,29 @@ def build_voxelnet_v3(reader, backbone, neck, bbox_head, seg_head=None,
         "compute_dtype": hc.get("compute_dtype", "float32"),
         "use_block_kernel": use_block_kernel,
     }
+    coder_cfg = dict(bbox_head.get("CODER_CONFIG", {}))
+    coder_cfg.setdefault("code_size", 7)
+    coder_cfg.setdefault("encode_angle_by_sincos", True)
+    coder_cfg.setdefault("rectify", False)
+    coder = build_coder(coder_cfg)
+    # the single-task criterion never passes a task_id: a multi-anchor
+    # MTTP coder would train and decode every box against task 0's anchor
+    tmp_box = getattr(coder, "tmp_box", None)
+    if tmp_box is not None and tmp_box.shape[0] > 1:
+        raise ValueError(
+            "CenterCoderMTTP with multiple task anchors is unsupported by "
+            "the single-task E2E head (task_id is never threaded); use one "
+            "anchor row or a per-task head")
     neck = dict(neck)
     module = _materialize(device, generator, lambda: VoxelNetModule(
         reader_cfg=dict(reader), backbone_cfg=dict(backbone),
         neck_cfg=_neck_cfg(neck), head_cfg=head_cfg, grid_size=grid,
         pc_range=pc_range, out_size_factor=osf, with_set_attention=True,
         set_cfg={k: v for k, v in neck.items() if k.startswith("set_")}))
-    coder_cfg = dict(bbox_head.get("CODER_CONFIG", {}))
-    coder_cfg.setdefault("code_size", 7)
-    coder_cfg.setdefault("encode_angle_by_sincos", True)
-    coder_cfg.setdefault("rectify", False)
     sc = bbox_head.get("SET_CRIT_CONFIG", {})
     mc = bbox_head.get("MATCHER_CONFIG", {})
     criterion = SetCriterion(
-        box_coder=build_coder(coder_cfg),
+        box_coder=coder,
         weight_dict=sc.get("weight_dict", {"loss_ce": 1, "loss_bbox": 2}),
         losses=sc.get("losses", ["loss_ce", "loss_bbox"]),
         sigma=sc.get("sigma", 3.0),

@@ -70,7 +70,9 @@ def head_offset_grid(grid_size, pc_range, out_size_factor,
 
 def flatten_head_preds(preds, offset_grid):
     """NHWC maps -> flattened (B, N, .) dicts; ``pred_boxes`` are in the
-    coder's encoded space [abs_x, abs_y, z, log-dims, cos, sin]."""
+    coder's encoded space [abs_x, abs_y, z, log-dims, cos, sin]. The
+    cartesian cell center is added to columns 0-1 under every coder, as
+    JAX adds it: a polar coder reads those columns as (rho, phi)."""
     b, h, w, _ = preds["hm"].shape
     n = h * w
     reg_abs = preds["reg"] + offset_grid[None]
@@ -89,8 +91,11 @@ def flatten_head_preds(preds, offset_grid):
 
 
 def decode_flat_preds(flat, coder, iou_factor=1.0, rectify=False):
-    """-> (boxes (B, N, 7+), scores (B, N, ncls)) through the box coder;
-    dims are floor-clamped at 1e-5 for the IoU/NMS downstream."""
+    """-> (boxes (B, N, 7+), scores (B, N, ncls)) through the box coder's
+    ``decode`` (any type of ``core.center_coder.CODERS``); dims are
+    floor-clamped at 1e-5 for the IoU/NMS downstream (``CenterCoderTP``
+    does not clamp them). ``rectify`` requires a rectifying coder, which
+    itself adds the azimuth back."""
     if rectify and not getattr(coder, "rectify", False):
         raise ValueError("test_cfg rectify=True requires a rectifying box "
                          "coder")

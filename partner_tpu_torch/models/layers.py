@@ -328,6 +328,23 @@ def update_running(stat, batch, momentum):
     stat.copy_(momentum * stat + (1.0 - momentum) * batch)
 
 
+class ConvBNReLU(nn.Module):
+    """flax ``ConvBNReLU`` (``partner_tpu/models/layers.py:85``): a "SAME"
+    conv (no bias by default), ``BatchNorm`` (eps 1e-3, momentum 0.99:
+    batch statistics in train mode), ReLU; NHWC. Its submodules carry
+    flax's names, so ``convert.flax_to_torch`` loads its variables."""
+
+    def __init__(self, in_features, features, kernel=3, stride=1,
+                 use_bias=False):
+        super().__init__()
+        self.Conv_0 = Conv2d(in_features, features, kernel, stride,
+                             use_bias=use_bias)
+        self.BatchNorm_0 = BatchNorm(features, BN_EPS, BN_MOMENTUM)
+
+    def forward(self, x):
+        return torch.relu(self.BatchNorm_0(self.Conv_0(x)))
+
+
 class Dropout(nn.Module):
     """flax ``nn.Dropout``: keep each element with probability ``1 - rate``
     and scale it by ``1 / (1 - rate)``; the identity in eval mode or at

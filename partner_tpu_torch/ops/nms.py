@@ -1,7 +1,7 @@
-"""Greedy rotated NMS, plain PyTorch (counterpart of
-``rotated_nms``, ``_greedy_keep_upper``, ``rotate_nms_pcdet`` and
-``batched_rotated_nms`` in ``partner_tpu/ops/nms.py``, which are plain
-XLA there too).
+"""Greedy rotated NMS and circle NMS, plain PyTorch (counterpart of
+``rotated_nms``, ``_greedy_keep_upper``, ``rotate_nms_pcdet``,
+``batched_rotated_nms`` and ``circle_nms`` in ``partner_tpu/ops/nms.py``,
+which are plain XLA there too).
 
 Matrix form: sort by score, build the strictly upper-triangular
 suppression matrix of the score-sorted boxes in row blocks (bounded memory
@@ -79,6 +79,24 @@ def rotated_nms(boxes, scores, iou_threshold, post_max_size):
     order, b, valid = sort_by_score(boxes, scores)
     kept = _greedy_keep_upper(suppression_matrix(b, valid, iou_threshold),
                               valid)
+    pick = torch.argsort((~kept).to(torch.uint8), stable=True)[:post_max_size]
+    return order[pick], kept[pick]
+
+
+def circle_nms(centers, scores, min_radius, post_max_size):
+    """Greedy center-distance NMS: a box is suppressed by a kept box of a
+    higher score (ties: the lower index) whose center lies within it.
+    As the reference's kernel, the SQUARED distance is compared with
+    ``min_radius`` (so the radius is sqrt(min_radius)). centers (N, 2),
+    scores (N,) (padding rows at <= NEG_INF) -> (keep_idx (K,), keep_mask
+    (K,)), K = post_max_size, the kept first in score order."""
+    order, c, valid = sort_by_score(centers, scores)
+    n = c.shape[0]
+    d2 = ((c[:, None, :] - c[None, :, :]) ** 2).sum(-1)
+    ids = torch.arange(n, device=c.device)
+    sup_u = ((d2 <= min_radius) & valid[:, None] & valid[None, :]
+             & (ids[:, None] < ids[None, :]))
+    kept = _greedy_keep_upper(sup_u, valid)
     pick = torch.argsort((~kept).to(torch.uint8), stable=True)[:post_max_size]
     return order[pick], kept[pick]
 

@@ -1,12 +1,15 @@
 """Rotated-rectangle intersection areas and the 3D IoU of the set loss
 (counterpart of ``partner_tpu/ops/rotated_iou.py``).
 
-Two exact algorithms, each where the JAX package uses it, so that results
-round alike: Green's theorem for the NMS (``rect_intersection_area_green_
-pretrig``, ``_green_body``, ``_clip_aa``) and the two-stage RoI targets
-(``rect_intersection_area_green``), and Sutherland-Hodgman clipping for the
-IoU target of ``loss_iou`` (``rect_intersection_area_sh``,
-``boxes_iou3d``).
+Three exact algorithms, each where the JAX package uses it, so that
+results round alike: Green's theorem for the NMS (``rect_intersection_area_
+green_pretrig``, ``_green_body``, ``_clip_aa``) and the two-stage RoI
+targets (``rect_intersection_area_green``), Sutherland-Hodgman clipping for
+the IoU target of ``loss_iou`` (``rect_intersection_area_sh``,
+``boxes_iou3d``), and the candidate-vertex polygon for the pairwise BEV IoU
+(``rect_intersection_area``, ``boxes_iou_bev``, ``iou_bev_row``): the
+corners of each box inside the other and the 16 edge-edge intersections,
+sorted by angle around their mean, then the shoelace sum.
 
 Green: Area(A n B) = 1/2 of the contour integral of (x dy - y dx) over the
 boundary of A n B, which splits into the edges of A clipped inside B plus
@@ -128,6 +131,86 @@ def _box_corners(boxes):
     c, s = torch.cos(boxes[..., 4])[..., None], torch.sin(boxes[..., 4])[..., None]
     return torch.stack([lx * c - ly * s + boxes[..., 0:1],
                         lx * s + ly * c + boxes[..., 1:2]], dim=-1)
+
+
+def _points_in_rect(points, box):
+    """points (..., P, 2) inside the rect box (..., 5) -> bool (..., P); a
+    1e-5 slack counts shared edges as inside."""
+    shift = points - box[..., None, :2]
+    c, s = torch.cos(box[..., 4]), torch.sin(box[..., 4])
+    lx = shift[..., 0] * c[..., None] + shift[..., 1] * s[..., None]
+    ly = -shift[..., 0] * s[..., None] + shift[..., 1] * c[..., None]
+    return ((lx.abs() <= box[..., None, 2] * 0.5 + 1e-5)
+            & (ly.abs() <= box[..., None, 3] * 0.5 + 1e-5))
+
+
+def _segment_intersections(ca, cb):
+    """The 16 edge-pair intersections of two quads' corners ca, cb
+    (..., 4, 2) -> points (..., 16, 2), valid (..., 16); parallel edges
+    (|cross| < _EPS) give none."""
+    a0, b0 = ca, cb
+    r = (torch.roll(ca, -1, dims=-2) - a0)[..., :, None, :]
+    s = (torch.roll(cb, -1, dims=-2) - b0)[..., None, :, :]
+    p = a0[..., :, None, :]
+    qp = b0[..., None, :, :] - p
+    rxs = r[..., 0] * s[..., 1] - r[..., 1] * s[..., 0]
+    qpxr = qp[..., 0] * r[..., 1] - qp[..., 1] * r[..., 0]
+    qpxs = qp[..., 0] * s[..., 1] - qp[..., 1] * s[..., 0]
+    parallel = rxs.abs() < _EPS
+    denom = torch.where(parallel, torch.ones_like(rxs), rxs)
+    t = qpxs / denom
+    u = qpxr / denom
+    valid = (~parallel & (t >= -1e-6) & (t <= 1 + 1e-6)
+             & (u >= -1e-6) & (u <= 1 + 1e-6))
+    pt = p + t[..., None] * r
+    lead = pt.shape[:-3]
+    return pt.reshape(lead + (16, 2)), valid.reshape(lead + (16,))
+
+
+def rect_intersection_area(box_a, box_b):
+    """Intersection area of two rotated rects (..., 5), broadcastable:
+    the polygon of the valid candidates (corners inside the other box,
+    edge intersections) sorted by angle around their mean (stably, the
+    invalid ones last), its shoelace area; 0 under 3 vertices."""
+    box_a, box_b = torch.broadcast_tensors(box_a, box_b)
+    ca, cb = _box_corners(box_a), _box_corners(box_b)
+    inter_pts, inter_valid = _segment_intersections(ca, cb)
+    pts = torch.cat([ca, cb, inter_pts], dim=-2)               # (..., 24, 2)
+    valid = torch.cat([_points_in_rect(ca, box_b), _points_in_rect(cb, box_a),
+                       inter_valid], dim=-1)                   # (..., 24)
+    n = valid.sum(-1)
+    center = (torch.where(valid[..., None], pts, torch.zeros_like(pts))
+              .sum(-2) / torch.clamp(n, min=1)[..., None])
+    rel = pts - center[..., None, :]
+    ang = torch.atan2(rel[..., 1], rel[..., 0])
+    ang = torch.where(valid, ang, torch.full_like(ang, float("inf")))
+    order = torch.argsort(ang, dim=-1, stable=True)
+    p0 = torch.gather(rel, -2, order[..., None].expand(rel.shape))
+    idx = torch.arange(24, device=rel.device)
+    nxt = torch.where(idx + 1 < n[..., None], idx + 1, torch.zeros_like(idx))
+    p1 = torch.gather(p0, -2, nxt[..., None].expand(p0.shape))
+    cross = p0[..., 0] * p1[..., 1] - p0[..., 1] * p1[..., 0]
+    cross = torch.where(idx < n[..., None], cross, torch.zeros_like(cross))
+    area = 0.5 * cross.sum(-1).abs()
+    return torch.where(n >= 3, area, torch.zeros_like(area))
+
+
+def boxes_iou_bev(boxes_a, boxes_b):
+    """Pairwise BEV IoU of (N, 5) and (M, 5) rects [x, y, dx, dy, yaw] ->
+    (N, M) (N x M candidate buffers: prefer :func:`iou_bev_row` in a
+    loop)."""
+    inter = rect_intersection_area(boxes_a[:, None, :], boxes_b[None, :, :])
+    area_a = boxes_a[:, 2] * boxes_a[:, 3]
+    area_b = boxes_b[:, 2] * boxes_b[:, 3]
+    union = area_a[:, None] + area_b[None, :] - inter
+    return inter / torch.clamp(union, min=_EPS)
+
+
+def iou_bev_row(box, boxes):
+    """BEV IoU of one (5,) rect against (N, 5) rects -> (N,)."""
+    inter = rect_intersection_area(box[None, :], boxes)
+    union = box[2] * box[3] + boxes[:, 2] * boxes[:, 3] - inter
+    return inter / torch.clamp(union, min=_EPS)
 
 
 def _fill_next_defined(vals, defined):

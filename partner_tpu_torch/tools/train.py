@@ -70,6 +70,12 @@ CLI does:
   ``PaviLoggerHook`` or ``MetricsSinkHook`` in ``log_config.hooks`` writes
   ``metrics.jsonl`` (each step's loss terms, ``num_matched``,
   ``grad_norm`` and phase times), ``--tensorboard`` a TensorBoard log;
+  a ``ClosureHook`` there (an instance, or ``dict(type="ClosureHook",
+  fn_name=stage, fn=callable)``) is called at its stage (``before_run``,
+  ``before_epoch``, ``before_iter``, ``after_iter``, ``after_epoch`` or
+  ``after_run``) on every rank with the loop's state: ``model`` (the
+  detector), ``optimizer``, ``work_dir``, ``rank``, ``epoch``, ``iter``
+  (the step) and, after a step, its device metrics ``outputs``;
 - a checkpoint (weights, statistics, the optimizer's state: the Adam
   moments, AMSGrad's max or SGD's trace) after every epoch, the newest
   ``checkpoint_config.keep`` kept;
@@ -99,6 +105,7 @@ import argparse
 import logging
 import os
 import sys
+import types
 
 import numpy as np
 
@@ -152,6 +159,17 @@ def dropout_generator(seed, step, d=0, n_data=1):
         return torch.Generator().manual_seed(seed * 2 ** 32 + step)
     return torch.Generator().manual_seed(int(np.random.SeedSequence(
         [seed, step, d]).generate_state(1, np.uint64)[0] >> 1))
+
+
+def closure_hooks(entries):
+    """The ``ClosureHook``s of ``log_config.hooks``: instances as they are,
+    ``dict(type="ClosureHook", fn_name=..., fn=...)`` entries built."""
+    from ..train.hooks import ClosureHook
+
+    return [ClosureHook(h["fn_name"], h["fn"]) if isinstance(h, dict)
+            else h for h in entries
+            if isinstance(h, ClosureHook)
+            or (isinstance(h, dict) and h.get("type") == "ClosureHook")]
 
 
 def load_parameters(det, payload):
@@ -321,8 +339,19 @@ def main(argv=None):
     tb_hook = (TensorBoardLoggerHook(os.path.join(work_dir, "tb"))
                if args.tensorboard and main_rank else None)
     sink_hook = None
-    sinks = [dict(h) for h in log_cfg.get("hooks", [])
-             if dict(h).get("type") in ("PaviLoggerHook", "MetricsSinkHook")]
+    sinks = [dict(h) for h in log_cfg.get("hooks", []) if isinstance(h, dict)
+             and h.get("type") in ("PaviLoggerHook", "MetricsSinkHook")]
+    hooks = closure_hooks(log_cfg.get("hooks", []))
+    runner = types.SimpleNamespace(model=det, optimizer=opt,
+                                   work_dir=work_dir, rank=rank, epoch=0,
+                                   iter=start_step, outputs=None)
+
+    def call_hooks(stage, outputs=None, **state):
+        vars(runner).update(state, outputs=outputs)
+        for h in hooks:
+            fn = getattr(h, stage, None)
+            if fn is not None:
+                fn(runner)
     if sinks and main_rank:
         sink_hook = MetricsSinkHook(
             path=sinks[0].get("path", os.path.join(work_dir, "metrics.jsonl")),
@@ -396,11 +425,14 @@ def main(argv=None):
     profiler = None
     step_i = start_step
     epoch = step_i // max(steps_per_epoch, 1)
+    call_hooks("before_run", epoch=epoch, iter=step_i)
     while step_i < total_steps:
         loader.set_epoch(epoch)
+        call_hooks("before_epoch", epoch=epoch, iter=step_i)
         for batch in mesh.batches(loader, grid):
             if step_i >= total_steps:
                 break
+            call_hooks("before_iter", iter=step_i)
             if (args.profile_dir and main_rank
                     and step_i == start_step + 10):
                 acts = [torch.profiler.ProfilerActivity.CPU]
@@ -434,6 +466,7 @@ def main(argv=None):
                 "time": data_time + transfer_time + forward_time}))
             if (step_i + 1) % log_interval == 0:
                 flush_pending()
+            call_hooks("after_iter", iter=step_i, outputs=metrics)
             step_i += 1
             if args.max_steps_per_epoch and step_i % steps_per_epoch == 0:
                 break
@@ -465,8 +498,10 @@ def main(argv=None):
                     tb_hook.log(step_i, {
                         f"val/{k}": v for k, v in det_metrics.items()
                         if isinstance(v, (int, float)) and np.isfinite(v)})
+        call_hooks("after_epoch", epoch=epoch, iter=step_i)
         timer.lap()  # the next step's data_time leaves this epoch's end out
 
+    call_hooks("after_run", epoch=epoch, iter=step_i)
     if profiler is not None:
         profiler.stop()
     if sink_hook is not None:

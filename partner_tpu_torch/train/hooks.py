@@ -3,7 +3,8 @@ running-average ``LogBuffer`` flushed every ``interval`` steps by the text
 logger with the reference's key names (``data_time``, ``transfer_time``,
 ``forward_time``, ``time``, ``sync_time``), the learning rate, per-loss
 means and the card's allocated memory; a phase timer; a TensorBoard
-writer; and a JSON-lines metrics sink (``PaviLoggerHook`` in configs).
+writer; a JSON-lines metrics sink (``PaviLoggerHook`` in configs); and
+``ClosureHook``, a callable bound to one stage of the train loop.
 """
 
 import json
@@ -188,3 +189,14 @@ class MetricsSinkHook:
 
 
 PaviLoggerHook = MetricsSinkHook  # the reference's hook name in configs
+
+
+class ClosureHook:
+    """An ad-hoc callable attached to one stage (the reference's
+    ``ClosureHook``): ``fn_name`` names the stage, ``fn`` the callable
+    bound to it; ``tools/train.py`` calls it there with the loop's
+    state."""
+
+    def __init__(self, fn_name, fn):
+        assert callable(fn)
+        setattr(self, fn_name, fn)

@@ -1,6 +1,8 @@
 """partner_tpu_torch stands alone: no jax, flax, optax or partner_tpu at
-import (every module, the host tools, the FLOP counter and CSWin too) or
-when it builds its detectors (the Waymo PARTNER, CenterPoint and
+import (every module, the host tools, the FLOP counter and CSWin too, the
+box coders, the polygon BEV IoU and circle NMS) or when it builds its
+detectors (the Waymo PARTNER under each of the seven box coders of
+``CODER_CONFIG["type"]``, CenterPoint and
 two-stage configs, the sparse backbone, the three nuScenes CenterPoint
 configs, the two Waymo PointPillars configs, the two PointPillars
 two-stage configs, the nuScenes single-head config, the two PolarStream
@@ -50,7 +52,8 @@ def test_import_leaves_out_jax_and_flax():
         "          'utils.viz3d', 'utils.flops', 'models.cswin',\n"
         "          'tools.track', 'tools.track_line_search',\n"
         "          'tools.nms_ensemble', 'tools.demo',\n"
-        "          'tools.generate_instance_ids', 'tools.flops_report'):\n"
+        "          'tools.generate_instance_ids', 'tools.flops_report',\n"
+        "          'core.center_coder', 'core.geometry', 'ops.rotated_iou'):\n"
         "    assert 'partner_tpu_torch.' + n in names, n\n"
         "from partner_tpu_torch.models import build_detector\n"
         "from partner_tpu_torch.utils.config import load_config\n"
@@ -63,6 +66,25 @@ def test_import_leaves_out_jax_and_flax():
         "    cfg = load_config(f'configs/waymo/{c}.py')\n"
         "    build_detector(cfg['model'], cfg['train_cfg'], cfg['test_cfg'],\n"
         "                   device='meta')\n"
+        "from partner_tpu_torch.core.center_coder import CODERS\n"
+        "from partner_tpu_torch.models.layers import ConvBNReLU\n"
+        "from partner_tpu_torch.ops.nms import circle_nms\n"
+        "from partner_tpu_torch.ops.rotated_iou import boxes_iou_bev\n"
+        "from partner_tpu_torch.train.hooks import ClosureHook\n"
+        "cfg = load_config('configs/waymo/waymo_partner_36epoch.py')\n"
+        "extra = {'CenterCoderPolarTP': dict(template_ratio=2.2),\n"
+        "         'CenterCoderTP': dict(templates_box=[4.5, 2.0, 1.6]),\n"
+        "         'CenterCoderMTTP': dict(tmp_box=[[4.5, 2.0, 1.6]])}\n"
+        "assert len(CODERS) == 7, CODERS\n"
+        "for kind in CODERS:\n"
+        "    bh = dict(cfg['model']['bbox_head'], CODER_CONFIG=dict(\n"
+        "        cfg['model']['bbox_head']['CODER_CONFIG'], type=kind,\n"
+        "        **extra.get(kind, {})))\n"
+        "    det = build_detector(dict(cfg['model'], bbox_head=bh),\n"
+        "                         cfg['train_cfg'], cfg['test_cfg'],\n"
+        "                         device='meta')\n"
+        "    assert type(det.coder).__name__ == kind, kind\n"
+        "    assert det.criterion.coder is det.coder, kind\n"
         "for c in ('waymo_partner_36epoch', 'waymo_centerpoint_voxelnet_36epoch'):\n"
         "    cfg = load_config(f'configs/waymo/{c}.py')\n"
         "    m = dict(cfg['model'], backbone=dict(type='SpMiddleResNetFHD',\n"
