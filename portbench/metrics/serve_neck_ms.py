@@ -1,0 +1,7 @@
+"""serve_neck_ms: device ms a frame of the span ``neck``, its CUDA
+events summed over the window's frames outside the profiled slice,
+over those frames."""
+
+
+def read(records):
+    return records.get("spans", {}).get("neck")
